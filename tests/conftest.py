@@ -37,3 +37,9 @@ jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
 from tntorch_tpu.utils import _patch_atomic_cache_writes  # noqa: E402
 
 _patch_atomic_cache_writes()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips without one (run: python -m pytest -m cuda)"
+    )
