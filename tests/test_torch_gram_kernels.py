@@ -108,9 +108,11 @@ def test_build_needs_nvcc_and_keys_the_library_on_the_source(monkeypatch):
 
     import torch.utils.cpp_extension as cpp
 
-    digest = hashlib.sha256(_build.SOURCE.read_bytes()).hexdigest()[:16]
-    assert _build.library_path().name == f"gram_kernels_{digest}.so"
-    assert _build.library_path().parent == _build.BUILD_DIR
+    assert sorted(_build.SOURCES) == ["gram_kernels", "tt_eval"]
+    for name, source in _build.SOURCES.items():  # one library per source
+        digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+        assert _build.library_path(name).name == f"{name}_{digest}.so"
+        assert _build.library_path(name).parent == _build.BUILD_DIR
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(cpp, "CUDA_HOME", None)
     with pytest.raises(RuntimeError, match="nvcc not found"):

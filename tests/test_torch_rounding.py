@@ -163,7 +163,7 @@ def test_own_sketch_is_quasi_optimal():
     # The port's sketch is not JAX's: hold the randomized truncation to the
     # JAX package's quasi-optimality bound, within 1.1x the eigh error
     cores = _tt((10, 11, 12, 13), (16, 16, 16), seed=2)
-    t = tn.interop.tensor_from_arrays(cores)
+    t = tn.interop.tensor_from_arrays(cores, device="cpu")
     dense = t.numpy()
     opt = tn.round_tt(t, rmax=8, algorithm="gram")
     rand = tn.round_tt(t, rmax=8, algorithm="randgram")

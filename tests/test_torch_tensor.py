@@ -38,7 +38,7 @@ def _cores(seed, batch, ranks=(3, 4, 3), shape=(6, 7, 8, 9)):
 def _pair(seed, batch, **kw):
     """The same TT in both packages."""
     cores = _cores(seed, batch, **kw)
-    return interop.tensor_from_arrays(cores, batch=bool(batch)), jtn.Tensor(
+    return interop.tensor_from_arrays(cores, batch=bool(batch), device="cpu"), jtn.Tensor(
         [jnp.asarray(c) for c in cores], batch=bool(batch))
 
 
@@ -130,7 +130,7 @@ def test_round_tt_verbose_branch_matches_jax(batch):
 
 def test_f32_gram_under_highest_routes_to_svd():
     cores = [c.astype(np.float32) for c in _cores(10, 0, ranks=(5, 6, 5))]
-    t = interop.tensor_from_arrays(cores)
+    t = interop.tensor_from_arrays(cores, device="cpu")
     jt = jtn.Tensor([jnp.asarray(c) for c in cores])
     t.round_tt(rmax=3, algorithm="gram")
     jt.round_tt(rmax=3, algorithm="gram")
@@ -165,7 +165,7 @@ def test_complex_norm_matches_jax():
     rng = np.random.default_rng(15)
     cores = [rng.standard_normal(s) + 1j * rng.standard_normal(s)
              for s in [(1, 4, 2), (2, 5, 2), (2, 6, 1)]]
-    t = interop.tensor_from_arrays(cores)
+    t = interop.tensor_from_arrays(cores, device="cpu")
     jt = jtn.Tensor([jnp.asarray(c) for c in cores])
     _close(tn.norm(t).numpy(), jtn.norm(jt))
     _close(tn.dist(t, 2 * t).numpy(), jtn.dist(jt, 2 * jt))
@@ -202,7 +202,7 @@ def test_interop_round_trip_and_device():
     back = interop.tensor_to_arrays(t)
     assert all(np.array_equal(x, y) and x.dtype == y.dtype for x, y in zip(back, cores))
     jt = jtn.Tensor([jnp.asarray(c) for c in cores], batch=True)
-    t2 = interop.tensor_from_arrays(jt.cores, batch=True)  # JAX arrays cross too
+    t2 = interop.tensor_from_arrays(jt.cores, batch=True, device="cpu")  # JAX arrays cross too
     _close(t2.full().numpy(), jt.full())
 
 
@@ -216,9 +216,13 @@ def test_functional_round_tt_leaves_input():
 
 def test_entry_points_outside_the_slice_raise():
     a, _ = _pair(20, 0)
-    for call in (lambda: tn.cross(), lambda: tn.randn(3, 3), lambda: tn.round(a),
-                 lambda: tn.Tensor(np.ones((3, 3)), ranks_tt=2), lambda: a[0, 0, 0, 0],
-                 lambda: tn.Tensor([np.ones((3, 2)), np.ones((3, 2))]),
+    def setitem():
+        a[0, 0, 0, 0] = 1.0
+
+    for call in (lambda: tn.cross(), lambda: tn.randn(3, 3, ranks_cp=2, device="cpu"),
+                 lambda: tn.round(a), lambda: tn.Tensor(np.ones((3, 3)), ranks_tt=2),
+                 lambda: a[a], setitem,
+                 lambda: tn.Tensor([np.ones((3, 2)), np.ones((3, 2))], device="cpu"),
                  lambda: a.round_tucker()):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()

@@ -1,17 +1,23 @@
 """tntorch_tpu_torch: the PyTorch + CUDA port of ``tntorch_tpu``.
 
-The same flat ``tn.*`` namespace, for the slice ported so far: build a
-tensor train (from cores, or exactly from dense data), do arithmetic on it
-(``+``, ``-``, ``*``), round it (``round_tt``: the error-budgeted sweep and
-fixed-rank Gram rounding, batched on hand-written Hopper kernels), and
-measure it (``dot``, ``norm``, ``dist``, ``relative_error``). The package
-imports torch and numpy, never jax. Names of ``tntorch_tpu`` outside the
-slice exist here as functions that raise ``NotImplementedError`` naming the
-ROADMAP item that will port them.
+The same flat ``tn.*`` namespace, for the slices ported so far: build a
+tensor train (from cores, exactly from dense data, or at random with
+``rand``/``randn``), do arithmetic on it (``+``, ``-``, ``*``), round it
+(``round_tt``: the error-budgeted sweep and fixed-rank Gram rounding,
+batched on hand-written Hopper kernels), measure it (``dot``, ``norm``,
+``dist``, ``relative_error``), index and evaluate it (``t[key]``,
+``tt_eval``, on the card's evaluation kernels) and fit it (``optimize``).
+Data without a device lands on the CUDA card (`utils.default_device`).
+The package imports torch and numpy, never jax. Names of ``tntorch_tpu``
+outside the slices exist here as functions that raise
+``NotImplementedError`` naming the ROADMAP item that will port them.
 """
 
-from tntorch_tpu_torch import interop, utils
+from tntorch_tpu_torch import interop, parallel, utils
+from tntorch_tpu_torch.autodiff import dof, optimize
+from tntorch_tpu_torch.create import rand, randn
 from tntorch_tpu_torch.metrics import dist, dot, norm, normsq, relative_error
+from tntorch_tpu_torch.ops.tt_eval import tt_eval
 from tntorch_tpu_torch.ops.rounding import (
     round_tt_fixed, round_tt_gram, round_tt_gram_batched, tt_dot, tt_full,
 )
@@ -22,10 +28,6 @@ from tntorch_tpu_torch.utils import get_policy, set_policy
 _NOT_PORTED = {
     "round": "queue 1 item 3",
     "round_tucker": "queue 1 item 3",
-    "rand": "queue 1 item 5",
-    "randn": "queue 1 item 5",
-    "tt_eval": "queue 2 item 4 (pallas_tt_eval)",
-    "optimize": "queue 1 item 6",
     "cross": "queue 1 item 7",
     "maxvol": "queue 1 item 7",
     "sobol": "queue 1 item 10",

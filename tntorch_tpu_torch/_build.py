@@ -1,11 +1,11 @@
 """Build and load the package's CUDA kernels (``csrc/*.cu``) at first use.
 
-``nvcc`` compiles each source into a shared library with a plain C
+``nvcc`` compiles each source into its own shared library with a plain C
 interface, which ``ctypes`` loads: no PyTorch headers, so a build takes
-seconds. The library lands in ``tntorch_tpu_torch/_build/`` under a name
-keyed on a hash of the source, so an edited source is rebuilt and a stale
-library is never loaded. Nothing is fetched and nothing prebuilt ships;
-without ``nvcc`` the build raises.
+seconds. A library lands in ``tntorch_tpu_torch/_build/`` under a name keyed
+on a hash of its source, so an edited source is rebuilt and a stale library
+is never loaded. `build_all` starts one ``nvcc`` per source at once. Nothing
+is fetched and nothing prebuilt ships; without ``nvcc`` the build raises.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import subprocess
 from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
-SOURCE = _HERE / "csrc" / "gram_kernels.cu"
+SOURCES = {p.stem: p for p in sorted((_HERE / "csrc").glob("*.cu"))}
 BUILD_DIR = _HERE / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -28,6 +28,23 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_PP = ctypes.POINTER(ctypes.c_void_p)
+_PI = ctypes.POINTER(ctypes.c_int)
+
+# The C entry points of each library and their argument types
+SIGNATURES = {
+    "gram_kernels": {
+        "tnt_gram_edge": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "tnt_wgram": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "tnt_proj2": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "tnt_occupancy": [_I, _I],
+    },
+    "tt_eval": {
+        "tnt_tt_eval": [_I, _I, _I, _PP, _PI, _PI, _P, _L, _P, _P, _P],
+        "tnt_tt_eval_backward": [_I, _I, _I, _PP, _PP, _PI, _PI, _P, _P, _L, _P, _P],
+    },
+}
 
 
 def _nvcc() -> str:
@@ -42,39 +59,51 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{SOURCE.stem}_{digest}.so"
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256(SOURCES[name].read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}_{digest}.so"
 
 
-def build() -> Path:
-    """Compile the source unless its library exists; returns the library path.
-    The compiler's output (``-Xptxas -v``: registers, shared memory, spills)
-    is kept beside the library as ``.log``."""
-    so = library_path()
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{proc.stderr}")
-    os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
-    return so
+def build_all(names=None) -> dict:
+    """Compile each named source (default: all) whose library does not exist
+    yet, one ``nvcc`` per source, all started together; returns the library
+    paths by name. The compiler's output (``-Xptxas -v``: registers, shared
+    memory, spills) is kept beside each library as ``.log``."""
+    names = list(SOURCES) if names is None else list(names)
+    paths = {name: library_path(name) for name in names}
+    todo = {name: so for name, so in paths.items() if not so.exists()}
+    if todo:
+        BUILD_DIR.mkdir(exist_ok=True)
+        nvcc = _nvcc()
+        procs = {}
+        for name, so in todo.items():
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            procs[name] = (tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            log = proc.communicate()[0]
+            todo[name].with_suffix(".log").write_text(log)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {SOURCES[name].name}:\n{log}")
+            else:
+                os.replace(tmp, todo[name])  # atomic: a concurrent loader never sees half a file
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    return paths
+
+
+def build(name: str) -> Path:
+    """Compile one source unless its library exists; returns the library path."""
+    return build_all([name])[name]
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
-    lib = ctypes.CDLL(str(build()))
-    lib.tnt_gram_edge.argtypes = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
-    lib.tnt_wgram.argtypes = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
-    lib.tnt_proj2.argtypes = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
-    lib.tnt_occupancy.argtypes = [_I, _I]
-    for fn in (lib.tnt_gram_edge, lib.tnt_wgram, lib.tnt_proj2, lib.tnt_occupancy):
-        fn.restype = ctypes.c_int
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of source ``name``, built on first call."""
+    lib = ctypes.CDLL(str(build(name)))
+    for fn, argtypes in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
     return lib

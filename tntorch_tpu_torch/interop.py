@@ -10,11 +10,14 @@ import numpy as np
 import torch
 
 from tntorch_tpu_torch.tensor import Tensor
+from tntorch_tpu_torch.utils import default_device
 
 
 def tensor_from_arrays(cores, Us=None, batch: bool = False, device=None) -> Tensor:
     """Build a `Tensor` from array cores (NumPy, or anything ``np.asarray``
-    takes), keeping their dtype, on ``device`` (default CPU)."""
+    takes), keeping their dtype, on ``device`` (default: the package's
+    default device, the CUDA card)."""
+    device = device or default_device()
     cores = [torch.from_numpy(np.array(c)) for c in cores]
     if Us is not None:
         Us = [None if U is None else torch.from_numpy(np.array(U)) for U in Us]

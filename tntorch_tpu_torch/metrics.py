@@ -21,8 +21,10 @@ def _process(gt, approx):
     if is1 and is2:
         return gt, approx, False
     batch = (is1 and gt.batch) or (is2 and approx.batch)
-    gt = gt.full() if is1 else asarray(gt)
-    approx = approx.full() if is2 else asarray(approx)
+    # Dense array-like input joins the compressed side's device
+    device = gt.device if is1 else approx.device if is2 else None
+    gt = gt.full() if is1 else asarray(gt, device=device)
+    approx = approx.full() if is2 else asarray(approx, device=device)
     if batch:
         gt, approx = torch.broadcast_tensors(gt, approx)
     return gt, approx, batch

@@ -100,7 +100,7 @@ def _wave(code: int, kernel: int, device_index: int) -> int:
     """Blocks of one kernel that the card holds at once (occupancy x SMs)."""
     from tntorch_tpu_torch._build import library
 
-    per_sm = library().tnt_occupancy(code, kernel)
+    per_sm = library("gram_kernels").tnt_occupancy(code, kernel)
     if per_sm <= 0:
         raise RuntimeError(f"tnt_occupancy: CUDA error {-per_sm}" if per_sm else
                            "tnt_occupancy: the kernel fits no SM")
@@ -126,7 +126,7 @@ def _launch(fn, *args):
     from tntorch_tpu_torch._build import library
 
     stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(library(), fn)(*args, ctypes.c_void_p(stream))
+    err = getattr(library("gram_kernels"), fn)(*args, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA error {err}")
 

@@ -6,9 +6,16 @@ Counterpart of ``tntorch_tpu/tensor.py``. A `Tensor` holds N TT cores
 caller (``device=``); every method works where the cores are, and the
 batched Gram rounding runs on the card's kernels when they are on the card.
 
+Data without a device (NumPy arrays, lists) lands on the package's default
+device, the CUDA card (`utils.default_device`); ``device="cpu"`` keeps it on
+the CPU. Indexing (``t[key]``) follows NumPy over the compressed cores; a
+key that indexes every mode with coordinate arrays evaluates the TT through
+`ops.tt_eval.TTEval`, the card's evaluation kernels. ``requires_grad=True``
+makes the cores leaf tensors for autograd and `optimize`.
+
 CP cores, Tucker factors, decomposition of dense data (``ranks_tt=``,
-``eps=``, ...), indexing, autodiff and Tucker rounding are not ported yet
-and raise ``NotImplementedError`` naming their ROADMAP item.
+``eps=``, ...), ``__setitem__``, mask-Tensor keys and Tucker rounding are
+not ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -16,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tntorch_tpu_torch.utils import asarray, logger, policy_precision, trace_annotation
+from tntorch_tpu_torch.utils import asarray, logger, policy_precision, to_numpy, trace_annotation
 
 
 def _not_ported(what: str, item: str):
@@ -103,6 +110,14 @@ def _right_unfolding(core, batch):
     return core.reshape(((core.shape[0],) if batch else ()) + (core.shape[-3], -1))
 
 
+def _steps(k, size: int, device):
+    """A slice with a negative step as the index tensor it selects (torch
+    slices take positive steps only); any other key as it is."""
+    if isinstance(k, slice) and (k.step or 1) < 0:
+        return torch.arange(*k.indices(size), device=device)
+    return k
+
+
 class Tensor:
     """A tensor train, or a batch of B tensor trains of one shape."""
 
@@ -118,8 +133,6 @@ class Tensor:
             raise _not_ported("Tucker and CP formats", "queue 1 item 3")
         if Us is not None and any(U is not None for U in Us):
             raise _not_ported("Tucker factors", "queue 1 item 3")
-        if requires_grad:
-            raise _not_ported("Autodiff", "queue 1 item 6")
         self.batch = bool(batch)
         tt_ndim = 4 if self.batch else 3
         if isinstance(data, (list, tuple)):
@@ -145,6 +158,9 @@ class Tensor:
             else:
                 self.cores = _full_rank_tt(data)
         self.Us = [None] * len(self.cores)
+        self.requires_grad = bool(requires_grad)
+        if self.requires_grad:  # leaves of autograd (sharing torch input's storage)
+            self.cores = [c.detach().requires_grad_(True) for c in self.cores]
 
     # ------------------------------------------------------------------
     # Arithmetic
@@ -306,7 +322,9 @@ class Tensor:
         return factor
 
     def clone(self):
-        return Tensor(list(self.cores), batch=self.batch)
+        t = Tensor(list(self.cores), batch=self.batch)
+        t.requires_grad = self.requires_grad
+        return t
 
     def repeat(self, *rep):
         """Tile along modes, like torch.repeat."""
@@ -439,8 +457,251 @@ class Tensor:
     def round_tucker(self, *args, **kwargs):
         raise _not_ported("round_tucker", "queue 1 item 3")
 
+    # ------------------------------------------------------------------
+    # Indexing
+    # ------------------------------------------------------------------
+    def _process_key(self, key):
+        if not hasattr(key, "__len__"):
+            key = (key,)
+        fancy = False
+        if isinstance(key, torch.Tensor):
+            key = to_numpy(key)
+        if isinstance(key, np.ndarray) and key.ndim == 1:
+            key = list(key)
+        if any(not np.isscalar(k) for k in key):
+            key = list(key)
+            fancy = True
+        if isinstance(key, tuple):
+            key = list(key)
+        elif not fancy:
+            key = [key]
+
+        nonecount = sum(1 for k in key if k is None)
+        for i in range(len(key)):
+            if key[i] is Ellipsis:
+                key = (key[:i] + [slice(None)] * (len(self.shape) - (len(key) - nonecount) + 1)
+                       + key[i + 1:])
+                break
+        if any(k is Ellipsis for k in key):
+            raise IndexError("Only one ellipsis is allowed, at most")
+        if len(self.shape) - (len(key) - nonecount) < 0:
+            raise IndexError(
+                f"Too many index entries {len(self.shape)} vs {len(key) - nonecount}")
+        return key + [slice(None)] * (len(self.shape) - (len(key) - nonecount))
+
+    def _index_array(self, k, size: int) -> torch.Tensor:
+        """A 1-D coordinate array for a mode of ``size``, checked and wrapped
+        on the host, as an int64 tensor on the cores' device."""
+        k = np.asarray(to_numpy(k))
+        if k.ndim != 1 or not (k.dtype.kind in "iu" or k.size == 0):
+            raise IndexError(f"index arrays must be 1-D integer arrays, got {k.dtype} {k.shape}")
+        k = k.astype(np.int64)
+        if k.size and (k.min() < -size or k.max() >= size):
+            raise IndexError(f"index out of range for a mode of size {size}")
+        return torch.from_numpy(np.where(k < 0, k + size, k)).to(self.device)
+
+    @policy_precision
     def __getitem__(self, key):
-        raise _not_ported("Indexing", "queue 1 item 2")
+        """NumPy-style indexing over the compressed cores: int, slice, index
+        array, ``None`` and ``Ellipsis``, for batch and non-batch TTs.
+
+        A key of index arrays for every mode of a non-batch TT with
+        boundary ranks 1 (a (P, N) array, or N arrays of length P) returns
+        the one-core TT (1, P, 1) of the P values, evaluated by `TTEval`
+        (the card's forward and backward kernels for real cores on the card).
+        Mask-Tensor keys are not ported."""
+        if isinstance(key, Tensor):
+            raise _not_ported("Indexing with a mask Tensor", "queue 1 item 10")
+        if isinstance(key, (np.ndarray, torch.Tensor)) and key.ndim == 2:
+            if self._all_modes(key):
+                return self._evaluate(key)
+            key = to_numpy(key)
+            key = [key[:, col] for col in range(key.shape[1])]
+        key = self._process_key(key)
+        if self._all_modes(key):
+            if len({len(k) for k in key}) > 1:
+                raise ValueError("Index arrays must have the same length")
+            return self._evaluate(np.stack([np.asarray(to_numpy(k)) for k in key], axis=1))
+        return self._getitem_impl(key)
+
+    def _all_modes(self, key) -> bool:
+        """Whether ``key`` (a (P, N) array or a processed key) indexes every
+        mode of this non-batch, boundary-rank-1 TT with coordinate arrays."""
+        if self.batch or self.ranks_tt[0] != 1 or self.ranks_tt[-1] != 1:
+            return False
+        if isinstance(key, (np.ndarray, torch.Tensor)):
+            return key.shape[1] == self.dim()
+        return len(key) == self.dim() and all(
+            hasattr(k, "__len__") and np.ndim(to_numpy(k)) == 1 for k in key)
+
+    def _evaluate(self, X):
+        from tntorch_tpu_torch.ops.tt_eval import tt_eval
+
+        if not isinstance(X, torch.Tensor):
+            X = np.asarray(X)
+            if X.dtype.kind not in "iu" and X.size:
+                raise IndexError(f"index arrays must be integer arrays, got {X.dtype}")
+            X = X.astype(np.int64)
+        values = tt_eval(self.cores, X)
+        return Tensor([values.reshape(1, -1, 1)])
+
+    def __setitem__(self, key, value):
+        raise _not_ported("Assignment (__setitem__)", "queue 1 item 2")
+
+    def _getitem_impl(self, key):
+        batch = self.batch
+        B = "b" if batch else ""  # einsum prefix for the batch axis
+        batch_dim_processed = False
+        batch_dim_idx = slice(None)
+
+        def nd(x):
+            """ndim not counting the batch axis."""
+            return x.ndim - (1 if batch else 0)
+
+        def bsel(x):
+            """Apply the pending batch index, keeping a leading batch axis."""
+            if not batch:
+                return x
+            y = x[_steps(batch_dim_idx, x.shape[0], x.device)]
+            if isinstance(batch_dim_idx, (int, np.integer)):
+                y = y[None]
+            return y
+
+        def einsum(spec, *ops):
+            return torch.einsum(spec.replace("~", B), *ops)
+
+        def join_cores(c1, c2):
+            n1, n2 = nd(c1), nd(c2)
+            spec = {(1, 2): "~i,~ai->~ai", (2, 2): "~ij,~aj->~iaj",
+                    (1, 3): "~i,~iaj->~iaj", (2, 3): "~ij,~jak->~iak"}.get((n1, n2))
+            if spec is None:
+                raise ValueError
+            return einsum(spec, c1, c2)
+
+        last_mode = None
+        factors = {"int": None, "index": None, "index_done": False}
+        cores = []
+        counter = 0
+        first_index_dim = None
+
+        def insert_core(core=None, k=None):
+            if factors["index"] is not None:
+                if factors["int"] is not None:
+                    factors["index"] = join_cores(factors["int"], factors["index"])
+                    factors["int"] = None
+                cores.append(factors["index"])
+                factors["index"] = None
+                factors["index_done"] = True
+            if core is not None:
+                new = bsel(core[..., _steps(k, core.shape[-2], core.device), :])
+                if factors["int"] is not None:
+                    cores.append(join_cores(factors["int"], new))
+                    factors["int"] = None
+                else:
+                    cores.append(new)
+
+        def get_key(c, k):
+            """Mode ``c`` of the cores at ``k``: an int or a coordinate array."""
+            return bsel(self.cores[c][..., k, :])
+
+        for i in range(len(key)):
+            if hasattr(key[i], "__len__"):
+                this_mode = "index"
+            elif key[i] is None:
+                this_mode = "none"
+            elif isinstance(key[i], (int, np.integer)):
+                this_mode = "int"
+            elif isinstance(key[i], slice):
+                this_mode = "slice"
+            else:
+                raise IndexError
+
+            if this_mode == "none":
+                c0 = self.cores[0]
+                if batch:
+                    if not batch_dim_processed:
+                        raise ValueError("Cannot change batch dimension")
+                    r = int(self.ranks_tt[counter - 1])
+                    eye = torch.eye(r, dtype=c0.dtype, device=c0.device)
+                    eye = eye[None].repeat(self.shape[0], 1, 1)
+                    insert_core(eye[:, :, None, :], k=slice(None))
+                else:
+                    r = int(self.ranks_tt[counter])
+                    insert_core(torch.eye(r, dtype=c0.dtype, device=c0.device)[:, None, :],
+                                k=slice(None))
+            elif this_mode == "slice":
+                if batch and not batch_dim_processed:
+                    batch_dim_processed = True
+                    batch_dim_idx = key[i]
+                else:
+                    insert_core(self.cores[counter - 1 if batch else counter], k=key[i])
+                counter += 1
+            elif this_mode == "index":
+                if batch and first_index_dim == 0:
+                    raise ValueError("Advanced indexing is prohibited for batch dimension")
+                if factors["index_done"]:
+                    raise IndexError("All index arrays must appear contiguously")
+                c = counter - 1 if batch else counter
+                size = self.shape[counter]
+                if factors["index"] is None:
+                    if batch:
+                        if first_index_dim is None:
+                            first_index_dim = i
+                        if batch_dim_processed:
+                            factors["index"] = get_key(c, self._index_array(key[i], size))
+                        else:
+                            batch_dim_processed = True
+                            batch_dim_idx = self._index_array(key[i], size)
+                    else:
+                        factors["index"] = get_key(c, self._index_array(key[i], size))
+                else:
+                    if factors["index"].shape[-2] != len(key[i]):
+                        raise ValueError("Index arrays must have the same length")
+                    a1 = factors["index"]
+                    a2 = get_key(c, self._index_array(key[i], size))
+                    spec = {(2, 2): "~ai,~ai->~ai", (2, 3): "~ai,~iaj->~iaj",
+                            (3, 2): "~iaj,~aj->~iaj", (3, 3): "~iaj,~jak->~iak"}
+                    factors["index"] = einsum(spec[(nd(a1), nd(a2))], a1, a2)
+                counter += 1
+            elif this_mode == "int":
+                if batch and not batch_dim_processed:
+                    batch_dim_processed = True
+                    batch_dim_idx = int(key[i])
+                else:
+                    if last_mode == "index":
+                        insert_core()
+                    c2v = get_key(counter - 1 if batch else counter, int(key[i]))
+                    if factors["int"] is None:
+                        factors["int"] = c2v
+                    else:
+                        c1 = factors["int"]
+                        spec = {(1, 1): "~i,~i->~i", (1, 2): "~i,~ij->~ij",
+                                (2, 1): "~ij,~j->~ij", (2, 2): "~ij,~jk->~ik"}
+                        factors["int"] = einsum(spec[(nd(c1), nd(c2v))], c1, c2v)
+                counter += 1
+            last_mode = this_mode
+
+        # Pending factors at the end
+        if last_mode == "index":
+            insert_core()
+        elif last_mode == "int" and factors["int"] is not None:
+            if len(cores) > 0:
+                last = cores[-1]
+                if batch and last.shape[0] != factors["int"].shape[0]:
+                    last = bsel(last)
+                spec = {(2, 1): "~ai,~i->~ai", (2, 2): "~ai,~ij->~iaj",
+                        (3, 1): "~iaj,~j->~ai", (3, 2): "~iaj,~jk->~iak"}
+                cores[-1] = einsum(spec[(nd(last), nd(factors["int"]))], last, factors["int"])
+            else:  # scalar result (per sample in batch mode)
+                f = factors["int"]
+                # Surviving axes are boundary ranks; the contraction sums them
+                if not batch or isinstance(batch_dim_idx, (int, np.integer)):
+                    return f.sum()
+                return f.sum(dim=tuple(range(1, f.ndim))) if f.ndim > 1 else f
+
+        if batch and isinstance(batch_dim_idx, (int, np.integer)):
+            return Tensor([c[0] for c in cores], batch=False)
+        return Tensor(cores, batch=self.batch)
 
     # ------------------------------------------------------------------
     # Metrics

@@ -65,10 +65,20 @@ def policy_precision(fn):
     return wrapper
 
 
+def default_device() -> str:
+    """Where the package puts data that comes without a device (NumPy
+    arrays, lists, scalars): the CUDA card, the counterpart of JAX's default
+    backend. A ``torch.Tensor`` keeps its own device, the caller's choice.
+    Without a card, moving there raises, as torch does: there is no silent
+    CPU fallback; pass ``device="cpu"`` to work on the CPU."""
+    return "cuda"
+
+
 def seed(s: int, device=None) -> torch.Generator:
-    """A ``torch.Generator`` on ``device`` (default CPU) seeded with ``s``.
-    The package keeps no global random state: callers pass generators."""
-    return torch.Generator(device=device or "cpu").manual_seed(int(s))
+    """A ``torch.Generator`` on ``device`` (default: `default_device`)
+    seeded with ``s``. The package keeps no global random state: callers
+    pass generators."""
+    return torch.Generator(device=device or default_device()).manual_seed(int(s))
 
 
 def default_dtype() -> torch.dtype:
@@ -78,9 +88,12 @@ def default_dtype() -> torch.dtype:
 
 def asarray(x: Any, dtype: Optional[torch.dtype] = None, device=None) -> torch.Tensor:
     """Convert NumPy / PyTorch / array-like / scalar input to a torch tensor.
-    Anything with ``__array__`` (a JAX array included) goes through NumPy."""
+    Anything with ``__array__`` (a JAX array included) goes through NumPy and
+    lands on ``device``, by default `default_device`; a ``torch.Tensor``
+    stays where it is unless ``device`` is given."""
     if not isinstance(x, torch.Tensor):
         x = torch.from_numpy(np.array(x))
+        device = device or default_device()
     return x.to(device=device, dtype=dtype)
 
 
