@@ -14,12 +14,17 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    shapes, the evaluation kernels (``tt_eval``, ``tt_eval_backward``) at
    the evaluation design shape (N=4, I=1024, R=64, B=2^20), the training
    shape (N=3, I=256, R=16, B=8192) and ragged shapes; with times, each
-   kernel's bound and a one-call PyTorch yardstick where there is one;
+   kernel's bound and a one-call PyTorch yardstick where there is one.
+   ``proj2`` is held on both of its kernels (resident projectors, and the
+   two-stage kernel beyond that tile) and both are timed at the bench
+   shape; the Rr=1 edge is timed as the kernel and as the batched product
+   that the sweep routes it to;
 4. the rounding path: batched TT rounding of B=32 TTs (N=4, I=256, rank
    128 -> 64, float32) through ``Tensor.round_tt(algorithm='randgram')``,
-   with launch counts, a check of two samples against the port on the CPU
-   in float64, the sweep's time with the kernels and with their plain
-   versions, and a torch.profiler breakdown of one sweep;
+   with launch counts (2/2/2), a check of two samples against the port on
+   the CPU in float64, the sweep's time in turns with the kernels, with
+   their plain versions and with the two-stage ``proj2``, and a
+   torch.profiler breakdown of one sweep;
 5. a non-batch pass on the card (``+``, ``*``, ``round_tt``, ``dot``,
    ``norm``) against the same on the CPU;
 6. the evaluation path: ``tn.tt_eval`` and ``t[X].full()`` at the design
@@ -42,6 +47,7 @@ each kernel's launches, error, times and bound; the last is
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -122,6 +128,32 @@ def cuda_time(fn, reps=5, inner=5):
     return sorted(times)[len(times) // 2]
 
 
+def two_stage_proj2(fn):
+    """``fn()`` with proj2 on its two-stage kernel at every shape."""
+    from tntorch_tpu_torch.ops import gram_kernels as gk
+
+    choice = gk._proj2_resident
+    gk._proj2_resident = lambda *_: False
+    try:
+        return fn()
+    finally:
+        gk._proj2_resident = choice
+
+
+def smi_while(fn, launches=400):
+    """The card's SM clock and power draw, read by nvidia-smi while
+    `launches` calls of ``fn`` queued ahead of it run on the card."""
+    import torch
+
+    for _ in range(launches):
+        fn()
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip()
+    torch.cuda.synchronize()
+    return out
+
+
 def probe():
     phase("1. device probe")
     import torch
@@ -133,7 +165,8 @@ def probe():
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
-    print(f"device 0: {torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} visible")
+    print(f"device 0: {torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} visible; "
+          f"name, power limit: {smi}")
     print(f"allow_tf32 (cuda matmul) = {torch.backends.cuda.matmul.allow_tf32}; "
           "the port runs every float32 product in full float32")
     return smi
@@ -150,8 +183,11 @@ def build():
     print(f"built {', '.join(so.name for so in paths.values())} in {time.time() - t0:.1f} s")
     for name, so in paths.items():
         for line in so.with_suffix(".log").read_text().splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"  ptxas {name}:", line.strip())
+            if "Function properties for" in line:  # the mangled name, past its namespace
+                kernel = line.split("for", 1)[1].strip()
+                print(f"  ptxas {name}: {re.sub(r'^_ZN.*?_cu_[0-9a-f]+', '', kernel)[:70]}")
+            elif "Used" in line or "spill" in line:
+                print(f"  ptxas {name}:   {line.replace('ptxas info    :', '').strip()}")
 
 
 def kernel_inputs(shape, dtype, gen):
@@ -182,8 +218,11 @@ def check_kernels():
 
     B, R, I, r = BENCH["B"], BENCH["R"], BENCH["I"], BENCH["rmax"]
     bench_shape = (B, R, I, R, r, r)
+    # proj2 runs its resident-projector kernel at the first four shapes and
+    # the two-stage kernel at the last two (beyond the resident tile); at
+    # the first four the two-stage kernel is checked too
     shapes = [bench_shape, (B, R, I, 1, r, 1), (3, 5, 37, 3, 4, 2), (2, 5, 37, 1, 3, 1),
-              (2, 70, 37, 130, 65, 3)]
+              (2, 70, 37, 130, 65, 3), (2, 256, 16, 256, 128, 128)]
     kernels = {"gram_edge": gk.gram_edge, "wgram": gk.wgram, "proj2": gk.proj2}
     # One PyTorch call that computes each function (a yardstick the port
     # never calls), and each kernel's work at a shape
@@ -204,18 +243,27 @@ def check_kernels():
         dname = str(dtype).split(".")[-1]
         for shape in shapes:
             inputs = kernel_inputs(shape, dtype, gen)
-            for name, kernel in kernels.items():
+            resident = gk._proj2_resident(shape[4], shape[1], shape[3], shape[5],
+                                          dtype.itemsize)
+            # (tag, kernel name, call, whether the call is the wrapper's own choice)
+            runs = [("gram_edge", "gram_edge", gk.gram_edge, True),
+                    ("wgram", "wgram", gk.wgram, True),
+                    ("proj2/resident" if resident else "proj2/two-stage", "proj2", gk.proj2, True)]
+            if resident:
+                runs.append(("proj2/two-stage", "proj2",
+                             lambda *a: two_stage_proj2(lambda: gk.proj2(*a)), False))
+            for tag, name, kernel, main in runs:
                 args = inputs[name]
                 got = kernel(*args)
                 torch.cuda.synchronize()
-                want = gk.PLAIN[kernel](*args)
+                want = gk.PLAIN[kernels[name]](*args)
                 torch.cuda.synchronize()
                 if not torch.isfinite(got).all():
-                    raise AssertionError(f"{name} {dname} {shape}: non-finite output")
+                    raise AssertionError(f"{tag} {dname} {shape}: non-finite output")
                 err = float((got - want).abs().max())
                 rel = err / max(float(want.abs().max()), 1e-300)
-                line = f"{name:9s} {dname} B,Rl,I,Rr,r1,r2={shape}: max|diff| {err:.3e}, rel {rel:.3e}"
-                if shape == bench_shape and dtype == torch.float32:
+                line = f"{tag:15s} {dname} B,Rl,I,Rr,r1,r2={shape}: max|diff| {err:.3e}, rel {rel:.3e}"
+                if shape == bench_shape and dtype == torch.float32 and main:
                     ms = cuda_time(lambda: kernel(*args))
                     plain_ms = cuda_time(lambda: gk.PLAIN[kernel](*args))
                     library_ms = cuda_time(lambda: library[name](*args))
@@ -224,16 +272,33 @@ def check_kernels():
                                         bound_ms=bound, bound_by=by, library_ms=library_ms)
                     line += (f", kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, one einsum "
                              f"{library_ms:.3f} ms, bound {bound:.3f} ms ({by})")
+                    if name == "proj2":  # both kernels of proj2 in turns
+                        turns = {False: [], True: []}
+                        def run():
+                            return cuda_time(lambda: kernel(*args))
+
+                        for two_stage in (False, True, True, False):
+                            turns[two_stage].append(two_stage_proj2(run) if two_stage else run())
+                        report[name]["two_stage_ms"] = min(turns[True])
+                        line += (f"\n    proj2 in turns: resident {turns[False]} ms, "
+                                 f"two-stage {turns[True]} ms; SM clock, power while the "
+                                 f"resident kernel runs: {smi_while(lambda: kernel(*args))}")
                 print(line, flush=True)
                 if rel > KERNEL_TOL[dname]:
-                    raise AssertionError(f"{name} disagrees with its plain version: rel {rel:.3e}")
-    # The last right edge of the bench sweep: C (B, R, I, 1), G (B, 1, 1)
+                    raise AssertionError(f"{tag} disagrees with its plain version: rel {rel:.3e}")
+    # The last right edge of the bench sweep: C (B, R, I, 1), G (B, 1, 1).
+    # The sweep routes it to one batched product, as the JAX package does;
+    # the kernel still takes it
     C, G = kernel_inputs((B, R, I, 1, r, 1), torch.float32, gen)["gram_edge"]
+    Cm = C.reshape(B, R, I)
     ms = cuda_time(lambda: gk.gram_edge(C, G))
+    routed_ms = cuda_time(lambda: (Cm * G) @ Cm.mT)
     plain_ms = cuda_time(lambda: gk.gram_edge_plain(C, G))
     library_ms = cuda_time(lambda: library["gram_edge"](C, G))
     bound, by = bound_ms(flops("gram_edge", B, R, I, 1, r, 1), nbytes(C, G) + B * R * R * 4)
-    print(f"gram_edge float32 last edge C {tuple(C.shape)}: kernel {ms:.3f} ms, plain "
+    err = float(((Cm * G) @ Cm.mT - gk.gram_edge(C, G)).abs().max())
+    print(f"gram_edge float32 last edge C {tuple(C.shape)}: kernel {ms:.3f} ms, routed "
+          f"batched product {routed_ms:.3f} ms (max|diff| to the kernel {err:.3e}), plain "
           f"{plain_ms:.3f} ms, one einsum {library_ms:.3f} ms, bound {bound:.4f} ms ({by})")
     return report
 
@@ -360,7 +425,7 @@ def main_path():
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in gk.KERNELS}
     print(f"launches in the main path: {launches}")
-    want = {"gram_edge": 3, "wgram": 2, "proj2": 2}
+    want = {"gram_edge": 2, "wgram": 2, "proj2": 2}  # the Rr=1 edge is a batched product
     if launches != want:
         raise AssertionError(f"expected launches {want}, got {launches}")
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
@@ -385,28 +450,31 @@ def main_path():
     def sweep():
         tn.round_tt(t, rmax=rmax, algorithm="randgram")
 
-    plain = {k: gk.PLAIN[getattr(gk, k)] for k in want}
     kern = {k: getattr(gk, k) for k in want}
 
-    def timed(use_plain):
+    def plain_versions(fn):
         for k in want:
-            setattr(gk, k, plain[k] if use_plain else kern[k])
+            setattr(gk, k, gk.PLAIN[kern[k]])
         try:
-            return cuda_time(sweep, reps=5, inner=3)
+            return fn()
         finally:
             for k in want:
                 setattr(gk, k, kern[k])
 
-    order = [False, True, True, False]
-    runs = {False: [], True: []}
-    for use_plain in order:
-        runs[use_plain].append(timed(use_plain))
-    ms_k, ms_p = min(runs[False]), min(runs[True])
-    print(f"sweep time, B={B}: kernels {runs[False]} ms, plain versions {runs[True]} ms; "
-          f"per sample {ms_k / B:.4f} ms (kernels), {ms_p / B:.4f} ms (plain)")
+    variants = {"kernels": lambda fn: fn(), "plain versions": plain_versions,
+                "kernels, two-stage proj2": two_stage_proj2}
+    runs = {v: [] for v in variants}
+    for v in list(variants) + list(variants)[::-1]:
+        runs[v].append(variants[v](lambda: cuda_time(sweep, reps=5, inner=3)))
+    print(f"sweep time, B={B}, in turns: " + "; ".join(f"{v} {t} ms" for v, t in runs.items())
+          + "; per sample " + ", ".join(f"{min(t) / B:.4f} ms ({v})" for v, t in runs.items()))
 
-    # Where one sweep's device time goes, by kernel (torch.profiler)
+    # Where one sweep's device time goes, by kernel (torch.profiler), with
+    # each proj2 kernel
+    print("profile, kernels:")
     profile_device(sweep, steps=1)
+    print("profile, kernels with the two-stage proj2:")
+    two_stage_proj2(lambda: profile_device(sweep, steps=1))
     return launches
 
 

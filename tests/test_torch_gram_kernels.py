@@ -103,6 +103,31 @@ def test_wrappers_refuse_other_devices_instead_of_falling_back():
         gk.wgram(C, torch.zeros((1, 2, 2)))
 
 
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("ranks, resident", [
+    ((64, 128, 128, 64), True),     # the bench sweep's middle cores
+    ((3, 5, 3, 2), True),           # small ragged ranks
+    ((64, 128, 1, 1), True),        # Rr = 1
+    ((128, 256, 256, 128), False),  # r = 128 outgrows the tile
+    ((65, 128, 128, 64), False),    # r1 one over
+    ((64, 128, 129, 64), False),    # Rr one over
+    ((64, 1024, 128, 64), False),   # Y^T outgrows shared memory
+])
+def test_proj2_kernel_choice_by_shared_memory(ranks, resident, itemsize):
+    r1, Rl, Rr, r2 = ranks
+    assert gk._proj2_resident(r1, Rl, Rr, r2, itemsize) is resident
+    if resident:
+        assert gk._proj2_smem(Rl, itemsize) <= gk._SMEM_MAX
+
+
+@pytest.mark.parametrize("itemsize, largest", [(4, 320), (8, 144)])
+def test_proj2_resident_limit_in_Rl(itemsize, largest):
+    # The largest Rl whose Y^T, X, intermediate and ring fit 227 KB; the
+    # kernel's own check (csrc/gram_kernels.cu, resident_smem) is the same sum
+    assert gk._proj2_resident(64, largest, 128, 64, itemsize)
+    assert not gk._proj2_resident(64, largest + 1, 128, 64, itemsize)
+
+
 def test_build_needs_nvcc_and_keys_the_library_on_the_source(monkeypatch):
     import hashlib
 
@@ -120,11 +145,15 @@ def test_build_needs_nvcc_and_keys_the_library_on_the_source(monkeypatch):
 
 
 @pytest.mark.cuda
-def test_kernels_match_plain_versions_on_cuda():
+def test_kernels_match_plain_versions_on_cuda(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    # (2, 70, 37, 130, 65, 3) is beyond the resident proj2 kernel's tile:
+    # proj2 takes the two-stage kernel there and the resident one elsewhere
+    shapes = [(4, 64, 40, 64, 32, 32), (3, 5, 37, 3, 4, 3), (2, 5, 37, 1, 3, 1),
+              (2, 70, 37, 130, 65, 3)]
     for dtype, tol in ((np.float32, 1e-4), (np.float64, 1e-12)):
-        for shape in [(4, 64, 40, 64, 32, 32), (3, 5, 37, 3, 4, 3), (2, 5, 37, 1, 3, 1)]:
+        for shape in shapes:
             a = _inputs(shape, dtype, seed=3)
             for name, kernel in zip(ARGS, gk.KERNELS):
                 args = [torch.from_numpy(a[k]).cuda() for k in ARGS[name]]
@@ -134,3 +163,9 @@ def test_kernels_match_plain_versions_on_cuda():
                 assert kernel.launches == before + 1
                 want = gk.PLAIN[kernel](*args)
                 assert _rel(got.cpu().numpy(), want.cpu().numpy()) <= tol, (name, shape, dtype)
+            args = [torch.from_numpy(a[k]).cuda() for k in ARGS["proj2"]]
+            with monkeypatch.context() as m:  # the two-stage kernel at every shape
+                m.setattr(gk, "_proj2_resident", lambda *_: False)
+                got = gk.proj2(*args)
+            want = gk.proj2_plain(*args)
+            assert _rel(got.cpu().numpy(), want.cpu().numpy()) <= tol, ("two-stage", shape)

@@ -179,25 +179,66 @@ def test_sketch_is_identical_across_dtypes_and_shapes_differ():
     assert not torch.equal(a, tr._sketch(16, 5, torch.float64, "cpu")[:, :4])
 
 
-def test_real_batch_runs_the_kernel_wrappers(monkeypatch):
-    # N=4: the right-Gram chain is 3 gram_edge calls, the no-push left sweep
-    # 2 wgram and 2 proj2 calls, the main path's launch pattern on the card
-    calls = {"gram_edge": 0, "wgram": 0, "proj2": 0}
-
+def _spy_wrappers(monkeypatch, calls, right_ranks):
+    """Count each kernel wrapper's calls (and gram_edge's C.shape[-1])."""
     def spy(name):
         plain = getattr(gk, name)
 
         def f(*args):
             calls[name] += 1
+            if name == "gram_edge":
+                right_ranks.append(args[0].shape[-1])
             return plain(*args)
 
         return f
 
     for name in calls:
         monkeypatch.setattr(gk, name, spy(name))
+
+
+def test_real_batch_runs_the_kernel_wrappers(monkeypatch):
+    # N=4: the right-Gram chain is 2 gram_edge calls (the last edge, Rr=1,
+    # is a batched product), the no-push left sweep 2 wgram and 2 proj2
+    # calls: the main path's launch pattern on the card
+    calls = {"gram_edge": 0, "wgram": 0, "proj2": 0}
+    right_ranks = []
+    _spy_wrappers(monkeypatch, calls, right_ranks)
     cores = _tt((8, 8, 8, 8), (6, 6, 6), seed=8, batch=2)
     tr.round_tt_gram_batched(_torch(cores), 3, "rand")
-    assert calls == {"gram_edge": 3, "wgram": 2, "proj2": 2}
+    assert calls == {"gram_edge": 2, "wgram": 2, "proj2": 2}
+    assert 1 not in right_ranks
+
+
+def test_rank_one_edges_match_jax_einsum_branch_f64(monkeypatch):
+    # Ranks 1,4,1,5,1: two cores with Rr=1, the second (core 2) meets a
+    # right Gram that is not 1. Every edge's G, as the sweep hands it to
+    # the factorization, against the JAX package's einsum branch
+    # (tntorch_tpu/ops/rounding.py:794-795): f64 roundoff only, 1e-12
+    cores = _tt((7, 8, 9, 6), (4, 1, 5), seed=25, batch=3)
+    want = [None] * 5
+    want[4] = jnp.ones((3, 1, 1))
+    for k in range(4, 1, -1):
+        C = jnp.asarray(cores[k - 1])
+        T = jnp.einsum("zaib,zbc->zaic", C, want[k])
+        want[k - 1] = jnp.einsum("zaic,zdic->zad", T, jnp.conj(C))
+    assert not np.allclose(np.asarray(want[2]), 1.0)
+    seen = []
+    factorize = tr._factorize
+
+    def spy(Gk, *args):
+        seen.append(Gk.numpy())
+        return factorize(Gk, *args)
+
+    monkeypatch.setattr(tr, "_factorize", spy)
+    calls = {"gram_edge": 0, "wgram": 0, "proj2": 0}
+    right_ranks = []
+    _spy_wrappers(monkeypatch, calls, right_ranks)
+    tr.round_tt_gram_batched(_torch(cores), 3, "eigh")
+    assert right_ranks == [5]
+    assert len(seen) == 3
+    for k, got in enumerate(seen, start=1):
+        assert got.shape == want[k].shape
+        assert _rel(got, np.asarray(want[k])) <= 1e-12, k
 
 
 def test_complex_batch_takes_the_einsum_branch(monkeypatch):

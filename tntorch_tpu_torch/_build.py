@@ -38,7 +38,8 @@ SIGNATURES = {
         "tnt_gram_edge": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "tnt_wgram": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "tnt_proj2": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-        "tnt_occupancy": [_I, _I],
+        "tnt_proj2_resident": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "tnt_occupancy": [_I, _I, _I],
     },
     "tt_eval": {
         "tnt_tt_eval": [_I, _I, _I, _PP, _PI, _PI, _P, _L, _P, _P, _P],

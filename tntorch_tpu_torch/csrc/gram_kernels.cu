@@ -19,8 +19,9 @@
 // the design spends its effort on the inner product. Tensor cores (3xTF32
 // or TF32 wgmma) are later work.
 //
-// Design. All three are one pattern, run by one kernel template with the
-// operands' strides as parameters: per mode index i,
+// Design of gram_edge and wgram, and of proj2 beyond the resident tile: one
+// pattern, run by one kernel template (two_stage_kernel) with the operands'
+// strides as parameters: per mode index i,
 //   stage 1: t[m][n] = sum_k P_i[m][k] Q_i[k][n]   (the intermediate)
 //   stage 2: acc[m][j] += sum_n t[m][n] R_i[n][j]
 // A block owns a 64-row output tile and 128 (gram_edge, wgram) or 64
@@ -37,10 +38,34 @@
 // resident blocks (the caller sizes it from tnt_occupancy), each
 // split writes its partial tile to scratch that the caller allocates, and a
 // second small pass sums the splits in a fixed order: no atomics, the result
-// is deterministic. proj2 has no sum over i: a block walks its own chunk of
-// i. Ragged edges are masked (loads outside read 0, stores outside are
-// skipped) and offsets are 64-bit, so any shape runs, Rr = 1 included.
-// The TPU's 128-lane pad of proj2's r2 is gone.
+// is deterministic. Ragged edges are masked (loads outside read 0, stores
+// outside are skipped) and offsets are 64-bit, so any shape runs, Rr = 1
+// included. The TPU's 128-lane pad of proj2's r2 is gone.
+//
+// proj2 has no sum over i, and at the bench shape (r1 = r2 = 64, Rl = Rr =
+// 128) its ~38 FLOP per byte of C is only ~2x the ridge: the two-stage
+// kernel, which reloads Y and X for every i and waits on each k-slice,
+// reached 31% of the FP32 peak there (NVIDIA H100 80GB HBM3, 700.00 W,
+// chip_smoke.py phase 3). Where r1 <= 64, r2 <= 64, Rr <= 128
+// and Y, X, the intermediate and the ring fit the 227 KB a block may use
+// (Rl <= 320 in f32, <= 144 in f64), proj2 runs proj2_resident_kernel:
+// - persistent blocks, one wave sized by the caller from tnt_occupancy,
+//   each walking a contiguous run of the B x ceil(I / IP) work units (z, a
+//   pair of consecutive i in f32, one i in f64);
+// - Y (transposed) and X resident in shared memory, reloaded only when the
+//   block's sample z changes;
+// - C streamed in k-slices (rows a of C_i) through a ring of 3 stages of
+//   16-byte cp.async.cg copies (element copies where a row is not 16-byte
+//   aligned), slice s + 2 in flight while slice s is multiplied, one
+//   barrier per slice; the ring runs on across work units, so the next
+//   unit's first slices load during this unit's stage 2;
+// - T = Y C_i kept in shared memory between the stages, b-major with an
+//   XOR swizzle of 4-element chunks that makes its transposed store free of
+//   bank conflicts;
+// - register tiles of 8 x 8 (stage 1, both i of a pair) and 8 x 4 (stage
+//   2) per thread in f32, 8 x 4 and 4 x 4 in f64, fed by 16-byte shared
+//   loads; exact FP32 FMAs (no TF32).
+// Shapes outside that tile take two_stage_kernel<T, 4, true> unchanged.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -164,7 +189,7 @@ constexpr size_t smem_bytes() {
 }
 
 // grid (row tiles x column tiles, pieces of I, B). PER_I writes out per i
-// (proj2); otherwise the sum over the block's piece of I goes to that
+// (proj2 at shapes beyond the resident kernel's tile); otherwise the sum over the block's piece of I goes to that
 // piece's partial output.
 template <typename T, int SN2, bool PER_I>
 __global__ void __launch_bounds__(NT) two_stage_kernel(const TwoStage<T> p) {
@@ -324,6 +349,275 @@ int proj2(const T* Y, const T* C, const T* X, T* out, int B, int r1, int Rl,
   return launch<T, 4, true>(p, B, chunks, nullptr, stream);
 }
 
+// ---------------------------------------------------------------------------
+// proj2 with resident projectors (see the design notes at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int RT = 64;    // the tile's r1 and r2
+constexpr int RB = 128;   // the tile's Rr
+constexpr int RSTAGES = 3;
+constexpr size_t SMEM_MAX = 232448;  // the shared memory a block may use
+
+// Per type: mode indices per work unit, depth of a k-slice
+template <typename T>
+struct Res;
+template <>
+struct Res<float> {
+  static constexpr int IP = 2, KS = 16;
+};
+template <>
+struct Res<double> {
+  static constexpr int IP = 1, KS = 8;
+};
+
+template <typename T>
+constexpr size_t resident_smem(int Rl) {
+  using R = Res<T>;
+  const size_t krl = (size_t)(Rl + R::KS - 1) / R::KS * R::KS;
+  return sizeof(T) * (krl * RT + (size_t)RB * RT + (size_t)RB * R::IP * RT +
+                      (size_t)RSTAGES * R::KS * R::IP * RB);
+}
+
+template <typename T>
+struct Proj2Args {
+  const T* Y;
+  const T* C;
+  const T* X;
+  T* out;
+  int B, r1, Rl, I, Rr, r2;
+  int vec_c, vec_out;  // rows of C, of out, are 16-byte aligned
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(bytes));
+}
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(src),
+               "n"(N), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(double* p, double a, double b, double c, double d) {
+  *reinterpret_cast<double2*>(p) = make_double2(a, b);
+  *reinterpret_cast<double2*>(p + 2) = make_double2(c, d);
+}
+
+// Column of element (b, m) of the intermediate in its b-major shared tile:
+// chunks of 4 along m are XORed with bits 2-4 of b, so that the 8 lanes of a
+// quarter warp, which store b = 4l + j, hit 8 distinct bank groups.
+__device__ __forceinline__ int swz(int b, int m) { return m ^ (((b >> 2) & 7) << 2); }
+
+template <typename T>
+__global__ void __launch_bounds__(NT, 1) proj2_resident_kernel(const Proj2Args<T> p) {
+  using R = Res<T>;
+  constexpr int IP = R::IP, KS = R::KS;
+  constexpr int CW = IP * RB;        // width of a C slice: IP rows C_i[a, :] side by side
+  constexpr int TW = IP * RT;        // rows of a unit's intermediate, (i', r)
+  constexpr int V = 16 / sizeof(T);  // elements per 16-byte copy
+  static_assert(KS * CW % (V * NT) == 0 && KS * CW % NT == 0, "slice copies");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int krl = (p.Rl + KS - 1) / KS * KS;
+  T* Ys = reinterpret_cast<T*>(smem_raw);  // krl x RT: Ys[a][r] = Y[r, a]
+  T* Xs = Ys + (size_t)krl * RT;           // RB x RT: Xs[b][c] = X[b, c]
+  T* Ts = Xs + RB * RT;                    // RB x TW, swizzled: T[(i', r), b] at b
+  T* Cs = Ts + RB * TW;                    // RSTAGES x KS x CW: the ring
+
+  const int tid = threadIdx.x;
+  const int npair = (p.I + IP - 1) / IP;
+  const int64_t units = (int64_t)p.B * npair;
+  const int64_t u0 = units * blockIdx.x / gridDim.x;
+  const int64_t u1 = units * (blockIdx.x + 1) / gridDim.x;
+  const int nk = krl / KS;
+  const int64_t sA = (int64_t)p.I * p.Rr;  // stride of C's a index
+  const int z0 = (int)(u0 / npair), i00 = (int)(u0 % npair) * IP;
+
+  // The producer's place: the next slice to issue is k-slice pk of the unit
+  // (pz, pi0), number pu of the block's units, into ring stage pst. Each
+  // call issues that slice, Cs[k][i' RB + b] = C[z, k0 + k, i0 + i', b]
+  // (0 outside), and commits one group, empty past the block's last slice.
+  int64_t pu = u0;
+  int pz = z0, pi0 = i00, pk = 0, pst = 0;
+  // With 16-byte copies a thread copies the same column of every slice, in
+  // rows vk, vk + KQ, ...: its offsets are fixed once here
+  constexpr int KQ = NT / (CW / V);
+  static_assert(NT % (CW / V) == 0, "16-byte copies: whole rows per pass");
+  const int vk = tid / (CW / V), vcol = tid % (CW / V) * V;
+  const int vip = vcol / RB, vb = vcol % RB;
+  const int64_t voff = vk * sA + (int64_t)vip * p.Rr + vb;
+  auto issue = [&]() {
+    if (pu < u1) {
+      const int z = pz, i0 = pi0, k0 = pk * KS;
+      T* dst = Cs + pst * (KS * CW);
+      const T* src = p.C + ((int64_t)z * p.Rl + k0) * sA + (int64_t)i0 * p.Rr;
+      if (p.vec_c) {
+        const bool col_ok = vb < p.Rr && i0 + vip < p.I;
+#pragma unroll
+        for (int q = 0; q < KS / KQ; ++q) {
+          const bool ok = col_ok && k0 + vk + q * KQ < p.Rl;
+          cp_async16(dst + (vk + q * KQ) * CW + vcol, ok ? src + voff + q * KQ * sA : p.C,
+                     ok ? 16 : 0);
+        }
+      } else {
+#pragma unroll 4
+        for (int q = 0; q < KS * CW / NT; ++q) {
+          const int idx = tid + q * NT;
+          const int k = idx / CW, col = idx % CW;
+          const int ip = col / RB, b = col % RB;
+          const bool ok = k0 + k < p.Rl && i0 + ip < p.I && b < p.Rr;
+          cp_async<sizeof(T)>(dst + k * CW + col,
+                              ok ? src + k * sA + (int64_t)ip * p.Rr + b : p.C,
+                              ok ? (int)sizeof(T) : 0);
+        }
+      }
+      if (++pk == nk) {  // on to the next unit
+        pk = 0, ++pu, pi0 += IP;
+        if (pi0 >= p.I) pi0 = 0, ++pz;
+      }
+    }
+    cp_async_commit();
+    pst = pst == RSTAGES - 1 ? 0 : pst + 1;
+  };
+
+  for (int s = 0; s < RSTAGES - 1; ++s) issue();
+  const int w = tid / 32, l = tid % 32;    // stage 1: rows 8w.., columns i' RB + 4l..
+  const int rg = tid / 16, cg = tid % 16;  // stage 2: rows 4 IP rg.., columns 4 cg..
+  int zcur = -1, cst = 0;                  // cst: the ring stage of the next slice
+  int z = z0, i0 = i00 - IP;
+  for (int64_t u = u0; u < u1; ++u) {
+    i0 += IP;
+    if (i0 >= p.I) i0 = 0, ++z;
+    if (z != zcur) {
+      __syncthreads();  // every thread is done with the last sample's Y and X
+      const T* Yz = p.Y + (int64_t)z * p.r1 * p.Rl;
+      for (int q = tid; q < krl * RT; q += NT) {
+        const int a = q % krl, r = q / krl;
+        Ys[a * RT + r] = (a < p.Rl && r < p.r1) ? Yz[(int64_t)r * p.Rl + a] : T(0);
+      }
+      const T* Xz = p.X + (int64_t)z * p.Rr * p.r2;
+      for (int q = tid; q < RB * RT; q += NT) {
+        const int b = q / RT, c = q % RT;
+        Xs[q] = (b < p.Rr && c < p.r2) ? Xz[(int64_t)b * p.r2 + c] : T(0);
+      }
+      zcur = z;  // the first slice's barrier below publishes Ys and Xs
+    }
+
+    // Stage 1: t[(i', r), b] = sum_a Y[r, a] C[a, i0 + i', b]
+    T acc[8][4 * IP];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int s = 0; s < 4 * IP; ++s) acc[r][s] = T(0);
+    for (int kk = 0; kk < nk; ++kk) {
+      cp_async_wait<RSTAGES - 2>();  // this thread's copies of this slice landed
+      __syncthreads();  // everyone's landed, and everyone left the last slice's stage
+      issue();          // RSTAGES - 1 slices ahead, into the last slice's stage
+      const T* Cb = Cs + cst * (KS * CW);
+      cst = cst == RSTAGES - 1 ? 0 : cst + 1;
+      const T* Yb = Ys + kk * KS * RT + 8 * w;
+#pragma unroll
+      for (int k = 0; k < KS; ++k) {
+        T a[2][4], b[IP][4];
+        load4(a[0], Yb + k * RT);
+        load4(a[1], Yb + k * RT + 4);
+#pragma unroll
+        for (int ip = 0; ip < IP; ++ip) load4(b[ip], Cb + k * CW + ip * RB + 4 * l);
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int s2 = 0; s2 < 4 * IP; ++s2) acc[r][s2] += a[r / 4][r % 4] * b[s2 / 4][s2 % 4];
+      }
+    }
+    // t to shared memory, b-major (the ring's barrier above ordered this
+    // after every thread's stage 2 of the previous unit)
+#pragma unroll
+    for (int s2 = 0; s2 < 4 * IP; ++s2) {
+      const int b = 4 * l + s2 % 4, m = (s2 / 4) * RT + 8 * w;
+      store4(Ts + b * TW + swz(b, m), acc[0][s2], acc[1][s2], acc[2][s2], acc[3][s2]);
+      store4(Ts + b * TW + swz(b, m + 4), acc[4][s2], acc[5][s2], acc[6][s2], acc[7][s2]);
+    }
+    __syncthreads();
+
+    // Stage 2: out[(i', r), c] = sum_b t[(i', r), b] X[b, c]
+    T o[4 * IP][4];
+#pragma unroll
+    for (int r = 0; r < 4 * IP; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) o[r][c] = T(0);
+#pragma unroll 4
+    for (int b = 0; b < p.Rr; ++b) {
+      T a[IP][4], x[4];
+#pragma unroll
+      for (int g = 0; g < IP; ++g) load4(a[g], Ts + b * TW + swz(b, 4 * IP * rg + 4 * g));
+      load4(x, Xs + b * RT + 4 * cg);
+#pragma unroll
+      for (int r = 0; r < 4 * IP; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) o[r][c] += a[r / 4][r % 4] * x[c];
+    }
+    const int c0 = 4 * cg;
+#pragma unroll
+    for (int q = 0; q < 4 * IP; ++q) {
+      const int m = 4 * IP * rg + q, r = m % RT, i = i0 + m / RT;
+      if (r >= p.r1 || i >= p.I || c0 >= p.r2) continue;
+      T* dst = p.out + (((int64_t)z * p.r1 + r) * p.I + i) * p.r2 + c0;
+      if (p.vec_out && c0 + 4 <= p.r2) {
+        store4(dst, o[q][0], o[q][1], o[q][2], o[q][3]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (c0 + c < p.r2) dst[c] = o[q][c];
+      }
+    }
+  }
+  cp_async_wait<0>();  // only empty groups remain; leave none in flight
+}
+
+template <typename T>
+cudaError_t allow_resident(int Rl) {
+  return cudaFuncSetAttribute(proj2_resident_kernel<T>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)resident_smem<T>(Rl));
+}
+
+template <typename T>
+int resident_occupancy(int Rl) {
+  if (resident_smem<T>(Rl) > SMEM_MAX) return -(int)cudaErrorInvalidValue;
+  cudaError_t e = allow_resident<T>(Rl);
+  int n = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, proj2_resident_kernel<T>, NT,
+                                                      resident_smem<T>(Rl));
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+template <typename T>
+int proj2_resident(const T* Y, const T* C, const T* X, T* out, int B, int r1, int Rl,
+                   int I, int Rr, int r2, int blocks, cudaStream_t stream) {
+  if (r1 > RT || r2 > RT || Rr > RB || resident_smem<T>(Rl) > SMEM_MAX || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  constexpr int V = 16 / sizeof(T);
+  const bool c16 = (uintptr_t)C % 16 == 0, o16 = (uintptr_t)out % 16 == 0;
+  const Proj2Args<T> p{Y, C, X, out, B, r1, Rl, I, Rr, r2, Rr % V == 0 && c16,
+                       r2 % V == 0 && o16};
+  cudaError_t e = allow_resident<T>(Rl);
+  if (e != cudaSuccess) return (int)e;
+  proj2_resident_kernel<T><<<blocks, NT, resident_smem<T>(Rl), stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry points, bound with ctypes. dtype: 0 = float32, 1 = float64.
@@ -331,12 +625,31 @@ int proj2(const T* Y, const T* C, const T* X, T* out, int B, int r1, int Rl,
 // synchronises or allocates.
 extern "C" {
 
-// Resident blocks per SM of the Gram kernel (kernel 0: gram_edge, wgram) or
-// the projection kernel (kernel 1: proj2); a negative value is -cudaError_t.
-int tnt_occupancy(int dtype, int kernel) {
-  if (dtype == 0)
+// Resident blocks per SM of the Gram kernel (kernel 0: gram_edge, wgram),
+// the two-stage projection kernel (kernel 1: proj2 beyond the resident tile)
+// or the resident-projector kernel (kernel 2, whose shared memory grows with
+// Rl); a negative value is -cudaError_t.
+int tnt_occupancy(int dtype, int kernel, int Rl) {
+  if (dtype == 0) {
+    if (kernel == 2) return resident_occupancy<float>(Rl);
     return kernel == 0 ? occupancy<float, 8, false>() : occupancy<float, 4, true>();
+  }
+  if (kernel == 2) return resident_occupancy<double>(Rl);
   return kernel == 0 ? occupancy<double, 8, false>() : occupancy<double, 4, true>();
+}
+
+// proj2 through the resident-projector kernel on `blocks` persistent blocks;
+// cudaErrorInvalidValue for a shape outside its tile (r1, r2 <= 64,
+// Rr <= 128, shared memory for Rl).
+int tnt_proj2_resident(int dtype, const void* Y, const void* C, const void* X,
+                       void* out, int B, int r1, int Rl, int I, int Rr, int r2,
+                       int blocks, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return proj2_resident((const float*)Y, (const float*)C, (const float*)X,
+                          (float*)out, B, r1, Rl, I, Rr, r2, blocks, s);
+  return proj2_resident((const double*)Y, (const double*)C, (const double*)X,
+                        (double*)out, B, r1, Rl, I, Rr, r2, blocks, s);
 }
 
 int tnt_gram_edge(int dtype, const void* C, const void* G, void* out,

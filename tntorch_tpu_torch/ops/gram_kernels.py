@@ -13,10 +13,19 @@ What bounds them on an H100: at the bench shape (B=32, Rl=Rr=128, I=256,
 f32) an edge does ~128 FLOP per byte of C it reads, far above the ~20 FLOP/B
 ridge of FP32 FMA against HBM, so in exact f32 they are compute-bound, not
 memory-bound as on the TPU. The kernels keep the intermediate (T = C G, W C,
-Y C) in shared memory as the TPU kernels kept it in VMEM, split I across
-blocks so that a batch of 32 fills one wave of resident blocks on the
-132 SMs, and sum the splits in a second pass without atomics
-(deterministic). Tensor cores are later work.
+Y C) in shared memory as the TPU kernels kept it in VMEM. ``gram_edge`` and
+``wgram`` split I across blocks so that a batch of 32 fills one wave of
+resident blocks on the 132 SMs, and sum the splits in a second pass without
+atomics (deterministic). Tensor cores are later work.
+
+``proj2`` has two kernels, chosen by a pure function of the shape,
+`_proj2_resident`. Where r1 <= 64, r2 <= 64, Rr <= 128 and Y, X, the
+intermediate and a 3-stage ring of C slices fit the 227 KB of shared memory
+a block may use (Rl <= 320 in float32, <= 144 in float64), it runs the
+resident-projector kernel: persistent blocks, one wave, each walking a
+contiguous run of (z, i) items with Y and X loaded once per sample and C
+streamed through a ``cp.async`` ring. Beyond that tile it runs the two-stage
+kernel that ``gram_edge`` and ``wgram`` use, per i.
 
 Each wrapper takes the plain version for tensors on the CPU, and only
 there. For CUDA tensors it checks device, dtype (float32 or float64), shape
@@ -38,6 +47,29 @@ _DTYPES = {torch.float32: 0, torch.float64: 1}
 # gram_edge and wgram, by 64 columns for proj2
 _TM, _TN_GRAM, _TN_PROJ = 64, 128, 64
 _MAX_GRID_YZ = 65535
+# The resident proj2 kernel's tile (r1 and r2, Rr), its ring stages, and per
+# item size its mode indices per work unit and k-slice depth; the shared
+# memory a block may use
+_RES_R, _RES_RR, _RES_STAGES = 64, 128, 3
+_RES_UNIT = {4: (2, 16), 8: (1, 8)}
+_SMEM_MAX = 232448
+
+
+def _proj2_smem(Rl: int, itemsize: int) -> int:
+    """Shared bytes of the resident proj2 kernel: Y^T (Rl rounded up to a
+    k-slice, by 64), X (128 x 64), the intermediate (128 x 64 per mode
+    index of a unit) and the ring of C slices."""
+    ip, ks = _RES_UNIT[itemsize]
+    krl = -(-Rl // ks) * ks
+    return itemsize * (krl * _RES_R + _RES_RR * _RES_R + _RES_RR * ip * _RES_R
+                       + _RES_STAGES * ks * ip * _RES_RR)
+
+
+def _proj2_resident(r1: int, Rl: int, Rr: int, r2: int, itemsize: int) -> bool:
+    """True when proj2 of these ranks runs the resident-projector kernel:
+    the shape fits its tile and its shared memory fits one block."""
+    return (r1 <= _RES_R and r2 <= _RES_R and Rr <= _RES_RR
+            and _proj2_smem(Rl, itemsize) <= _SMEM_MAX)
 
 
 # ---------------------------------------------------------------------------
@@ -96,11 +128,12 @@ def _check(name, ts, shapes):
 
 
 @functools.lru_cache(maxsize=None)
-def _wave(code: int, kernel: int, device_index: int) -> int:
-    """Blocks of one kernel that the card holds at once (occupancy x SMs)."""
+def _wave(code: int, kernel: int, device_index: int, Rl: int = 0) -> int:
+    """Blocks of one kernel that the card holds at once (occupancy x SMs);
+    kernel 2 (resident proj2) is sized for its shared memory at Rl."""
     from tntorch_tpu_torch._build import library
 
-    per_sm = library("gram_kernels").tnt_occupancy(code, kernel)
+    per_sm = library("gram_kernels").tnt_occupancy(code, kernel, Rl)
     if per_sm <= 0:
         raise RuntimeError(f"tnt_occupancy: CUDA error {-per_sm}" if per_sm else
                            "tnt_occupancy: the kernel fits no SM")
@@ -165,7 +198,8 @@ def wgram(C, W):
 
 def proj2(Y, C, X):
     """Double-sided projection (B, r1, Rl), (B, Rl, I, Rr), (B, Rr, r2) ->
-    (B, r1, I, r2)."""
+    (B, r1, I, r2). On the card it runs the kernel `_proj2_resident`
+    picks."""
     if _on_cpu(Y, C, X):
         return proj2_plain(Y, C, X)
     B, Rl, I, Rr = C.shape
@@ -173,9 +207,15 @@ def proj2(Y, C, X):
     code = _check("proj2", (C, Y, X), ((B, Rl, I, Rr), (B, r1, Rl), (B, Rr, r2)))
     with torch.cuda.device(C.device):
         out = torch.empty((B, r1, I, r2), dtype=C.dtype, device=C.device)
-        chunks = _pieces(code, 1, B * _tiles(r1, r2, _TN_PROJ), I, C.device)
-        _launch("tnt_proj2", code, _ptr(Y), _ptr(C), _ptr(X), _ptr(out),
-                B, r1, Rl, I, Rr, r2, chunks)
+        if _proj2_resident(r1, Rl, Rr, r2, C.element_size()):
+            units = B * -(-I // _RES_UNIT[C.element_size()][0])
+            blocks = min(units, _wave(code, 2, C.device.index, Rl))
+            _launch("tnt_proj2_resident", code, _ptr(Y), _ptr(C), _ptr(X), _ptr(out),
+                    B, r1, Rl, I, Rr, r2, blocks)
+        else:
+            chunks = _pieces(code, 1, B * _tiles(r1, r2, _TN_PROJ), I, C.device)
+            _launch("tnt_proj2", code, _ptr(Y), _ptr(C), _ptr(X), _ptr(out),
+                    B, r1, Rl, I, Rr, r2, chunks)
     proj2.launches += 1
     return out
 

@@ -318,9 +318,12 @@ def round_tt_batch(cores, rmax=None, algorithm: str = "svd", return_reached: boo
 def round_tt_gram_batched(cores, rmax, edge_solver: str = "eigh"):
     """Fixed-rank Gram rounding of a batch of TTs (cores (B, Rl, I, Rr)).
 
-    Real cores run the right-Gram chain through `gram_edge` and, for N >= 3,
-    the no-push left sweep: interface transforms Y are deferred instead of
-    pushed into the next core; the left Gram of the pushed core Y C is
+    Real cores run the right-Gram chain through `gram_edge`, except an edge
+    whose core has one right rank (the last): that one is the batched
+    product `(C G) C^T` with C as (B, Rl, I), as in the JAX package, on the
+    CPU and the card alike. For N >= 3 they run the no-push left sweep:
+    interface transforms Y are deferred instead of pushed into the next
+    core; the left Gram of the pushed core Y C is
     `wgram(C, Y^T Y)` and each output core is `proj2(Y_prev, C, X)`, so the
     pushed core never exists. On CUDA tensors those are the hand-written
     kernels; on the CPU their plain versions. Complex cores take the einsum
@@ -336,7 +339,13 @@ def round_tt_gram_batched(cores, rmax, edge_solver: str = "eigh"):
     G[N] = torch.ones((B, 1, 1), dtype=cores[0].dtype, device=cores[0].device)
     for k in range(N, 1, -1):
         C = cores[k - 1]
-        if real:
+        if real and C.shape[-1] == 1:
+            # One right rank: the edge is a batched product, which the JAX
+            # package leaves to XLA's einsum too (gram_edge_supported refuses
+            # Rr % 128 != 0; tntorch_tpu/ops/rounding.py:790-795)
+            Cm = C.reshape(B, C.shape[1], C.shape[2])
+            G[k - 1] = (Cm * G[k]) @ Cm.mT
+        elif real:
             G[k - 1] = gram_edge(C, G[k])
         else:
             T = torch.einsum("zaib,zbc->zaic", C, G[k])
