@@ -11,10 +11,14 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    ``nvcc`` per source, all started together;
 3. each kernel against its plain PyTorch version on the card, float32 and
    float64: the Gram kernels at the bench cell's shapes and at ragged
-   shapes, the evaluation kernels (``tt_eval``, ``tt_eval_backward``) at
+   shapes, the evaluation kernels (``tt_eval`` on both its kernels, grouped
+   and per sample, each forced at every shape; ``tt_eval_backward``) at
    the evaluation design shape (N=4, I=1024, R=64, B=2^20), the training
    shape (N=3, I=256, R=16, B=8192) and ragged shapes; with times, each
    kernel's bound and a one-call PyTorch yardstick where there is one.
+   The two ``tt_eval`` kernels are timed in turns at the design shape and
+   at a few samples per slice (their crossover), and the grouped one must
+   give bitwise the same values on two calls.
    ``proj2`` is held on both of its kernels (resident projectors, and the
    two-stage kernel beyond that tile) and both are timed at the bench
    shape; the Rr=1 edge is timed as the kernel and as the batched product
@@ -28,14 +32,14 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
 5. a non-batch pass on the card (``+``, ``*``, ``round_tt``, ``dot``,
    ``norm``) against the same on the CPU;
 6. the evaluation path: ``tn.tt_eval`` and ``t[X].full()`` at the design
-   shape, one forward launch each, 4096 values against the port on the CPU
-   in float64, and evaluations per second with the kernel and with its
-   plain version in turns;
+   shape, one forward call each on the grouped kernel, 4096 values against
+   the port on the CPU in float64, and evaluations per second with the
+   grouped kernel, the per-sample kernel and the plain version in turns;
 7. the training path at the repo's largest training configuration
    (benchmarks/bench_optimize.py: a 256^3 TT of rank 16, 8192 observed
    entries, full size): ``tn.optimize`` with Adam (lr 1e-3) on
    ``mean((t[X].full() - y)**2)``, exact forward and backward launch
-   counts, a falling loss, the first 20 losses against the port on the CPU
+   counts (the forward on the per-sample kernel), a falling loss, the first 20 losses against the port on the CPU
    in float64, iterations per second with the kernels and with their plain
    versions in turns, and a torch.profiler breakdown of a step.
 
@@ -138,6 +142,19 @@ def two_stage_proj2(fn):
         return fn()
     finally:
         gk._proj2_resident = choice
+
+
+def tt_path(grouped, fn):
+    """``fn()`` with ``tt_eval`` forced onto its grouped kernel (True) or
+    its per-sample kernel (False) at every shape."""
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    choice = te._grouped
+    te._grouped = lambda *_: grouped
+    try:
+        return fn()
+    finally:
+        te._grouped = choice
 
 
 def smi_while(fn, launches=400):
@@ -344,19 +361,26 @@ def check_tt_kernels():
         ("ragged", [2, 5, 3, 7, 3], 37, 1000, True),
         ("ragged", [2, 5, 3, 7, 3], 37, 1, True),
     ]
+    paths = ("grouped", "per-sample")
     report = {"tt_eval": {}, "tt_eval_backward": {}}
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split(".")[-1]
         for tag, ranks, I, B, negative in shapes:
             cores, X, g = tt_problem(ranks, I, B, dtype, seed=3, negative=negative)
-            got = te.tt_eval_kernel(cores, X)
+            # Both forward kernels, each forced (the grouped one also where
+            # its predicate refuses the shape, so a tile meets many runs)
+            got = {p: tt_path(p == "grouped", lambda: te.tt_eval_kernel(cores, X)) for p in paths}
+            again = tt_path(True, lambda: te.tt_eval_kernel(cores, X))
             grads = te.tt_eval_backward_kernel(cores, X, g)
             torch.cuda.synchronize()
             want = te.tt_eval_plain(cores, X)
             want_grads = te.tt_eval_backward_plain(cores, X, g)
             torch.cuda.synchronize()
+            if not torch.equal(got["grouped"], again):
+                raise AssertionError(f"grouped tt_eval {dname} {tag}: two calls differ")
             errs = {}
-            for name, a, b in [("tt_eval", [got], [want]), ("tt_eval_backward", grads, want_grads)]:
+            checks = [(f"tt_eval/{p}", [got[p]], [want]) for p in paths]
+            for name, a, b in checks + [("tt_eval_backward", grads, want_grads)]:
                 if not all(torch.isfinite(x).all() for x in a):
                     raise AssertionError(f"{name} {dname} {tag}: non-finite output")
                 err = max(float((x - y).abs().max()) for x, y in zip(a, b))
@@ -364,28 +388,68 @@ def check_tt_kernels():
                 errs[name] = (err, rel)
                 if rel > KERNEL_TOL[dname]:
                     raise AssertionError(f"{name} disagrees with its plain version: rel {rel:.3e}")
-            line = (f"{tag:8s} {dname} ranks {ranks} I={I} B={B}{' negative X' if negative else ''}:"
-                    f" tt_eval rel {errs['tt_eval'][1]:.3e}, backward rel "
-                    f"{errs['tt_eval_backward'][1]:.3e}")
+            chosen = "grouped" if te._grouped(ranks, [I] * (len(ranks) - 1), B,
+                                              dtype.itemsize) else "per-sample"
+            line = (f"{tag:8s} {dname} ranks {ranks} I={I} B={B}{' negative X' if negative else ''}"
+                    f" (takes {chosen}): tt_eval rel grouped {errs['tt_eval/grouped'][1]:.3e} "
+                    f"(bitwise equal on two calls), per-sample {errs['tt_eval/per-sample'][1]:.3e}; "
+                    f"backward rel {errs['tt_eval_backward'][1]:.3e}")
             if tag == "design" and dtype == torch.float32:
                 fwd_flops, bwd_flops = tt_work(cores, X)
-                runs = {
-                    "tt_eval": (lambda: te.tt_eval_kernel(cores, X),
-                                lambda: te.tt_eval_plain(cores, X),
-                                bound_ms(fwd_flops, nbytes(*cores, X, got))),
-                    "tt_eval_backward": (lambda: te.tt_eval_backward_kernel(cores, X, g),
-                                         lambda: te.tt_eval_backward_plain(cores, X, g),
-                                         bound_ms(bwd_flops, nbytes(*cores, X, g, *grads))),
-                }
-                for name, (kern, plain, (bound, by)) in runs.items():
-                    ms = cuda_time(kern, reps=3, inner=3)
-                    plain_ms = cuda_time(plain, reps=3, inner=3)
-                    report[name].update(max_abs_err=errs[name][0], ms=ms, plain_ms=plain_ms,
-                                        bound_ms=bound, bound_by=by, library_ms=None)
-                    line += (f"\n    {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-                             f"bound {bound:.3f} ms ({by}), {B / ms * 1e3:.3e} samples/s")
+                bound, by = bound_ms(fwd_flops, nbytes(*cores, X, got["grouped"]))
+                turns = {p: [] for p in paths}
+                for p in paths + paths[::-1]:
+                    turns[p].append(tt_path(p == "grouped", lambda: cuda_time(
+                        lambda: te.tt_eval_kernel(cores, X), reps=3, inner=3)))
+                plain_ms = cuda_time(lambda: te.tt_eval_plain(cores, X), reps=3, inner=3)
+                report["tt_eval"].update(
+                    max_abs_err=errs["tt_eval/grouped"][0], ms=min(turns["grouped"]),
+                    per_sample_ms=min(turns["per-sample"]), plain_ms=plain_ms, bound_ms=bound,
+                    bound_by=by, library_ms=None)
+                line += (f"\n    tt_eval in turns: grouped {turns['grouped']} ms, per-sample "
+                         f"{turns['per-sample']} ms, plain {plain_ms:.3f} ms, bound {bound:.3f} ms "
+                         f"({by}), {B / min(turns['grouped']) * 1e3:.3e} samples/s grouped")
+                bound, by = bound_ms(bwd_flops, nbytes(*cores, X, g, *grads))
+                ms = cuda_time(lambda: te.tt_eval_backward_kernel(cores, X, g), reps=3, inner=3)
+                plain_ms = cuda_time(lambda: te.tt_eval_backward_plain(cores, X, g), reps=3, inner=3)
+                report["tt_eval_backward"].update(
+                    max_abs_err=errs["tt_eval_backward"][0], ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound, bound_by=by, library_ms=None)
+                line += (f"\n    tt_eval_backward: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                         f"bound {bound:.3f} ms ({by})")
+            if tag == "training" and dtype == torch.float32:  # where training launches it
+                ms = cuda_time(lambda: te.tt_eval_backward_kernel(cores, X, g))
+                bound, by = bound_ms(tt_work(cores, X)[1], nbytes(*cores, X, g, *grads))
+                report["tt_eval_backward"]["training_shape_ms"] = ms
+                line += (f"\n    tt_eval_backward at the training shape: kernel {ms:.4f} ms, "
+                         f"bound {bound:.4f} ms ({by})")
             print(line, flush=True)
+    tt_crossover()
     return report
+
+
+def tt_crossover():
+    """Each whole ``tt_eval_kernel`` call (sorts, launches and the flag's
+    read-back) on both kernels in turns, at a few samples per slice: where
+    the grouped kernel starts to win sets ops/tt_eval.py's _GROUP_MIN."""
+    import torch
+
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    E, T = EVAL, TRAIN
+    for ranks, I in (([1] + [E["R"]] * (E["N"] - 1) + [1], E["I"]),
+                     ([1] + [T["R"]] * (T["N"] - 1) + [1], T["I"])):
+        row = []
+        for per_slice in (8, 16, 32, 64, 128, 256):
+            cores, X, _ = tt_problem(ranks, I, per_slice * I, torch.float32, seed=6)
+            turns = {True: [], False: []}
+            for grouped in (True, False, False, True):
+                turns[grouped].append(tt_path(grouped, lambda: cuda_time(
+                    lambda: te.tt_eval_kernel(cores, X), reps=3, inner=3)))
+            row.append(f"B/I={per_slice}: grouped {min(turns[True]):.4f}, per-sample "
+                       f"{min(turns[False]):.4f}")
+        print(f"crossover, ranks {ranks} I={I}, ms per call (best of two turns): "
+              + "; ".join(row), flush=True)
 
 
 def bench_cores():
@@ -528,9 +592,10 @@ def nonbatch_pass():
             raise AssertionError(f"{name} disagrees between the card and the CPU")
 
 
-def profile_device(fn, steps):
+def profile_device(fn, steps, each=None):
     """Run ``fn`` under torch.profiler; print the wall time, the device's
-    busy time by kernel and its idle share, per step."""
+    busy time by kernel and its idle share, per step; and the time of every
+    launch of the kernels whose name holds ``each``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -554,6 +619,10 @@ def profile_device(fn, steps):
           "top device time per step:")
     for ms, count, key in rows[:10]:
         print(f"  {ms / steps:8.4f} ms  x{count / steps:<5.1f} {key[:90]}")
+    if each:
+        times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and each in e.name]
+        print(f"  each launch of {each}, in order: " + ", ".join(f"{t:.4f} ms" for t in times))
 
 
 def eval_path():
@@ -581,9 +650,12 @@ def eval_path():
         values = run()
         torch.cuda.synchronize()
         counts = [k.launches for k in te.KERNELS]
-        print(f"{name}: {tuple(values.shape)} values, launches (forward, backward) {counts}")
+        print(f"{name}: {tuple(values.shape)} values, launches (forward, backward) {counts}, "
+              f"grouped {te.tt_eval_kernel.grouped}")
         if counts != [1, 0] or tuple(values.shape) != (B,) or not torch.isfinite(values).all():
             raise AssertionError(f"{name}: expected one forward launch and {B} finite values")
+        if te.tt_eval_kernel.grouped != 1:
+            raise AssertionError(f"{name}: the forward did not take the grouped kernel")
         launches[name] = counts
         if name == "tn.tt_eval":
             first = values
@@ -595,13 +667,18 @@ def eval_path():
     if not err <= EVAL_TOL:
         raise AssertionError("evaluation disagrees with the CPU float64 run")
 
-    runs = {True: [], False: []}
-    for kernel in (True, False, False, True):
-        runs[kernel].append(cuda_time(lambda: tn.tt_eval(t.cores, X, use_kernel=None if kernel
-                                                         else False), reps=3, inner=3))
-    best = {k: min(v) for k, v in runs.items()}
-    print(f"tn.tt_eval at B={B}: kernel {runs[True]} ms, plain chain {runs[False]} ms; "
-          f"{B / best[True] * 1e3:.4e} evals/s (kernel), {B / best[False] * 1e3:.4e} evals/s (plain)")
+    variants = {
+        "grouped kernel": lambda: tn.tt_eval(t.cores, X),
+        "per-sample kernel": lambda: tt_path(False, lambda: tn.tt_eval(t.cores, X)),
+        "plain chain": lambda: tn.tt_eval(t.cores, X, use_kernel=False),
+    }
+    runs = {v: [] for v in variants}
+    for v in list(variants) + list(variants)[::-1]:
+        runs[v].append(cuda_time(variants[v], reps=3, inner=3))
+    print(f"tn.tt_eval at B={B}, in turns: " + "; ".join(f"{v} {t} ms" for v, t in runs.items())
+          + "; " + ", ".join(f"{B / min(t) * 1e3:.4e} evals/s ({v})" for v, t in runs.items()))
+    print("profile, tn.tt_eval on the grouped kernel:")
+    profile_device(variants["grouped kernel"], steps=1, each="tt_eval_grouped_kernel")
     return {k: sum(launches[n][i] for n in launches) for i, k in enumerate(("tt_eval", "tt_eval_backward"))}
 
 
@@ -636,11 +713,14 @@ def train_path():
     t, hist = fit(steps - 1)
     torch.cuda.synchronize()
     launches = {k.__name__.replace("_kernel", ""): k.launches for k in te.KERNELS}
-    print(f"{len(hist)} steps, launches {launches}; loss {hist[0]:.6f} -> {hist[-1]:.6f}")
+    print(f"{len(hist)} steps, launches {launches}, grouped {te.tt_eval_kernel.grouped}; "
+          f"loss {hist[0]:.6f} -> {hist[-1]:.6f}")
     if t.device.type != "cuda":
         raise AssertionError(f"the TT trained on {t.device}")
     if launches != {"tt_eval": steps, "tt_eval_backward": steps} or len(hist) != steps:
         raise AssertionError(f"expected {steps} steps with one forward and one backward launch each")
+    if te.tt_eval_kernel.grouped != 0:
+        raise AssertionError("the training step's forward left the per-sample kernel")
     if not (np.isfinite(hist).all() and hist[-1] < hist[0]):
         raise AssertionError("the loss did not fall")
     _, ref = fit(steps - 1, device="cpu", dtype=np.float64)

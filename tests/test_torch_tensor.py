@@ -4,6 +4,7 @@ tntorch_tpu's, on the same inputs. Dense reconstructions are compared, never
 cores (a rounded TT is defined up to a gauge). f64 throughout: the two
 packages differ by roundoff, so values agree to 1e-10 relative."""
 
+import inspect
 import os
 import subprocess
 import sys
@@ -72,6 +73,74 @@ def test_arithmetic_matches_jax(batch):
     ]:
         assert got.ranks_tt.tolist() == want.ranks_tt.tolist()
         _close(got.full().numpy(), want.full())
+
+
+@BATCH
+def test_equality_matches_jax(batch):
+    # == is dist <= 1e-14 on every sample (a Python bool); a Tensor is unhashable
+    a, ja = _pair(21, batch)
+    b, jb = _pair(22, batch)
+    for got, want in [(a == a.clone(), ja == ja.clone()), (a != a.clone(), ja != ja.clone()),
+                      (a == b, ja == jb), (a != b, ja != jb), (a == a.full(), ja == ja.full())]:
+        assert got is want
+    assert (a == a.clone(), a == b) == (True, False)
+    for t in (a, ja):
+        with pytest.raises(TypeError, match="unhashable"):
+            hash(t)
+
+
+@pytest.mark.parametrize("op", ["mul", "div"])
+def test_torch_scalar_with_grad_matches_jax(op):
+    # A 0-d torch scalar that requires grad stays in the graph: t * s and
+    # t / s match dense (and the JAX package) to 1e-12 in f64, and the
+    # gradient of sum((t op s).full()) reaches s
+    a, ja = _pair(23, 0)
+    s = torch.tensor(-2.5, dtype=torch.float64, requires_grad=True)
+    got = a * s if op == "mul" else a / s
+    want = ja * -2.5 if op == "mul" else ja / -2.5
+    dense = a.full().detach().numpy()
+    _close(got.full().detach().numpy(), dense * (-2.5 if op == "mul" else 1 / -2.5), tol=1e-12)
+    _close(got.full().detach().numpy(), want.full(), tol=1e-12)
+    assert got.dtype == torch.float64
+    got.full().sum().backward()
+    ds = dense.sum() * (1.0 if op == "mul" else -1 / 2.5 ** 2)
+    assert abs(float(s.grad) - ds) <= 1e-12 * abs(ds)
+
+
+@pytest.mark.parametrize("dtypes", [(np.float32, np.float64), (np.float64, np.float32)],
+                         ids=["f32+f64", "f64+f32"])
+def test_mixed_dtype_sum_keeps_left_dtype_as_jax(dtypes):
+    (a, _), (b, _) = _pair(24, 0), _pair(25, 0)
+    cores = [[c.numpy().astype(d) for c in t.cores] for t, d in zip((a, b), dtypes)]
+    got = (interop.tensor_from_arrays(cores[0], device="cpu")
+           + interop.tensor_from_arrays(cores[1], device="cpu"))
+    want = jtn.Tensor([jnp.asarray(c) for c in cores[0]]) + jtn.Tensor(
+        [jnp.asarray(c) for c in cores[1]])
+    assert [str(c.dtype).split(".")[-1] for c in got.cores] == [str(c.dtype) for c in want.cores]
+    assert got.dtype == torch.from_numpy(np.zeros(1, dtypes[0])).dtype
+    _close(got.full().double().numpy(), np.asarray(want.full(), np.float64), tol=1e-6)
+
+
+def test_constructor_signature_matches_jax():
+    names = list(inspect.signature(tn.Tensor.__init__).parameters)
+    assert names == list(inspect.signature(jtn.Tensor.__init__).parameters)
+    x = np.ones((2, 3))
+    t = tn.Tensor(x, None, None, "cpu", None, max_iter=3, tol=1e-2, verbose=True,
+                  algorithm="svd")
+    assert t.device.type == "cpu" and t.requires_grad is False
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        tn.Tensor(x, idxs=[np.arange(2), np.arange(3)], device="cpu")
+
+
+@pytest.mark.cuda
+def test_division_by_a_norm_on_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    a, ja = _pair(26, 0)
+    t = interop.tensor_from_arrays([c.numpy() for c in a.cores], device="cuda")
+    u = t / t.norm()
+    assert u.device.type == "cuda" and u.dtype == torch.float64
+    _close(u.full().cpu().numpy(), (ja / jtn.norm(ja)).full(), tol=1e-12)
 
 
 def test_per_sample_scalars_match_jax():

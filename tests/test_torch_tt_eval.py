@@ -160,20 +160,119 @@ def test_plain_backward_chunks_large_batches(monkeypatch):
         assert torch.allclose(a, b, rtol=1e-13, atol=1e-15)
 
 
+def _grouped_emulation(cores, X):
+    """The grouped kernels' arithmetic on the CPU, from `_group_operands`:
+    rows in sorted order, one slice per run of equal coordinates, rows back
+    to their samples, the last mode a dot with C_{N-1}[:, x, 0]."""
+    Xw, flag, sorts, first, last = te._group_operands(cores, X)
+    v = None
+    for k, (keys, perm) in enumerate(sorts, start=1):
+        rows = first[Xw[perm, 0].long()] if k == 1 else v[perm]  # in sorted order
+        y = torch.empty((len(perm), cores[k].shape[2]), dtype=rows.dtype)
+        for i in torch.unique_consecutive(keys).tolist():
+            run = keys == i
+            y[perm[run]] = rows[run] @ cores[k][:, i, :]
+        v = y
+    return (v * last[Xw[:, -1].long()]).sum(1), flag
+
+
+@pytest.mark.parametrize("shape", ["boundary_ranks", "negative"])
+def test_grouping_bookkeeping_matches_jax_f64(shape):
+    # Wrapped coordinates, sorted keys and their permutation compose to the
+    # values of tt_batch_forward (1e-12); no coordinate is out of range
+    ranks, dims, B, negative = SHAPES[shape]
+    cores, X, _ = _problem(ranks, dims, B, seed=11, negative=negative)
+    want = np.asarray(jax_tt_batch_forward([jnp.asarray(c) for c in cores], jnp.asarray(X)))
+    Xt = torch.from_numpy(X)
+    got, flag = _grouped_emulation(_torch(cores), Xt)
+    assert _rel(got.numpy(), want) <= 1e-12 and not bool(flag)
+    Xw, _, sorts, first, last = te._group_operands(_torch(cores), Xt)
+    assert Xw.dtype == torch.int32 and torch.equal(Xw.long(), Xt % torch.tensor(dims))
+    for k, (keys, perm) in enumerate(sorts, start=1):
+        assert torch.equal(keys, Xw[perm, k]) and bool((keys[1:] >= keys[:-1]).all())
+        inverse = torch.empty_like(perm)
+        inverse[perm] = torch.arange(B)
+        assert torch.equal(keys[inverse], Xw[:, k])
+    assert first.shape == (dims[0], ranks[1]) and last.shape == (dims[-1], ranks[-2])
+
+
+@pytest.mark.parametrize("itype", [torch.int32, torch.int64])
+def test_grouping_flags_out_of_range_coordinates(itype):
+    # Flagged, and wrapped into range like the rest, so no launch reads out
+    # of bounds before the wrapper raises
+    cores, X, _ = _problem([1, 3, 2, 1], [5, 6, 7], 6, seed=12, negative=True)
+    X[1, 1], X[4, 0], X[5, 2] = 6, -6, 9
+    Xt = torch.from_numpy(X).to(itype)
+    Xw, flag, sorts, _, _ = te._group_operands(_torch(cores), Xt)
+    assert bool(flag)
+    ok = torch.ones_like(Xt, dtype=torch.bool)
+    ok[1, 1] = ok[4, 0] = ok[5, 2] = False
+    assert torch.equal(Xw[ok].long(), (Xt % torch.tensor([5, 6, 7]))[ok].long())
+    assert bool(((Xw >= 0) & (Xw < torch.tensor([5, 6, 7]))).all())
+    keys, perm = sorts[0]
+    assert torch.equal(keys, torch.sort(Xw[:, 1]).values)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8], ids=["f32", "f64"])
+def test_grouped_predicate_limits(itemsize):
+    G = te._GROUP_MIN
+    design, training = ([1, 64, 64, 64, 1], [1024] * 4), ([1, 16, 16, 1], [256] * 3)
+    assert te._grouped(*design, 1 << 20, itemsize)
+    # samples per slice: B >= G * I_k
+    assert te._grouped(*design, G * 1024, itemsize) and not te._grouped(*design, G * 1024 - 1, itemsize)
+    assert not te._grouped(*training, 8192, itemsize)  # B/I = 32: the training step
+    assert not te._grouped([1, 64, 1], [1024, 1024], 1 << 24, itemsize)  # N <= 2
+    assert not te._grouped([1, 64, 1], [1 << 20], 1 << 24, itemsize)
+    ranks, dims, B, _ = SHAPES["boundary_ranks"]
+    assert not te._grouped(ranks, dims, B, itemsize)  # ragged shapes: few samples per slice
+    assert not te._grouped(ranks, [37] * 4, 1000, itemsize)
+    # bytes of middle slices: 2 * 16 * 16 * itemsize a sample at rank 16
+    small, need = ([1, 16, 16, 16, 1], [256] * 4), te._GROUP_MIN_BYTES // (512 * itemsize)
+    assert te._grouped(*small, need, itemsize) and not te._grouped(*small, need - 1, itemsize)
+    assert not te._grouped(*small, 256 * 256, itemsize)  # B/I = 256 at rank 16
+    # Shared memory: the largest middle rank that fits, and one more
+    fits = max(r for r in range(1, 1024) if te._grouped_smem(r, itemsize) <= te._SMEM)
+    assert fits == {4: 294, 8: 147}[itemsize]
+    for r, want in ((fits, True), (fits + 1, False)):
+        assert te._grouped([1, 8, r, 8, 1], [4] * 4, 1 << 24, itemsize) is want
+    assert te._grouped([1, 8, 8, r, 1], [4] * 4, 1 << 24, itemsize)  # R_{k+1} is not limited
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    grouped = te._grouped
     for dtype, tol in ((np.float32, 1e-4), (np.float64, 1e-12)):
         for ranks, dims, B, negative in SHAPES.values():
             cores, X, g = _problem(ranks, dims, B, seed=10, negative=negative, dtype=dtype)
             cs = [c.cuda() for c in _torch(cores)]
             Xt, gt = torch.from_numpy(X).cuda(), torch.from_numpy(g).cuda()
+            want = te.tt_eval_plain(cs, Xt).cpu()
+            # Both forward kernels: the grouped one forced where N >= 3
+            for force in (False, True)[:1 + (len(dims) >= 3)]:
+                te._grouped = lambda *a: force  # noqa: B023
+                try:
+                    before = [k.launches for k in te.KERNELS] + [te.tt_eval_kernel.grouped]
+                    got = te.tt_eval_kernel(cs, Xt)
+                    again = te.tt_eval_kernel(cs, Xt)
+                    torch.cuda.synchronize()
+                finally:
+                    te._grouped = grouped
+                assert te.tt_eval_kernel.launches == before[0] + 2
+                assert te.tt_eval_kernel.grouped == before[2] + 2 * force
+                assert _rel(got.cpu(), want) <= tol and torch.equal(got, again)
             before = [k.launches for k in te.KERNELS]
-            got = te.tt_eval_kernel(cs, Xt)
             grads = te.tt_eval_backward_kernel(cs, Xt, gt)
             torch.cuda.synchronize()
-            assert [k.launches for k in te.KERNELS] == [b + 1 for b in before]
-            assert _rel(got.cpu(), te.tt_eval_plain(cs, Xt).cpu()) <= tol
+            assert [k.launches for k in te.KERNELS] == [before[0], before[1] + 1]
             for a, b in zip(grads, te.tt_eval_backward_plain(cs, Xt, gt)):
                 assert _rel(a.cpu(), b.cpu()) <= tol
+    with pytest.raises(IndexError):
+        cores, X, _ = _problem([1, 3, 2, 1], [5, 6, 7], 4, seed=13)
+        X[2, 1] = 6
+        te._grouped = lambda *a: True
+        try:
+            te.tt_eval_kernel([c.cuda() for c in _torch(cores)], torch.from_numpy(X).cuda())
+        finally:
+            te._grouped = grouped

@@ -13,19 +13,45 @@
 // into zeroed gradient cores, with L_k the left interface before mode k and
 // Rt_{k+1} the right interface after it (Rt_N = e_0).
 //
-// What bounds them on this card. Each sample gathers its own R x R slice of
-// every core, a row-major block whose rows are contiguous in the last index.
-// At the design shape (N=4, I=1024, R=64, B=2^20, f32) the forward does
-// 17.4 GFLOP, a 0.26 ms FP32 bound (67 TFLOP/s), and reads its inputs in
-// ~0.02 ms at 3.35 TB/s; but the gathered slices come to 16 KB per sample
-// per middle mode, ~34 GB through L2 in all. So the simple kernel is bound
-// by L2 traffic of the gathered slices, far above the FP32 bound. Reusing a
-// slice across the samples that share a coordinate (sorting by X) is the
-// redesign that would close the gap; it is later work.
+// The forward has two kernels; the wrapper (ops/tt_eval.py: _grouped) picks
+// one per call.
 //
-// Design. The TPU kernel had no gather, so it selected the slice with a
-// one-hot lane mask and folded it back with a fold matrix; here one warp
-// owns one sample at a time and gathers C_k[:, x, :] directly. The warp's
+// tt_eval_grouped_kernel, for N >= 3 and many samples per slice. What
+// bounds TT evaluation on this card is the reuse of the core slices: at the
+// design shape (N=4, I=1024, R=64, B=2^20, f32) each slice C_k[:, i, :]
+// (16 KB) serves ~1024 samples, and the FP32 work is 17.4 GFLOP, a 0.26 ms
+// bound at 67 TFLOP/s. The wrapper sorts each middle mode's coordinates
+// (torch.sort: index bookkeeping the TPU kernel never did) and launches this
+// kernel once per middle mode k = 1..N-2. A block takes 128 consecutive
+// sorted positions: it reads their input rows (the interface before mode
+// k) through the sort's permutation into shared memory, transposed; for
+// each run of equal coordinates in the tile it loads the slice once into
+// shared memory (64 columns at a time) and multiplies the run's rows by it
+// with 8x4 register tiles per thread, in plain FP32 (or FP64) FMAs. Rows
+// go back to their samples' places in an interface buffer V (B, R_{k+1})
+// in device memory. Mode 0 needs no pass: for k = 1 a row is a row of
+// C_0's sum over R_0, looked up by the sample's mode-0 coordinate. For
+// k = N-2 the epilogue dots each row with C_{N-1}[:, x, 0] and writes the
+// value, so the last mode needs no pass either. What bounds it: the FMAs
+// (8.6 GFLOP per middle mode at the design shape, 0.13 ms at the FP32
+// peak), then V's round trip through device memory (256 MiB each way per
+// interface, ~0.08 ms at 3.35 TB/s) and a tile's extra passes where it
+// meets more than one run (~12% of tiles at the design shape; at few
+// samples per slice a tile meets many runs, which is slow but right). It
+// reaches ~0.45 ms a launch there, 28% of the FP32 peak; staging its
+// gathers in registers or double-buffering tiles with cp.async did not
+// move that, so the gathers' latency is not the gap (PERF.md). Each
+// output is a sum over r in a fixed order and never depends on where its
+// sample lands in the sort, so the grouped path is bitwise reproducible run
+// to run.
+//
+// tt_eval_kernel (per sample) serves every other shape: N <= 2, few
+// samples per slice (the training shape, B/I = 32), and shapes whose tile
+// would not fit shared memory. One warp owns one sample and gathers its own
+// R x R slice of every core through L2 (at the design shape 16 KB per
+// sample per middle mode, ~34 GB in all: L2 traffic, not FMAs, sets its
+// time). The TPU kernel had no gather, so it selected the slice with a
+// one-hot lane mask and folded it back with a fold matrix; here the warp's
 // lanes form G groups of W lanes (W the smallest power of two >= the
 // slice's column count, at most 32): a group's lanes run over the columns s,
 // so they read neighbouring addresses of one row, and the groups split the
@@ -35,7 +61,8 @@
 // samples), any ranks including R_0 and R_N > 1, any I, float32 and float64,
 // int32 and int64 coordinates; negative coordinates wrap as in NumPy, and an
 // out-of-range one sets *flag (the caller raises IndexError), writes NaN and
-// touches no memory out of bounds.
+// touches no memory out of bounds. (The grouped kernel takes coordinates
+// that the wrapper has already wrapped and checked.)
 //
 // The backward recomputes a sample's left interfaces L_0..L_{N-1} into the
 // warp's shared memory, then sweeps right to left: at mode k it adds the
@@ -223,6 +250,198 @@ __global__ void __launch_bounds__(WARPS * 32)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The grouped kernel: one middle mode, samples in sorted order
+// ---------------------------------------------------------------------------
+
+constexpr int GT = 128;       // sorted positions per block (ops/tt_eval.py: _GROUP_TILE)
+constexpr int GTHREADS = 256;  // 16 row groups of 8 rows x 16 column groups of 4 columns
+constexpr int GCOLS = 64;     // output columns per pass over the tile (_GROUP_COLS)
+constexpr int GPAD = 4;       // pad of a transposed input row in shared memory (_GROUP_PAD)
+
+// Shared memory of one block: the tile's permutation and keys, its input
+// rows transposed (Rl x (GT + GPAD)) and one slice's columns (Rl x GCOLS).
+// ops/tt_eval.py: _grouped_smem mirrors it.
+__host__ __device__ constexpr size_t grouped_smem(int Rl, size_t itemsize) {
+  return (size_t)GT * (sizeof(int64_t) + sizeof(int)) + (size_t)Rl * (GT + GPAD + GCOLS) * itemsize;
+}
+
+__device__ __forceinline__ void ld4(const float* p, float* v) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+}
+__device__ __forceinline__ void ld4(const double* p, double* v) {
+  const double2 a = reinterpret_cast<const double2*>(p)[0];
+  const double2 b = reinterpret_cast<const double2*>(p)[1];
+  v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
+}
+__device__ __forceinline__ void st4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void st4(double* p, const double* v) {
+  reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
+  reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
+}
+
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
+  return ((uintptr_t)p & 15) == 0;
+}
+
+// Mode k of the chain for the samples in sorted positions [p0, p0 + GT):
+//   y_b = x_b . core[:, keys[p], :]  (Rl -> Rr) for b = perm[p],
+// with x_b row b of src (or, when src_idx is set, row src_idx[b * xs] of
+// src); then y_b goes to row b of dst, or, when dst is null, out[b] =
+// y_b . last[last_idx[b * xs], :]. Keys are in [0, I) and sorted.
+template <typename T>
+__global__ void __launch_bounds__(GTHREADS)
+    tt_eval_grouped_kernel(const T* __restrict__ core, int Rl, int I, int Rr,
+                           const int* __restrict__ keys, const int64_t* __restrict__ perm,
+                           int64_t B, const T* __restrict__ src, const int* __restrict__ src_idx,
+                           T* __restrict__ dst, const T* __restrict__ last,
+                           const int* __restrict__ last_idx, int xs, T* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int64_t* const sperm = reinterpret_cast<int64_t*>(smem_raw);
+  int* const skeys = reinterpret_cast<int*>(sperm + GT);
+  T* const At = reinterpret_cast<T*>(skeys + GT);  // At[r * AS + p]
+  T* const S = At + (size_t)Rl * (GT + GPAD);      // S[r * GCOLS + c]
+  constexpr int AS = GT + GPAD;
+  const int tid = threadIdx.x;
+  const int64_t p0 = (int64_t)blockIdx.x * GT;
+  const int n = (int)(B - p0 < GT ? B - p0 : GT);
+
+  for (int p = tid; p < GT; p += GTHREADS) {
+    sperm[p] = p < n ? perm[p0 + p] : 0;
+    skeys[p] = p < n ? keys[p0 + p] : 0;
+  }
+  __syncthreads();
+
+  // The tile's input rows, transposed; zero past the end of the batch.
+  // 16-byte copies where rows allow: eight neighbouring positions take one
+  // 4-wide column block, so the transposed stores meet at most 2-way
+  // bank conflicts
+  if (Rl % 4 == 0 && aligned16(src)) {
+    const int nq = Rl / 4;
+    for (int idx = tid; idx < GT * nq; idx += GTHREADS) {
+      const int rest = idx >> 3, q = rest % nq, p = (rest / nq) * 8 + (idx & 7);
+      T v[4] = {T(0), T(0), T(0), T(0)};
+      if (p < n) {
+        const int64_t b = sperm[p];
+        const int64_t row = src_idx ? (int64_t)src_idx[b * xs] : b;
+        ld4(src + row * Rl + 4 * q, v);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) At[(4 * q + j) * AS + p] = v[j];
+    }
+  } else {
+    for (int idx = tid; idx < GT * Rl; idx += GTHREADS) {
+      const int p = idx / Rl, r = idx % Rl;
+      T v = T(0);
+      if (p < n) {
+        const int64_t b = sperm[p];
+        const int64_t row = src_idx ? (int64_t)src_idx[b * xs] : b;
+        v = src[row * Rl + r];
+      }
+      At[r * AS + p] = v;
+    }
+  }
+
+  const int cg = tid & 15, r0 = (tid >> 4) * 8;  // this thread's 4 columns and 8 rows
+  const int wlo = (tid >> 5) * 16;                // this warp's 16 rows
+  const int64_t rs = (int64_t)I * Rr;            // stride of r in the core
+  const bool vec_core = Rr % 4 == 0 && aligned16(core);
+  const bool vec_out = Rr % 4 == 0 && aligned16(dst ? (const void*)dst : (const void*)last);
+  T dot[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) dot[i] = T(0);
+
+  for (int c0 = 0; c0 < Rr; c0 += GCOLS) {
+    const int nc = Rr - c0 < GCOLS ? Rr - c0 : GCOLS;
+    const int c = 4 * cg;  // this thread's first column in the pass
+    for (int s = 0; s < n;) {
+      // The run [s, e) of key skeys[s]: the same bounds in every thread
+      const int key = skeys[s];
+      int lo = s + 1, hi = n;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (skeys[mid] <= key) lo = mid + 1;
+        else hi = mid;
+      }
+      const int e = lo;
+      __syncthreads();  // the last run's reads of S (and, first time, At's stores) are done
+      const T* const cs = core + (int64_t)key * Rr + c0;
+      if (vec_core) {
+        for (int idx = tid; idx < Rl * (GCOLS / 4); idx += GTHREADS) {
+          const int r = idx / (GCOLS / 4), q = 4 * (idx % (GCOLS / 4));
+          T v[4] = {T(0), T(0), T(0), T(0)};
+          if (q < nc) ld4(cs + r * rs + q, v);
+          st4(S + r * GCOLS + q, v);
+        }
+      } else {
+        for (int idx = tid; idx < Rl * GCOLS; idx += GTHREADS) {
+          const int r = idx / GCOLS, q = idx % GCOLS;
+          S[idx] = q < nc ? cs[r * rs + q] : T(0);
+        }
+      }
+      __syncthreads();
+      if (wlo < e && wlo + 16 > s) {  // the warp holds rows of this run
+        T acc[8][4];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = T(0);
+#pragma unroll 4
+        for (int r = 0; r < Rl; ++r) {
+          T a[8], w[4];
+          ld4(At + r * AS + r0, a);
+          ld4(At + r * AS + r0 + 4, a + 4);
+          ld4(S + r * GCOLS + c, w);
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][j] = fma(a[i], w[j], acc[i][j]);
+        }
+        if (dst) {  // rows of this run to their samples' rows of V
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int p = r0 + i;
+            if (p < s || p >= e || c >= nc) continue;
+            T* const d = dst + sperm[p] * Rr + c0 + c;
+            if (vec_out) {
+              st4(d, acc[i]);
+            } else {
+              for (int j = 0; j < 4 && c + j < nc; ++j) d[j] = acc[i][j];
+            }
+          }
+        } else {  // the last mode: dot with C_{N-1}[:, x, 0], 16 lanes a row
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int p = r0 + i;
+            T part = T(0);
+            if (p >= s && p < e && c < nc) {
+              const T* const l = last + (int64_t)last_idx[sperm[p] * xs] * Rr + c0 + c;
+              T w[4];
+              if (vec_out) {
+                ld4(l, w);
+              } else {
+                for (int j = 0; j < 4; ++j) w[j] = c + j < nc ? l[j] : T(0);
+              }
+              for (int j = 0; j < 4; ++j) part = fma(acc[i][j], w[j], part);
+            }
+            for (int off = 8; off > 0; off >>= 1) part += __shfl_xor_sync(FULL, part, off);
+            dot[i] += part;
+          }
+        }
+      }
+      s = e;
+    }
+  }
+  if (!dst && cg == 0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (r0 + i < n) out[sperm[r0 + i]] = dot[i];
+  }
+}
+
 template <typename T>
 TT<T> make_tt(int N, const void* const* cores, void* const* grads, const int* ranks,
               const int* dims) {
@@ -299,6 +518,45 @@ int tnt_tt_eval(int dtype, int itype, int N, const void* const* cores, const int
                   (int64_t)B, (double*)out, flag);
   return launch(tt_eval_kernel<double, int64_t>, per, B, s, tt, (const int64_t*)X,
                 (int64_t)B, (double*)out, flag);
+}
+
+// One middle mode k of the grouped forward (see tt_eval_grouped_kernel):
+// core (Rl, I, Rr); keys (B,) int32 sorted, in [0, I); perm (B,) int64;
+// src (B, Rl), or with src_idx a (rows, Rl) table looked up by src_idx[b *
+// xs] (int32); dst (B, Rr), or null with last (rows, Rr), last_idx and out
+// (B,) for the last middle mode.
+int tnt_tt_eval_grouped(int dtype, const void* core, int Rl, int I, int Rr, const void* keys,
+                        const void* perm, long long B, const void* src, const void* src_idx,
+                        void* dst, const void* last, const void* last_idx, int xs, void* out,
+                        void* stream) {
+  if (Rl < 1 || I < 1 || Rr < 1 || (!dst && (!last || !last_idx || !out)))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = grouped_smem(Rl, dtype == 0 ? sizeof(float) : sizeof(double));
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  const unsigned blocks = (unsigned)((B + GT - 1) / GT);
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e = cudaSuccess;
+  if (dtype == 0) {
+    auto kernel = tt_eval_grouped_kernel<float>;
+    if (smem > 48 * 1024)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<blocks, GTHREADS, smem, s>>>(
+        (const float*)core, Rl, I, Rr, (const int*)keys, (const int64_t*)perm, (int64_t)B,
+        (const float*)src, (const int*)src_idx, (float*)dst, (const float*)last,
+        (const int*)last_idx, xs, (float*)out);
+  } else {
+    auto kernel = tt_eval_grouped_kernel<double>;
+    if (smem > 48 * 1024)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<blocks, GTHREADS, smem, s>>>(
+        (const double*)core, Rl, I, Rr, (const int*)keys, (const int64_t*)perm, (int64_t)B,
+        (const double*)src, (const int*)src_idx, (double*)dst, (const double*)last,
+        (const int*)last_idx, xs, (double*)out);
+  }
+  return (int)cudaGetLastError();
 }
 
 int tnt_tt_eval_backward(int dtype, int itype, int N, const void* const* cores,

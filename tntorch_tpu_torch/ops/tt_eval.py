@@ -1,6 +1,6 @@
-"""Evaluation of a TT at integer coordinates, and its gradient, each as a
-hand-written CUDA kernel for Hopper (``csrc/tt_eval.cu``) with its plain
-PyTorch version beside it.
+"""Evaluation of a TT at integer coordinates, and its gradient, each as
+hand-written CUDA kernels for Hopper (``csrc/tt_eval.cu``) with their plain
+PyTorch versions beside them.
 
 Counterpart of ``tntorch_tpu/ops/pallas_tt.py`` (``pallas_tt_eval`` and its
 dispatcher ``tt_eval``) and of ``tntorch_tpu/parallel/mesh.py``'s
@@ -8,11 +8,27 @@ dispatcher ``tt_eval``) and of ``tntorch_tpu/parallel/mesh.py``'s
 
 - ``tt_eval_kernel`` <- ``pallas_tt_eval``: the value of the TT with cores
   C_k (R_k, I_k, R_{k+1}) at each row of X (B, N): ``v <- ones(R_0)``,
-  ``v <- v C_k[:, X[b,k], :]`` per mode, column 0 of the last interface;
+  ``v <- v C_k[:, X[b,k], :]`` per mode, column 0 of the last interface.
+  On the card it takes one of two kernels, chosen by the pure predicate
+  `_grouped`:
+
+  - *grouped* (N >= 3, at least ``_GROUP_MIN`` samples per slice of every
+    middle mode, and at least ``_GROUP_MIN_BYTES`` of middle slices for the
+    per-sample kernel to gather): the wrapper wraps and checks the
+    coordinates and sorts each middle mode's with ``torch.sort``
+    (`_group_operands`), then launches ``tt_eval_grouped_kernel`` once per
+    middle mode. A block loads each slice ``C_k[:, i, :]`` once for the run
+    of samples that share coordinate i in its tile and applies it to all of
+    them, so each mode is a grouped product of FP32 FMAs; interfaces pass
+    through device memory between modes. Mode 0 is a lookup in ``C_0.sum(0)`` and
+    the last mode a dot in the last launch's epilogue. Bitwise
+    reproducible: each value is summed in a fixed order whatever the sort.
+  - *per sample* (every other shape, the training step's among them): one
+    warp per sample gathers its own slices, in one launch.
 - ``tt_eval_backward_kernel``: the cores' gradient of ``sum_b g_b
   value_b``. It has no Pallas counterpart (JAX differentiates
   ``tt_batch_forward`` in XLA); the training path needs it because its
-  forward now runs in a kernel.
+  forward runs in a kernel.
 
 `TTEval` joins the two as a ``torch.autograd.Function`` that saves only the
 cores and X: the backward recomputes the interfaces. What bounds the kernels
@@ -21,12 +37,13 @@ on the card, and how they are laid out, is in the source's note.
 Each wrapper takes the plain version for tensors on the CPU, and only
 there. For CUDA tensors it checks device, dtype (float32 or float64
 cores, int32 or int64 coordinates), shapes and contiguity, launches its
-kernel on the current stream, and raises on any failure: it never falls
-back. Negative coordinates wrap as in NumPy; an out-of-range one raises
-``IndexError`` (the kernel flags it, so the wrapper reads one flag back from
-the card per call). Each wrapper counts its launches in a plain integer
-attribute (``tt_eval_kernel.launches``), which only a launch of the kernel
-raises.
+kernels on the current stream, and raises on any failure: it never falls
+back, neither to the plain version nor to the other kernel. Negative
+coordinates wrap as in NumPy; an out-of-range one raises ``IndexError``
+(the wrapper reads one flag back from the card per call). Each wrapper
+counts its calls that launched in a plain integer attribute
+(``tt_eval_kernel.launches``), which only a launch raises;
+``tt_eval_kernel.grouped`` counts those that took the grouped kernel.
 """
 
 from __future__ import annotations
@@ -43,6 +60,15 @@ MAX_MODES = 128  # csrc/tt_eval.cu: MAX_MODES, the modes one launch takes
 _SMEM = 227 * 1024  # shared memory one block may use on Hopper
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 _ITYPES = {torch.int32: 0, torch.int64: 1}
+# The grouped kernel (csrc/tt_eval.cu: GT, GCOLS, GPAD, grouped_smem): sorted
+# positions per block, output columns per pass, pad of a transposed row
+_GROUP_TILE, _GROUP_COLS, _GROUP_PAD = 128, 64, 4
+# From the crossover measured on the card (PERF.md): the grouped kernel serves
+# a call when every middle mode has at least _GROUP_MIN samples per slice
+# (B >= G * I_k) and the slices the per-sample kernel would gather come to at
+# least _GROUP_MIN_BYTES, against which the grouped call's fixed cost (sorts
+# and bookkeeping, ~0.3-0.5 ms) is small
+_GROUP_MIN, _GROUP_MIN_BYTES = 64, 1 << 30
 # The plain backward scatters its outer products in slices of at most this
 # many elements, so that large batches stay within device memory
 _CHUNK = 1 << 26
@@ -145,6 +171,66 @@ def _raise_if_flagged(flag, name):
                          "(mode k takes -I_k .. I_k - 1)")
 
 
+def _grouped_smem(Rl, itemsize):
+    """Shared memory of one grouped block (csrc/tt_eval.cu: grouped_smem):
+    the tile's positions and keys, its input rows and one slice's columns."""
+    return _GROUP_TILE * (8 + 4) + Rl * (_GROUP_TILE + _GROUP_PAD + _GROUP_COLS) * itemsize
+
+
+def _grouped(ranks, dims, B, itemsize):
+    """Whether `tt_eval_kernel` takes the grouped kernel: N >= 3; every
+    middle mode k has a block that fits shared memory and at least
+    ``_GROUP_MIN`` samples per slice (B >= _GROUP_MIN * I_k); and the
+    middle slices of all samples come to ``_GROUP_MIN_BYTES`` or more."""
+    mids = range(1, len(dims) - 1)
+    return (len(dims) >= 3
+            and B * sum(ranks[k] * ranks[k + 1] for k in mids) * itemsize >= _GROUP_MIN_BYTES
+            and all(_grouped_smem(ranks[k], itemsize) <= _SMEM and B >= _GROUP_MIN * dims[k]
+                    for k in mids))
+
+
+def _group_operands(cores, X):
+    """The grouped path's bookkeeping, in PyTorch on X's device: X (B, N)
+    with coordinates wrapped into [0, I_k), as int32 (NumPy's wrap of
+    negative ones; an out-of-range one lands somewhere in range, so no
+    launch reads out of bounds); a flag (0-d) set when any was out of range;
+    for each middle mode k = 1..N-2 its sorted coordinates and the
+    permutation that sorts them; C_0 summed over R_0, (I_0, R_1), the
+    interface after mode 0 by coordinate; and C_{N-1}[:, :, 0] transposed,
+    (I_{N-1}, R_{N-1})."""
+    dims = [c.shape[1] for c in cores]
+    hi, lo = torch.tensor([dims, [-I for I in dims]], dtype=X.dtype).to(X.device)
+    bad = (X < lo) | (X >= hi)
+    Xw = torch.remainder(X, hi).to(torch.int32)  # wraps, and keeps every key in range
+    sorts = [torch.sort(Xw[:, k]) for k in range(1, len(cores) - 1)]
+    first = cores[0].sum(0)
+    last = cores[-1][:, :, 0].t().contiguous()
+    return Xw, bad.any(), sorts, first, last
+
+
+def _ptr(t):
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _tt_eval_grouped(dcode, cores, X, ranks, out):
+    """One grouped launch per middle mode; returns the out-of-range flag."""
+    B, N = X.shape
+    Xw, flag, sorts, first, last = _group_operands(cores, X)
+    col = Xw.element_size()
+    src, src_idx = first, _ptr(Xw)  # mode 0's rows, looked up by coordinate
+    for k in range(1, N - 1):
+        keys, perm = sorts[k - 1]
+        final = k == N - 2
+        dst = None if final else torch.empty((B, ranks[k + 1]), dtype=out.dtype, device=out.device)
+        _launch("tnt_tt_eval_grouped", dcode, _ptr(cores[k]), ranks[k], cores[k].shape[1],
+                ranks[k + 1], _ptr(keys), _ptr(perm), B, _ptr(src), src_idx, _ptr(dst),
+                _ptr(last if final else None),
+                ctypes.c_void_p(Xw.data_ptr() + (N - 1) * col if final else None), N,
+                _ptr(out if final else None))
+        src, src_idx = dst, _ptr(None)
+    return flag
+
+
 def tt_eval_kernel(cores, X):
     """Values (B,) of the TT ``cores`` at the rows of X (B, N)."""
     cores = list(cores)
@@ -156,10 +242,16 @@ def tt_eval_kernel(cores, X):
     if B == 0:
         return out
     with torch.cuda.device(X.device):
-        flag = torch.zeros(1, dtype=torch.int32, device=X.device)
-        _launch("tnt_tt_eval", dcode, icode, N, _array(ctypes.c_void_p, [c.data_ptr() for c in cores]),
-                _array(ctypes.c_int, ranks), _array(ctypes.c_int, dims), ctypes.c_void_p(X.data_ptr()),
-                B, ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(flag.data_ptr()))
+        if _grouped(ranks, dims, B, cores[0].element_size()):
+            flag = _tt_eval_grouped(dcode, cores, X, ranks, out)
+            tt_eval_kernel.grouped += 1
+        else:
+            flag = torch.zeros(1, dtype=torch.int32, device=X.device)
+            _launch("tnt_tt_eval", dcode, icode, N,
+                    _array(ctypes.c_void_p, [c.data_ptr() for c in cores]),
+                    _array(ctypes.c_int, ranks), _array(ctypes.c_int, dims),
+                    ctypes.c_void_p(X.data_ptr()), B, ctypes.c_void_p(out.data_ptr()),
+                    ctypes.c_void_p(flag.data_ptr()))
     tt_eval_kernel.launches += 1
     _raise_if_flagged(flag, "tt_eval")
     return out
@@ -193,6 +285,7 @@ def tt_eval_backward_kernel(cores, X, g):
 
 
 tt_eval_kernel.launches = 0
+tt_eval_kernel.grouped = 0
 tt_eval_backward_kernel.launches = 0
 
 KERNELS = (tt_eval_kernel, tt_eval_backward_kernel)
@@ -202,6 +295,7 @@ PLAIN = {tt_eval_kernel: tt_eval_plain, tt_eval_backward_kernel: tt_eval_backwar
 def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
+    tt_eval_kernel.grouped = 0
 
 
 # ---------------------------------------------------------------------------

@@ -121,11 +121,17 @@ def _steps(k, size: int, device):
 class Tensor:
     """A tensor train, or a batch of B tensor trains of one shape."""
 
-    def __init__(self, data, Us=None, device=None, batch: bool = False, dtype=None,
-                 ranks_tt=None, ranks_tucker=None, ranks_cp=None, eps=None,
-                 requires_grad: bool = False):
+    def __init__(self, data, Us=None, idxs=None, device=None, requires_grad=None,
+                 ranks_cp=None, ranks_tucker=None, ranks_tt=None, eps=None,
+                 max_iter: int = 25, tol: float = 1e-4, verbose: bool = False,
+                 batch: bool = False, algorithm: str = "svd", dtype=None):
         """Build from a list of TT cores, or exactly (full rank) from a dense
-        array. ``device``/``dtype`` move and cast the cores."""
+        array. ``device``/``dtype`` move and cast the cores. The parameters
+        are the JAX package's, in its order; ``max_iter``, ``tol``,
+        ``verbose`` and ``algorithm`` steer decompositions that are not
+        ported yet and change nothing here."""
+        if idxs is not None:
+            raise _not_ported("Index sets (idxs=)", "queue 1 item 4")
         if ranks_tt is not None or eps is not None:
             raise _not_ported("Decomposing dense data (ranks_tt=, eps=)",
                               "queue 1 item 1")
@@ -158,7 +164,7 @@ class Tensor:
             else:
                 self.cores = _full_rank_tt(data)
         self.Us = [None] * len(self.cores)
-        self.requires_grad = bool(requires_grad)
+        self.requires_grad = bool(requires_grad)  # None means False
         if self.requires_grad:  # leaves of autograd (sharing torch input's storage)
             self.cores = [c.detach().requires_grad_(True) for c in self.cores]
 
@@ -186,8 +192,8 @@ class Tensor:
             b = core1.shape[:1] if self.batch else ()
             R1l, I, R1r = core1.shape[-3:]
             R2l, _, R2r = core2.shape[-3:]
-            dtype = torch.promote_types(core1.dtype, core2.dtype)
-            c = torch.zeros(b + (R1l + R2l, I, R1r + R2r), dtype=dtype, device=core1.device)
+            # the left operand's dtype, as the JAX package keeps it
+            c = torch.zeros(b + (R1l + R2l, I, R1r + R2r), dtype=core1.dtype, device=core1.device)
             c[..., :R1l, :, :R1r] = core1
             c[..., R1l:, :, R1r:] = core2
             cores.append(c)
@@ -212,13 +218,16 @@ class Tensor:
     def __mul__(self, other):
         if not isinstance(other, Tensor):  # scalar: spread |c|^(1/N), sign on core 0
             result = self.clone()
-            arr = torch.as_tensor(other)
-            if self.batch and arr.ndim == 1:  # one scalar per sample, shape (B,)
-                arr = arr.to(self.cores[0].device)
-                factor = (arr.abs() ** (1.0 / self.dim())).reshape(-1, 1, 1, 1)
-                result.cores = [c * factor.to(c.dtype) for c in result.cores]
-                result.cores[0] = result.cores[0] * arr.sign().reshape(-1, 1, 1, 1).to(
-                    result.cores[0].dtype)
+            if isinstance(other, torch.Tensor) or (self.batch and np.ndim(other) == 1):
+                # A torch scalar stays on its device (and in the autograd
+                # graph); one scalar per sample, shape (B,), spreads per core
+                arr = torch.as_tensor(other)
+                factor, sign = arr.abs() ** (1.0 / self.dim()), torch.sgn(arr)
+                if self.batch and arr.ndim == 1:
+                    factor, sign = factor.reshape(-1, 1, 1, 1), sign.reshape(-1, 1, 1, 1)
+                result.cores = [c * factor.to(c.device, c.dtype) for c in result.cores]
+                c0 = result.cores[0]
+                result.cores[0] = c0 * sign.to(c0.device, c0.dtype)
                 return result
             # Python floats keep the cores' dtype
             factor = float(np.abs(other) ** (1.0 / self.dim()))
@@ -236,6 +245,17 @@ class Tensor:
         if isinstance(other, Tensor):
             raise _not_ported("Division by a Tensor (cross approximation)", "queue 1 item 7")
         return self * (1.0 / other)
+
+    def __eq__(self, other):
+        from tntorch_tpu_torch.metrics import dist
+
+        # dist is (B,) for batch tensors: equal only if every sample matches
+        return bool(torch.all(dist(self, other) <= 1e-14))
+
+    def __ne__(self, other):
+        return not self == other
+
+    __hash__ = None  # mutable container
 
     # ------------------------------------------------------------------
     # Shapes and ranks
