@@ -19,16 +19,21 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    The two ``tt_eval`` kernels are timed in turns at the design shape and
    at a few samples per slice (their crossover), and the grouped one must
    give bitwise the same values on two calls.
-   ``proj2`` is held on both of its kernels (resident projectors, and the
-   two-stage kernel beyond that tile) and both are timed at the bench
-   shape; the Rr=1 edge is timed as the kernel and as the batched product
-   that the sweep routes it to;
+   ``gram_edge``, ``wgram`` and ``proj2`` are each held on both of their
+   kernels (the resident one: G or W, or the projectors, in shared memory;
+   and the two-stage kernel, which also serves the shapes beyond the
+   resident tile), each call also bitwise equal to a second one; at the
+   bench shape the wrapper's kernel, the two-stage kernel and the plain
+   version are timed in turns with the SM clock read while the resident
+   kernel runs; the Rr=1 edge is timed as the kernel and as the batched
+   product that the sweep routes it to;
 4. the rounding path: batched TT rounding of B=32 TTs (N=4, I=256, rank
    128 -> 64, float32) through ``Tensor.round_tt(algorithm='randgram')``,
    with launch counts (2/2/2), a check of two samples against the port on
    the CPU in float64, the sweep's time in turns with the kernels, with
-   their plain versions and with the two-stage ``proj2``, and a
-   torch.profiler breakdown of one sweep;
+   their plain versions, with the two-stage ``gram_edge``/``wgram`` and
+   with the two-stage ``proj2``, and a torch.profiler breakdown of one
+   sweep for each kernel variant, with each Gram launch's device time;
 5. a non-batch pass on the card (``+``, ``*``, ``round_tt``, ``dot``,
    ``norm``) against the same on the CPU;
 6. the evaluation path: ``tn.tt_eval`` and ``t[X].full()`` at the design
@@ -132,16 +137,29 @@ def cuda_time(fn, reps=5, inner=5):
     return sorted(times)[len(times) // 2]
 
 
-def two_stage_proj2(fn):
-    """``fn()`` with proj2 on its two-stage kernel at every shape."""
+def _two_stage(predicate, fn):
     from tntorch_tpu_torch.ops import gram_kernels as gk
 
-    choice = gk._proj2_resident
-    gk._proj2_resident = lambda *_: False
+    choice = getattr(gk, predicate)
+    setattr(gk, predicate, lambda *_: False)
     try:
         return fn()
     finally:
-        gk._proj2_resident = choice
+        setattr(gk, predicate, choice)
+
+
+def two_stage_proj2(fn):
+    """``fn()`` with proj2 on its two-stage kernel at every shape."""
+    return _two_stage("_proj2_resident", fn)
+
+
+def two_stage_gram(fn):
+    """``fn()`` with gram_edge and wgram on their two-stage kernel at every
+    shape."""
+    return _two_stage("_gram_resident", fn)
+
+
+TWO_STAGE = {"gram_edge": two_stage_gram, "wgram": two_stage_gram, "proj2": two_stage_proj2}
 
 
 def tt_path(grouped, fn):
@@ -235,9 +253,10 @@ def check_kernels():
 
     B, R, I, r = BENCH["B"], BENCH["R"], BENCH["I"], BENCH["rmax"]
     bench_shape = (B, R, I, R, r, r)
-    # proj2 runs its resident-projector kernel at the first four shapes and
-    # the two-stage kernel at the last two (beyond the resident tile); at
-    # the first four the two-stage kernel is checked too
+    # In float32, gram_edge, wgram and proj2 run their resident kernels at
+    # the first four shapes and the two-stage kernel at the last two (beyond
+    # the resident tiles); at the first four the two-stage kernel is
+    # checked too. Float64 runs the two-stage Gram kernel everywhere
     shapes = [bench_shape, (B, R, I, 1, r, 1), (3, 5, 37, 3, 4, 2), (2, 5, 37, 1, 3, 1),
               (2, 70, 37, 130, 65, 3), (2, 256, 16, 256, 128, 128)]
     kernels = {"gram_edge": gk.gram_edge, "wgram": gk.wgram, "proj2": gk.proj2}
@@ -260,46 +279,58 @@ def check_kernels():
         dname = str(dtype).split(".")[-1]
         for shape in shapes:
             inputs = kernel_inputs(shape, dtype, gen)
-            resident = gk._proj2_resident(shape[4], shape[1], shape[3], shape[5],
-                                          dtype.itemsize)
-            # (tag, kernel name, call, whether the call is the wrapper's own choice)
-            runs = [("gram_edge", "gram_edge", gk.gram_edge, True),
-                    ("wgram", "wgram", gk.wgram, True),
-                    ("proj2/resident" if resident else "proj2/two-stage", "proj2", gk.proj2, True)]
-            if resident:
-                runs.append(("proj2/two-stage", "proj2",
-                             lambda *a: two_stage_proj2(lambda: gk.proj2(*a)), False))
+            Rl, Rr, r1, r2 = shape[1], shape[3], shape[4], shape[5]
+            resident = {"gram_edge": gk._gram_resident(Rl, Rr, dtype.itemsize),
+                        "wgram": gk._gram_resident(Rl, Rr, dtype.itemsize),
+                        "proj2": gk._proj2_resident(r1, Rl, Rr, r2, dtype.itemsize)}
+            # (tag, kernel name, call, whether the call is the wrapper's own
+            # choice); where the wrapper takes a resident kernel, the
+            # two-stage kernel is held to the plain version too
+            runs = []
+            for name, kernel in kernels.items():
+                runs.append((f"{name}/{'resident' if resident[name] else 'two-stage'}", name,
+                             kernel, True))
+                if resident[name]:
+                    runs.append((f"{name}/two-stage", name,
+                                 lambda *a, n=name: TWO_STAGE[n](lambda: kernels[n](*a)), False))
             for tag, name, kernel, main in runs:
                 args = inputs[name]
                 got = kernel(*args)
+                again = kernel(*args)
                 torch.cuda.synchronize()
                 want = gk.PLAIN[kernels[name]](*args)
                 torch.cuda.synchronize()
                 if not torch.isfinite(got).all():
                     raise AssertionError(f"{tag} {dname} {shape}: non-finite output")
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{tag} {dname} {shape}: two calls differ")
                 err = float((got - want).abs().max())
                 rel = err / max(float(want.abs().max()), 1e-300)
-                line = f"{tag:15s} {dname} B,Rl,I,Rr,r1,r2={shape}: max|diff| {err:.3e}, rel {rel:.3e}"
+                line = (f"{tag:19s} {dname} B,Rl,I,Rr,r1,r2={shape}: max|diff| {err:.3e}, "
+                        f"rel {rel:.3e}, bitwise equal on two calls")
                 if shape == bench_shape and dtype == torch.float32 and main:
-                    ms = cuda_time(lambda: kernel(*args))
-                    plain_ms = cuda_time(lambda: gk.PLAIN[kernel](*args))
+                    # The kernel, its plain version and (where the wrapper
+                    # takes a resident kernel) the two-stage kernel, in turns
+                    variants = {"kernel": lambda: kernel(*args),
+                                "plain": lambda: gk.PLAIN[kernel](*args)}
+                    if resident[name]:
+                        variants["two-stage"] = lambda: TWO_STAGE[name](lambda: kernel(*args))
+                    turns = {v: [] for v in variants}
+                    for v in list(variants) + list(variants)[::-1]:
+                        turns[v].append(cuda_time(variants[v]))
+                    ms, plain_ms = min(turns["kernel"]), min(turns["plain"])
                     library_ms = cuda_time(lambda: library[name](*args))
                     bound, by = bound_ms(flops(name, *shape), nbytes(*args, got))
                     report[name].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                         bound_ms=bound, bound_by=by, library_ms=library_ms)
                     line += (f", kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, one einsum "
-                             f"{library_ms:.3f} ms, bound {bound:.3f} ms ({by})")
-                    if name == "proj2":  # both kernels of proj2 in turns
-                        turns = {False: [], True: []}
-                        def run():
-                            return cuda_time(lambda: kernel(*args))
-
-                        for two_stage in (False, True, True, False):
-                            turns[two_stage].append(two_stage_proj2(run) if two_stage else run())
-                        report[name]["two_stage_ms"] = min(turns[True])
-                        line += (f"\n    proj2 in turns: resident {turns[False]} ms, "
-                                 f"two-stage {turns[True]} ms; SM clock, power while the "
-                                 f"resident kernel runs: {smi_while(lambda: kernel(*args))}")
+                             f"{library_ms:.3f} ms, bound {bound:.3f} ms ({by}), "
+                             f"{flops(name, *shape) / ms / 1e9:.1f} TFLOP/s"
+                             f"\n    in turns (ms): " + "; ".join(f"{v} {t}" for v, t in turns.items()))
+                    if resident[name]:
+                        report[name]["two_stage_ms"] = min(turns["two-stage"])
+                        line += (f"\n    SM clock, power while the resident kernel runs: "
+                                 f"{smi_while(lambda: kernel(*args))}")
                 print(line, flush=True)
                 if rel > KERNEL_TOL[dname]:
                     raise AssertionError(f"{tag} disagrees with its plain version: rel {rel:.3e}")
@@ -526,6 +557,7 @@ def main_path():
                 setattr(gk, k, kern[k])
 
     variants = {"kernels": lambda fn: fn(), "plain versions": plain_versions,
+                "kernels, two-stage gram_edge/wgram": two_stage_gram,
                 "kernels, two-stage proj2": two_stage_proj2}
     runs = {v: [] for v in variants}
     for v in list(variants) + list(variants)[::-1]:
@@ -534,9 +566,11 @@ def main_path():
           + "; per sample " + ", ".join(f"{min(t) / B:.4f} ms ({v})" for v, t in runs.items()))
 
     # Where one sweep's device time goes, by kernel (torch.profiler), with
-    # each proj2 kernel
+    # each kernel variant
     print("profile, kernels:")
-    profile_device(sweep, steps=1)
+    profile_device(sweep, steps=1, each="gram_resident_kernel")
+    print("profile, kernels with the two-stage gram_edge/wgram:")
+    two_stage_gram(lambda: profile_device(sweep, steps=1, each="two_stage_kernel<float, 8"))
     print("profile, kernels with the two-stage proj2:")
     two_stage_proj2(lambda: profile_device(sweep, steps=1))
     return launches

@@ -128,6 +128,86 @@ def test_proj2_resident_limit_in_Rl(itemsize, largest):
     assert not gk._proj2_resident(64, largest + 1, 128, 64, itemsize)
 
 
+@pytest.mark.parametrize("Rl, Rr, itemsize, resident", [
+    (128, 128, 4, True),    # the bench sweep's middle edges
+    (128, 128, 8, False),   # float64 takes the two-stage kernel
+    (5, 3, 4, True),        # small ragged ranks
+    (128, 1, 4, True),      # Rr = 1
+    (1, 128, 4, True),      # Rl = 1
+    (127, 127, 4, True),
+    (129, 128, 4, False),   # Rl one over the tile
+    (128, 129, 4, False),   # Rr one over the tile
+    (70, 130, 4, False),
+    (256, 256, 4, False),
+])
+def test_gram_kernel_choice_by_tile_and_dtype(Rl, Rr, itemsize, resident):
+    assert gk._gram_resident(Rl, Rr, itemsize) is resident
+
+
+def _plan_items(B, I, blocks):
+    """Each sample's items (z, i) in the order the plan sums them: by slot,
+    and within a slot's block run by i."""
+    run, first, sample = gk._gram_plan(B, I, blocks)
+    by_slot = {}
+    for j in range(blocks):
+        for u in range(run[j], run[j + 1]):
+            z, i = divmod(u, I)
+            by_slot.setdefault(first[j] + z - run[j] // I, []).append((z, i))
+    return run, first, sample, by_slot
+
+
+@pytest.mark.parametrize("I, blocks", [(1, 1), (37, 7), (256, 132), (5, 264)])
+@pytest.mark.parametrize("B", [1, 3, 32, 300])
+def test_gram_plan_covers_each_item_once_in_a_fixed_order(B, I, blocks):
+    blocks = min(blocks, B * I)
+    run, first, sample, by_slot = _plan_items(B, I, blocks)
+    assert run[0] == 0 and run[-1] == B * I
+    assert all(a < b for a, b in zip(run, run[1:]))  # no empty run
+    assert first[0] == 0 and all(a < b for a, b in zip(first, first[1:]))
+    assert sorted(by_slot) == list(range(sample[B]))  # every slot written once
+    assert sample[0] == 0 and all(a < b for a, b in zip(sample, sample[1:]))
+    for z in range(B):
+        slots = range(sample[z], sample[z + 1])
+        items = [it for s in slots for it in by_slot[s]]
+        assert all(it[0] == z for it in items)          # a slot holds one sample
+        assert items == [(z, i) for i in range(I)]      # each i once, in order
+    # At most one slot per block and sample: a block's run spans samples
+    # run[j] // I .. (run[j+1] - 1) // I
+    assert sample[B] == sum((run[j + 1] - 1) // I - run[j] // I + 1 for j in range(blocks))
+    assert gk._gram_plan(B, I, blocks) == (run, first, sample)  # a pure function
+
+
+def test_gram_plan_refuses_empty_runs():
+    with pytest.raises(ValueError):
+        gk._gram_plan(2, 3, 7)
+    with pytest.raises(ValueError):
+        gk._gram_plan(2, 3, 0)
+
+
+@pytest.mark.parametrize("name", ["gram_edge", "wgram"])
+def test_gram_plan_partials_sum_to_the_plain_version(name):
+    # The resident kernel's reduction in float64 on the CPU: each block sums
+    # its run's items per sample into its slots, then each sample's slots
+    # are added in slot order
+    B, Rl, I, Rr = 3, 5, 37, 4
+    a = _inputs((B, Rl, I, Rr, 1, 1), np.float64, seed=8)
+    C = torch.from_numpy(a["C"])
+    Q = torch.from_numpy(a["G" if name == "gram_edge" else "W"])
+    plain = gk.PLAIN[getattr(gk, name)]
+    blocks = 7
+    _, _, sample, by_slot = _plan_items(B, I, blocks)
+    parts = []
+    for s in range(sample[B]):
+        acc = 0
+        for z, i in by_slot[s]:
+            acc = acc + plain(C[z:z + 1, :, i:i + 1], Q[z:z + 1])[0]
+        parts.append(acc)
+    got = torch.stack([sum(parts[sample[z] + 1:sample[z + 1]], parts[sample[z]])
+                       for z in range(B)])
+    want = plain(C, Q)
+    assert _rel(got.numpy(), want.numpy()) <= 1e-12
+
+
 def test_build_needs_nvcc_and_keys_the_library_on_the_source(monkeypatch):
     import hashlib
 
@@ -148,10 +228,11 @@ def test_build_needs_nvcc_and_keys_the_library_on_the_source(monkeypatch):
 def test_kernels_match_plain_versions_on_cuda(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    # (2, 70, 37, 130, 65, 3) is beyond the resident proj2 kernel's tile:
-    # proj2 takes the two-stage kernel there and the resident one elsewhere
+    # (2, 70, 37, 130, 65, 3) is beyond the resident kernels' tiles: the
+    # wrappers take the two-stage kernel there and (in float32) the resident
+    # ones elsewhere; (300, 7, 3, 9, 2, 2) makes block runs cross samples
     shapes = [(4, 64, 40, 64, 32, 32), (3, 5, 37, 3, 4, 3), (2, 5, 37, 1, 3, 1),
-              (2, 70, 37, 130, 65, 3)]
+              (2, 70, 37, 130, 65, 3), (300, 7, 3, 9, 2, 2), (2, 128, 33, 128, 8, 8)]
     for dtype, tol in ((np.float32, 1e-4), (np.float64, 1e-12)):
         for shape in shapes:
             a = _inputs(shape, dtype, seed=3)
@@ -163,9 +244,15 @@ def test_kernels_match_plain_versions_on_cuda(monkeypatch):
                 assert kernel.launches == before + 1
                 want = gk.PLAIN[kernel](*args)
                 assert _rel(got.cpu().numpy(), want.cpu().numpy()) <= tol, (name, shape, dtype)
-            args = [torch.from_numpy(a[k]).cuda() for k in ARGS["proj2"]]
-            with monkeypatch.context() as m:  # the two-stage kernel at every shape
-                m.setattr(gk, "_proj2_resident", lambda *_: False)
-                got = gk.proj2(*args)
-            want = gk.proj2_plain(*args)
-            assert _rel(got.cpu().numpy(), want.cpu().numpy()) <= tol, ("two-stage", shape)
+            for name, predicate in (("proj2", "_proj2_resident"), ("gram_edge", "_gram_resident"),
+                                    ("wgram", "_gram_resident")):
+                kernel = getattr(gk, name)
+                args = [torch.from_numpy(a[k]).cuda() for k in ARGS[name]]
+                got = kernel(*args)
+                assert torch.equal(got, kernel(*args)), (name, shape, "two calls differ")
+                with monkeypatch.context() as m:  # the two-stage kernel at every shape
+                    m.setattr(gk, predicate, lambda *_: False)
+                    two_stage = kernel(*args)
+                want = gk.PLAIN[kernel](*args)
+                assert _rel(two_stage.cpu().numpy(), want.cpu().numpy()) <= tol, (name, shape)
+                assert _rel(got.cpu().numpy(), two_stage.cpu().numpy()) <= tol, (name, shape)

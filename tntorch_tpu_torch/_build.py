@@ -39,6 +39,7 @@ SIGNATURES = {
         "tnt_wgram": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "tnt_proj2": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
         "tnt_proj2_resident": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "tnt_gram_resident": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "tnt_occupancy": [_I, _I, _I],
     },
     "tt_eval": {

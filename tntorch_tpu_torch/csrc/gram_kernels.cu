@@ -19,9 +19,40 @@
 // the design spends its effort on the inner product. Tensor cores (3xTF32
 // or TF32 wgmma) are later work.
 //
-// Design of gram_edge and wgram, and of proj2 beyond the resident tile: one
-// pattern, run by one kernel template (two_stage_kernel) with the operands'
-// strides as parameters: per mode index i,
+// gram_edge and wgram in float32 with Rl, Rr <= 128 (the bench sweep's
+// middle edges) run gram_resident_kernel, one kernel for both edges:
+// - persistent blocks, one wave (one block per SM, sized by the caller from
+//   tnt_occupancy), each walking a contiguous run of the B x I work units
+//   (z, i) that the caller's plan hands it; a block owns a sample's whole
+//   output (128 x 128: 256 threads x 8 x 8 registers), so C_i comes on chip
+//   once per i, by one block, and the sum over i stays in registers;
+// - G (or W, transposed) resident in shared memory, reloaded only when the
+//   block's sample changes;
+// - C_i streamed through a 12-slot ring of 16-deep k-slices, 4 slices ahead
+//   (16-byte cp.async.cg copies for wgram, whose contraction runs over C's
+//   rows; 4-byte copies that transpose for gram_edge, whose contraction runs
+//   over C's contiguous index), one barrier per slice, a slice's copies
+//   spread over stage 1's k-steps. One transfer of C_i serves both stages:
+//   the unit's slices stay in the ring through stage 2 while the next
+//   unit's first 4 slices load;
+// - T_i = C_i G (or W C_i) kept in shared memory between the stages;
+//   transposed stores and copies are XOR-swizzled (swz, tsw) so they are
+//   free of bank conflicts; a warp is 4 x 8 threads of the 16 x 16, so a
+//   16-byte shared load asks for 4 or 8 distinct addresses; exact FP32 FMAs;
+// - at a sample boundary and at the end of its run a block writes its
+//   partial into the slot the plan gives it, and a second pass sums each
+//   sample's slots in slot order: no atomics, bitwise reproducible.
+// G (or W), T and the ring take 224 KB of the 227 KB a block may use. f64,
+// and ranks above 128, take two_stage_kernel<T, 8, false>. At the bench
+// shape it runs at 60% (gram_edge) and 68% (wgram) of the FP32 peak against
+// two_stage_kernel's 38% (NVIDIA H100 80GB HBM3, 700.00 W, chip_smoke.py
+// phase 3); its hot loops are 81% (stage 1) and 94% (stage 2) FFMA, so what
+// is left is stalls; gram_edge's ~12% over wgram most likely comes from
+// its transposing 4-byte copies (the one part of the two that differs).
+//
+// Design of two_stage_kernel (gram_edge and wgram outside that tile, proj2
+// beyond its resident tile): one pattern with the operands' strides as
+// parameters: per mode index i,
 //   stage 1: t[m][n] = sum_k P_i[m][k] Q_i[k][n]   (the intermediate)
 //   stage 2: acc[m][j] += sum_n t[m][n] R_i[n][j]
 // A block owns a 64-row output tile and 128 (gram_edge, wgram) or 64
@@ -618,6 +649,278 @@ int proj2_resident(const T* Y, const T* C, const T* X, T* out, int B, int r1, in
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// gram_edge and wgram with G or W resident (see the design notes at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int GR = 128;     // the tile: Rl, Rr <= 128, a 128 x 128 output per sample
+constexpr int GKS = 16;     // depth of a ring slice
+constexpr int GSLOTS = 12;  // ring slots
+constexpr int GAHEAD = 4;   // slices in flight ahead of the one being multiplied
+// A unit's slices stay in the ring through its stage 2 while the next
+// unit's first GAHEAD slices load
+static_assert(GSLOTS - GAHEAD >= GR / GKS, "ring too small for a unit");
+constexpr size_t GRAM_SMEM = sizeof(float) * (2 * GR * GR + GSLOTS * GKS * GR);
+
+struct GramArgs {
+  const float* C;
+  const float* Q;  // G (gram_edge) or W (wgram)
+  float* part;     // the partial sums, slot by slot, each M x M
+  float* out;
+  const int64_t* run;     // block j walks the units [run[j], run[j + 1]) ...
+  const int64_t* first;   // ... and writes its partials from slot first[j] on
+  const int64_t* sample;  // sample z's partials: slots [sample[z], sample[z + 1])
+  int B, Rl, I, Rr;
+  int vec;  // rows of C are 16-byte aligned (wgram's copies)
+};
+
+// Column of element (k, x) of a tile stored transposed (k-major, filled by
+// 4-byte copies that walk 8 k by 4 x per warp): chunks of 4 along x are
+// XORed with k's low 3 bits, so those copies hit 32 distinct banks.
+__device__ __forceinline__ int tsw(int k, int x) { return x ^ ((k & 7) << 2); }
+
+// One block per SM walks a contiguous run of the B x I units (z, i) and
+// keeps a 128 x 128 output tile in registers (8 x 8 per thread, rows 4 ty +
+// r and 64 + 4 ty + r, columns 4 tx + c and 64 + 4 tx + c). Per unit, with
+// K the contracted rank (Rr for gram_edge, Rl for wgram) and Ck the unit's
+// C_i as K k-major rows in the ring:
+//   gram_edge: Ck[b][a] = C[a, i, b] (transposed by the copies)
+//     stage 1  T[a][c] = sum_b Ck[b][a] G[b][c]      (A: ring, B: Qs = G)
+//     stage 2  o[a][d] += sum_c T[a][c] Ck[c][d]     (A: Ts = T^T, B: ring)
+//   wgram: Ck[a][b] = C[a, i, b]
+//     stage 1  T[a][d] = sum_a' W[a][a'] Ck[a'][d]   (A: Qs = W^T, B: ring)
+//     stage 2  o[b][d] += sum_a Ck[a][b] T[a][d]     (A: ring, B: Ts = T)
+// The ring's slices run on across units: slice g goes to slot g % GSLOTS,
+// GAHEAD slices ahead of the one multiplied, one barrier per slice.
+template <bool GE>
+__global__ void __launch_bounds__(NT, 1) gram_resident_kernel(const GramArgs p) {
+  constexpr int SL = GKS * GR;  // floats per slice
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);  // GR x GR, k-major
+  float* Ts = Qs + GR * GR;                        // GR x GR, k-major (stage 2's k)
+  float* Cs = Ts + GR * GR;                        // the ring: GSLOTS x GKS x GR
+
+  // A warp holds 4 x 8 threads of the 16 x 16: each A load asks shared
+  // memory for 4 distinct float4, each B load for 8
+  const int tid = threadIdx.x, w = tid / 32, l = tid % 32;
+  const int ty = (w / 2) * 4 + l / 8, tx = (w % 2) * 8 + l % 8;
+  const int K = GE ? p.Rr : p.Rl, M = GE ? p.Rl : p.Rr;
+  const int nk = (K + GKS - 1) / GKS;
+  const int64_t sA = (int64_t)p.I * p.Rr;  // stride of C's left-rank index
+  const int64_t u0 = p.run[blockIdx.x], u1 = p.run[blockIdx.x + 1];
+  const int z0 = (int)(u0 / p.I), i00 = (int)(u0 % p.I);
+  float* part = p.part + p.first[blockIdx.x] * M * M;
+
+  // The producer's place: k-slice pk of unit pu = (pz, pi) of C, whose
+  // C[pz, 0, pi, 0] is psrc, into slot pst. copy(q) issues part q of 8 of
+  // that slice (0 outside C; nothing past the block's last slice); next()
+  // commits the slice as one group and moves on. Stage 1 spreads a slice's
+  // parts over its k-steps, so the copies never queue up all at once.
+  int64_t pu = u0;
+  int pz = z0, pi = i00, pk = 0, pst = 0;
+  const float* psrc = p.C + ((int64_t)z0 * p.Rl * p.I + i00) * p.Rr;
+  auto copy = [&](int q) {
+    if (pu >= u1) return;
+    float* dst = Cs + pst * SL;
+    const int k0 = pk * GKS;
+    if (GE) {  // dst[k][tsw(k, a)] = C[pz, a, pi, k0 + k]; a warp copies 8 k x 4 a
+      const int k = (tid & 7) + 8 * (q >> 2), a = (tid >> 3) + 32 * (q & 3);
+      const bool ok = a < p.Rl && k0 + k < p.Rr;
+      cp_async<4>(dst + k * GR + tsw(k, a), ok ? psrc + a * sA + k0 + k : p.C, ok ? 4 : 0);
+    } else if (p.vec) {  // dst[k][b] = C[pz, k0 + k, pi, b], 16 bytes a copy, parts 0 and 1
+      if (q >= SL / (4 * NT)) return;
+      const int k = tid / 32 + 8 * q, b = tid % 32 * 4;
+      const bool ok = k0 + k < p.Rl && b < p.Rr;
+      cp_async16(dst + k * GR + b, ok ? psrc + (k0 + k) * sA + b : p.C, ok ? 16 : 0);
+    } else {  // the same, 4 bytes a copy
+      const int k = tid / GR + 2 * q, b = tid % GR;
+      const bool ok = k0 + k < p.Rl && b < p.Rr;
+      cp_async<4>(dst + k * GR + b, ok ? psrc + (k0 + k) * sA + b : p.C, ok ? 4 : 0);
+    }
+  };
+  auto next = [&]() {
+    if (pu < u1 && ++pk == nk) {  // on to the next unit
+      pk = 0, ++pu, psrc += p.Rr;
+      if (++pi == p.I) pi = 0, ++pz, psrc = p.C + (int64_t)pz * p.Rl * sA;
+    }
+    cp_async_commit();
+    pst = pst == GSLOTS - 1 ? 0 : pst + 1;
+  };
+  static_assert(SL / NT == 8, "8 copy parts a slice");
+
+  for (int s = 0; s < GAHEAD; ++s) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) copy(q);
+    next();
+  }
+  float o[8][8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) o[r][c] = 0.f;
+  int z = z0, i = i00, zq = -1, cst = 0;  // cst: the slot of the next slice
+  for (int64_t u = u0; u < u1; ++u) {
+    if (z != zq) {
+      // Q of sample z; the last reads of Qs (stage 1 of the last unit) are
+      // behind the barrier that published T, and the first slice's barrier
+      // below publishes this
+      if (GE) {  // Qs[b][c] = G[z, b, c]
+        const float* G = p.Q + (int64_t)z * p.Rr * p.Rr;
+#pragma unroll 8
+        for (int e = tid; e < GR * GR; e += NT) {
+          const int b = e / GR, c = e % GR;
+          Qs[e] = b < p.Rr && c < p.Rr ? G[b * p.Rr + c] : 0.f;
+        }
+      } else {  // Qs[a'][tsw(a', a)] = W[z, a, a']
+        const float* W = p.Q + (int64_t)z * p.Rl * p.Rl;
+        const int kb = tid & 7, ab = tid >> 3;
+#pragma unroll 8
+        for (int q = 0; q < GR * GR / NT; ++q) {
+          const int k = kb + 8 * (q >> 2), a = ab + 32 * (q & 3);
+          Qs[k * GR + tsw(k, a)] = a < p.Rl && k < p.Rl ? W[a * p.Rl + k] : 0.f;
+        }
+      }
+      zq = z;
+    }
+
+    // Stage 1: t = T's tile, over the unit's nk slices as they land
+    float t[8][8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) t[r][c] = 0.f;
+    const int cst0 = cst;
+    for (int kk = 0; kk < nk; ++kk) {
+      cp_async_wait<GAHEAD - 1>();  // this thread's copies of this slice landed
+      __syncthreads();  // everyone's landed, and every earlier read of the slot refilled next is done
+      const float* Cb = Cs + cst * SL;
+      cst = cst == GSLOTS - 1 ? 0 : cst + 1;
+      const float* Ab = GE ? Cb : Qs + kk * SL;  // transposed (tsw)
+      const float* Bb = GE ? Qs + kk * SL : Cb;
+#pragma unroll
+      for (int k = 0; k < GKS; ++k) {
+        if (k % 2 == 0) copy(k / 2);  // the slice GAHEAD ahead, into a slot read 8 slices ago
+        float a[2][4], b[2][4];
+        load4(a[0], Ab + k * GR + tsw(k, 4 * ty));
+        load4(a[1], Ab + k * GR + tsw(k, 64 + 4 * ty));
+        load4(b[0], Bb + k * GR + 4 * tx);
+        load4(b[1], Bb + k * GR + 64 + 4 * tx);
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) t[r][c] += a[r / 4][r % 4] * b[c / 4][c % 4];
+      }
+      next();
+    }
+    // T to shared memory, k-major for stage 2: wgram's k is T's row, stored
+    // as is; gram_edge's is T's column, stored transposed with swz
+    if (GE) {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int n = (c / 4) * 64 + 4 * tx + c % 4;
+        store4(Ts + n * GR + swz(n, 4 * ty), t[0][c], t[1][c], t[2][c], t[3][c]);
+        store4(Ts + n * GR + swz(n, 64 + 4 * ty), t[4][c], t[5][c], t[6][c], t[7][c]);
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int m = (r / 4) * 64 + 4 * ty + r % 4;
+        store4(Ts + m * GR + 4 * tx, t[r][0], t[r][1], t[r][2], t[r][3]);
+        store4(Ts + m * GR + 64 + 4 * tx, t[r][4], t[r][5], t[r][6], t[r][7]);
+      }
+    }
+    __syncthreads();
+
+    // Stage 2: o += over the same slices, still in the ring
+    int st = cst0;
+    for (int kk = 0; kk < nk; ++kk) {
+      const float* Cb = Cs + st * SL;
+      st = st == GSLOTS - 1 ? 0 : st + 1;
+      const float* Tb = Ts + kk * SL;
+#pragma unroll
+      for (int k = 0; k < GKS; ++k) {
+        float a[2][4], b[2][4];
+        if (GE) {
+          const int kg = kk * GKS + k;
+          load4(a[0], Tb + k * GR + swz(kg, 4 * ty));
+          load4(a[1], Tb + k * GR + swz(kg, 64 + 4 * ty));
+          load4(b[0], Cb + k * GR + tsw(k, 4 * tx));
+          load4(b[1], Cb + k * GR + tsw(k, 64 + 4 * tx));
+        } else {
+          load4(a[0], Cb + k * GR + 4 * ty);
+          load4(a[1], Cb + k * GR + 64 + 4 * ty);
+          load4(b[0], Tb + k * GR + 4 * tx);
+          load4(b[1], Tb + k * GR + 64 + 4 * tx);
+        }
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) o[r][c] += a[r / 4][r % 4] * b[c / 4][c % 4];
+      }
+    }
+
+    // At the end of a sample's units in this run, its partial to its slot
+    const int zn = i + 1 == p.I ? z + 1 : z;
+    if (zn != z || u + 1 == u1) {
+      float* dst = part + (int64_t)(z - z0) * M * M;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int m = (r / 4) * 64 + 4 * ty + r % 4;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int n = (c / 4) * 64 + 4 * tx + c % 4;
+          if (m < M && n < M) dst[m * M + n] = o[r][c];
+          o[r][c] = 0.f;
+        }
+      }
+    }
+    i = i + 1 == p.I ? 0 : i + 1;
+    z = zn;
+  }
+  cp_async_wait<0>();  // only empty groups remain; leave none in flight
+}
+
+// out[z][j] = the sum of part[s][j] over sample z's slots, in slot order.
+__global__ void sum_slots_kernel(const float* __restrict__ part, const int64_t* __restrict__ sample,
+                                 float* __restrict__ out, int B, int64_t n) {
+  for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; e < B * n;
+       e += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t z = e / n, j = e % n, s1 = sample[z + 1];
+    float s = part[sample[z] * n + j];
+    for (int64_t q = sample[z] + 1; q < s1; ++q) s += part[q * n + j];
+    out[e] = s;
+  }
+}
+
+template <bool GE>
+cudaError_t allow_gram_resident() {
+  return cudaFuncSetAttribute(gram_resident_kernel<GE>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)GRAM_SMEM);
+}
+
+int gram_resident_occupancy() {
+  int n = 0;
+  cudaError_t e = allow_gram_resident<false>();
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, gram_resident_kernel<false>, NT,
+                                                      GRAM_SMEM);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+template <bool GE>
+int gram_resident(const GramArgs& p, int blocks, cudaStream_t stream) {
+  cudaError_t e = allow_gram_resident<GE>();
+  if (e != cudaSuccess) return (int)e;
+  gram_resident_kernel<GE><<<blocks, NT, GRAM_SMEM, stream>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int64_t n = GE ? (int64_t)p.Rl * p.Rl : (int64_t)p.Rr * p.Rr;
+  const int64_t grid = (p.B * n + 255) / 256;
+  sum_slots_kernel<<<(unsigned)(grid < 4096 ? grid : 4096), 256, 0, stream>>>(p.part, p.sample,
+                                                                             p.out, p.B, n);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry points, bound with ctypes. dtype: 0 = float32, 1 = float64.
@@ -625,11 +928,13 @@ int proj2_resident(const T* Y, const T* C, const T* X, T* out, int B, int r1, in
 // synchronises or allocates.
 extern "C" {
 
-// Resident blocks per SM of the Gram kernel (kernel 0: gram_edge, wgram),
-// the two-stage projection kernel (kernel 1: proj2 beyond the resident tile)
-// or the resident-projector kernel (kernel 2, whose shared memory grows with
-// Rl); a negative value is -cudaError_t.
+// Resident blocks per SM of the two-stage Gram kernel (kernel 0: gram_edge,
+// wgram beyond the resident tile), the two-stage projection kernel (kernel
+// 1: proj2 beyond its resident tile), the resident-projector kernel (kernel
+// 2, whose shared memory grows with Rl) or the resident-Gram kernel (kernel
+// 3, float32 only); a negative value is -cudaError_t.
 int tnt_occupancy(int dtype, int kernel, int Rl) {
+  if (kernel == 3) return dtype == 0 ? gram_resident_occupancy() : -(int)cudaErrorInvalidValue;
   if (dtype == 0) {
     if (kernel == 2) return resident_occupancy<float>(Rl);
     return kernel == 0 ? occupancy<float, 8, false>() : occupancy<float, 4, true>();
@@ -650,6 +955,23 @@ int tnt_proj2_resident(int dtype, const void* Y, const void* C, const void* X,
                           (float*)out, B, r1, Rl, I, Rr, r2, blocks, s);
   return proj2_resident((const double*)Y, (const double*)C, (const double*)X,
                         (double*)out, B, r1, Rl, I, Rr, r2, blocks, s);
+}
+
+// gram_edge (edge 0: Q = G) or wgram (edge 1: Q = W) in float32 through the
+// resident-Gram kernel on `blocks` persistent blocks, then the sum of each
+// sample's partials. plan: run (blocks + 1), first (blocks), sample (B + 1),
+// int64, on the card; part: the plan's slots of M x M floats.
+// cudaErrorInvalidValue for a rank above 128.
+int tnt_gram_resident(int edge, const void* C, const void* Q, void* out, void* part,
+                      const void* plan, int B, int Rl, int I, int Rr, int blocks,
+                      void* stream) {
+  if (Rl > GR || Rr > GR || blocks < 1) return (int)cudaErrorInvalidValue;
+  const int64_t* run = (const int64_t*)plan;
+  const GramArgs p{(const float*)C, (const float*)Q, (float*)part, (float*)out,
+                   run, run + blocks + 1, run + 2 * blocks + 1, B, Rl, I, Rr,
+                   Rr % 4 == 0 && (uintptr_t)C % 16 == 0};
+  cudaStream_t s = (cudaStream_t)stream;
+  return edge == 0 ? gram_resident<true>(p, blocks, s) : gram_resident<false>(p, blocks, s);
 }
 
 int tnt_gram_edge(int dtype, const void* C, const void* G, void* out,

@@ -13,10 +13,19 @@ What bounds them on an H100: at the bench shape (B=32, Rl=Rr=128, I=256,
 f32) an edge does ~128 FLOP per byte of C it reads, far above the ~20 FLOP/B
 ridge of FP32 FMA against HBM, so in exact f32 they are compute-bound, not
 memory-bound as on the TPU. The kernels keep the intermediate (T = C G, W C,
-Y C) in shared memory as the TPU kernels kept it in VMEM. ``gram_edge`` and
-``wgram`` split I across blocks so that a batch of 32 fills one wave of
-resident blocks on the 132 SMs, and sum the splits in a second pass without
-atomics (deterministic). Tensor cores are later work.
+Y C) in shared memory as the TPU kernels kept it in VMEM. Tensor cores are
+later work.
+
+``gram_edge`` and ``wgram`` have two kernels, chosen by a pure function of
+the shape and dtype, `_gram_resident`. In float32 with Rl, Rr <= 128 they
+run the resident-Gram kernel: one wave of persistent blocks, each walking a
+contiguous run of the B x I items (z, i) that `_gram_plan` gives it, with G
+(or W) loaded once per sample, C_i streamed once per i through a
+``cp.async`` ring and the sum over i held in registers; each block writes
+one partial per sample its run touches, and a second pass sums each
+sample's partials in a fixed order (no atomics, deterministic). Elsewhere
+(float64, ranks above 128) they run the two-stage kernel, which splits I
+across blocks until a wave is full and sums the splits the same way.
 
 ``proj2`` has two kernels, chosen by a pure function of the shape,
 `_proj2_resident`. Where r1 <= 64, r2 <= 64, Rr <= 128 and Y, X, the
@@ -53,6 +62,8 @@ _MAX_GRID_YZ = 65535
 _RES_R, _RES_RR, _RES_STAGES = 64, 128, 3
 _RES_UNIT = {4: (2, 16), 8: (1, 8)}
 _SMEM_MAX = 232448
+# The resident-Gram kernel's tile: Rl, Rr <= 128, float32 only
+_GRAM_R = 128
 
 
 def _proj2_smem(Rl: int, itemsize: int) -> int:
@@ -70,6 +81,59 @@ def _proj2_resident(r1: int, Rl: int, Rr: int, r2: int, itemsize: int) -> bool:
     the shape fits its tile and its shared memory fits one block."""
     return (r1 <= _RES_R and r2 <= _RES_R and Rr <= _RES_RR
             and _proj2_smem(Rl, itemsize) <= _SMEM_MAX)
+
+
+def _gram_resident(Rl: int, Rr: int, itemsize: int) -> bool:
+    """True when gram_edge and wgram of these ranks run the resident-Gram
+    kernel: float32, both ranks within its 128 x 128 tile (its shared
+    memory, G or W, T and the ring, is fixed at 224 KB)."""
+    return itemsize == 4 and Rl <= _GRAM_R and Rr <= _GRAM_R
+
+
+def _gram_plan(B: int, I: int, blocks: int):
+    """The resident-Gram kernel's work plan for `blocks` blocks over the
+    B x I items (z, i), numbered z * I + i: block j walks items
+    [run[j], run[j + 1]) in order and writes the partial sum of each sample
+    its run touches, the first into slot first[j] and one slot further for
+    each sample after; sample z's partials are slots [sample[z],
+    sample[z + 1]), in block order, and are summed in that order. Returns
+    the three lists (run, first, sample)."""
+    units = B * I
+    if not 1 <= blocks <= units:
+        raise ValueError(f"need 1 <= blocks <= B * I = {units}, got {blocks}")
+    run = [units * j // blocks for j in range(blocks + 1)]
+    first, sample = [], [None] * B + [0]
+    slots = 0
+    for j in range(blocks):
+        first.append(slots)
+        z_first, z_last = run[j] // I, (run[j + 1] - 1) // I
+        for z in range(z_first, z_last + 1):
+            if sample[z] is None:
+                sample[z] = slots + z - z_first
+        slots += z_last - z_first + 1
+    sample[B] = slots
+    return run, first, sample
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_on(B: int, I: int, blocks: int, device_index: int):
+    """`_gram_plan` as one int64 tensor on the card, made once per shape,
+    and its number of slots."""
+    run, first, sample = _gram_plan(B, I, blocks)
+    plan = torch.tensor(run + first + sample, dtype=torch.int64,
+                        device=torch.device("cuda", device_index))
+    return plan, sample[-1]
+
+
+def _gram_resident_launch(edge: int, C, Q, out):
+    """gram_edge (edge 0) or wgram (edge 1) through the resident-Gram kernel."""
+    B, Rl, I, Rr = C.shape
+    M = out.shape[-1]
+    blocks = min(B * I, _wave(0, 3, C.device.index))
+    plan, slots = _plan_on(B, I, blocks, C.device.index)
+    part = torch.empty((slots, M, M), dtype=C.dtype, device=C.device)
+    _launch("tnt_gram_resident", edge, _ptr(C), _ptr(Q), _ptr(out), _ptr(part), _ptr(plan),
+            B, Rl, I, Rr, blocks)
 
 
 # ---------------------------------------------------------------------------
@@ -129,8 +193,9 @@ def _check(name, ts, shapes):
 
 @functools.lru_cache(maxsize=None)
 def _wave(code: int, kernel: int, device_index: int, Rl: int = 0) -> int:
-    """Blocks of one kernel that the card holds at once (occupancy x SMs);
-    kernel 2 (resident proj2) is sized for its shared memory at Rl."""
+    """Blocks of one kernel that the card holds at once (occupancy x SMs).
+    Kernels: 0 two-stage Gram, 1 two-stage proj2, 2 resident proj2 (sized
+    for its shared memory at Rl), 3 resident Gram."""
     from tntorch_tpu_torch._build import library
 
     per_sm = library("gram_kernels").tnt_occupancy(code, kernel, Rl)
@@ -165,33 +230,41 @@ def _launch(fn, *args):
 
 
 def gram_edge(C, G):
-    """Right-Gram edge (B, Rl, I, Rr), (B, Rr, Rr) -> (B, Rl, Rl)."""
+    """Right-Gram edge (B, Rl, I, Rr), (B, Rr, Rr) -> (B, Rl, Rl). On the
+    card it runs the kernel `_gram_resident` picks."""
     if _on_cpu(C, G):
         return gram_edge_plain(C, G)
     B, Rl, I, Rr = C.shape
     code = _check("gram_edge", (C, G), ((B, Rl, I, Rr), (B, Rr, Rr)))
     with torch.cuda.device(C.device):
         out = torch.empty((B, Rl, Rl), dtype=C.dtype, device=C.device)
-        splits = _pieces(code, 0, B * _tiles(Rl, Rl, _TN_GRAM), I, C.device)
-        scratch = torch.empty((splits, B, Rl, Rl), dtype=C.dtype, device=C.device) if splits > 1 else None
-        _launch("tnt_gram_edge", code, _ptr(C), _ptr(G), _ptr(out), _ptr(scratch),
-                B, Rl, I, Rr, splits)
+        if _gram_resident(Rl, Rr, C.element_size()):
+            _gram_resident_launch(0, C, G, out)
+        else:
+            splits = _pieces(code, 0, B * _tiles(Rl, Rl, _TN_GRAM), I, C.device)
+            scratch = torch.empty((splits, B, Rl, Rl), dtype=C.dtype, device=C.device) if splits > 1 else None
+            _launch("tnt_gram_edge", code, _ptr(C), _ptr(G), _ptr(out), _ptr(scratch),
+                    B, Rl, I, Rr, splits)
     gram_edge.launches += 1
     return out
 
 
 def wgram(C, W):
-    """Weighted left Gram (B, Rl, I, Rr), (B, Rl, Rl) -> (B, Rr, Rr)."""
+    """Weighted left Gram (B, Rl, I, Rr), (B, Rl, Rl) -> (B, Rr, Rr). On the
+    card it runs the kernel `_gram_resident` picks."""
     if _on_cpu(C, W):
         return wgram_plain(C, W)
     B, Rl, I, Rr = C.shape
     code = _check("wgram", (C, W), ((B, Rl, I, Rr), (B, Rl, Rl)))
     with torch.cuda.device(C.device):
         out = torch.empty((B, Rr, Rr), dtype=C.dtype, device=C.device)
-        splits = _pieces(code, 0, B * _tiles(Rr, Rr, _TN_GRAM), I, C.device)
-        scratch = torch.empty((splits, B, Rr, Rr), dtype=C.dtype, device=C.device) if splits > 1 else None
-        _launch("tnt_wgram", code, _ptr(C), _ptr(W), _ptr(out), _ptr(scratch),
-                B, Rl, I, Rr, splits)
+        if _gram_resident(Rl, Rr, C.element_size()):
+            _gram_resident_launch(1, C, W, out)
+        else:
+            splits = _pieces(code, 0, B * _tiles(Rr, Rr, _TN_GRAM), I, C.device)
+            scratch = torch.empty((splits, B, Rr, Rr), dtype=C.dtype, device=C.device) if splits > 1 else None
+            _launch("tnt_wgram", code, _ptr(C), _ptr(W), _ptr(out), _ptr(scratch),
+                    B, Rl, I, Rr, splits)
     wgram.launches += 1
     return out
 
