@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (``tntorch_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase, then the result lines
+    python3 chip_smoke.py --only 3b,8     # probe, build and those phases only
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit (``nvcc``). Phases, each fatal on failure:
@@ -11,14 +12,19 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    ``nvcc`` per source, all started together;
 3. each kernel against its plain PyTorch version on the card, float32 and
    float64: the Gram kernels at the bench cell's shapes and at ragged
-   shapes, the evaluation kernels (``tt_eval`` on both its kernels, grouped
-   and per sample, each forced at every shape; ``tt_eval_backward``) at
-   the evaluation design shape (N=4, I=1024, R=64, B=2^20), the training
-   shape (N=3, I=256, R=16, B=8192) and ragged shapes; with times, each
-   kernel's bound and a one-call PyTorch yardstick where there is one.
-   The two ``tt_eval`` kernels are timed in turns at the design shape and
-   at a few samples per slice (their crossover), and the grouped one must
-   give bitwise the same values on two calls.
+   shapes, the evaluation kernels (``tt_eval`` on both its kernels and
+   ``tt_eval_backward`` on both its paths, grouped and per sample, each
+   forced at every shape with `tt_path` and `tt_bwd_path`) at the
+   evaluation design shape (N=4, I=1024, R=64, B=2^20), the training shape
+   (N=3, I=256, R=16, B=8192), ragged shapes with negative coordinates
+   (B=1000 and B=1) and a skewed shape (~90% of 2^18 samples on one
+   coordinate of a middle mode, so that a run is split across blocks);
+   with times, each kernel's bound and a one-call PyTorch yardstick where
+   there is one. Both evaluation kernels and both backward paths are
+   timed in turns at the design shape and at B/I = 8..256 (their
+   crossovers), the grouped ones must give bitwise the same values on two
+   calls, and the per-sample backward's device time at the training shape
+   is read by the profiler beside its call's time.
    ``gram_edge``, ``wgram`` and ``proj2`` are each held on both of their
    kernels (the resident one: G or W, or the projectors, in shared memory;
    and the two-stage kernel, which also serves the shapes beyond the
@@ -44,11 +50,19 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    (benchmarks/bench_optimize.py: a 256^3 TT of rank 16, 8192 observed
    entries, full size): ``tn.optimize`` with Adam (lr 1e-3) on
    ``mean((t[X].full() - y)**2)``, exact forward and backward launch
-   counts (the forward on the per-sample kernel), a falling loss, the first 20 losses against the port on the CPU
-   in float64, iterations per second with the kernels and with their plain
-   versions in turns, and a torch.profiler breakdown of a step.
+   counts (both on their per-sample kernels), one read of the out-of-range
+   flag per step, a falling loss, the first 20 losses against the port on
+   the CPU in float64, iterations per second with the kernels and with
+   their plain versions in turns, and a torch.profiler breakdown of a step;
+8. training at the evaluation design shape: ``tn.optimize`` (Adam, lr
+   1e-3) on ``mean((t[X].full() - y)**2)`` with a 1024^4 rank-64 float32 TT
+   and 2^20 samples, 10 steps, one grouped forward and one grouped
+   backward call per step, a falling loss, the first 3 losses against the
+   same run on the plain versions on the card, iterations per second in
+   turns with the kernels, with the per-sample backward and with the plain
+   versions, and a profile of three steps.
 
-The data of phases 6 and 7 comes without a device and lands on the card by
+The data of phases 6 to 8 comes without a device and lands on the card by
 the package's default. The second-to-last line is one JSON object with
 each kernel's launches, error, times and bound; the last is
 ``{"ok": true, "device": {...}}``.
@@ -90,6 +104,12 @@ EVAL_TOL = 1e-4
 #   Adam steps of lr 1e-3 that normalise the gradient; the port's own
 #   float32 and float64 runs on the CPU differ by 1.7e-7 here. 1e-5.
 TRAIN_TOL = 1e-5
+# - training at the design shape, kernels vs the plain versions, both float32
+#   on the card, the first 3 losses, max relative difference: the two sum
+#   each value and gradient in other orders (~1e-7 relative each), and Adam's
+#   first steps move every parameter by ~lr whatever the gradient's size, so
+#   a gradient entry near zero may step either way. 1e-4.
+DESIGN_TRAIN_TOL = 1e-4
 
 BENCH = dict(B=32, N=4, I=256, R=128, rmax=64)
 # The evaluation kernel's design shape (the TPU kernel's stated regime,
@@ -173,6 +193,40 @@ def tt_path(grouped, fn):
         return fn()
     finally:
         te._grouped = choice
+
+
+def tt_bwd_path(grouped, fn):
+    """``fn()`` with ``tt_eval_backward`` forced onto its grouped path (True)
+    or its per-sample kernel (False) at every shape."""
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    choice = te._grouped_backward
+    te._grouped_backward = lambda *_: grouped
+    try:
+        return fn()
+    finally:
+        te._grouped_backward = choice
+
+
+def device_ms(fn, name, calls=20):
+    """Median device time (ms) of the launches of the kernels whose name
+    holds ``name`` over `calls` calls of ``fn`` (torch.profiler), and their
+    count."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    times = sorted(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and name in e.name)
+    if not times:
+        raise AssertionError(f"the profiler saw no launch of {name}")
+    return times[len(times) // 2], len(times)
 
 
 def smi_while(fn, launches=400):
@@ -351,9 +405,10 @@ def check_kernels():
     return report
 
 
-def tt_problem(ranks, I, B, dtype, seed, negative=False):
+def tt_problem(ranks, I, B, dtype, seed, negative=False, skew=False):
     """Cores N(0,1)/sqrt(R_k) (R_k, I, R_{k+1}), coordinates (B, N) and
-    weights (B,) from numpy seeds, on the card."""
+    weights (B,) from numpy seeds, on the card. ``skew``: ~90% of the
+    samples share coordinate 7 of mode 1."""
     import numpy as np
     import torch
 
@@ -361,7 +416,10 @@ def tt_problem(ranks, I, B, dtype, seed, negative=False):
     N = len(ranks) - 1
     cores = [torch.from_numpy(rng.standard_normal((ranks[k], I, ranks[k + 1])) / np.sqrt(ranks[k]))
              .to("cuda", dtype) for k in range(N)]
-    X = torch.from_numpy(rng.integers(-I if negative else 0, I, (B, N))).cuda()
+    X_np = rng.integers(-I if negative else 0, I, (B, N))
+    if skew:
+        X_np[rng.random(B) < 0.9, 1] = 7
+    X = torch.from_numpy(X_np).cuda()
     g = torch.from_numpy(rng.standard_normal(B)).to("cuda", dtype)
     return cores, X, g
 
@@ -386,45 +444,61 @@ def check_tt_kernels():
     from tntorch_tpu_torch.ops import tt_eval as te
 
     E, T = EVAL, TRAIN
+    design = [1] + [E["R"]] * (E["N"] - 1) + [1]
+    # (tag, ranks, I, B, negative coordinates, skewed keys); "skewed" puts
+    # ~90% of the samples on one coordinate of mode 1, so that its run is
+    # split across the backward's blocks
     shapes = [
-        ("design", [1] + [E["R"]] * (E["N"] - 1) + [1], E["I"], E["B"], False),
-        ("training", [1] + [T["R"]] * (T["N"] - 1) + [1], T["I"], T["B"], False),
-        ("ragged", [2, 5, 3, 7, 3], 37, 1000, True),
-        ("ragged", [2, 5, 3, 7, 3], 37, 1, True),
+        ("design", design, E["I"], E["B"], False, False),
+        ("training", [1] + [T["R"]] * (T["N"] - 1) + [1], T["I"], T["B"], False, False),
+        ("ragged", [2, 5, 3, 7, 3], 37, 1000, True, False),
+        ("ragged", [2, 5, 3, 7, 3], 37, 1, True, False),
+        ("skewed", design, E["I"], 1 << 18, False, True),
     ]
     paths = ("grouped", "per-sample")
     report = {"tt_eval": {}, "tt_eval_backward": {}}
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split(".")[-1]
-        for tag, ranks, I, B, negative in shapes:
-            cores, X, g = tt_problem(ranks, I, B, dtype, seed=3, negative=negative)
-            # Both forward kernels, each forced (the grouped one also where
-            # its predicate refuses the shape, so a tile meets many runs)
+        for tag, ranks, I, B, negative, skew in shapes:
+            cores, X, g = tt_problem(ranks, I, B, dtype, seed=3, negative=negative, skew=skew)
+            # Both forward kernels and both backward paths, each forced
+            # (the grouped ones also where their predicates refuse the
+            # shape, so a tile meets many runs)
             got = {p: tt_path(p == "grouped", lambda: te.tt_eval_kernel(cores, X)) for p in paths}
             again = tt_path(True, lambda: te.tt_eval_kernel(cores, X))
-            grads = te.tt_eval_backward_kernel(cores, X, g)
+            grads = {p: tt_bwd_path(p == "grouped", lambda: te.tt_eval_backward_kernel(cores, X, g))
+                     for p in paths}
+            grads_again = tt_bwd_path(True, lambda: te.tt_eval_backward_kernel(cores, X, g))
             torch.cuda.synchronize()
             want = te.tt_eval_plain(cores, X)
             want_grads = te.tt_eval_backward_plain(cores, X, g)
             torch.cuda.synchronize()
             if not torch.equal(got["grouped"], again):
                 raise AssertionError(f"grouped tt_eval {dname} {tag}: two calls differ")
+            if not all(torch.equal(a, b) for a, b in zip(grads["grouped"], grads_again)):
+                raise AssertionError(f"grouped tt_eval_backward {dname} {tag}: two calls differ")
             errs = {}
-            checks = [(f"tt_eval/{p}", [got[p]], [want]) for p in paths]
-            for name, a, b in checks + [("tt_eval_backward", grads, want_grads)]:
+            checks = ([(f"tt_eval/{p}", [got[p]], [want]) for p in paths]
+                      + [(f"tt_eval_backward/{p}", grads[p], want_grads) for p in paths])
+            for name, a, b in checks:
                 if not all(torch.isfinite(x).all() for x in a):
                     raise AssertionError(f"{name} {dname} {tag}: non-finite output")
                 err = max(float((x - y).abs().max()) for x, y in zip(a, b))
                 rel = err / max(max(float(y.abs().max()) for y in b), 1e-300)
                 errs[name] = (err, rel)
                 if rel > KERNEL_TOL[dname]:
-                    raise AssertionError(f"{name} disagrees with its plain version: rel {rel:.3e}")
-            chosen = "grouped" if te._grouped(ranks, [I] * (len(ranks) - 1), B,
-                                              dtype.itemsize) else "per-sample"
+                    raise AssertionError(f"{name} {dname} {tag} disagrees with its plain version: "
+                                         f"rel {rel:.3e}")
+            dims = [I] * (len(ranks) - 1)
+            chosen = "grouped" if te._grouped(ranks, dims, B, dtype.itemsize) else "per-sample"
+            chosen_bwd = ("grouped" if te._grouped_backward(ranks, dims, B, dtype.itemsize)
+                          else "per-sample")
             line = (f"{tag:8s} {dname} ranks {ranks} I={I} B={B}{' negative X' if negative else ''}"
-                    f" (takes {chosen}): tt_eval rel grouped {errs['tt_eval/grouped'][1]:.3e} "
-                    f"(bitwise equal on two calls), per-sample {errs['tt_eval/per-sample'][1]:.3e}; "
-                    f"backward rel {errs['tt_eval_backward'][1]:.3e}")
+                    f" (takes {chosen}, backward {chosen_bwd}): tt_eval rel grouped "
+                    f"{errs['tt_eval/grouped'][1]:.3e} (bitwise equal on two calls), per-sample "
+                    f"{errs['tt_eval/per-sample'][1]:.3e}; backward rel grouped "
+                    f"{errs['tt_eval_backward/grouped'][1]:.3e} (bitwise equal on two calls), "
+                    f"per-sample {errs['tt_eval_backward/per-sample'][1]:.3e}")
             if tag == "design" and dtype == torch.float32:
                 fwd_flops, bwd_flops = tt_work(cores, X)
                 bound, by = bound_ms(fwd_flops, nbytes(*cores, X, got["grouped"]))
@@ -440,22 +514,43 @@ def check_tt_kernels():
                 line += (f"\n    tt_eval in turns: grouped {turns['grouped']} ms, per-sample "
                          f"{turns['per-sample']} ms, plain {plain_ms:.3f} ms, bound {bound:.3f} ms "
                          f"({by}), {B / min(turns['grouped']) * 1e3:.3e} samples/s grouped")
-                bound, by = bound_ms(bwd_flops, nbytes(*cores, X, g, *grads))
-                ms = cuda_time(lambda: te.tt_eval_backward_kernel(cores, X, g), reps=3, inner=3)
+                bound, by = bound_ms(bwd_flops, nbytes(*cores, X, g, *want_grads))
+                turns = {p: [] for p in paths}
+                for p in paths + paths[::-1]:
+                    turns[p].append(tt_bwd_path(p == "grouped", lambda: cuda_time(
+                        lambda: te.tt_eval_backward_kernel(cores, X, g), reps=3, inner=3)))
                 plain_ms = cuda_time(lambda: te.tt_eval_backward_plain(cores, X, g), reps=3, inner=3)
                 report["tt_eval_backward"].update(
-                    max_abs_err=errs["tt_eval_backward"][0], ms=ms, plain_ms=plain_ms,
-                    bound_ms=bound, bound_by=by, library_ms=None)
-                line += (f"\n    tt_eval_backward: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-                         f"bound {bound:.3f} ms ({by})")
+                    max_abs_err=errs["tt_eval_backward/grouped"][0], ms=min(turns["grouped"]),
+                    per_sample_ms=min(turns["per-sample"]), plain_ms=plain_ms, bound_ms=bound,
+                    bound_by=by, library_ms=None)
+                line += (f"\n    tt_eval_backward in turns: grouped {turns['grouped']} ms, "
+                         f"per-sample {turns['per-sample']} ms, plain {plain_ms:.3f} ms, bound "
+                         f"{bound:.3f} ms ({by})")
+                print(line, flush=True)
+                line = "    profile, one grouped tt_eval_backward call:"
+                print(line, flush=True)
+                tt_bwd_path(True, lambda: profile_device(
+                    lambda: te.tt_eval_backward_kernel(cores, X, g), steps=1,
+                    each="slice_grad_kernel"))
+                line = ""
             if tag == "training" and dtype == torch.float32:  # where training launches it
                 ms = cuda_time(lambda: te.tt_eval_backward_kernel(cores, X, g))
-                bound, by = bound_ms(tt_work(cores, X)[1], nbytes(*cores, X, g, *grads))
-                report["tt_eval_backward"]["training_shape_ms"] = ms
-                line += (f"\n    tt_eval_backward at the training shape: kernel {ms:.4f} ms, "
-                         f"bound {bound:.4f} ms ({by})")
-            print(line, flush=True)
+                checked_ms = cuda_time(lambda: te.tt_eval_backward_kernel(cores, X, g, True))
+                dev_ms, n = device_ms(lambda: te.tt_eval_backward_kernel(cores, X, g, True),
+                                      "tt_eval_backward_kernel")
+                bound, by = bound_ms(tt_work(cores, X)[1], nbytes(*cores, X, g, *want_grads))
+                report["tt_eval_backward"].update(training_shape_ms=ms,
+                                                  training_shape_checked_ms=checked_ms,
+                                                  training_shape_device_ms=dev_ms)
+                line += (f"\n    tt_eval_backward at the training shape (per-sample kernel): "
+                         f"call {ms:.4f} ms (flag read), {checked_ms:.4f} ms (checked=True, no "
+                         f"read); the kernel alone {dev_ms:.4f} ms of device time (median of {n} "
+                         f"launches, profiler); bound {bound:.4f} ms ({by})")
+            if line:
+                print(line, flush=True)
     tt_crossover()
+    tt_bwd_crossover()
     return report
 
 
@@ -480,6 +575,31 @@ def tt_crossover():
             row.append(f"B/I={per_slice}: grouped {min(turns[True]):.4f}, per-sample "
                        f"{min(turns[False]):.4f}")
         print(f"crossover, ranks {ranks} I={I}, ms per call (best of two turns): "
+              + "; ".join(row), flush=True)
+
+
+def tt_bwd_crossover():
+    """Each whole ``tt_eval_backward_kernel`` call on both paths in turns, at
+    B/I = 8..256 samples per slice, at R=64 (the design's N and I) and R=16
+    (the training's): where the grouped path starts to win sets
+    ops/tt_eval.py's _BWD_MIN and _BWD_MIN_BYTES."""
+    import torch
+
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    E, T = EVAL, TRAIN
+    for ranks, I in (([1] + [E["R"]] * (E["N"] - 1) + [1], E["I"]),
+                     ([1] + [T["R"]] * (T["N"] - 1) + [1], T["I"])):
+        row = []
+        for per_slice in (8, 16, 32, 64, 128, 256):
+            cores, X, g = tt_problem(ranks, I, per_slice * I, torch.float32, seed=8)
+            turns = {True: [], False: []}
+            for grouped in (True, False, False, True):
+                turns[grouped].append(tt_bwd_path(grouped, lambda: cuda_time(
+                    lambda: te.tt_eval_backward_kernel(cores, X, g), reps=3, inner=3)))
+            row.append(f"B/I={per_slice}: grouped {min(turns[True]):.4f}, per-sample "
+                       f"{min(turns[False]):.4f}")
+        print(f"backward crossover, ranks {ranks} I={I}, ms per call (best of two turns): "
               + "; ".join(row), flush=True)
 
 
@@ -743,18 +863,32 @@ def train_path():
                            max_iter=max_iter, verbose=False)
         return t, hist
 
+    reads = [0]
+    flagged = te._raise_if_flagged
+
+    def counted(*args):
+        reads[0] += 1
+        return flagged(*args)
+
     te.reset_launches()
-    t, hist = fit(steps - 1)
+    te._raise_if_flagged = counted
+    try:
+        t, hist = fit(steps - 1)
+    finally:
+        te._raise_if_flagged = flagged
     torch.cuda.synchronize()
     launches = {k.__name__.replace("_kernel", ""): k.launches for k in te.KERNELS}
-    print(f"{len(hist)} steps, launches {launches}, grouped {te.tt_eval_kernel.grouped}; "
-          f"loss {hist[0]:.6f} -> {hist[-1]:.6f}")
+    print(f"{len(hist)} steps, launches {launches}, grouped {te.tt_eval_kernel.grouped} "
+          f"(backward {te.tt_eval_backward_kernel.grouped}), out-of-range flag read {reads[0]} "
+          f"times; loss {hist[0]:.6f} -> {hist[-1]:.6f}")
     if t.device.type != "cuda":
         raise AssertionError(f"the TT trained on {t.device}")
     if launches != {"tt_eval": steps, "tt_eval_backward": steps} or len(hist) != steps:
         raise AssertionError(f"expected {steps} steps with one forward and one backward launch each")
-    if te.tt_eval_kernel.grouped != 0:
-        raise AssertionError("the training step's forward left the per-sample kernel")
+    if te.tt_eval_kernel.grouped != 0 or te.tt_eval_backward_kernel.grouped != 0:
+        raise AssertionError("the training step left the per-sample kernels")
+    if reads[0] != steps:
+        raise AssertionError(f"expected one flag read per step, got {reads[0]} in {steps} steps")
     if not (np.isfinite(hist).all() and hist[-1] < hist[0]):
         raise AssertionError("the loss did not fall")
     _, ref = fit(steps - 1, device="cpu", dtype=np.float64)
@@ -764,20 +898,15 @@ def train_path():
         raise AssertionError("training disagrees with the CPU float64 run")
 
     # Iterations per second, kernels and plain versions in turns
-    kern = (te.tt_eval_kernel, te.tt_eval_backward_kernel)
-    plain = (te.tt_eval_plain, te.tt_eval_backward_plain)
     timed_steps = 200
 
     def timed(use_plain):
-        te.tt_eval_kernel, te.tt_eval_backward_kernel = plain if use_plain else kern
-        try:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fit(timed_steps - 1)
-            torch.cuda.synchronize()
-            return timed_steps / (time.perf_counter() - t0)
-        finally:
-            te.tt_eval_kernel, te.tt_eval_backward_kernel = kern
+        run = lambda: fit(timed_steps - 1)  # noqa: E731
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain_versions(run) if use_plain else run()
+        torch.cuda.synchronize()
+        return timed_steps / (time.perf_counter() - t0)
 
     rates = {False: [], True: []}
     for use_plain in (False, True, True, False):
@@ -788,19 +917,119 @@ def train_path():
     return launches
 
 
+def plain_versions(fn):
+    """``fn()`` with the evaluation wrappers replaced by their plain
+    versions (on the card), as TTEval calls them."""
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    kern = (te.tt_eval_kernel, te.tt_eval_backward_kernel)
+    te.tt_eval_kernel = te.tt_eval_plain
+    te.tt_eval_backward_kernel = lambda cores, X, g, checked=False: te.tt_eval_backward_plain(
+        cores, X, g)
+    try:
+        return fn()
+    finally:
+        te.tt_eval_kernel, te.tt_eval_backward_kernel = kern
+
+
+def train_design_path():
+    E = EVAL
+    N, I, R, B = E["N"], E["I"], E["R"], E["B"]
+    steps = 10
+    phase(f"8. training at the design shape: tn.optimize, {I}^{N} TT rank {R}, {B} samples, "
+          "Adam lr 1e-3, float32")
+    import numpy as np
+    import torch
+
+    import tntorch_tpu_torch as tn
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    rng = np.random.default_rng(7)
+    ranks = [1] + [R] * (N - 1) + [1]
+    cores = [(rng.standard_normal((ranks[k], I, ranks[k + 1])) / np.sqrt(ranks[k]))
+             .astype(np.float32) for k in range(N)]
+    X = tn.utils.asarray(rng.integers(0, I, (B, N)))  # no device given: the card
+    y = tn.utils.asarray(rng.standard_normal(B).astype(np.float32))
+    start = tn.Tensor(cores).cores  # the card, once: each fit starts from a copy
+
+    def fit(max_iter):
+        t = tn.Tensor([c.clone() for c in start], requires_grad=True)
+        hist = tn.optimize([t], lambda t: torch.mean((t[X].full() - y) ** 2), tol=None,
+                           max_iter=max_iter, verbose=False)
+        return t, hist
+
+    te.reset_launches()
+    t, hist = fit(steps - 1)
+    torch.cuda.synchronize()
+    launches = {k.__name__.replace("_kernel", ""): k.launches for k in te.KERNELS}
+    grouped = [te.tt_eval_kernel.grouped, te.tt_eval_backward_kernel.grouped]
+    print(f"{len(hist)} steps, launches {launches}, grouped (forward, backward) {grouped}; "
+          f"loss {hist[0]:.6f} -> {hist[-1]:.6f}")
+    if t.device.type != "cuda":
+        raise AssertionError(f"the TT trained on {t.device}")
+    if launches != {"tt_eval": steps, "tt_eval_backward": steps} or grouped != [steps, steps]:
+        raise AssertionError(f"expected {steps} steps with one grouped forward and one grouped "
+                             "backward call each")
+    if not (np.isfinite(hist).all() and hist[-1] < hist[0]):
+        raise AssertionError("the loss did not fall")
+    t3, _ = fit(2)
+    p3, ref = plain_versions(lambda: fit(2))
+    err = float(np.max(np.abs(np.array(hist[:3]) - ref) / np.abs(ref)))
+    moved = max(float((a - b).detach().abs().max()) for a, b in zip(t3.cores, p3.cores))
+    print(f"kernels vs plain versions on the card, first 3 losses {hist[:3]} vs {ref}: max rel "
+          f"{err:.3e} (tol {DESIGN_TRAIN_TOL}); after 3 steps the cores differ by at most "
+          f"{moved:.3e} (Adam moves each entry by ~1e-3 a step)")
+    if not err <= DESIGN_TRAIN_TOL:
+        raise AssertionError("training at the design shape disagrees with the plain versions")
+
+    # Iterations per second in turns: kernels, kernels with the per-sample
+    # backward, plain versions (fewer steps: ~0.3 s each)
+    variants = {"kernels": (lambda fn: fn(), 20),
+                "kernels, per-sample backward": (lambda fn: tt_bwd_path(False, fn), 10),
+                "plain versions": (plain_versions, 3)}
+    rates = {v: [] for v in variants}
+    for v in list(variants) + list(variants)[::-1]:
+        wrap, n = variants[v]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wrap(lambda: fit(n - 1))
+        torch.cuda.synchronize()
+        rates[v].append(n / (time.perf_counter() - t0))
+    print("optimize at the design shape, iters/s in turns: "
+          + "; ".join(f"{v} {[round(r, 2) for r in rs]}" for v, rs in rates.items()))
+    profile_device(lambda: fit(2), steps=3)
+    return launches
+
+
+PHASES = {"3": "check_kernels", "3b": "check_tt_kernels", "4": "main_path",
+          "5": "nonbatch_pass", "6": "eval_path", "7": "train_path", "8": "train_design_path"}
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "tntorch_tpu_torch")):
         raise SystemExit("chip_smoke.py needs the repository beside it (tntorch_tpu_torch/ not found)")
     sys.path.insert(0, ROOT)
+    # --only 3b,8: the device probe, the build and those phases, and no
+    # result line (a short call while a kernel is worked on)
+    only = sys.argv[2].split(",") if sys.argv[1:2] == ["--only"] else None
+    if sys.argv[1:] and (only is None or len(sys.argv) != 3 or not set(only) <= set(PHASES)):
+        raise SystemExit(f"usage: chip_smoke.py [--only PHASE[,PHASE...]], phases {list(PHASES)}")
     smi = probe()
     build()
+    if only:
+        for name in only:
+            globals()[PHASES[name]]()
+        print(smi)
+        print(f"phases {only} passed; a partial run prints no result line")
+        return
     report = check_kernels()
     report.update(check_tt_kernels())
     launches = main_path()
     nonbatch_pass()
     evals = eval_path()
     trains = train_path()
-    launches.update({k: evals[k] + trains[k] for k in evals})
+    designs = train_design_path()
+    launches.update({k: evals[k] + trains[k] + designs[k] for k in evals})
 
     import torch
 

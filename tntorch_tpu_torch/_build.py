@@ -46,6 +46,8 @@ SIGNATURES = {
         "tnt_tt_eval": [_I, _I, _I, _PP, _PI, _PI, _P, _L, _P, _P, _P],
         "tnt_tt_eval_backward": [_I, _I, _I, _PP, _PP, _PI, _PI, _P, _P, _L, _P, _P],
         "tnt_tt_eval_grouped": [_I, _P, _I, _I, _I, _P, _P, _L, _P, _P, _P, _P, _P, _I, _P, _P],
+        "tnt_tt_eval_slice_grad": [_I, _I, _I, _I, _P, _P, _P, _P, _L, _I, _P, _P, _P, _P, _I,
+                                   _P, _L, _L, _L, _P, _P],
     },
 }
 

@@ -7,11 +7,12 @@
 //   v <- ones(R_0);  v <- v . C_k[:, X[b,k], :] for k = 0..N-1;  out[b] = v[0]
 // (column 0 of the last interface, as tt_batch_forward returns it).
 //
-// tnt_tt_eval_backward has no Pallas counterpart: JAX differentiates
-// tt_batch_forward in XLA. Given the upstream gradient g (B,), it adds
-//   dC_k[:, x_bk, :] += g_b * L_k[b] (outer) Rt_{k+1}[b]
-// into zeroed gradient cores, with L_k the left interface before mode k and
-// Rt_{k+1} the right interface after it (Rt_N = e_0).
+// The backward has no Pallas counterpart: JAX differentiates
+// tt_batch_forward in XLA. Given the upstream gradient g (B,), it computes
+//   dC_k[:, i, :] = sum over b with x_bk = i of g_b * L_k[b] (outer) Rt_{k+1}[b]
+// with L_k the left interface before mode k and Rt_{k+1} the right
+// interface after it (Rt_N = e_0). It too has two paths; the wrapper
+// (ops/tt_eval.py: _grouped_backward) picks one per call.
 //
 // The forward has two kernels; the wrapper (ops/tt_eval.py: _grouped) picks
 // one per call.
@@ -64,14 +65,42 @@
 // touches no memory out of bounds. (The grouped kernel takes coordinates
 // that the wrapper has already wrapped and checked.)
 //
-// The backward recomputes a sample's left interfaces L_0..L_{N-1} into the
-// warp's shared memory, then sweeps right to left: at mode k it adds the
-// outer product g_b L_k Rt_{k+1} into dC_k's slice with atomicAdd (rows
-// contiguous, so each warp's atomics are coalesced) and, from the same
-// loads of C_k's slice, computes Rt_k = C_k[:, x, :] Rt_{k+1}. The atomics
-// make the gradient's summation order change from run to run: it is not
-// bitwise reproducible (float32 agrees with the plain version to ~1e-6 of
-// its largest entry, float64 to ~1e-15).
+// The grouped backward (tnt_tt_eval_slice_grad, for N >= 3 and at least 64
+// samples per slice of every middle mode, the shapes where its ~1 ms of
+// fixed cost pays). The wrapper sorts every mode's coordinates with a
+// stable torch.sort and finds each slice's run of sorted positions; the
+// grouped forward kernel writes the left interfaces L_2..L_{N-1} and, on
+// each middle core transposed, the right ones Rt_{N-2}..Rt_1 to device
+// memory (L_1 and Rt_{N-1} are lookups by coordinate). Then
+// slice_grad_kernel, once per mode, reduces each slice over its run: a
+// block takes up to 1024 consecutive sorted positions, streams their g_b
+// L_k[b] and Rt_{k+1}[b] rows into shared memory (cp.async, two tiles of 32
+// positions in flight) and sums the outer products of each run in 4x4
+// register tiles per thread, 64x64 slice entries per block. Each slice is
+// written once with plain stores: by its block where its run lies inside
+// one, else as partials that a sum pass adds in block order; an empty slice
+// gets zeros. No atomics: every entry is summed in a fixed order (positions
+// in increasing b, which the stable sort keeps within a run), so the
+// gradient is bitwise reproducible run to run; a skewed coordinate that
+// holds most samples is split across blocks, not left to one. What bounds
+// it at the design shape (f32, 52.1 GFLOP, a 0.78 ms bound): the four
+// interface launches (~0.42 ms each, the forward kernel's 28% of the FP32
+// peak), then the middle reductions (8.6 GFLOP and 512 MiB of gathered
+// rows each, ~0.40 ms, 32% of the peak with 2 blocks per SM at 106
+// registers), then the sorts; the call takes ~3.9-4.3 ms on an H100
+// (700 W) against ~36 ms per sample (PERF.md).
+//
+// The per-sample backward (tt_eval_backward_kernel, every other shape: the
+// training step's B/I = 32 among them) gives each sample a warp that
+// recomputes its left interfaces L_0..L_{N-1} into shared memory, then
+// sweeps right to left: at mode k it adds the outer product g_b L_k
+// Rt_{k+1} into dC_k's slice with atomicAdd (rows contiguous, so each
+// warp's atomics are coalesced) and, from the same loads of C_k's slice,
+// computes Rt_k = C_k[:, x, :] Rt_{k+1}. The atomics set its time where many
+// samples share a slice (8.7e9 of them at the design shape), and their
+// order changes from run to run: it is not bitwise reproducible (float32
+// agrees with the plain version to ~1e-6 of its largest entry, float64 to
+// ~1e-15).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -442,6 +471,233 @@ __global__ void __launch_bounds__(GTHREADS)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The grouped backward's reduction: one mode, one gradient slice per run
+// ---------------------------------------------------------------------------
+
+constexpr int ST = 32;       // sorted positions per staged tile (two tiles in flight)
+constexpr int SR = 64;       // output rows and columns of a block: 16 x 16 threads of 4 x 4
+constexpr int SMAXP = 1024;  // most positions a block takes (ops/tt_eval.py: _slice_block)
+constexpr int SQ = ST * (SR / 4) / 256;  // 4-wide pieces of each operand a thread stages
+
+// Shared memory of one slice-gradient block taking P positions: two
+// stages of row and column operands (ST x SR each), then per position its
+// operand rows, weight and key.
+__host__ __device__ constexpr size_t slice_grad_smem(int P, size_t itemsize) {
+  return 4 * (size_t)ST * SR * itemsize +
+         (size_t)P * (2 * sizeof(int64_t) + sizeof(int) + itemsize);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Stage columns [q, q + 4) of an operand's slab (its columns o0 + q ..) for
+// one position into dst: from row `row` of tab by a 16-byte cp.async where
+// rows allow (vec), else by plain loads and stores; ones where tab is null;
+// zeros past column nq. `w` scales what is stored by plain stores (the
+// copies are scaled once they land).
+template <typename T>
+__device__ __forceinline__ void stage4(T* dst, const T* __restrict__ tab, int64_t row,
+                                       int width, int o0, int q, int nq, bool vec, T w) {
+  if (tab && vec && q < nq) {
+    const T* src = tab + row * width + o0 + q;
+#pragma unroll
+    for (int h = 0; h < (int)(4 * sizeof(T)) / 16; ++h) cp_async16(dst + h * 16 / sizeof(T),
+                                                                  src + h * 16 / sizeof(T));
+    return;
+  }
+  T v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    v[j] = q + j >= nq ? T(0) : tab ? w * tab[row * width + o0 + q + j] : w;
+  st4(dst, v);
+}
+
+// The gradient of one mode, dC[:, i, :] = sum over the run of slice i of
+// (g_b a_b) (outer) c_b, as a rows x cols product per slice. Block x takes
+// sorted positions [x P, min(B, (x + 1) P)); block y one 64 x 64 tile of
+// the slices. The block first reads its positions' keys, weights and
+// operand rows into shared memory, then streams the rows ST positions at a
+// time, the next tile's copies in flight while the current tile's FMAs
+// run. For each run of equal keys (one slice) that meets its positions,
+// in order, it sums the outer products in registers in position order,
+// then writes the sum once: straight into the slice when the run lies
+// inside the block, else into partial slot 2x (the block's first run) or
+// 2x + 1 (its last), which the sum pass adds up. Row operand a_b: row b of
+// A (or A[aidx[b xs]]), ones where A is null; column operand c_b likewise
+// from C. Entry (r, c) of slice i goes to out[i os + r orow + c ocol]; a
+// partial slot holds rows x cols entries, row-major.
+// ops/tt_eval.py: _slice_plan is the same plan in Python.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    slice_grad_kernel(int rows, int cols, const int64_t* __restrict__ bounds,
+                      const int* __restrict__ keys, const int64_t* __restrict__ perm,
+                      const T* __restrict__ g, int64_t B, int P, const T* __restrict__ A,
+                      const int* __restrict__ aidx, const T* __restrict__ C,
+                      const int* __restrict__ cidx, int xs, T* __restrict__ out, int64_t os,
+                      int64_t orow, int64_t ocol, T* __restrict__ part) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const buf = reinterpret_cast<T*>(smem_raw);  // stage s: A at buf + 2 s ST SR, then C
+  int64_t* const arow = reinterpret_cast<int64_t*>(buf + 4 * ST * SR);
+  int64_t* const crow = arow + P;
+  T* const sg = reinterpret_cast<T*>(crow + P);
+  int* const skeys = reinterpret_cast<int*>(sg + P);
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int rtiles = (rows + SR - 1) / SR;
+  const int r0 = (blockIdx.y % rtiles) * SR, c0 = (blockIdx.y / rtiles) * SR;
+  const int nr = rows - r0 < SR ? rows - r0 : SR, nc = cols - c0 < SR ? cols - c0 : SR;
+  const int64_t pb = (int64_t)blockIdx.x * P;
+  const int np = (int)(pb + P < B ? P : B - pb);
+  const bool avec = A && rows % 4 == 0 && aligned16(A);
+  const bool cvec = C && cols % 4 == 0 && aligned16(C);
+  const bool active = (tid >> 5) * 8 < nr;  // the warp holds rows of the tile
+
+  for (int p = tid; p < np; p += 256) {
+    const int64_t b = perm[pb + p];
+    skeys[p] = keys[pb + p];
+    sg[p] = g[b];
+    arow[p] = aidx ? (int64_t)aidx[b * xs] : b;
+    crow[p] = cidx ? (int64_t)cidx[b * xs] : b;
+  }
+  __syncthreads();
+
+  // This thread's pieces of a tile: position p_u, columns [q, q + 4)
+  const int q = 4 * (tid % (SR / 4));
+  auto stage = [&](int t) {
+    T* const As = buf + (t & 1) * 2 * ST * SR;
+    T* const Cs = As + ST * SR;
+#pragma unroll
+    for (int u = 0; u < SQ; ++u) {
+      const int p = (tid + 256 * u) / (SR / 4), at = t * ST + p;
+      if (at >= np) continue;
+      stage4(As + p * SR + q, A, arow[at], rows, r0, q, nr, avec, sg[at]);
+      stage4(Cs + p * SR + q, C, crow[at], cols, c0, q, nc, cvec, T(1));
+    }
+  };
+
+  T acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = T(0);
+  const int tiles = (np + ST - 1) / ST;
+  stage(0);
+  cp_async_commit();
+  for (int t = 0; t < tiles; ++t) {
+    if (t + 1 < tiles) {
+      stage(t + 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // this thread's copies of tile t landed
+    } else {
+      cp_async_wait<0>();
+    }
+    T* const As = buf + (t & 1) * 2 * ST * SR;
+    const T* const Cs = As + ST * SR;
+    if (avec && q < nr) {  // scale the row pieces this thread copied by g_b
+#pragma unroll
+      for (int u = 0; u < SQ; ++u) {
+        const int p = (tid + 256 * u) / (SR / 4), at = t * ST + p;
+        if (at >= np) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) As[p * SR + q + j] *= sg[at];
+      }
+    }
+    __syncthreads();
+    const int64_t t0 = pb + (int64_t)t * ST;
+    const int n = np - t * ST < ST ? np - t * ST : ST;
+    for (int s = 0; s < n;) {
+      // The run of slice `key` from s to the tile's end or the run's end
+      const int key = skeys[t * ST + s];
+      const int64_t lo = bounds[key], hi = bounds[key + 1];
+      const int e = (int)(hi - t0 < n ? hi - t0 : n);
+      if (active) {
+#pragma unroll 4
+        for (int p = s; p < e; ++p) {
+          T a[4], c[4];
+          ld4(As + p * SR + 4 * ty, a);
+          ld4(Cs + p * SR + 4 * tx, c);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][j] = fma(a[i], c[j], acc[i][j]);
+        }
+      }
+      if (t0 + e == hi || t0 + e == pb + np) {  // the run, or the block's share of it, ends
+        const bool whole = lo >= pb && hi <= pb + np;
+        T* const dst = whole ? out + key * os
+                             : part + (2 * (int64_t)blockIdx.x + (lo > pb)) * rows * cols;
+        const int64_t sr = whole ? orow : cols, sc = whole ? ocol : 1;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int r = 4 * ty + i, c = 4 * tx + j;
+            if (r < nr && c < nc) dst[(r0 + r) * sr + (c0 + c) * sc] = acc[i][j];
+            acc[i][j] = T(0);
+          }
+        }
+      }
+      s = e;
+    }
+    __syncthreads();  // every read of this stage is done before it is refilled
+  }
+}
+
+// The slices that slice_grad_kernel did not write whole: slice i (block x)
+// whose run crosses blocks of P positions gets the sum of its partial
+// slots in block order; an empty slice gets zeros.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    slice_grad_sum_kernel(int rows, int cols, const int64_t* __restrict__ bounds, int P,
+                          const T* __restrict__ part, T* __restrict__ out, int64_t os,
+                          int64_t orow, int64_t ocol) {
+  const int64_t i = blockIdx.x;
+  const int e = blockIdx.y * 256 + threadIdx.x;
+  if (e >= rows * cols) return;
+  const int64_t lo = bounds[i], hi = bounds[i + 1];
+  if (hi > lo && lo / P == (hi - 1) / P) return;  // written whole by its block
+  T sum = T(0);
+  if (hi > lo) {
+    for (int64_t x = lo / P; x <= (hi - 1) / P; ++x)
+      sum += part[(2 * x + (lo > x * P)) * rows * cols + e];
+  }
+  out[i * os + (e / cols) * orow + (e % cols) * ocol] = sum;
+}
+
+template <typename T>
+int slice_grad(int I, int rows, int cols, const int64_t* bounds, const int* keys,
+               const int64_t* perm, const T* g, int64_t B, int P, const T* A, const int* aidx,
+               const T* C, const int* cidx, int xs, T* out, int64_t os, int64_t orow,
+               int64_t ocol, T* part, cudaStream_t s) {
+  if (P > SMAXP) return (int)cudaErrorInvalidValue;
+  const size_t smem = slice_grad_smem(P, sizeof(T));
+  auto kernel = slice_grad_kernel<T>;
+  cudaError_t e = cudaSuccess;
+  if (smem > 48 * 1024)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t tiles = (int64_t)((rows + SR - 1) / SR) * ((cols + SR - 1) / SR);
+  const int64_t sums = ((int64_t)rows * cols + 255) / 256;
+  if (tiles > 65535 || sums > 65535) return (int)cudaErrorInvalidValue;
+  if (B > 0) {
+    const dim3 grid((unsigned)((B + P - 1) / P), (unsigned)tiles);
+    kernel<<<grid, 256, smem, s>>>(rows, cols, bounds, keys, perm, g, B, P, A, aidx, C, cidx, xs,
+                                   out, os, orow, ocol, part);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  slice_grad_sum_kernel<T><<<dim3((unsigned)I, (unsigned)sums), 256, 0, s>>>(
+      rows, cols, bounds, P, part, out, os, orow, ocol);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 TT<T> make_tt(int N, const void* const* cores, void* const* grads, const int* ranks,
               const int* dims) {
@@ -557,6 +813,31 @@ int tnt_tt_eval_grouped(int dtype, const void* core, int Rl, int I, int Rr, cons
         (const int*)last_idx, xs, (double*)out);
   }
   return (int)cudaGetLastError();
+}
+
+// One mode of the grouped backward (see slice_grad_kernel): the I slices of
+// rows x cols entries, out[i os + r orow + c ocol]. bounds (I + 1,) int64
+// run starts of the sorted keys (B,) int32; perm (B,) int64; g (B,); A
+// (B, rows) or, with aidx, a table looked up by aidx[b xs] (int32), or
+// null for ones; C likewise (B, cols); P sorted positions per block; part
+// 2 ceil(B / P) slots of rows x cols scratch. Two launches: the slices and
+// the sum pass.
+int tnt_tt_eval_slice_grad(int dtype, int I, int rows, int cols, const void* bounds,
+                           const void* keys, const void* perm, const void* g, long long B, int P,
+                           const void* A, const void* aidx, const void* C, const void* cidx,
+                           int xs, void* out, long long os, long long orow, long long ocol,
+                           void* part, void* stream) {
+  if (I < 1 || rows < 1 || cols < 1 || P < 1 || B < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return slice_grad<float>(I, rows, cols, (const int64_t*)bounds, (const int*)keys,
+                             (const int64_t*)perm, (const float*)g, B, P, (const float*)A,
+                             (const int*)aidx, (const float*)C, (const int*)cidx, xs,
+                             (float*)out, os, orow, ocol, (float*)part, s);
+  return slice_grad<double>(I, rows, cols, (const int64_t*)bounds, (const int*)keys,
+                            (const int64_t*)perm, (const double*)g, B, P, (const double*)A,
+                            (const int*)aidx, (const double*)C, (const int*)cidx, xs,
+                            (double*)out, os, orow, ocol, (double*)part, s);
 }
 
 int tnt_tt_eval_backward(int dtype, int itype, int N, const void* const* cores,

@@ -26,9 +26,27 @@ dispatcher ``tt_eval``) and of ``tntorch_tpu/parallel/mesh.py``'s
   - *per sample* (every other shape, the training step's among them): one
     warp per sample gathers its own slices, in one launch.
 - ``tt_eval_backward_kernel``: the cores' gradient of ``sum_b g_b
-  value_b``. It has no Pallas counterpart (JAX differentiates
+  value_b``, ``dC_k[:, i, :] = sum_{b: x_bk = i} g_b L_k[b] (outer)
+  Rt_{k+1}[b]``. It has no Pallas counterpart (JAX differentiates
   ``tt_batch_forward`` in XLA); the training path needs it because its
-  forward runs in a kernel.
+  forward runs in a kernel. On the card it takes one of two paths, chosen
+  by the pure predicate `_grouped_backward`:
+
+  - *grouped* (N >= 3, at least ``_BWD_MIN`` samples per slice of every
+    middle mode and ``_BWD_MIN_BYTES`` of middle slices, from the
+    crossover on the card): stable sorts of every mode and their run
+    bounds (`_group_operands`, `_run_bounds`); the left and right
+    interfaces by the grouped forward kernel; then one
+    ``slice_grad_kernel`` launch per mode that sums each slice over its run
+    of sorted samples and writes it once, as `_slice_plan` lays out. No
+    atomics, every entry summed in a fixed order: bitwise reproducible.
+    Bounded by the interface launches and the FP32 FMAs of the middle
+    reductions.
+  - *per sample* (every other shape, the training step's among them): one
+    warp per sample recomputes its interfaces and ``atomicAdd``s its outer
+    products into the slices, in one launch. The atomics bound it where
+    many samples share a slice, and their order varies: not bitwise
+    reproducible.
 
 `TTEval` joins the two as a ``torch.autograd.Function`` that saves only the
 cores and X: the backward recomputes the interfaces. What bounds the kernels
@@ -40,14 +58,17 @@ cores, int32 or int64 coordinates), shapes and contiguity, launches its
 kernels on the current stream, and raises on any failure: it never falls
 back, neither to the plain version nor to the other kernel. Negative
 coordinates wrap as in NumPy; an out-of-range one raises ``IndexError``
-(the wrapper reads one flag back from the card per call). Each wrapper
-counts its calls that launched in a plain integer attribute
-(``tt_eval_kernel.launches``), which only a launch raises;
-``tt_eval_kernel.grouped`` counts those that took the grouped kernel.
+(the wrapper reads one flag back from the card per call). `TTEval`'s
+backward passes ``checked=True``, since its forward already raised on the
+same X: it reads no flag, so a training step reads the flag once (in its
+forward), not twice. Each wrapper counts its calls that launched in a
+plain integer attribute (``tt_eval_kernel.launches``), which only a launch
+raises; ``.grouped`` counts those that took the grouped path.
 """
 
 from __future__ import annotations
 
+import bisect
 import ctypes
 
 import numpy as np
@@ -69,6 +90,15 @@ _GROUP_TILE, _GROUP_COLS, _GROUP_PAD = 128, 64, 4
 # least _GROUP_MIN_BYTES, against which the grouped call's fixed cost (sorts
 # and bookkeeping, ~0.3-0.5 ms) is small
 _GROUP_MIN, _GROUP_MIN_BYTES = 64, 1 << 30
+# The grouped backward's reduction (csrc/tt_eval.cu: slice_grad_kernel)
+# takes P sorted positions a block, 1 to 8 steps of _SLICE_TILE (SMAXP =
+# 1024 at most). From the crossover of whole calls on the card (PERF.md):
+# the grouped backward serves a call when every middle mode has at least
+# _BWD_MIN samples per slice and the middle slices of all samples come to at
+# least _BWD_MIN_BYTES, against which its fixed cost (sorts, bookkeeping
+# and ~30 launches, ~0.7-1 ms) is small
+_SLICE_TILE = 128
+_BWD_MIN, _BWD_MIN_BYTES = 64, 1 << 30
 # The plain backward scatters its outer products in slices of at most this
 # many elements, so that large batches stay within device memory
 _CHUNK = 1 << 26
@@ -189,23 +219,80 @@ def _grouped(ranks, dims, B, itemsize):
                     for k in mids))
 
 
-def _group_operands(cores, X):
-    """The grouped path's bookkeeping, in PyTorch on X's device: X (B, N)
+def _group_operands(cores, X, modes=None, check=True):
+    """The grouped paths' bookkeeping, in PyTorch on X's device: X (B, N)
     with coordinates wrapped into [0, I_k), as int32 (NumPy's wrap of
     negative ones; an out-of-range one lands somewhere in range, so no
-    launch reads out of bounds); a flag (0-d) set when any was out of range;
-    for each middle mode k = 1..N-2 its sorted coordinates and the
-    permutation that sorts them; C_0 summed over R_0, (I_0, R_1), the
-    interface after mode 0 by coordinate; and C_{N-1}[:, :, 0] transposed,
-    (I_{N-1}, R_{N-1})."""
+    launch reads out of bounds); a flag (0-d) set when any was out of range,
+    or None without `check`; for each mode k in `modes` (default the middle
+    ones, 1..N-2) its sorted coordinates and the permutation that sorts
+    them, by a stable sort (equal keys keep increasing b); C_0 summed over
+    R_0, (I_0, R_1), the interface after mode 0 by coordinate; and
+    C_{N-1}[:, :, 0] transposed, (I_{N-1}, R_{N-1})."""
     dims = [c.shape[1] for c in cores]
-    hi, lo = torch.tensor([dims, [-I for I in dims]], dtype=X.dtype).to(X.device)
-    bad = (X < lo) | (X >= hi)
+    modes = range(1, len(cores) - 1) if modes is None else modes
+    hi = torch.tensor(dims, dtype=X.dtype).to(X.device)
+    flag = ((X < -hi) | (X >= hi)).any() if check else None
     Xw = torch.remainder(X, hi).to(torch.int32)  # wraps, and keeps every key in range
-    sorts = [torch.sort(Xw[:, k]) for k in range(1, len(cores) - 1)]
+    sorts = [torch.sort(Xw[:, k], stable=True) for k in modes]
     first = cores[0].sum(0)
     last = cores[-1][:, :, 0].t().contiguous()
-    return Xw, bad.any(), sorts, first, last
+    return Xw, flag, sorts, first, last
+
+
+def _run_bounds(keys, I):
+    """Where the run of each slice 0..I-1 starts in the sorted keys, and
+    where the last ends: (I + 1,) int64, on the keys' device."""
+    return torch.searchsorted(keys, torch.arange(I + 1, dtype=keys.dtype, device=keys.device))
+
+
+def _slice_block(B):
+    """Sorted positions per block of the grouped backward's reduction: 1 to
+    8 steps of _SLICE_TILE, so that a batch of B samples gives ~512 blocks
+    or more where it can."""
+    return _SLICE_TILE * max(1, min(8, B // (_SLICE_TILE * 512)))
+
+
+def _slice_plan(bounds, B, P):
+    """The plan of the grouped backward's reduction (csrc/tt_eval.cu:
+    slice_grad_kernel and its sum pass), in Python. Block x takes sorted
+    positions [x P, min(B, (x + 1) P)) and, in order, the segment of each
+    run of equal keys (one slice) that meets them. A segment that is its
+    whole run goes straight into the slice (slot None); any other into
+    partial slot 2x when its run began before the block (its first
+    segment), else 2x + 1 (its last). The sum pass gives slice i the sum of
+    its slots in block order (zeros for an empty slice). Returns
+    (segments, slots): segments[x] lists (i, start, end, slot), slots[i]
+    the slots of slice i."""
+    bounds = [int(b) for b in bounds]
+    segments, slots = [], [[] for _ in range(len(bounds) - 1)]
+    for x in range(-(-B // P)):
+        pb, pe = x * P, min(B, (x + 1) * P)
+        segs, p = [], pb
+        while p < pe:
+            i = bisect.bisect_right(bounds, p) - 1  # the slice whose run holds p
+            lo, hi = bounds[i], bounds[i + 1]
+            slot = None if lo >= pb and hi <= pe else 2 * x + (lo > pb)
+            segs.append((i, p, min(hi, pe), slot))
+            if slot is not None:
+                slots[i].append(slot)
+            p = min(hi, pe)
+        segments.append(segs)
+    return segments, slots
+
+
+def _grouped_backward(ranks, dims, B, itemsize):
+    """Whether `tt_eval_backward_kernel` takes the grouped path: N >= 3;
+    every middle mode k has grouped interface blocks that fit shared memory
+    in both directions (R_k for the left sweep, R_{k+1} for the right) and
+    at least ``_BWD_MIN`` samples per slice (B >= _BWD_MIN * I_k); and the
+    middle slices of all samples come to ``_BWD_MIN_BYTES`` or more."""
+    mids = range(1, len(dims) - 1)
+    return (len(dims) >= 3
+            and B * sum(ranks[k] * ranks[k + 1] for k in mids) * itemsize >= _BWD_MIN_BYTES
+            and all(max(_grouped_smem(ranks[k], itemsize),
+                        _grouped_smem(ranks[k + 1], itemsize)) <= _SMEM
+                    and B >= _BWD_MIN * dims[k] for k in mids))
 
 
 def _ptr(t):
@@ -216,19 +303,74 @@ def _tt_eval_grouped(dcode, cores, X, ranks, out):
     """One grouped launch per middle mode; returns the out-of-range flag."""
     B, N = X.shape
     Xw, flag, sorts, first, last = _group_operands(cores, X)
-    col = Xw.element_size()
-    src, src_idx = first, _ptr(Xw)  # mode 0's rows, looked up by coordinate
-    for k in range(1, N - 1):
-        keys, perm = sorts[k - 1]
-        final = k == N - 2
-        dst = None if final else torch.empty((B, ranks[k + 1]), dtype=out.dtype, device=out.device)
-        _launch("tnt_tt_eval_grouped", dcode, _ptr(cores[k]), ranks[k], cores[k].shape[1],
-                ranks[k + 1], _ptr(keys), _ptr(perm), B, _ptr(src), src_idx, _ptr(dst),
-                _ptr(last if final else None),
-                ctypes.c_void_p(Xw.data_ptr() + (N - 1) * col if final else None), N,
-                _ptr(out if final else None))
-        src, src_idx = dst, _ptr(None)
+    src, src_idx = first, _col(Xw, 0)  # mode 0's rows, looked up by coordinate
+    for k in range(1, N - 2):
+        src, src_idx = _interface(dcode, cores[k], *sorts[k - 1], src, src_idx, N), _ptr(None)
+    keys, perm = sorts[-1]  # mode N-2, its epilogue dotted with C_{N-1}[:, x, 0]
+    core = cores[N - 2]
+    _launch("tnt_tt_eval_grouped", dcode, _ptr(core), ranks[N - 2], core.shape[1], ranks[N - 1],
+            _ptr(keys), _ptr(perm), B, _ptr(src), src_idx, _ptr(None), _ptr(last),
+            _col(Xw, N - 1), N, _ptr(out))
     return flag
+
+
+def _col(Xw, k):
+    """Column k of the wrapped coordinates (B, N) as a strided int32 pointer."""
+    return ctypes.c_void_p(Xw.data_ptr() + k * Xw.element_size())
+
+
+def _interface(dcode, core, keys, perm, src, src_idx, N):
+    """Rows y_b = x_b core[:, x_bk, :] (B, R') of one mode for every sample,
+    from rows x_b of src (or src[src_idx[b]]), by one grouped launch."""
+    Rl, I, Rr = core.shape
+    dst = torch.empty((len(perm), Rr), dtype=core.dtype, device=core.device)
+    _launch("tnt_tt_eval_grouped", dcode, _ptr(core), Rl, I, Rr, _ptr(keys), _ptr(perm),
+            len(perm), _ptr(src), src_idx, _ptr(dst), _ptr(None), _ptr(None), N, _ptr(None))
+    return dst
+
+
+def _tt_eval_backward_grouped(dcode, cores, X, g, ranks, check):
+    """The grouped backward: stable sorts and run bounds of every mode; the
+    left interfaces L_2..L_{N-1} and the right ones Rt_{N-2}..Rt_1 by the
+    grouped forward kernel (the latter on each middle core transposed);
+    then one slice reduction per mode. Returns the gradients and the
+    out-of-range flag (None without `check`)."""
+    B, N = X.shape
+    dims = [c.shape[1] for c in cores]
+    Xw, flag, sorts, first, last = _group_operands(cores, X, range(N), check)
+    none = _ptr(None)
+    # L_k for k = 0..N-1 as (table, index): ones, then C_0's sum by x_0
+    lefts = [(None, none)] + [(first, _col(Xw, 0))] * (N > 1)
+    for k in range(1, N - 1):
+        lefts.append((_interface(dcode, cores[k], *sorts[k], *lefts[k], N), none))
+    # Rt_k for k = 1..N: e_0 (no table), then C_{N-1}[:, :, 0] by x_{N-1}
+    rights = {N: (None, none)}
+    if N > 1:
+        rights[N - 1] = (last, _col(Xw, N - 1))
+    for k in range(N - 2, 0, -1):
+        core_t = cores[k].permute(2, 1, 0).contiguous()  # (R_{k+1}, I_k, R_k)
+        rights[k] = (_interface(dcode, core_t, *sorts[k], *rights[k + 1], N), none)
+    flat = torch.empty(sum(c.numel() for c in cores), dtype=g.dtype, device=g.device)
+    grads = [d.view(c.shape) for d, c in zip(torch.split(flat, [c.numel() for c in cores]), cores)]
+    if ranks[N] > 1:
+        grads[-1].zero_()  # the last mode's reduction writes column 0 only
+    P = _slice_block(B)
+    entries = max([ranks[k] * ranks[k + 1] for k in range(N - 1)] + [ranks[N - 1]])
+    part = torch.empty(2 * -(-B // P) * entries, dtype=g.dtype, device=g.device)
+    for k in range(N):
+        keys, perm = sorts[k]
+        I, Rr = dims[k], ranks[k + 1]
+        if k < N - 1:  # rows g_b L_k[b], columns Rt_{k+1}[b]: dC_k[r, i, c]
+            rows, cols, (A, aidx), (C, cidx) = ranks[k], Rr, lefts[k], rights[k + 1]
+            strides = (Rr, I * Rr, 1)
+        else:  # one row g_b (Rt_N = e_0), columns L_{N-1}[b]: dC_{N-1}[c, i, 0]
+            rows, cols, (A, aidx), (C, cidx) = 1, ranks[k], (None, none), lefts[k]
+            strides = (Rr, 1, I * Rr)
+        bounds = _run_bounds(keys, I)
+        _launch("tnt_tt_eval_slice_grad", dcode, I, rows, cols, _ptr(bounds), _ptr(keys),
+                _ptr(perm), _ptr(g), B, P, _ptr(A), aidx, _ptr(C), cidx, N, _ptr(grads[k]),
+                *strides, _ptr(part))
+    return grads, flag
 
 
 def tt_eval_kernel(cores, X):
@@ -257,8 +399,12 @@ def tt_eval_kernel(cores, X):
     return out
 
 
-def tt_eval_backward_kernel(cores, X, g):
-    """Gradients of ``sum_b g_b tt_eval(cores, X)_b``, one per core."""
+def tt_eval_backward_kernel(cores, X, g, checked=False):
+    """Gradients of ``sum_b g_b tt_eval(cores, X)_b``, one per core.
+    ``checked=True`` says that X's coordinates are known to be in range (the
+    forward already raised on the same X): on the card the call then reads
+    no flag back, so it does not wait for the card. The kernels still guard
+    every load."""
     cores = list(cores)
     if _on_cpu(*cores, X, g):
         return tt_eval_backward_plain(cores, X, g)
@@ -266,27 +412,33 @@ def tt_eval_backward_kernel(cores, X, g):
     B, N = X.shape
     if g.dtype != cores[0].dtype or tuple(g.shape) != (B,) or not g.is_contiguous():
         raise ValueError(f"tt_eval_backward: g must be a contiguous ({B},) {cores[0].dtype} array")
-    flat = torch.zeros(sum(c.numel() for c in cores), dtype=g.dtype, device=g.device)
-    grads = list(torch.split(flat, [c.numel() for c in cores]))
-    grads = [d.view(c.shape) for d, c in zip(grads, cores)]
     if B == 0:
-        return grads
+        return [torch.zeros_like(c) for c in cores]
     with torch.cuda.device(X.device):
-        flag = torch.zeros(1, dtype=torch.int32, device=X.device)
-        _launch("tnt_tt_eval_backward", dcode, icode, N,
-                _array(ctypes.c_void_p, [c.data_ptr() for c in cores]),
-                _array(ctypes.c_void_p, [d.data_ptr() for d in grads]),
-                _array(ctypes.c_int, ranks), _array(ctypes.c_int, dims),
-                ctypes.c_void_p(X.data_ptr()), ctypes.c_void_p(g.data_ptr()), B,
-                ctypes.c_void_p(flag.data_ptr()))
+        if _grouped_backward(ranks, dims, B, cores[0].element_size()):
+            grads, flag = _tt_eval_backward_grouped(dcode, cores, X, g, ranks, not checked)
+            tt_eval_backward_kernel.grouped += 1
+        else:
+            flat = torch.zeros(sum(c.numel() for c in cores), dtype=g.dtype, device=g.device)
+            grads = [d.view(c.shape)
+                     for d, c in zip(torch.split(flat, [c.numel() for c in cores]), cores)]
+            flag = torch.zeros(1, dtype=torch.int32, device=X.device)
+            _launch("tnt_tt_eval_backward", dcode, icode, N,
+                    _array(ctypes.c_void_p, [c.data_ptr() for c in cores]),
+                    _array(ctypes.c_void_p, [d.data_ptr() for d in grads]),
+                    _array(ctypes.c_int, ranks), _array(ctypes.c_int, dims),
+                    ctypes.c_void_p(X.data_ptr()), ctypes.c_void_p(g.data_ptr()), B,
+                    ctypes.c_void_p(flag.data_ptr()))
     tt_eval_backward_kernel.launches += 1
-    _raise_if_flagged(flag, "tt_eval_backward")
+    if not checked:
+        _raise_if_flagged(flag, "tt_eval_backward")
     return grads
 
 
 tt_eval_kernel.launches = 0
 tt_eval_kernel.grouped = 0
 tt_eval_backward_kernel.launches = 0
+tt_eval_backward_kernel.grouped = 0
 
 KERNELS = (tt_eval_kernel, tt_eval_backward_kernel)
 PLAIN = {tt_eval_kernel: tt_eval_plain, tt_eval_backward_kernel: tt_eval_backward_plain}
@@ -294,8 +446,7 @@ PLAIN = {tt_eval_kernel: tt_eval_plain, tt_eval_backward_kernel: tt_eval_backwar
 
 def reset_launches() -> None:
     for k in KERNELS:
-        k.launches = 0
-    tt_eval_kernel.grouped = 0
+        k.launches = k.grouped = 0
 
 
 # ---------------------------------------------------------------------------
@@ -320,7 +471,8 @@ class TTEval(torch.autograd.Function):
         needs = ctx.needs_input_grad[1:]
         if not any(needs):
             return (None,) * (1 + len(cores))
-        grads = tt_eval_backward_kernel(cores, X, g.contiguous())
+        # checked: the forward raised on any out-of-range coordinate of X
+        grads = tt_eval_backward_kernel(cores, X, g.contiguous(), True)
         return (None, *(d if need else None for d, need in zip(grads, needs)))
 
 
