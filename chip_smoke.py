@@ -60,7 +60,24 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    backward call per step, a falling loss, the first 3 losses against the
    same run on the plain versions on the card, iterations per second in
    turns with the kernels, with the per-sample backward and with the plain
-   versions, and a profile of three steps.
+   versions, and a profile of three steps;
+9. BASELINE configurations 1 and 2 at their own size, float64, and Tucker
+   compression of the rounding ensemble: (9a) ``tn.randn(32, 32, 32, 32,
+   ranks_tt=5)`` with ``mean``, ``sum``, ``sum(dim=[1, 3])``, ``var``,
+   ``std``, ``norm``, ``t[3, :, 5, 7:20]``, ``t[X]`` at 4096 coordinates and
+   ``round(1e-6)`` against the dense tensor on the card (1e-6) and against
+   the port on the CPU (1e-10); (9b) the dense 64^4 tensor
+   ``1/(i+j+k+l+1)`` built on the card, decomposed by ``Tensor(x,
+   eps=1e-9)`` (1e-9 against dense; ranks, coefficients and compression
+   printed; timed by CUDA events), by ``ranks_tt=10, ranks_tucker=10``,
+   and by ``ranks_tt=10`` with ``algorithm='gram'`` and ``'randomized'``,
+   each in float64 and float32, with errors and times, ranks and values
+   checked against the port on the CPU in float64; (9c) phase 4's ensemble
+   rounded by ``round_tt(rmax=64, algorithm='randgram')`` (launch counts
+   2/2/2) and then Tucker-rounded by the batched ``round_tucker(rmax=64)``,
+   two samples against the CPU in float64, the Tucker stage timed.
+   ``python3 chip_smoke.py --only 9`` runs the probe, the build and this
+   phase only.
 
 The data of phases 6 to 8 comes without a device and lands on the card by
 the package's default. The second-to-last line is one JSON object with
@@ -110,6 +127,33 @@ TRAIN_TOL = 1e-5
 #   first steps move every parameter by ~lr whatever the gradient's size, so
 #   a gradient entry near zero may step either way. 1e-4.
 DESIGN_TRAIN_TOL = 1e-4
+# - BASELINE configs (BASELINE.json): config 1 within 1e-6 of the dense
+#   tensor, config 2 within 1e-9; both in float64.
+CONFIG1_TOL, CONFIG2_EPS = 1e-6, 1e-9
+# - the same float64 computation on the card and on the CPU: roundoff, 1e-10
+#   for config 1's values and for config 2's eps and fixed-rank
+#   decompositions (cuSOLVER's and the CPU LAPACK's Householder QR of the
+#   4096 x 4096 middle unfolding each carry ~n eps = 1e-12 of roundoff:
+#   5.1e-12 apart on an H100 against 4.5e-10 of truncation error).
+CPU_TOL, DECOMP_TOL = 1e-10, 1e-10
+# - 'gram' TT-SVD squares the condition number, so the two libraries' top-r
+#   subspaces differ by more than roundoff (3.7e-9 apart on an H100 against
+#   1.3e-7 of truncation error): the card's and the CPU's approximations must
+#   lie within a tenth of the CPU's own truncation error of each other.
+GRAM_SHARE = 0.1
+# - 'randomized' TT-SVD: the power iteration squares the spectrum, and a
+#   1e-15 perturbation of the input moves its result by about its own error
+#   (32^4, 48^4 on the CPU; an H100's error 1.9x the CPU's with the same
+#   sketch): its error against dense must stay within 10x the CPU's.
+RAND_FACTOR = 10
+# - float32 TT-SVD against the dense tensor: the Gram-based kernels square
+#   the condition number, so directions below ~3e-4 of the top singular
+#   value are roundoff; 1.1e-3 to 3.1e-3 at 32^4 and 48^4 on the CPU. 5e-2.
+F32_DECOMP_TOL = 5e-2
+# - Tucker rounding of the float32 ensemble on the card against the same
+#   input in float64 on the CPU: 1.7e-5 for float32 on the CPU (two
+#   samples); the cut of a flat spectrum amplifies roundoff. 1e-3.
+TUCKER_TOL = 1e-3
 
 BENCH = dict(B=32, N=4, I=256, R=128, rmax=64)
 # The evaluation kernel's design shape (the TPU kernel's stated regime,
@@ -1001,8 +1045,194 @@ def train_design_path():
     return launches
 
 
+def rel(got, ref):
+    """||got - ref|| / ||ref||, as a float."""
+    import torch
+
+    return float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref))
+
+
+def event_ms(fn):
+    """(fn(), its time in ms by CUDA events): one call."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def baseline_config1():
+    phase("9a. BASELINE config 1: tn.randn(32, 32, 32, 32, ranks_tt=5), float64")
+    import numpy as np
+    import torch
+
+    import tntorch_tpu_torch as tn
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    tn.set_policy("highest")
+    t = tn.randn(32, 32, 32, 32, ranks_tt=5, dtype=torch.float64,
+                 generator=torch.Generator(device="cuda").manual_seed(0))
+    if t.device.type != "cuda":
+        raise AssertionError(f"tn.randn landed on {t.device}")
+    cpu = tn.Tensor([c.cpu() for c in t.cores])
+    dense = t.full()
+    X = torch.from_numpy(np.random.default_rng(9).integers(0, 32, (4096, 4)))
+    checks = {
+        "mean": (lambda t: t.mean(), lambda d: d.mean()),
+        "sum": (lambda t: tn.sum(t), lambda d: d.sum()),
+        "sum(dim=[1, 3])": (lambda t: tn.sum(t, dim=[1, 3]).full(), lambda d: d.sum(dim=(1, 3))),
+        "var": (lambda t: t.var(), lambda d: d.var(correction=0)),
+        "std": (lambda t: t.std(), lambda d: d.std(correction=0)),
+        "norm": (lambda t: t.norm(), lambda d: torch.linalg.vector_norm(d)),
+        "t[3, :, 5, 7:20]": (lambda t: t[3, :, 5, 7:20].full(), lambda d: d[3, :, 5, 7:20]),
+        "t[X], 4096 coordinates": (lambda t: t[X.to(t.device)].full(),
+                                   lambda d: d[tuple(X.to(d.device).T)]),
+    }
+    te.reset_launches()
+    for name, (op, ref) in checks.items():
+        got = op(t)
+        err, err_cpu = rel(got, ref(dense)), rel(got.cpu(), op(cpu))
+        print(f"{name}: rel err {err:.3e} against dense (tol {CONFIG1_TOL}), {err_cpu:.3e} "
+              f"against the CPU (tol {CPU_TOL})")
+        if not (err <= CONFIG1_TOL and err_cpu <= CPU_TOL):
+            raise AssertionError(f"config 1: {name} disagrees")
+    torch.cuda.synchronize()
+    launches = {k.__name__.replace("_kernel", ""): k.launches for k in te.KERNELS}
+    if launches["tt_eval"] != 1:
+        raise AssertionError(f"t[X] launched tt_eval {launches['tt_eval']} times, not once")
+    r, cold = event_ms(lambda: tn.round(t, eps=1e-6))
+    r, ms = event_ms(lambda: tn.round(t, eps=1e-6))
+    rc = tn.round(cpu, eps=1e-6)
+    err, err_cpu = rel(r.full(), dense), rel(r.full().cpu(), rc.full())
+    print(f"round(1e-6): ranks_tt {r.ranks_tt.tolist()}, ranks_tucker {r.ranks_tucker.tolist()}, "
+          f"rel err {err:.3e} against dense, {err_cpu:.3e} against the CPU, {ms:.3f} ms "
+          f"({cold:.3f} ms the first call)")
+    if (r.ranks_tt.tolist() != rc.ranks_tt.tolist()
+            or r.ranks_tucker.tolist() != rc.ranks_tucker.tolist()):
+        raise AssertionError("config 1: round(1e-6) ranks differ between the card and the CPU")
+    if not (err <= CONFIG1_TOL and err_cpu <= CPU_TOL):
+        raise AssertionError("config 1: round(1e-6) disagrees")
+    return launches
+
+
+def baseline_config2():
+    phase("9b. BASELINE config 2: TT-SVD + TT-Tucker of the 64^4 tensor 1/(i+j+k+l+1), "
+          "float64")
+    import torch
+
+    import tntorch_tpu_torch as tn
+
+    tn.set_policy("highest")
+    i = torch.arange(64, device="cuda", dtype=torch.float64)
+    x = 1 / (i[:, None, None, None] + i[None, :, None, None] + i[None, None, :, None]
+             + i[None, None, None, :] + 1)
+    xc = x.cpu()
+    times = {}
+    t, cold = event_ms(lambda: tn.Tensor(x, eps=CONFIG2_EPS))
+    t, times["eps=1e-9"] = event_ms(lambda: tn.Tensor(x, eps=CONFIG2_EPS))
+    ref = tn.Tensor(xc, eps=CONFIG2_EPS)
+    err, err_cpu = rel(t.full(), x), rel(t.full().cpu(), ref.full())
+    print(f"Tensor(x, eps=1e-9): ranks_tt {t.ranks_tt.tolist()}, ranks_tucker "
+          f"{t.ranks_tucker.tolist()}, {t.numcoef()} coefficients (compression "
+          f"{x.numel() / t.numcoef():.1f}x), rel err {err:.3e} against dense (tol {CONFIG2_EPS}), "
+          f"{err_cpu:.3e} against the CPU (tol {DECOMP_TOL}); {times['eps=1e-9']:.3f} ms "
+          f"({cold:.3f} ms the first call)")
+    failed = []  # every variant prints its numbers; the phase then fails on any
+    if (t.ranks_tt.tolist() != ref.ranks_tt.tolist()
+            or t.ranks_tucker.tolist() != ref.ranks_tucker.tolist()):
+        failed.append("eps=1e-9: ranks differ between the card and the CPU")
+    if not (err <= CONFIG2_EPS and err_cpu <= DECOMP_TOL):
+        failed.append("eps=1e-9: values disagree")
+    r = 10
+    variants = {
+        "ranks_tt=10, ranks_tucker=10": dict(ranks_tt=r, ranks_tucker=r),
+        "ranks_tt=10, 'gram'": dict(ranks_tt=r, algorithm="gram"),
+        "ranks_tt=10, 'randomized'": dict(ranks_tt=r, algorithm="randomized"),
+    }
+    for name, kw in variants.items():
+        ref = tn.Tensor(xc, **kw)
+        ref_err = rel(ref.full(), xc)
+        for dtype in (torch.float64, torch.float32) if "'" in name else (torch.float64,):
+            xd = x.to(dtype)
+            event_ms(lambda: tn.Tensor(xd, **kw))  # warm-up
+            a, ms = event_ms(lambda: tn.Tensor(xd, **kw))
+            key = f"{name}, {str(dtype)[6:]}"
+            times[key] = ms
+            full = a.full().double()
+            err, err_cpu = rel(full, x), rel(full.cpu(), ref.full())
+            print(f"{key}: ranks_tt {a.ranks_tt.tolist()}, ranks_tucker "
+                  f"{a.ranks_tucker.tolist()}, rel err {err:.3e} against dense (CPU float64 "
+                  f"{ref_err:.3e}), {err_cpu:.3e} against the CPU float64; {ms:.3f} ms")
+            if a.ranks_tt.tolist() != ref.ranks_tt.tolist() or not torch.isfinite(full).all():
+                failed.append(f"{key}: ranks differ from the CPU, or values not finite")
+            if dtype == torch.float32:
+                ok = err <= F32_DECOMP_TOL
+            elif "randomized" in name:
+                ok = err <= RAND_FACTOR * ref_err
+            elif "gram" in name:
+                ok = err_cpu <= GRAM_SHARE * ref_err
+            else:
+                ok = err_cpu <= DECOMP_TOL
+            if not ok:
+                failed.append(f"{key}: values disagree")
+    print("config 2 times (ms, CUDA events): " + json.dumps(times))
+    if failed:
+        raise AssertionError("config 2: " + "; ".join(failed))
+
+
+def tucker_ensemble():
+    phase("9c. Tucker compression of the rounding ensemble: B=32 N=4 I=256, round_tt "
+          "128->64 (randgram), then round_tucker(rmax=64), float32")
+    import torch
+
+    import tntorch_tpu_torch as tn
+    from tntorch_tpu_torch.ops import gram_kernels as gk
+
+    tn.set_policy("high")
+    t = tn.Tensor([torch.from_numpy(c) for c in bench_cores()], batch=True, device="cuda")
+    gk.reset_launches()
+    r = tn.round_tt(t, rmax=BENCH["rmax"], algorithm="randgram")
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in gk.KERNELS}
+    print(f"round_tt launches: {launches}")
+    if launches != {"gram_edge": 2, "wgram": 2, "proj2": 2}:
+        raise AssertionError(f"expected launches 2/2/2, got {launches}")
+    u, cold = event_ms(lambda: tn.round_tucker(r, rmax=BENCH["rmax"]))
+    if u.ranks_tucker.tolist() != [BENCH["rmax"]] * 4 or u.Us[0].device.type != "cuda":
+        raise AssertionError(f"Tucker ranks {u.ranks_tucker.tolist()} on {u.Us[0].device}")
+    if not all(torch.isfinite(x).all() for x in u.cores + u.Us):
+        raise AssertionError("non-finite Tucker cores or factors")
+    ms = cuda_time(lambda: tn.round_tucker(r, rmax=BENCH["rmax"]), reps=3, inner=1)
+    host = [c[:2].double().cpu() for c in r.cores]
+    ref = tn.round_tucker(tn.Tensor(host, batch=True), rmax=BENCH["rmax"])
+    got = tn.Tensor([c[:2].double().cpu() for c in u.cores],
+                    Us=[U[:2].double().cpu() for U in u.Us], batch=True)
+    dev = tn.relative_error(ref, got)
+    trunc = tn.relative_error(tn.Tensor(host, batch=True), ref)
+    print(f"round_tucker(rmax=64), B={BENCH['B']}: {ms:.3f} ms ({cold:.3f} ms the first call); "
+          f"Tucker ranks {u.ranks_tucker.tolist()}, {u.numcoef()} coefficients from "
+          f"{r.numcoef()}; card f32 vs CPU f64, samples 0-1: rel err {dev.tolist()} "
+          f"(tol {TUCKER_TOL}); Tucker truncation error {trunc.tolist()}")
+    if not bool((dev <= TUCKER_TOL).all()):
+        raise AssertionError("the Tucker stage disagrees with the CPU float64 run")
+    return launches
+
+
+def baseline_path():
+    """Phase 9; returns each kernel's launches in it."""
+    launches = baseline_config1()
+    baseline_config2()
+    launches.update(tucker_ensemble())
+    return launches
+
+
 PHASES = {"3": "check_kernels", "3b": "check_tt_kernels", "4": "main_path",
-          "5": "nonbatch_pass", "6": "eval_path", "7": "train_path", "8": "train_design_path"}
+          "5": "nonbatch_pass", "6": "eval_path", "7": "train_path", "8": "train_design_path",
+          "9": "baseline_path"}
 
 
 def main():
@@ -1029,7 +1259,9 @@ def main():
     evals = eval_path()
     trains = train_path()
     designs = train_design_path()
+    baselines = baseline_path()
     launches.update({k: evals[k] + trains[k] + designs[k] for k in evals})
+    launches = {k: n + baselines.get(k, 0) for k, n in launches.items()}
 
     import torch
 

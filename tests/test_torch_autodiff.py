@@ -165,7 +165,7 @@ def test_rand_and_randn(fn, mean, var):
     jb = jtn.rand([2, 3, 4, 5], batch=True, ranks_tt=2)
     assert b.shape == tuple(jb.shape) and b.ranks_tt.tolist() == jb.ranks_tt.tolist()
     with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        make([3, 4], ranks_tucker=2, device="cpu")
+        make([3, 4], ranks_cp=2, device="cpu")
 
 
 def test_parallel_ports_only_tt_batch_forward():

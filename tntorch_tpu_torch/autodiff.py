@@ -21,18 +21,27 @@ from tntorch_tpu_torch.parallel import ParallelNotPorted
 from tntorch_tpu_torch.tensor import Tensor
 
 
+def _leaf(x):
+    return x.detach().clone().requires_grad_(True)
+
+
 def _get_params(tensors) -> list:
-    """The trainable leaves: the cores of every `Tensor` flagged
-    ``requires_grad`` (batch tensors included: an elementwise optimizer and
-    a per-sample-separable loss fit every sample independently). A Tensor's
-    cores are replaced by fresh leaves first, so that training never writes
-    into storage the caller or a clone shares."""
+    """The trainable leaves: the cores and the Tucker factors outside
+    ``frozen_Us`` of every `Tensor` flagged ``requires_grad`` (batch
+    tensors included: an elementwise optimizer and a per-sample-separable
+    loss fit every sample independently). They are replaced by fresh leaves
+    first, so that training never writes into storage the caller or a clone
+    shares; frozen factors stay as they are."""
     params = []
     for i, t in enumerate(tensors):
         if isinstance(t, Tensor):
             if t.requires_grad:
-                t.cores = [c.detach().clone().requires_grad_(True) for c in t.cores]
+                t.cores = [_leaf(c) for c in t.cores]
+                t.Us = [U if U is None or m in t.frozen_Us else _leaf(U)
+                        for m, U in enumerate(t.Us)]
                 params.extend(t.cores)
+                params.extend(U for m, U in enumerate(t.Us)
+                              if U is not None and m not in t.frozen_Us)
         elif getattr(t, "requires_grad", False):
             raise ValueError(  # the JAX package's rule
                 f"optimize() can only train tn.Tensor inputs (position {i}): wrap the "
@@ -52,8 +61,9 @@ def optimize(
     block_iters: int = 1,
     mesh=None,
 ):
-    """Iterative learning loop: optimizes the cores of every input tensor
-    flagged ``requires_grad`` against ``loss_function(*tensors)``, in place.
+    """Iterative learning loop: optimizes the cores and unfrozen Tucker
+    factors of every input tensor flagged ``requires_grad`` against
+    ``loss_function(*tensors)``, in place.
 
     Converged when the loss is below ``tol``, or improved by a relative
     amount below ``tol`` while decelerating (the JAX package's rule). With
@@ -136,7 +146,7 @@ def optimize(
                 print()
             it += 1
 
-    opt.zero_grad(set_to_none=True)  # the trained cores stay in t.cores; free the last grads
+    opt.zero_grad(set_to_none=True)  # the trained leaves stay in the Tensors; free the last grads
     if verbose:
         _print_status(it, max_iter, loss_parts, losses_hist, start)
         print(" <- converged (tol={})".format(tol) if converged
@@ -153,7 +163,9 @@ def _print_status(it, max_iter, loss_parts, losses_hist, start):
 
 
 def dof(t) -> int:
-    """Degrees of freedom: the total size of the trainable cores."""
+    """Degrees of freedom: the total size of the trainable cores and
+    factors (frozen factors excluded)."""
     if not getattr(t, "requires_grad", False):
         return 0
-    return int(sum(np.prod(c.shape) for c in t.cores))
+    return int(sum(np.prod(c.shape) for c in t.cores)) + int(sum(
+        np.prod(U.shape) for m, U in enumerate(t.Us) if U is not None and m not in t.frozen_Us))

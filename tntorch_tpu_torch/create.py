@@ -1,10 +1,11 @@
-"""Random tensor trains: ``rand`` and ``randn`` with TT ranks.
+"""Random tensor trains: ``rand`` and ``randn`` with TT and Tucker ranks.
 
 Counterpart of ``tntorch_tpu/create.py``'s ``rand``/``randn``. JAX's
-``key=`` becomes a ``torch.Generator`` (``generator=``); the two give
+``key=`` becomes a ``torch.Generator`` (``generator=``), which draws the
+factors and the cores, mode by mode, factor first; the two packages give
 different numbers from the same seed. Cores land on ``device``, by default
-the package's default device (the CUDA card). CP and Tucker ranks are not
-ported (ROADMAP.md, queue 1 item 3).
+the package's default device (the CUDA card). CP ranks are not ported
+(ROADMAP.md, queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -41,15 +42,19 @@ def _create(draw, *shape, ranks_tt=None, ranks_cp=None, ranks_tucker=None,
             generator: Optional[torch.Generator] = None) -> Tensor:
     if hasattr(shape[0], "__len__"):
         shape = tuple(shape[0])
-    if ranks_cp is not None or ranks_tucker is not None:
-        raise _not_ported("CP and Tucker ranks", "queue 1 item 3")
+    if ranks_cp is not None:
+        raise _not_ported("CP ranks", "queue 1 item 3")
     dtype = dtype or default_dtype()
     device = device or default_device()
     bdim = tuple(shape[:1]) if batch else ()
     spatial = list(shape[1:] if batch else shape)
     N = len(spatial)
+    if not hasattr(ranks_tucker, "__len__"):
+        ranks_tucker = [ranks_tucker] * N
+    # the cores' middle axes: a mode's Tucker rank where it has a factor
+    inner = [s if rt is None else int(rt) for s, rt in zip(spatial, ranks_tucker)]
     if ranks_tt is None:
-        ranks_tt = _full_ranks(spatial)
+        ranks_tt = _full_ranks(inner)
     if not hasattr(ranks_tt, "__len__"):
         ranks_tt = [ranks_tt] * (N - 1)
     ranks = [1, *ranks_tt, 1]
@@ -57,6 +62,12 @@ def _create(draw, *shape, ranks_tt=None, ranks_cp=None, ranks_tucker=None,
         raise ValueError("One or more TT ranks were not specified")
     # Draw where the generator lives (the caller's stream of numbers), then move
     where = generator.device if generator is not None else device
-    cores = [draw(bdim + (ranks[n], spatial[n], ranks[n + 1]), generator=generator,
-                  dtype=dtype, device=where).to(device) for n in range(N)]
-    return Tensor(cores, batch=batch, requires_grad=requires_grad)
+
+    def sample(*s):
+        return draw(bdim + s, generator=generator, dtype=dtype, device=where).to(device)
+
+    cores, Us = [], []
+    for n in range(N):
+        Us.append(None if ranks_tucker[n] is None else sample(spatial[n], inner[n]))
+        cores.append(sample(ranks[n], inner[n], ranks[n + 1]))
+    return Tensor(cores, Us=Us, batch=batch, requires_grad=requires_grad)

@@ -1,7 +1,10 @@
-"""Inner products and distances computed in compressed form.
+"""Inner products, distances and statistics computed in compressed form.
 
 Counterpart of ``tntorch_tpu/metrics.py`` (dot, normsq, norm, dist,
-relative_error). Batch tensors give one value per sample, shape (B,).
+relative_error, rmse, r_squared, sum, mean, var, std). Batch tensors give
+one value per sample, shape (B,). The statistics ride on `tools.ttm`
+(rank-1 contractions with ones or marginal weights) and on `dot`; their
+helper arrays take the tensor's device and dtype.
 """
 
 from __future__ import annotations
@@ -49,6 +52,9 @@ def dot(t1, t2, k=None):
     def _project_left(core, M):
         return torch.einsum("...sr,...rai->...sai", M, core.to(dtype))
 
+    def _project_spatial(core, M):
+        return torch.einsum("...iak,...aj->...ijk", core.to(dtype), M.to(dtype))
+
     Lprod = torch.ones((int(t2.ranks_tt[0]), int(t1.ranks_tt[0])), dtype=dtype, device=t1.device)
     if k is None:
         k = min(t1.dim(), t2.dim())
@@ -62,8 +68,19 @@ def dot(t1, t2, k=None):
             )
         )
     for mu in range(k):
-        Ucore = _project_left(t1.cores[mu], Lprod)
-        Lprod = torch.einsum("...sai,...saj->...ij", t2.cores[mu].to(dtype), Ucore)
+        core1, core2 = t1.cores[mu], t2.cores[mu]
+        U1, U2 = t1.Us[mu], t2.Us[mu]
+        # Absorb the Tucker factors: the side without one takes the other's
+        if U1 is None:
+            if U2 is not None:
+                core1 = _project_spatial(core1, U2)
+        elif U2 is None:
+            core2 = _project_spatial(core2, U1)
+        else:
+            core2 = _project_spatial(core2, torch.einsum("...as,...ar->...sr", U2.to(dtype),
+                                                         U1.to(dtype)))
+        Ucore = _project_left(core1, Lprod)
+        Lprod = torch.einsum("...sai,...saj->...ij", core2.to(dtype), Ucore)
 
     if k == t1.dim() and k == t2.dim():
         return Lprod.sum((-2, -1))
@@ -71,10 +88,10 @@ def dot(t1, t2, k=None):
         if k < t2.dim():
             raise _not_ported("A partial dot leaving modes on both sides (tn.transpose)",
                               "queue 1 item 8")
-        t1trail = Tensor(list(t1.cores[k:]), batch=batch)
+        t1trail = Tensor(list(t1.cores[k:]), Us=list(t1.Us[k:]), batch=batch)
         t1trail.cores[0] = _project_left(t1trail.cores[0], Lprod)
         return t1trail
-    t2trail = Tensor(list(t2.cores[k:]), batch=batch)
+    t2trail = Tensor(list(t2.cores[k:]), Us=list(t2.Us[k:]), batch=batch)
     t2trail.cores[0] = _project_left(t2trail.cores[0], Lprod.mT)
     return t2trail
 
@@ -86,6 +103,7 @@ def _is_complex(t):
 def _conj(t):
     t2 = t.clone()
     t2.cores = [c.conj() for c in t2.cores]
+    t2.Us = [None if U is None else U.conj() for U in t2.Us]
     return t2
 
 
@@ -132,3 +150,97 @@ def normsq(t):
 def norm(t):
     """Frobenius norm (Hermitian for complex cores)."""
     return torch.sqrt(normsq(t).clamp(min=0))
+
+
+def rmse(gt, approx):
+    """Root-mean-square error; (B,) for batch input."""
+    gt, approx, dbatch = _process(gt, approx)
+    if not isinstance(gt, Tensor) and not isinstance(approx, Tensor):
+        n = gt.numel() / gt.shape[0] if dbatch else gt.numel()
+        return torch.linalg.vector_norm(_flat(gt - approx, dbatch), dim=-1) / np.sqrt(n)
+    n = gt.numel() / (gt.shape[0] if gt.batch else 1)
+    return dist(gt, approx) / np.sqrt(n)
+
+
+def r_squared(gt, approx):
+    """The R^2 score; (B,) for batch input."""
+    gt, approx, dbatch = _process(gt, approx)
+    if not isinstance(gt, Tensor) and not isinstance(approx, Tensor):
+        gf, af = _flat(gt, dbatch), _flat(approx, dbatch)
+        d = torch.linalg.vector_norm(gf - af, dim=-1)
+        dm = torch.linalg.vector_norm(gf - gf.mean(dim=-1, keepdim=True), dim=-1)
+        return 1 - d**2 / dm**2
+    return 1 - dist(gt, approx) ** 2 / normsq(gt - mean(gt))
+
+
+def _modes(t, dim):
+    if dim is None:
+        dim = range(t.dim())
+    if not hasattr(dim, "__len__"):
+        dim = [dim]
+    return [d + t.dim() if d < 0 else int(d) for d in dim]
+
+
+def sum(t, dim=None, keepdim=False, _normalize=False):
+    """Sum over all modes or the modes ``dim`` by rank-1 contractions with
+    ones (`tools.ttm`). A full sum gives a scalar tensor, or (B,) for a
+    batch (whose batch axis is never reduced); a partial one a Tensor, with
+    the reduced modes squeezed unless ``keepdim``."""
+    from tntorch_tpu_torch.tools import squeeze, ttm
+
+    dim = _modes(t, dim)
+    off = 1 if t.batch else 0
+    us = [torch.ones(t.shape[d + off], dtype=t.dtype, device=t.device) for d in dim]
+    if _normalize:
+        us = [u / u.shape[0] for u in us]
+    result = ttm(t, us, dim)
+    if keepdim:
+        return result
+    if t.batch:  # exactly the reduced modes: an unrelated singleton survives
+        return squeeze(result, dim=dim)
+    return squeeze(result)
+
+
+def _pdf_cores(t, marginals, dims, uniform):
+    """Rank-1 cores of the weights: each marginal (I,) or (B, I) of the
+    modes ``dims`` normalized to a PMF, 1/I (``uniform``) or 1 elsewhere,
+    on the tensor's device and in its dtype; broadcast over a batch."""
+    off = 1 if t.batch else 0
+    cores = [torch.ones((1, sh, 1), dtype=t.dtype, device=t.device) / (sh if uniform(n) else 1)
+             for n, sh in enumerate(t.shape[off:])]
+    for d, marg in zip(dims, marginals):
+        marg = asarray(marg, dtype=t.dtype, device=t.device)
+        cores[d] = (marg / marg.sum(dim=-1, keepdim=True))[..., None, :, None]
+    if t.batch:
+        cores = [c.expand((t.shape[0],) + c.shape[-3:]) for c in cores]
+    return Tensor(cores, batch=t.batch)
+
+
+def mean(t, dim=None, marginals=None, keepdim=False):
+    """Mean over all modes or the modes ``dim``; with ``marginals`` (one
+    weight vector per reduced mode, (I,) or (B, I) per sample) the
+    expectation under them. Modes in ``dim`` beyond the marginals given
+    stay uniform, and unreduced modes are not weighted."""
+    if marginals is not None:
+        dim = _modes(t, dim)
+        pdf = _pdf_cores(t, marginals, dim, uniform=lambda n: n in dim)
+        return sum(t * pdf, dim, keepdim)
+    return sum(t, dim, keepdim, _normalize=True)
+
+
+def var(t, marginals=None):
+    """Variance; (B,) for batch input. With ``marginals`` (one per mode)
+    the variance under them."""
+    if marginals is not None:
+        if len(marginals) != t.dim():
+            raise ValueError(f"var needs one marginal per mode ({t.dim()}), got {len(marginals)}")
+        tcentered = t - mean(t, marginals=marginals)
+        pdf = _pdf_cores(t, marginals, range(t.dim()), uniform=lambda n: False)
+        return dot(tcentered * pdf, tcentered)
+    n = t.numel() / (t.shape[0] if t.batch else 1)  # entries per sample
+    return normsq(t - mean(t)) / n
+
+
+def std(t):
+    """Standard deviation, sqrt(var)."""
+    return torch.sqrt(var(t))

@@ -1,8 +1,10 @@
-"""Fixed-rank and error-budgeted TT rounding sweeps.
+"""Fixed-rank and error-budgeted TT rounding sweeps, and Tucker rounding.
 
 Counterpart of ``tntorch_tpu/ops/rounding.py``. PyTorch runs eagerly, so
-data-dependent ranks are sliced directly instead of carried as masked
-padded ranks, and there is no jit. The batched Gram sweep
+there is no jit. The TT sweeps slice data-dependent ranks directly; the
+Tucker sweep (`_tucker_eps_body`) masks them, as the JAX package does, so
+that a batch runs one body and the ranks come back in one host read. The
+batched Gram sweep
 (`round_tt_gram_batched`) runs its three large contractions through the
 hand-written CUDA kernels of `gram_kernels` when the cores are on the card,
 and through their plain versions when they are on the CPU: the same algebra
@@ -236,11 +238,12 @@ def _round_tt_gram_body(cores, rmax, edge_solver="eigh"):
     return cores
 
 
-def _rmax_list(rmax, N):
+def _rmax_list(rmax, count):
+    """``count`` rank caps from None, one cap or a list (None: no cap)."""
     if rmax is None:
-        return [_INT_MAX] * (N - 1)
+        return [_INT_MAX] * count
     if not hasattr(rmax, "__len__"):
-        return [int(rmax)] * (N - 1)
+        return [int(rmax)] * count
     return [_INT_MAX if r is None else int(r) for r in rmax]
 
 
@@ -299,7 +302,7 @@ def round_tt_eps(cores, eps: float, rmax=None, algorithm: str = "eig",
     With ``return_reached`` also returns the achieved relative error."""
     N = len(cores)
     qr = torch.linalg.qr if resolve_precision(None) == "highest" else cholesky_qr2
-    out, reached = _eps_sweep([c[None] for c in cores], eps, _rmax_list(rmax, N), algorithm, qr)
+    out, reached = _eps_sweep([c[None] for c in cores], eps, _rmax_list(rmax, N - 1), algorithm, qr)
     out = [c[0] for c in out]
     return (out, reached[0]) if return_reached else out
 
@@ -309,9 +312,106 @@ def round_tt_batch(cores, rmax=None, algorithm: str = "svd", return_reached: boo
     """Batch rounding with the reference's batch rule: no error budget
     (eps = 0), rank min(rmax, rows, cols) per edge, shared across the batch.
     Input/output: 4D cores (B, Rl, I, Rr)."""
-    out, reached = _eps_sweep(list(cores), 0.0, _rmax_list(rmax, len(cores)), algorithm,
+    out, reached = _eps_sweep(list(cores), 0.0, _rmax_list(rmax, len(cores) - 1), algorithm,
                               torch.linalg.qr)
     return (out, reached) if return_reached else out
+
+
+def _tucker_eps_body(cores, us, eps, dims, algorithm, rmax):
+    """Masked Tucker rounding of a batch of TTs (cores (B, Rl, S, Rr); ``us``
+    the factors, (I, S) shared or (B, I, S)), the JAX package's
+    ``_tucker_eps_body`` over a leading batch axis.
+
+    Left-orthogonalize, then right to left per mode: QR the core's
+    (Rl Rr, S) unfolding and push R into the factor, truncate the factor by
+    its SVD ('svd') or Gram-eigh ('eig') spectrum with the budget
+    delta = eps/sqrt(len(dims)) * |U| (every other node is orthogonal, so
+    the local error is the global one), keep the factor orthonormal with
+    the scale in the core, and right-orthogonalize. As in the JAX package,
+    every mode is truncated: ``dims`` only sets the split. Ranks are
+    clip(k - k_discard, 1, rmax) per sample; columns beyond a sample's rank
+    are zeroed, not cut, so the ranks stay on the device. Returns the cores,
+    the factors and the ranks (B, N)."""
+    cores = _left_orthogonalize_sweep(list(cores))
+    us = list(us)
+    N = len(cores)
+    B = cores[0].shape[0]
+    delta_scale = eps / max(1.0, float(np.sqrt(len(dims))))
+    effs = [None] * N
+    for mu in range(N - 1, -1, -1):
+        _, Rl, S, Rr = cores[mu].shape
+        # Push the core's non-orthogonality into the factor
+        Q, Rm = torch.linalg.qr(cores[mu].mT.reshape(B, Rl * Rr, S))  # S' = min(Rl Rr, S)
+        Sp = Q.shape[-1]
+        core = Q.reshape(B, Rl, Rr, Sp).mT
+        U = us[mu] @ Rm.mT  # (B, I, S')
+        delta = delta_scale * torch.linalg.vector_norm(U.reshape(B, -1), dim=-1)
+        if algorithm == "svd":
+            left, s, vh = torch.linalg.svd(U, full_matrices=False)
+            k = s.shape[-1]  # min(I, S')
+            w = s**2
+            proj = s[..., None].to(U.dtype) * vh  # (B, k, S'): U = left @ proj
+        else:
+            w, V = torch.linalg.eigh(_sym(U.mH @ U))
+            w, Vd = _flip(w).clamp(min=0), _flip(V)  # descending
+            k = Sp
+            sig = torch.sqrt(w.clamp(min=torch.finfo(w.dtype).tiny))
+            left = (U @ Vd) / sig[:, None, :].to(U.dtype)  # orthonormal
+            proj = sig[..., None].to(U.dtype) * Vd.mH  # (B, S', S')
+        k_discard = (torch.cumsum(_flip(w), -1) <= (delta**2)[:, None]).sum(-1)
+        # rmax caps inside the sweep: later modes see the capped network
+        r = (k - k_discard).clamp(1, min(rmax[mu], k))
+        mask = (torch.arange(k, device=r.device) < r[:, None]).to(U.dtype)  # (B, k)
+        us[mu] = left * mask[:, None, :]
+        cores[mu] = torch.einsum("zisk,zas->ziak", core, proj * mask[..., None])
+        effs[mu] = r
+        if mu > 0:
+            # Right-orthogonalize mu, pushing L into core mu-1. A wide
+            # unfolding's reduced QR gives L (min, Rl): that is the new width
+            core = cores[mu]
+            Rl = core.shape[1]
+            Q, L = torch.linalg.qr(core.reshape(B, Rl, -1).mT)
+            cores[mu] = Q.mT.reshape((B, Q.shape[-1]) + core.shape[2:])
+            prev = cores[mu - 1]
+            cores[mu - 1] = (prev.reshape(B, -1, Rl) @ L.mT).reshape(
+                prev.shape[:-1] + (L.shape[-2],))
+    return cores, us, torch.stack(effs, dim=-1)
+
+
+def _compact(cores, us, effs, batch):
+    """Cut the zeroed tails: one host read of the ranks (the largest of the
+    batch's), then slices."""
+    effs = effs.max(dim=0).values.tolist()
+    out_cores = [c[..., :r, :] for c, r in zip(cores, effs)]
+    out_us = [u[..., :r] for u, r in zip(us, effs)]
+    if not batch:
+        out_cores, out_us = [c[0] for c in out_cores], [u[0] for u in out_us]
+    return out_cores, out_us
+
+
+@policy_precision
+def round_tucker_eps(cores, us, eps: float, rmax=None, dims=None, algorithm: str = "eig"):
+    """Adaptive Tucker rounding of one TT (3D cores, factors ``us`` (I, S),
+    identities for modes without one), with one host read for the ranks.
+    Every mode is truncated; ``dims`` only sets the eps/sqrt(len(dims))
+    split. Returns (cores, us)."""
+    N = len(cores)
+    dims = tuple(range(N) if dims is None else dims)
+    out = _tucker_eps_body([c[None] for c in cores], [u[None] for u in us], eps, dims,
+                           algorithm, _rmax_list(rmax, N))
+    return _compact(*out, batch=False)
+
+
+@policy_precision
+def round_tucker_eps_batch(cores, us, rmax=None, dims=None, algorithm: str = "svd"):
+    """Batch Tucker rounding with the reference's batch rule: no error
+    budget (eps = 0), rank min(rmax, full) per factor; one body over the
+    batch axis, the identity factors ``us`` (I, S) shared. Returns (cores,
+    us) cut to the largest rank of the batch."""
+    N = len(cores)
+    dims = tuple(range(N) if dims is None else dims)
+    out = _tucker_eps_body(list(cores), list(us), 0.0, dims, algorithm, _rmax_list(rmax, N))
+    return _compact(*out, batch=True)
 
 
 @policy_precision

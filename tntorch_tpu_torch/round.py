@@ -1,6 +1,7 @@
 """Functional rounding and the truncated-SVD factorization.
 
-Counterpart of ``tntorch_tpu/round.py`` (``round_tt``, ``truncated_svd``).
+Counterpart of ``tntorch_tpu/round.py`` (``round_tt``, ``round_tucker``,
+``round``, ``truncated_svd``).
 The rank choice syncs the singular values to the host, as it does there.
 """
 
@@ -18,6 +19,21 @@ def round_tt(t, **kwargs):
     """Copy-and-round via Tensor.round_tt."""
     t2 = t.clone()
     t2.round_tt(**kwargs)
+    return t2
+
+
+def round_tucker(t, **kwargs):
+    """Copy-and-round via Tensor.round_tucker."""
+    t2 = t.clone()
+    t2.round_tucker(**kwargs)
+    return t2
+
+
+def round(t, **kwargs):
+    """Copy-and-round via Tensor.round (TT, then Tucker with the budget
+    left over)."""
+    t2 = t.clone()
+    t2.round(**kwargs)
     return t2
 
 

@@ -1,21 +1,29 @@
-"""The tensor-train container, TT subset.
+"""The tensor-network container: tensor trains with optional Tucker factors.
 
 Counterpart of ``tntorch_tpu/tensor.py``. A `Tensor` holds N TT cores
-(R_{n-1} x I_n x R_n), with a leading batch axis B on every core when
-``batch=True``. Cores are ``torch.Tensor``s on one device, chosen by the
-caller (``device=``); every method works where the cores are, and the
-batched Gram rounding runs on the card's kernels when they are on the card.
+(R_{n-1} x S_n x R_n), with a leading batch axis B on every core when
+``batch=True``; mode n may carry a Tucker factor U_n (I_n x S_n, or
+B x I_n x S_n), in which case the core's middle axis is the factor's
+S_n and the mode's size is I_n. Cores and factors are ``torch.Tensor``s on
+one device, chosen by the caller (``device=``); every method works where
+they are, and the batched Gram rounding runs on the card's kernels when
+they are on the card.
 
 Data without a device (NumPy arrays, lists) lands on the package's default
 device, the CUDA card (`utils.default_device`); ``device="cpu"`` keeps it on
-the CPU. Indexing (``t[key]``) follows NumPy over the compressed cores; a
-key that indexes every mode with coordinate arrays evaluates the TT through
-`ops.tt_eval.TTEval`, the card's evaluation kernels. ``requires_grad=True``
-makes the cores leaf tensors for autograd and `optimize`.
+the CPU. A dense array decomposes exactly (full rank), or to
+``ranks_tt=``/``ranks_tucker=`` (TT-SVD, Tucker rounding; ``algorithm=
+'gram'``/``'randomized'`` for the fixed-rank kernels of
+`ops.decomposition`), or to an error budget ``eps=`` (`round`). Indexing
+(``t[key]``) follows NumPy over the compressed cores; a key that indexes
+every mode of a TT without factors with coordinate arrays evaluates it
+through `ops.tt_eval.TTEval`, the card's evaluation kernels.
+``requires_grad=True`` makes the cores and factors leaf tensors for
+autograd and `optimize`.
 
-CP cores, Tucker factors, decomposition of dense data (``ranks_tt=``,
-``eps=``, ...), ``__setitem__``, mask-Tensor keys and Tucker rounding are
-not ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
+CP cores (``ranks_cp=``), index sets (``idxs=``), ``__setitem__`` and
+mask-Tensor keys are not ported yet and raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -30,23 +38,37 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, {item})")
 
 
-def _full_rank_tt(data: torch.Tensor) -> list:
-    """Exact (uncompressed) TT of a dense tensor: identity cores on the short
-    side, the data on the long side."""
-    shape = data.shape
-    N = data.ndim
-    eye = lambda n: torch.eye(n, dtype=data.dtype, device=data.device)  # noqa: E731
+def _not_ported_stub(name: str, item: str):
+    """A function ``name`` that raises `_not_ported` for ``tn.name``."""
+    def stub(*args, **kwargs):
+        raise _not_ported(f"tn.{name}", item)
+
+    stub.__name__ = stub.__qualname__ = name
+    return stub
+
+
+def _full_rank_tt(data: torch.Tensor, batch: bool = False) -> list:
+    """Exact (uncompressed) TT of a dense tensor, (B, ...) when ``batch``:
+    identity cores on the short side, the data on the long side."""
+    b = tuple(data.shape[:1]) if batch else ()
+    shape = data.shape[len(b):]
+    N = len(shape)
+
+    def eye(n, *s):
+        e = torch.eye(n, dtype=data.dtype, device=data.device).reshape(s)
+        return e.expand(b + s).contiguous()
+
     result = []
-    resh = data.reshape(shape[0], -1)
+    resh = data.reshape(b + (shape[0], -1))
     for n in range(1, N):
-        L, R = resh.shape
+        L, R = resh.shape[-2:]
         if L < R:
-            result.append(eye(L).reshape(L // shape[n - 1], shape[n - 1], L))
-            resh = resh.reshape(L * shape[n], R // shape[n])
+            result.append(eye(L, L // shape[n - 1], shape[n - 1], L))
+            resh = resh.reshape(b + (L * shape[n], R // shape[n]))
         else:
-            result.append(resh.reshape(L // shape[n - 1], shape[n - 1], R))
-            resh = eye(R).reshape(R * shape[n], R // shape[n])
-    result.append(resh.reshape(resh.shape[0] // shape[N - 1], shape[N - 1], 1))
+            result.append(resh.reshape(b + (L // shape[n - 1], shape[n - 1], R)))
+            resh = eye(R, R * shape[n], R // shape[n])
+    result.append(resh.reshape(b + (resh.shape[-2] // shape[N - 1], shape[N - 1], 1)))
     return result
 
 
@@ -57,6 +79,24 @@ def _core_kron(a, b, batch: bool = False):
         return c.reshape(a.shape[0], a.shape[1] * b.shape[1], -1, a.shape[-1] * b.shape[-1])
     c = a[:, None, :, :, None] * b[None, :, :, None, :]
     return c.reshape(a.shape[0] * b.shape[0], -1, a.shape[-1] * b.shape[-1])
+
+
+def _absorb(core, U):
+    """Core (..., Rl, S, Rr) times its factor (..., I, S): (..., Rl, I, Rr)."""
+    return torch.einsum("...ijk,...aj->...iak", core, U)
+
+
+def _block_diag(c1, c2, spatial: bool):
+    """Block-diagonal core over both rank axes, and over the middle axis too
+    when ``spatial`` (two Tucker cores); the left operand's dtype."""
+    b = c1.shape[:-3]
+    R1l, S1, R1r = c1.shape[-3:]
+    R2l, S2, R2r = c2.shape[-3:]
+    S = S1 + S2 if spatial else S1
+    c = torch.zeros(b + (R1l + R2l, S, R1r + R2r), dtype=c1.dtype, device=c1.device)
+    c[..., :R1l, :S1, :R1r] = c1
+    c[..., R1l:, S - S2:, R1r:] = c2
+    return c
 
 
 def _broadcast(a: "Tensor", b: "Tensor"):
@@ -118,28 +158,42 @@ def _steps(k, size: int, device):
     return k
 
 
+def _rmax_per_mode(rmax, n: int) -> list:
+    if not hasattr(rmax, "__len__"):
+        rmax = [rmax] * n
+    if len(rmax) != n:
+        raise ValueError(f"rmax needs {n} entries, got {len(rmax)}")
+    return list(rmax)
+
+
 class Tensor:
-    """A tensor train, or a batch of B tensor trains of one shape."""
+    """A tensor train with optional Tucker factors, or a batch of B of them
+    of one shape."""
 
     def __init__(self, data, Us=None, idxs=None, device=None, requires_grad=None,
                  ranks_cp=None, ranks_tucker=None, ranks_tt=None, eps=None,
                  max_iter: int = 25, tol: float = 1e-4, verbose: bool = False,
                  batch: bool = False, algorithm: str = "svd", dtype=None):
-        """Build from a list of TT cores, or exactly (full rank) from a dense
-        array. ``device``/``dtype`` move and cast the cores. The parameters
-        are the JAX package's, in its order; ``max_iter``, ``tol``,
-        ``verbose`` and ``algorithm`` steer decompositions that are not
-        ported yet and change nothing here."""
+        """Build from a list of TT cores (and optional Tucker factors
+        ``Us``), or from a dense array: exactly (full rank), to
+        ``ranks_tt``/``ranks_tucker``, or to the relative error ``eps``.
+        ``device``/``dtype`` move and cast the cores and factors. The
+        parameters are the JAX package's, in its order; ``max_iter``,
+        ``tol`` and ``verbose`` steer CP-ALS, which is not ported, and
+        change nothing here. ``algorithm`` picks the rounding ('svd',
+        'eig'), or for ``ranks_tt`` alone the fixed-rank TT-SVD kernels
+        ('gram', 'randomized')."""
         if idxs is not None:
-            raise _not_ported("Index sets (idxs=)", "queue 1 item 4")
-        if ranks_tt is not None or eps is not None:
-            raise _not_ported("Decomposing dense data (ranks_tt=, eps=)",
-                              "queue 1 item 1")
-        if ranks_tucker is not None or ranks_cp is not None:
-            raise _not_ported("Tucker and CP formats", "queue 1 item 3")
-        if Us is not None and any(U is not None for U in Us):
-            raise _not_ported("Tucker factors", "queue 1 item 3")
+            raise _not_ported("Index sets (idxs=)", "queue 1 item 7")
+        if ranks_cp is not None:
+            raise _not_ported("CP-ALS (ranks_cp=)", "queue 1 item 3")
+        if eps is not None and (ranks_tucker is not None or ranks_tt is not None):
+            raise ValueError("Specify eps or ranks, but not both")
         self.batch = bool(batch)
+        self.requires_grad = bool(requires_grad)  # None means False
+        # Modes whose Tucker factor is fixed: not trained by optimize, not
+        # counted by dof
+        self.frozen_Us = set()
         tt_ndim = 4 if self.batch else 3
         if isinstance(data, (list, tuple)):
             cores = [asarray(d, dtype=dtype, device=device) for d in data]
@@ -154,19 +208,59 @@ class Tensor:
                 if cores[n].shape[-1] != cores[n + 1].shape[d]:
                     raise ValueError("Core ranks do not match")
             self.cores = cores
+            self.Us = self._factors(Us, dtype)
         else:
-            data = asarray(data, dtype=dtype, device=device)
-            if data.ndim == 0:
-                data = data[None]
-            if self.batch:
-                per_sample = [_full_rank_tt(x) for x in data]
-                self.cores = [torch.stack(cs) for cs in zip(*per_sample)]
-            else:
-                self.cores = _full_rank_tt(data)
-        self.Us = [None] * len(self.cores)
-        self.requires_grad = bool(requires_grad)  # None means False
+            self._decompose(asarray(data, dtype=dtype, device=device), ranks_tt,
+                            ranks_tucker, algorithm)
         if self.requires_grad:  # leaves of autograd (sharing torch input's storage)
             self.cores = [c.detach().requires_grad_(True) for c in self.cores]
+            self.Us = [None if U is None else U.detach().requires_grad_(True) for U in self.Us]
+        if eps is not None:
+            self.round(eps, algorithm=algorithm)
+
+    def _factors(self, Us, dtype):
+        """The Tucker factors on the cores' device, checked against them."""
+        N = len(self.cores)
+        if Us is None:
+            return [None] * N
+        if len(Us) != N:
+            raise ValueError(f"Us needs one entry per mode ({N}), got {len(Us)}")
+        Us = [None if U is None else asarray(U, dtype=dtype, device=self.device) for U in Us]
+        fd = 3 if self.batch else 2
+        for n, U in enumerate(Us):
+            if U is None:
+                continue
+            if U.ndim != fd or self.cores[n].shape[-2] != U.shape[-1]:
+                raise ValueError(f"Tucker factor {n} has shape {tuple(U.shape)}: it must have "
+                                 f"{fd} dimensions and {self.cores[n].shape[-2]} columns")
+        return Us
+
+    def _decompose(self, data, ranks_tt, ranks_tucker, algorithm):
+        """TT (and Tucker) cores of the dense ``data``, as the JAX package
+        builds them: the fixed-rank TT-SVD kernels for ``ranks_tt`` alone
+        with 'gram'/'randomized', else the exact TT, Tucker-rounded to
+        ``ranks_tucker`` and TT-rounded to ``ranks_tt``."""
+        if data.ndim == 0:
+            data = data[None]
+        self.Us = [None] * (data.ndim - (1 if self.batch else 0))
+        if ranks_tt is not None and ranks_tucker is None and algorithm in ("gram", "randomized"):
+            from tntorch_tpu_torch.ops import decomposition as dec
+
+            if self.batch:  # the batch takes the Gram kernel, whichever was asked
+                self.cores = dec.tt_svd_gram(data, ranks_tt, batch=True)
+            elif algorithm == "randomized":
+                self.cores = dec.tt_svd_randomized(data, ranks_tt)
+            else:
+                self.cores = dec.tt_svd_gram(data, ranks_tt)
+            return
+        self.cores = _full_rank_tt(data, self.batch)
+        if ranks_tucker is not None:
+            # round_tucker knows 'svd'/'eig' only: 'gram' and 'randomized'
+            # are Gram/eigh-based
+            self.round_tucker(rmax=ranks_tucker,
+                              algorithm="eig" if algorithm in ("gram", "randomized") else algorithm)
+        if ranks_tt is not None:
+            self.round_tt(rmax=ranks_tt, algorithm=algorithm)
 
     # ------------------------------------------------------------------
     # Arithmetic
@@ -185,23 +279,29 @@ class Tensor:
         this, other = _broadcast(self, other)
 
         if this.dim() == 1:
-            return Tensor([this.cores[0] + other.cores[0]], batch=self.batch)
+            a, b = this.tt().cores[0], other.tt().cores[0]
+            return Tensor([a + b], batch=self.batch)
 
-        cores = []
-        for core1, core2 in zip(this.cores, other.cores):
-            b = core1.shape[:1] if self.batch else ()
-            R1l, I, R1r = core1.shape[-3:]
-            R2l, _, R2r = core2.shape[-3:]
-            # the left operand's dtype, as the JAX package keeps it
-            c = torch.zeros(b + (R1l + R2l, I, R1r + R2r), dtype=core1.dtype, device=core1.device)
-            c[..., :R1l, :, :R1r] = core1
-            c[..., R1l:, :, R1r:] = core2
-            cores.append(c)
+        cores, Us = [], []
+        for n in range(this.dim()):
+            core1, core2 = this.cores[n], other.cores[n]
+            U1, U2 = this.Us[n], other.Us[n]
+            if U1 is not None and U2 is not None:
+                # Block-diagonal over the rank axes and the Tucker axis
+                cores.append(_block_diag(core1, core2, spatial=True))
+                Us.append(torch.cat((U1, U2.to(U1.dtype)), dim=-1))
+                continue
+            if U1 is not None:
+                core1 = _absorb(core1, U1)
+            if U2 is not None:
+                core2 = _absorb(core2, U2)
+            cores.append(_block_diag(core1, core2, spatial=False))
+            Us.append(None)
         # Boundary rank-1 collapses
         d = 1 if self.batch else 0
         cores[0] = cores[0].sum(dim=d, keepdim=True)
         cores[-1] = cores[-1].sum(dim=-1, keepdim=True)
-        return Tensor(cores, batch=self.batch)
+        return Tensor(cores, Us=Us, batch=self.batch)
 
     def __radd__(self, other):
         return self + other
@@ -235,8 +335,28 @@ class Tensor:
             result.cores[0] = result.cores[0] * float(np.sign(other))
             return result
         this, other = _broadcast(self, other)
-        cores = [_core_kron(c1, c2, self.batch) for c1, c2 in zip(this.cores, other.cores)]
-        return Tensor(cores, batch=self.batch)
+        off = 1 if self.batch else 0
+        cores, Us = [], []
+        for n in range(this.dim()):
+            core1, core2 = this.cores[n], other.cores[n]
+            U1, U2 = this.Us[n], other.Us[n]
+            if (U1 is not None and U2 is not None
+                    and core1.shape[-2] * core2.shape[-2] < this.shape[n + off]):
+                # Keep the Tucker structure: Kronecker cores and factors
+                c = torch.einsum("...ijk,...abc->...iajbkc", core1, core2)
+                cores.append(c.reshape(c.shape[:-6] + (
+                    core1.shape[-3] * core2.shape[-3], core1.shape[-2] * core2.shape[-2],
+                    core1.shape[-1] * core2.shape[-1])))
+                U = torch.einsum("...ij,...ik->...ijk", U1, U2)
+                Us.append(U.reshape(U.shape[:-2] + (-1,)))
+                continue
+            if U1 is not None:
+                core1 = _absorb(core1, U1)
+            if U2 is not None:
+                core2 = _absorb(core2, U2)
+            cores.append(_core_kron(core1, core2, self.batch))
+            Us.append(None)
+        return Tensor(cores, Us=Us, batch=self.batch)
 
     def __rmul__(self, other):
         return self * other
@@ -245,6 +365,19 @@ class Tensor:
         if isinstance(other, Tensor):
             raise _not_ported("Division by a Tensor (cross approximation)", "queue 1 item 7")
         return self * (1.0 / other)
+
+    # Boolean algebra on {0, 1} tensors
+    def __invert__(self):
+        return 1 - self
+
+    def __and__(self, other):
+        return self * other
+
+    def __or__(self, other):
+        return self + other - self * other
+
+    def __xor__(self, other):
+        return self + other - 2 * self * other
 
     def __eq__(self, other):
         from tntorch_tpu_torch.metrics import dist
@@ -263,16 +396,31 @@ class Tensor:
     @property
     def shape(self):
         shape = [self.cores[0].shape[0]] if self.batch else []
-        return tuple(shape + [c.shape[-2] for c in self.cores])
+        return tuple(shape + [c.shape[-2] if U is None else U.shape[-2]
+                              for c, U in zip(self.cores, self.Us)])
+
+    def b(self):
+        """The batch size."""
+        if not self.batch:
+            raise ValueError("b() is the batch size of a batch tensor")
+        return self.cores[0].shape[0]
 
     @property
     def ranks_tt(self):
         first = self.cores[0].shape[1 if self.batch else 0]
         return np.array([first] + [c.shape[-1] for c in self.cores])
 
+    @ranks_tt.setter
+    def ranks_tt(self, value):
+        self.round_tt(rmax=value)
+
     @property
     def ranks_tucker(self):
         return np.array([c.shape[-2] for c in self.cores])
+
+    @ranks_tucker.setter
+    def ranks_tucker(self, value):
+        self.round_tucker(rmax=value)
 
     @property
     def device(self):
@@ -285,22 +433,46 @@ class Tensor:
     def dim(self):
         return len(self.cores)
 
+    def size(self):
+        return self.shape
+
+    def numel(self):
+        """The number of entries (the batch's included), as a float."""
+        return float(np.round(np.prod([float(s) for s in self.shape])))
+
+    def numcoef(self):
+        """The number of stored coefficients: cores and factors."""
+        return sum(int(np.prod(c.shape)) for c in self.cores) + sum(
+            int(np.prod(U.shape)) for U in self.Us if U is not None)
+
     def __repr__(self):
-        # The JAX package's tensor-network diagram, TT rows only
+        # The JAX package's tensor-network diagram
         N = self.dim()
-        s = f"{N}D TT tensor:\n\n"
+        tucker = any(U is not None for U in self.Us)
+        s = "{}D {} tensor:\n\n".format(N, "TT-Tucker" if tucker else "TT")
         if self.batch:
             s += f"with batch = {self.cores[0].shape[0]}\n"
-        row = [" "] * (4 * N - 1)
-        for n, size in enumerate(self.ranks_tucker):
-            t = str(size)
-            p = n * 4 - len(t) // 2 + 2
-            row[p:p + len(t)] = t
-        s += "".join(row) + "\n"
-        row = [" "] * (4 * N - 1)
-        for n in range(N):
-            row[n * 4 + 2] = "|"
-        s += "".join(row) + "\n"
+
+        def centred(row, n, text):
+            p = n * 4 - len(text) // 2 + 2
+            row[p:p + len(text)] = text
+
+        shape = self.shape[1 if self.batch else 0:]
+        tuckerr = self.ranks_tucker
+        if tucker:
+            row = [" "] * (4 * N - 1)
+            for n in range(N):
+                if self.Us[n] is not None:
+                    centred(row, n, str(shape[n]))
+            s += "".join(row) + "\n"
+        for first in (True, False):
+            row = [" "] * (4 * N - 1)
+            for n in range(N):
+                if (self.Us[n] is None) == first:
+                    centred(row, n, str(tuckerr[n]))
+                else:
+                    row[n * 4 + 2] = "|"
+            s += "".join(row) + "\n"
         row = [" "] * (4 * N - 1)
         for n in range(N):
             node = f"({n})"
@@ -318,20 +490,59 @@ class Tensor:
     # ------------------------------------------------------------------
     # Decompression and format
     # ------------------------------------------------------------------
+    def tucker_core(self) -> torch.Tensor:
+        """The dense Tucker core: the cores' TT, factors left out."""
+        return Tensor(list(self.cores), batch=self.batch).full()
+
+    @policy_precision
+    def decompress_tucker_factors(self, dim="all"):
+        """A copy with the factors of the modes ``dim`` multiplied into
+        their cores."""
+        if dim == "all":
+            dim = range(self.dim())
+        if not hasattr(dim, "__len__"):
+            dim = [dim]
+        cores, Us = [], []
+        for n, (c, U) in enumerate(zip(self.cores, self.Us)):
+            if n in dim and U is not None:
+                cores.append(_absorb(c, U))
+                Us.append(None)
+            else:
+                cores.append(c)
+                Us.append(U)
+        return Tensor(cores, Us=Us, batch=self.batch)
+
+    def tt(self):
+        """The same tensor as a plain TT (factors multiplied in)."""
+        return self.decompress_tucker_factors()
+
     @policy_precision
     def full(self) -> torch.Tensor:
         """Decompress to a dense torch tensor on the cores' device."""
-        c0 = self.cores[0]
+        t = self.decompress_tucker_factors()
+        c0 = t.cores[0]
         bshape = (c0.shape[0],) if self.batch else ()
         factor = torch.ones(bshape + (1, int(self.ranks_tt[0])), dtype=c0.dtype, device=c0.device)
-        for core in self.cores:
+        for core in t.cores:
             factor = torch.einsum("...ai,...ibj->...abj", factor, core)
             factor = factor.reshape(bshape + (-1, factor.shape[-1]))
         factor = factor.sum(-1) if factor.shape[-1] > 1 else factor[..., 0]
         return factor.reshape(self.shape)
 
+    def torch(self) -> torch.Tensor:
+        """The dense ``torch.Tensor``, on the cores' device (the JAX
+        package returns a CPU tensor here; in this package ``full()`` and
+        ``torch()`` are one)."""
+        return self.full()
+
     def numpy(self) -> np.ndarray:
         return self.full().detach().cpu().numpy()
+
+    def to(self, device):
+        """Move the cores and factors to ``device``, in place; returns self."""
+        self.cores = [c.to(device) for c in self.cores]
+        self.Us = [None if U is None else U.to(device) for U in self.Us]
+        return self
 
     def _cp_to_tt(self, factor=None):
         """TT cores are already TT: a no-op (CP cores are not ported)."""
@@ -342,27 +553,46 @@ class Tensor:
         return factor
 
     def clone(self):
-        t = Tensor(list(self.cores), batch=self.batch)
+        t = Tensor(list(self.cores), Us=list(self.Us), batch=self.batch)
         t.requires_grad = self.requires_grad
+        t.frozen_Us = set(self.frozen_Us)
         return t
 
     def repeat(self, *rep):
-        """Tile along modes, like torch.repeat."""
+        """Tile along modes, like torch.repeat (a mode's factor, where it
+        has one, is tiled instead of its core)."""
         if len(rep) == 1 and hasattr(rep[0], "__len__"):
             rep = tuple(rep[0])
         if len(rep) != self.dim() or any(r < 1 for r in rep):
             raise ValueError("repeat takes one count >= 1 per mode")
-        reps = [(1,) * (c.ndim - 2) + (r, 1) for c, r in zip(self.cores, rep)]
-        return Tensor([c.repeat(*rp) for c, rp in zip(self.cores, reps)], batch=self.batch)
+        t = self.clone()
+        for n, r in enumerate(rep):
+            x = t.cores[n] if t.Us[n] is None else t.Us[n]
+            x = x.repeat(*((1,) * (x.ndim - 2) + (r, 1)))
+            if t.Us[n] is None:
+                t.cores[n] = x
+            else:
+                t.Us[n] = x
+        return t
 
     # ------------------------------------------------------------------
     # Orthogonalization and rounding
     # ------------------------------------------------------------------
     @policy_precision
+    def factor_orthogonalize(self, mu: int):
+        """QR mode mu's factor; push R into its core."""
+        if self.Us[mu] is None:
+            return
+        Q, R = torch.linalg.qr(self.Us[mu])
+        self.Us[mu] = Q
+        self.cores[mu] = _absorb(self.cores[mu], R)
+
+    @policy_precision
     def left_orthogonalize(self, mu: int):
         """QR the mu-th core's left unfolding; push R right."""
         if not 0 <= mu < self.dim() - 1:
             raise ValueError(f"mu must be in [0, {self.dim() - 1})")
+        self.factor_orthogonalize(mu)
         Q, R = torch.linalg.qr(_left_unfolding(self.cores[mu], self.batch))
         self.cores[mu] = Q.reshape(self.cores[mu].shape[:-1] + (Q.shape[-1],))
         nxt = _right_unfolding(self.cores[mu + 1], self.batch)
@@ -374,6 +604,7 @@ class Tensor:
         """LQ (QR of the transpose) on the right unfolding; push L left."""
         if not 1 <= mu < self.dim():
             raise ValueError(f"mu must be in [1, {self.dim()})")
+        self.factor_orthogonalize(mu)
         Q, L = torch.linalg.qr(_right_unfolding(self.cores[mu], self.batch).mT)
         L, Q = L.mT, Q.mT
         self.cores[mu] = Q.reshape(Q.shape[:-1] + self.cores[mu].shape[-2:])
@@ -382,7 +613,8 @@ class Tensor:
         return L
 
     def orthogonalize(self, mu: int):
-        """Make the tensor mu-orthogonal by QR sweeps from both ends."""
+        """Make the tensor mu-orthogonal by QR sweeps from both ends (the
+        factors of the swept modes orthogonalized on the way)."""
         if mu < 0:
             mu += self.dim()
         c0 = self.cores[0]
@@ -395,40 +627,117 @@ class Tensor:
             L = self.right_orthogonalize(i)
         return R, L
 
+    def _eyes(self):
+        """Identity factors of every mode, the cores' device and dtype."""
+        off = 1 if self.batch else 0
+        return [torch.eye(s, dtype=self.dtype, device=self.device) for s in self.shape[off:]]
+
+    @policy_precision
+    def round_tucker(self, eps: float = 1e-14, rmax=None, dim="all", algorithm: str = "svd"):
+        """Reduce Tucker ranks in place, as the JAX package does, path by path.
+
+        - 'svd'/'eig' on a TT without factors: one masked sweep
+          (`ops.rounding.round_tucker_eps`, or `round_tucker_eps_batch`
+          for batches, which keeps rank min(rmax, full) with no budget) and
+          one host read of the ranks. These truncate every mode: ``dim``
+          only sets the split eps/sqrt(len(dim)).
+        - otherwise the eager sweep: orthogonalize, then per mode in ``dim``
+          push the core's non-orthogonality into the factor and truncate it
+          by `truncated_svd(left_ortho=True)`; other modes pass through.
+        """
+        from tntorch_tpu_torch.ops import rounding as ops
+
+        N = self.dim()
+        rmax = _rmax_per_mode(rmax, N)
+        if dim == "all":
+            dim = range(N)
+        if not hasattr(dim, "__len__"):
+            dim = [dim]
+        kernel = algorithm in ("eig", "svd") and all(U is None for U in self.Us)
+        if kernel and self.batch:
+            with trace_annotation("tn.round_tucker:batch_kernel"):
+                self.cores, self.Us = ops.round_tucker_eps_batch(
+                    self.cores, self._eyes(), rmax=rmax, dims=dim, algorithm=algorithm)
+            return
+        if kernel:
+            with trace_annotation("tn.round_tucker:eps_kernel"):
+                self.cores, self.Us = ops.round_tucker_eps(
+                    self.cores, self._eyes(), eps, rmax=rmax, dims=dim, algorithm=algorithm)
+            return
+
+        from tntorch_tpu_torch.round import truncated_svd
+
+        self.orthogonalize(-1)
+        bshape = (self.cores[0].shape[0],) if self.batch else ()
+        off = len(bshape)
+        for mu in range(N - 1, -1, -1):
+            if mu not in dim:
+                # Modes left alone only pass through the orthogonalization
+                if mu > 0:
+                    self.right_orthogonalize(mu)
+                continue
+            if self.Us[mu] is None:
+                eye = torch.eye(self.shape[mu + off], dtype=self.dtype, device=self.device)
+                self.Us[mu] = eye.expand(bshape + eye.shape).contiguous()
+            # Push the core's non-orthogonality into the factor
+            core = self.cores[mu]
+            Q, R = torch.linalg.qr(core.mT.reshape(bshape + (-1, core.shape[-2])))
+            self.cores[mu] = Q.reshape(bshape + (core.shape[-3], core.shape[-1], -1)).mT
+            self.Us[mu] = self.Us[mu] @ R.mT
+            left, right = truncated_svd(self.Us[mu], eps=eps / np.sqrt(len(dim)),
+                                        rmax=rmax[mu], left_ortho=True, algorithm=algorithm,
+                                        batch=self.batch)
+            self.Us[mu] = left
+            self.cores[mu] = _absorb(self.cores[mu], right)
+            if mu > 0:
+                self.right_orthogonalize(mu)
+
+    def _round_tt_computes_reached(self, algorithm: str = "svd", verbose: bool = False) -> bool:
+        """Whether round_tt takes a sweep that reports the reached error in
+        ``_round_reached_dev``: one definition for round_tt's dispatch and
+        round()'s budget."""
+        return algorithm in ("eig", "svd") and not verbose and all(U is None for U in self.Us)
+
     @policy_precision
     def round_tt(self, eps: float = 1e-14, rmax=None, algorithm: str = "svd",
                  verbose: bool = False):
         """Reduce TT ranks in place.
 
-        - 'svd'/'eig': the error-budgeted sweep (delta = eps*|t|/sqrt(N-1));
-          batch tensors keep rank min(rmax, rows, cols) with no budget.
-        - 'gram'/'randgram': fixed-rank Gram rounding (needs rmax); batches
-          go through `round_tt_gram_batched`, on the card's kernels when the
-          cores are there. Under the 'highest' policy, float32 'gram' routes
-          to the SVD sweep. 'randgram' forces randomized edges.
-        - ``verbose`` (or any other algorithm) runs the eager
-          orthogonalize + `truncated_svd` sweep.
+        - 'svd'/'eig' on a TT without factors: the error-budgeted sweep
+          (delta = eps*|t|/sqrt(N-1)); batch tensors keep rank min(rmax,
+          rows, cols) with no budget. The reached relative error stays on
+          the device in ``_round_reached_dev``.
+        - 'gram'/'randgram': fixed-rank Gram rounding (needs rmax), the
+          factors orthogonalized first; batches go through
+          `round_tt_gram_batched`, on the card's kernels when the cores are
+          there. Under the 'highest' policy, float32 'gram' routes to the
+          SVD sweep. 'randgram' forces randomized edges.
+        - ``verbose``, Tucker factors with 'svd'/'eig', or any other
+          algorithm: the eager orthogonalize + `truncated_svd` sweep.
         """
         from tntorch_tpu_torch.ops import rounding as ops
         from tntorch_tpu_torch.utils import resolve_precision
 
         N = self.dim()
-        if not hasattr(rmax, "__len__"):
-            rmax = [rmax] * (N - 1)
-        if len(rmax) != N - 1:
-            raise ValueError(f"rmax needs {N - 1} entries, got {len(rmax)}")
+        rmax = _rmax_per_mode(rmax, N - 1)
+        self._round_reached_dev = None
 
-        if algorithm in ("eig", "svd") and not verbose:
+        if self._round_tt_computes_reached(algorithm, verbose):
             with trace_annotation("tn.round_tt:eps_sweep"):
                 if self.batch:
-                    self.cores = ops.round_tt_batch(self.cores, rmax, algorithm)
+                    self.cores, self._round_reached_dev = ops.round_tt_batch(
+                        self.cores, rmax, algorithm, return_reached=True)
                 else:
-                    self.cores = ops.round_tt_eps(self.cores, eps, rmax, algorithm=algorithm)
+                    self.cores, self._round_reached_dev = ops.round_tt_eps(
+                        self.cores, eps, rmax, algorithm=algorithm, return_reached=True)
             return
 
         if algorithm in ("gram", "randgram"):
             if any(r is None for r in rmax):
                 raise ValueError(f"algorithm='{algorithm}' requires explicit rmax")
+            # Non-orthogonal factors would change the truncation's metric
+            for n in range(N):
+                self.factor_orthogonalize(n)
             precision = resolve_precision(None)
             solver = ops.resolve_edge_solver("rand" if algorithm == "randgram" else None,
                                              precision)
@@ -472,10 +781,29 @@ class Tensor:
             self.cores[mu - 1] = torch.einsum("...ijk,...kl->...ijl", self.cores[mu - 1], left)
 
     def round(self, eps: float = 1e-14, **kwargs):
-        raise _not_ported("round() (its Tucker stage)", "queue 1 item 3")
+        """TT rounding, then Tucker rounding with the budget left over,
+        ``(1+eps)/(1+reached) - 1``, in place. The reached error comes from
+        the sweep's discarded spectra where round_tt reports it (one host
+        read; the worst sample of a batch), else from `relative_error`
+        against a copy. The Tucker stage gets only ``rmax``, ``dim`` and
+        ``algorithm``, with 'gram'/'randomized' as 'eig'."""
+        from tntorch_tpu_torch.metrics import relative_error
 
-    def round_tucker(self, *args, **kwargs):
-        raise _not_ported("round_tucker", "queue 1 item 3")
+        kernel_path = self._round_tt_computes_reached(kwargs.get("algorithm", "svd"),
+                                                      kwargs.get("verbose", False))
+        copy = None if kernel_path else self.clone()
+        self.round_tt(eps, **kwargs)
+        if self._round_reached_dev is not None:
+            reached = float(self._round_reached_dev.max())
+        elif copy is None:
+            reached = eps  # no report and no copy: skip the Tucker stage
+        else:
+            reached = float(relative_error(copy, self).max())
+        if reached < eps:
+            tkwargs = {k: v for k, v in kwargs.items() if k in ("rmax", "dim", "algorithm")}
+            if tkwargs.get("algorithm") in ("gram", "randomized"):
+                tkwargs["algorithm"] = "eig"  # TT-stage-only algorithms
+            self.round_tucker((1 + eps) / (1 + reached) - 1, **tkwargs)
 
     # ------------------------------------------------------------------
     # Indexing
@@ -523,13 +851,14 @@ class Tensor:
     @policy_precision
     def __getitem__(self, key):
         """NumPy-style indexing over the compressed cores: int, slice, index
-        array, ``None`` and ``Ellipsis``, for batch and non-batch TTs.
+        array, ``None`` and ``Ellipsis``, for batch and non-batch tensors.
+        A mode's Tucker factor is indexed in place of its core.
 
-        A key of index arrays for every mode of a non-batch TT with
-        boundary ranks 1 (a (P, N) array, or N arrays of length P) returns
-        the one-core TT (1, P, 1) of the P values, evaluated by `TTEval`
-        (the card's forward and backward kernels for real cores on the card).
-        Mask-Tensor keys are not ported."""
+        A key of index arrays for every mode of a non-batch TT without
+        factors and with boundary ranks 1 (a (P, N) array, or N arrays of
+        length P) returns the one-core TT (1, P, 1) of the P values,
+        evaluated by `TTEval` (the card's forward and backward kernels for
+        real cores on the card). Mask-Tensor keys are not ported."""
         if isinstance(key, Tensor):
             raise _not_ported("Indexing with a mask Tensor", "queue 1 item 10")
         if isinstance(key, (np.ndarray, torch.Tensor)) and key.ndim == 2:
@@ -546,8 +875,11 @@ class Tensor:
 
     def _all_modes(self, key) -> bool:
         """Whether ``key`` (a (P, N) array or a processed key) indexes every
-        mode of this non-batch, boundary-rank-1 TT with coordinate arrays."""
-        if self.batch or self.ranks_tt[0] != 1 or self.ranks_tt[-1] != 1:
+        mode of this non-batch, boundary-rank-1 TT with coordinate arrays.
+        A tensor with Tucker factors never qualifies: its cores' middle axis
+        is the factor's, not the mode's."""
+        if (self.batch or self.ranks_tt[0] != 1 or self.ranks_tt[-1] != 1
+                or any(U is not None for U in self.Us)):
             return False
         if isinstance(key, (np.ndarray, torch.Tensor)):
             return key.shape[1] == self.dim()
@@ -600,29 +932,40 @@ class Tensor:
 
         last_mode = None
         factors = {"int": None, "index": None, "index_done": False}
-        cores = []
+        cores, Us = [], []
         counter = 0
         first_index_dim = None
 
-        def insert_core(core=None, k=None):
+        def insert_core(core=None, k=None, U=None):
             if factors["index"] is not None:
                 if factors["int"] is not None:
                     factors["index"] = join_cores(factors["int"], factors["index"])
                     factors["int"] = None
                 cores.append(factors["index"])
+                Us.append(None)
                 factors["index"] = None
                 factors["index_done"] = True
             if core is not None:
-                new = bsel(core[..., _steps(k, core.shape[-2], core.device), :])
+                if U is None:
+                    new, nU = bsel(core[..., _steps(k, core.shape[-2], core.device), :]), None
+                else:  # the factor takes the key; the core stays whole
+                    new, nU = bsel(core), bsel(U[..., _steps(k, U.shape[-2], U.device), :])
                 if factors["int"] is not None:
                     cores.append(join_cores(factors["int"], new))
                     factors["int"] = None
                 else:
                     cores.append(new)
+                Us.append(nU)
 
         def get_key(c, k):
-            """Mode ``c`` of the cores at ``k``: an int or a coordinate array."""
-            return bsel(self.cores[c][..., k, :])
+            """Mode ``c`` at ``k`` (an int or a coordinate array), its Tucker
+            factor absorbed."""
+            if self.Us[c] is None:
+                return bsel(self.cores[c][..., k, :])
+            sl, core = bsel(self.Us[c][..., k, :]), bsel(self.cores[c])
+            if nd(sl) == 1:  # k was an int
+                return einsum("~ijk,~j->~ik", core, sl)
+            return einsum("~ijk,~aj->~iak", core, sl)
 
         for i in range(len(key)):
             if hasattr(key[i], "__len__"):
@@ -654,7 +997,8 @@ class Tensor:
                     batch_dim_processed = True
                     batch_dim_idx = key[i]
                 else:
-                    insert_core(self.cores[counter - 1 if batch else counter], k=key[i])
+                    c = counter - 1 if batch else counter
+                    insert_core(self.cores[c], k=key[i], U=self.Us[c])
                 counter += 1
             elif this_mode == "index":
                 if batch and first_index_dim == 0:
@@ -720,11 +1064,12 @@ class Tensor:
                 return f.sum(dim=tuple(range(1, f.ndim))) if f.ndim > 1 else f
 
         if batch and isinstance(batch_dim_idx, (int, np.integer)):
-            return Tensor([c[0] for c in cores], batch=False)
-        return Tensor(cores, batch=self.batch)
+            return Tensor([c[0] for c in cores], Us=[None if U is None else U[0] for U in Us],
+                          batch=False)
+        return Tensor(cores, Us=Us, batch=self.batch)
 
     # ------------------------------------------------------------------
-    # Metrics
+    # Metrics and statistics
     # ------------------------------------------------------------------
     def dot(self, other, **kwargs):
         from tntorch_tpu_torch.metrics import dot
@@ -740,3 +1085,23 @@ class Tensor:
         from tntorch_tpu_torch.metrics import normsq
 
         return normsq(self)
+
+    def sum(self, **kwargs):
+        from tntorch_tpu_torch.metrics import sum
+
+        return sum(self, **kwargs)
+
+    def mean(self, **kwargs):
+        from tntorch_tpu_torch.metrics import mean
+
+        return mean(self, **kwargs)
+
+    def var(self, **kwargs):
+        from tntorch_tpu_torch.metrics import var
+
+        return var(self, **kwargs)
+
+    def std(self, **kwargs):
+        from tntorch_tpu_torch.metrics import std
+
+        return std(self, **kwargs)
