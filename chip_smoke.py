@@ -77,7 +77,34 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    2/2/2) and then Tucker-rounded by the batched ``round_tucker(rmax=64)``,
    two samples against the CPU in float64, the Tucker stage timed.
    ``python3 chip_smoke.py --only 9`` runs the probe, the build and this
-   phase only.
+   phase only;
+10. TT-cross (``tn.cross``, its validation on the ``tt_eval`` kernel), each
+   part at its own size: (10a) BASELINE config 3, a 10-D sum of sines on
+   32^10 with eps=1e-6 and seed 0, and (10b) the reference's tutorial
+   cross, the 5-D Hilbert tensor 1/sum(x) on 32^5 with seed 7, each a warm
+   timed call in float32 and in float64: val_eps below 1e-6, the
+   approximation at 10^5 held-out grid points (``t[X]``, the ``tt_eval``
+   kernel) against float64 values of the function (1e-6 in float64,
+   ``CROSS_F32_TOL`` in float32), the float64 rank schedule and sample
+   count equal to the port's on the CPU, one ``tt_eval`` launch per input
+   and per iteration, and f-evals/s (samples over the call's wall time,
+   ending in a synchronize, as benchmarks/bench_cross.py defines it);
+   (10c) the fixed-rank throughput shape (N=5, I=256, ranks_tt=100,
+   max_iter=2, float32; its maxvol calls work on 25600 x 100, past the LU
+   tournament's block): f-evals/s, the swaps and LU reads per maxvol call,
+   val_eps and the held-out error within ``CROSS_FIXED_TOL``, a float64
+   run held to the port's on the CPU (iterations, sample count, held-out
+   error within ``CROSS_FIXED_F64_TOL``), ``maxvol_device`` alone on a
+   25600 x 100 orthonormal matrix (float64: the CPU's rows, and C within
+   1e-12 of a solve; float32: converged, C within 1e-4 of the float64
+   solve at its rows), f-evals/s with ``maxvol._BLOCK`` guarded swaps per
+   host check and with 1, in turns, and a torch.profiler split of one
+   iteration by the sweep's spans (fibers, QR, LU, swaps, solves,
+   validation) with the device's idle share. In 10a-10c the ``tt_eval``
+   kernel, on both its routes, is held to its plain version (``KERNEL_TOL``)
+   at every shape the crosses give it: the inputs at the validation set,
+   the approximation at the validation set and at the held-out points;
+   those launches are not counted. ``--only 10`` runs it alone.
 
 The data of phases 6 to 8 comes without a device and lands on the card by
 the package's default. The second-to-last line is one JSON object with
@@ -154,12 +181,44 @@ F32_DECOMP_TOL = 5e-2
 #   input in float64 on the CPU: 1.7e-5 for float32 on the CPU (two
 #   samples); the cut of a flat spectrum amplifies roundoff. 1e-3.
 TUCKER_TOL = 1e-3
+#
+# - TT-cross (phase 10): BASELINE's limit, 1e-6, on the reported validation
+#   error of every run and on the held-out error of the float64 runs. The
+#   float32 runs are held to 1e-5 against float64 values of the function:
+#   float32 stores each sample with 6e-8 of relative roundoff, and the
+#   10-mode evaluation chain and the interpolation solves (maxvol keeps
+#   |C| <= 1.05) each add a few of those, so ~1e-6 is the floor; 1e-5
+#   leaves a margin over it.
+# - the fixed-rank cross (10c) in float32 runs at rank 100, far beyond the
+#   function's numerical rank (its float64 run reaches 1.7e-14 in one
+#   iteration): its error is float32 roundoff amplified by the rank-100
+#   interpolation (maxvol bounds each core's coefficients by 1.05, not
+#   their sum over 100 columns and 5 cores). The port on the CPU reads
+#   1.2e-5 and 1.5e-5 (val_eps, two iterations) and 1.6e-5 at the held-out
+#   points; 1e-4. The float64 run: the same amplification of float64
+#   roundoff, 1.7e-14 on the CPU; 1e-10.
+# - maxvol_device alone at 25600 x 100: C after the swaps against a fresh
+#   solve at the same rows, max |diff| (|C| <= 1.05): tens of rank-1
+#   updates, 9e-15 in float64 and 4e-6 in float32 on the CPU; 1e-12 and
+#   1e-4 (float32 against the float64 solve).
+CROSS_F32_TOL = 1e-5
+CROSS_FIXED_TOL, CROSS_FIXED_F64_TOL = 1e-4, 1e-10
+MAXVOL_TOL = {"float32": 1e-4, "float64": 1e-12}
 
 BENCH = dict(B=32, N=4, I=256, R=128, rmax=64)
 # The evaluation kernel's design shape (the TPU kernel's stated regime,
 # pallas_tt.py:18-19) and the largest training configuration
 # (benchmarks/bench_optimize.py:89)
 EVAL = dict(N=4, I=1024, R=64, B=1 << 20)
+# BASELINE config 3 (benchmarks/bench_cross.py:33-48): a 10-D sum of sines
+# on 32^10; the reference's tutorial cross (bench.py:370-376): the 5-D
+# Hilbert tensor 1/sum(x) on 32^5; the fixed-rank throughput shape
+# (bench.py:354-387)
+CROSS3 = dict(N=10, I=32, lo=0.0, hi=2 * 3.141592653589793, eps=1e-6, seed=0)
+HILBERT5 = dict(N=5, I=32, lo=1.0, hi=32.0, eps=1e-6, seed=7)
+CROSS_FIXED = dict(N=5, I=256, lo=1.0, hi=256.0, ranks_tt=100, max_iter=2, seed=0)
+HELD_OUT = 10 ** 5
+VAL_SIZE = 1000  # cross's default validation set
 TRAIN = dict(N=3, I=256, R=16, B=8192, steps=20)
 # Published peaks of one H100 SXM (NVIDIA data sheet): FP32 outside the
 # tensor cores, HBM3 bandwidth
@@ -967,7 +1026,7 @@ def plain_versions(fn):
     from tntorch_tpu_torch.ops import tt_eval as te
 
     kern = (te.tt_eval_kernel, te.tt_eval_backward_kernel)
-    te.tt_eval_kernel = te.tt_eval_plain
+    te.tt_eval_kernel = lambda cores, X, checked=False: te.tt_eval_plain(cores, X)
     te.tt_eval_backward_kernel = lambda cores, X, g, checked=False: te.tt_eval_backward_plain(
         cores, X, g)
     try:
@@ -1230,9 +1289,341 @@ def baseline_path():
     return launches
 
 
+def _sines(*xs):
+    import torch
+
+    return sum(torch.sin(x) for x in xs)
+
+
+def _hilbert(*xs):
+    return 1 / sum(xs)
+
+
+def _axes(cfg):
+    import numpy as np
+
+    return [np.linspace(cfg["lo"], cfg["hi"], cfg["I"])] * cfg["N"]
+
+
+def _cross(cfg, f, dtype, device=None):
+    """``tn.cross`` of ``f`` on ``cfg``'s grid in ``dtype`` (torch's default
+    dtype is what meshgrid casts the grid to); its result, info and wall
+    time in seconds, ending in a synchronize."""
+    import torch
+
+    import tntorch_tpu_torch as tn
+
+    args = {k: cfg[k] for k in ("eps", "seed", "ranks_tt", "max_iter") if k in cfg}
+    prev = torch.get_default_dtype()
+    torch.set_default_dtype(dtype)
+    try:
+        if device is None:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t, info = tn.cross(function=f, domain=_axes(cfg), device=device, verbose=False,
+                           return_info=True, suppress_warnings=True, **args)
+        if device is None:
+            torch.cuda.synchronize()
+        return t, info, time.perf_counter() - t0
+    finally:
+        torch.set_default_dtype(prev)
+
+
+def _held_out(cfg, n):
+    """``n`` random grid coordinates of ``cfg`` on the card."""
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.random.default_rng(11).integers(0, cfg["I"], (n, cfg["N"]))).cuda()
+
+
+def _inputs(cfg, dtype):
+    """The cores of the input tensors a domain cross on ``cfg`` builds
+    (``tn.meshgrid``), on the card in ``dtype``."""
+    import tntorch_tpu_torch as tn
+
+    return [[c.to(dtype) for c in t.cores] for t in tn.meshgrid(_axes(cfg), device="cuda")]
+
+
+def hold_tt_eval(name, cases):
+    """Each (tag, cores, X) of ``cases`` through the tt_eval kernel on both
+    of its routes, against the plain version on the same inputs, within
+    KERNEL_TOL of max |plain|; prints the route that the cross path takes
+    at each. The caller has read its launch counts: these launches are not
+    the path's."""
+    import torch
+
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    failed, parts = [], []
+    for tag, cores, X in cases:
+        cores = [c.contiguous() for c in cores]  # as TTEval passes them
+        dname = str(cores[0].dtype)[6:]
+        want = te.tt_eval_plain(cores, X)
+        ranks = [int(c.shape[0]) for c in cores] + [1]
+        dims = [int(c.shape[1]) for c in cores]
+        takes = ("grouped" if te._grouped(ranks, dims, X.shape[0], cores[0].element_size())
+                 else "per-sample")
+        rels = []
+        for route in ("grouped", "per-sample"):
+            got = tt_path(route == "grouped", lambda: te.tt_eval_kernel(cores, X))
+            rel = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-300)
+            rels.append(f"{route} {rel:.2e}")
+            if not bool(torch.isfinite(got).all()) or not rel <= KERNEL_TOL[dname]:
+                failed.append(f"{tag} {dname} on the {route} kernel: rel {rel:.3e}")
+        parts.append(f"{tag} {dname} ranks {max(ranks)} B={X.shape[0]} (the path takes {takes}): "
+                     + ", ".join(rels))
+    print(f"{name}, tt_eval kernel vs plain (tol {KERNEL_TOL}): " + "; ".join(parts))
+    if failed:
+        raise AssertionError(f"{name}: tt_eval disagrees with its plain version: "
+                             + "; ".join(failed))
+
+
+def cross_checks(name, cfg, f, exact):
+    """Phase 10a/10b: a warm timed cross on the card in float32 and float64,
+    each held to val_eps < eps and to a held-out error against ``exact``
+    (float64 values of the function at (P, N) grid coordinates), the
+    float64 run's rank schedule to the port's on the CPU, and the tt_eval
+    kernel to its plain version at the shapes the run gave it. Returns its
+    tt_eval launches."""
+    import torch
+
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    ref = _cross(cfg, f, torch.float64, device="cpu")[1]
+    X = _held_out(cfg, HELD_OUT)
+    X_val = _held_out(cfg, VAL_SIZE)
+    want = exact(torch.tensor(_axes(cfg)[0], device="cuda"), X)
+    launches, failed = 0, []
+    for dtype, tol in ((torch.float32, CROSS_F32_TOL), (torch.float64, cfg["eps"])):
+        te.reset_launches()
+        _cross(cfg, f, dtype)  # warm-up
+        t, info, sec = _cross(cfg, f, dtype)
+        torch.cuda.synchronize()
+        per_call = te.tt_eval_kernel.launches // 2
+        got = t[X].full()
+        torch.cuda.synchronize()
+        launches += te.tt_eval_kernel.launches
+        err = rel(got.double(), want)
+        key = str(dtype)[6:]
+        Rs = [int(r) for r in info["Rs"]]
+        print(f"{name}, {key}: {len(info['val_epss'])} iterations, ranks {Rs}, "
+              f"{info['nsamples']} f-evals, val_eps {info['val_eps']:.3e} (tol {cfg['eps']}), "
+              f"held-out rel err at {HELD_OUT} points {err:.3e} (tol {tol}); "
+              f"{sec * 1e3:.1f} ms, {info['nsamples'] / sec:.4g} f-evals/s; tt_eval launches "
+              f"per cross {per_call}; on {t.device}, {t.dtype}")
+        hold_tt_eval(f"{name}, {key}", [("inputs", _inputs(cfg, dtype)[0], X_val),
+                                         ("approximation", t.cores, X_val),
+                                         ("approximation", t.cores, X)])
+        if t.device.type != "cuda" or t.dtype != dtype:
+            failed.append(f"{key}: the result is on {t.device}, {t.dtype}")
+        if not info["val_eps"] < cfg["eps"]:
+            failed.append(f"{key}: val_eps {info['val_eps']:.3e} is not below {cfg['eps']}")
+        if not err <= tol:
+            failed.append(f"{key}: held-out error {err:.3e} above {tol}")
+        if per_call != cfg["N"] + len(info["val_epss"]):
+            failed.append(f"{key}: {per_call} tt_eval launches per cross, expected one per input "
+                          "and one per iteration")
+        if dtype == torch.float64:
+            cpu = ([int(r) for r in ref["Rs"]], ref["nsamples"], len(ref["val_epss"]))
+            print(f"{name}, the port on the CPU, float64: ranks {cpu[0]}, {cpu[1]} f-evals, "
+                  f"{cpu[2]} iterations, val_eps {ref['val_eps']:.3e}")
+            if (Rs, info["nsamples"], len(info["val_epss"])) != cpu:
+                failed.append("float64: the rank schedule differs from the CPU's")
+    if failed:
+        raise AssertionError(f"{name}: " + "; ".join(failed))
+    return launches
+
+
+def hold_maxvol():
+    """10c: `maxvol_device` alone at the throughput shape's 25600 x 100 (past
+    the LU tournament's block), on an orthonormal matrix as the sweep gives
+    it: in float64 the card's rows equal the port's on the CPU and C stays
+    within MAXVOL_TOL of a fresh solve at those rows; in float32 it
+    converges (max |C| <= 1.05) with C within MAXVOL_TOL of the float64
+    solve at its rows."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    mv = importlib.import_module("tntorch_tpu_torch.maxvol")
+    n, r = CROSS_FIXED["I"] * CROSS_FIXED["ranks_tt"], CROSS_FIXED["ranks_tt"]
+    A = torch.linalg.qr(torch.from_numpy(np.random.default_rng(13).standard_normal((n, r))))[0]
+    cpu_rows = mv.maxvol_device(A, 1.05, 1000)[0]
+    Ad = A.cuda()
+    failed, parts = [], []
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype)[6:]
+        rows, C = mv.maxvol_device(Ad.to(dtype), 1.05, 1000)
+        fresh = torch.linalg.solve(Ad[rows].T, Ad.T).T
+        drift = float((C.double() - fresh).abs().max())
+        top = float(C.abs().max())
+        same = torch.equal(rows.cpu(), cpu_rows)
+        parts.append(f"{dname}: rows {'equal to' if same else 'differ from'} the CPU's, max |C| "
+                     f"{top:.6f}, C vs a float64 solve at its rows {drift:.2e} "
+                     f"(tol {MAXVOL_TOL[dname]})")
+        if dtype == torch.float64 and not same:
+            failed.append("float64 rows differ from the CPU's")
+        if not top <= 1.05 or not drift <= MAXVOL_TOL[dname]:
+            failed.append(f"{dname}: max |C| {top:.6f}, drift {drift:.3e}")
+    print(f"10c, maxvol_device at {n} x {r}: " + "; ".join(parts))
+    if failed:
+        raise AssertionError("10c maxvol_device: " + "; ".join(failed))
+
+
+def cross_fixed():
+    """Phase 10c: the fixed-rank throughput shape in float32 (f-evals/s,
+    swaps and LU reads per maxvol call, val_eps and the held-out error
+    within CROSS_FIXED_TOL, the tt_eval kernel against its plain version at
+    the run's shapes), a float64 run against the port's on the CPU,
+    `maxvol_device` alone at the shape, f-evals/s with the maxvol's block
+    of guarded swaps at its size and at 1 in turns, and a profile of one
+    iteration by span."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    mv = importlib.import_module("tntorch_tpu_torch.maxvol")
+    cfg = CROSS_FIXED
+    k = mv._BLOCK
+    counts = {"swaps": 0, "lu": 0}
+    swap, lu_rows = mv._swap, mv._lu_rows
+
+    def counted_swap(*args):
+        counts["swaps"] += 1
+        return swap(*args)
+
+    def counted_lu(*args):
+        counts["lu"] += 1
+        return lu_rows(*args)
+
+    te.reset_launches()
+    _cross(cfg, _hilbert, torch.float32)  # warm-up
+    launches = te.tt_eval_kernel.launches
+    mv._swap, mv._lu_rows = counted_swap, counted_lu
+    try:
+        t, info, sec = _cross(cfg, _hilbert, torch.float32)
+    finally:
+        mv._swap, mv._lu_rows = swap, lu_rows
+    per_call = te.tt_eval_kernel.launches - launches
+    X = _held_out(cfg, HELD_OUT)
+    X_val = _held_out(cfg, VAL_SIZE)
+    ax = torch.tensor(_axes(cfg)[0], device="cuda")
+    err = rel(t[X].full().double(), 1 / ax[X].sum(1))
+    iters = len(info["val_epss"])
+    steps = (2 * cfg["N"] - 2) * iters
+    print(f"10c: ranks {[int(r) for r in info['Rs']]}, {info['nsamples']} f-evals "
+          f"({iters} iterations of at most {cfg['max_iter']}), val_eps {info['val_eps']:.3e}, "
+          f"held-out rel err at {HELD_OUT} points {err:.3e} (tol {CROSS_FIXED_TOL} for both), "
+          f"{sec * 1e3:.1f} ms, {info['nsamples'] / sec:.4g} f-evals/s; tt_eval launches "
+          f"{per_call}; maxvol: "
+          f"{counts['swaps'] / steps:.1f} guarded swaps and {counts['lu'] / steps:.1f} LU pivot "
+          f"reads per call ({steps} calls), block {k}")
+    if t.device.type != "cuda" or per_call != cfg["N"] + iters:
+        raise AssertionError(f"10c: the fixed-rank cross left the card or launched tt_eval "
+                             f"{per_call} times")
+    if not info["val_eps"] <= CROSS_FIXED_TOL or not err <= CROSS_FIXED_TOL:
+        raise AssertionError(f"10c: val_eps {info['val_eps']:.3e} or held-out error {err:.3e} "
+                             f"above {CROSS_FIXED_TOL}")
+    # float64: one iteration reaches eps; the card's run against the CPU's
+    t64, info64, sec64 = _cross(cfg, _hilbert, torch.float64)
+    err64 = rel(t64[X].full(), 1 / ax.double()[X].sum(1))
+    launches = te.tt_eval_kernel.launches
+    cpu = _cross(cfg, _hilbert, torch.float64, device="cpu")[1]
+    print(f"10c, float64: {len(info64['val_epss'])} iteration(s), {info64['nsamples']} f-evals, "
+          f"val_eps {info64['val_eps']:.3e}, held-out rel err {err64:.3e} (tol "
+          f"{CROSS_FIXED_F64_TOL}), {sec64 * 1e3:.1f} ms; the port on the CPU: "
+          f"{len(cpu['val_epss'])} iteration(s), {cpu['nsamples']} f-evals, val_eps "
+          f"{cpu['val_eps']:.3e}")
+    if (len(info64["val_epss"]), info64["nsamples"]) != (len(cpu["val_epss"]), cpu["nsamples"]) \
+            or not err64 <= CROSS_FIXED_F64_TOL:
+        raise AssertionError("10c float64: iterations or samples differ from the CPU's, or the "
+                             f"held-out error {err64:.3e} is above {CROSS_FIXED_F64_TOL}")
+    hold_tt_eval("10c", [("inputs", _inputs(cfg, torch.float32)[0], X_val),
+                         ("approximation", t.cores, X_val), ("approximation", t.cores, X),
+                         ("approximation", t64.cores, X_val)])
+    hold_maxvol()
+    te.reset_launches()
+    rates = {k: [], 1: []}
+    for turn in range(6):
+        for block in ((k, 1) if turn % 2 == 0 else (1, k)):
+            mv._BLOCK = block
+            try:
+                _, info, sec = _cross(cfg, _hilbert, torch.float32)
+            finally:
+                mv._BLOCK = k
+            rates[block].append(info["nsamples"] / sec)
+    launches += te.tt_eval_kernel.launches
+    print("10c f-evals/s by guarded swaps per host check, 6 turns each: "
+          + ", ".join(f"{b}: {[round(r) for r in v]} (median {np.median(v):.4g})"
+                      for b, v in rates.items()))
+    return launches + cross_profile("10c", dict(cfg, max_iter=1), _hilbert)
+
+
+def cross_profile(name, cfg, f):
+    """One float32 cross on ``cfg`` under torch.profiler: its wall time,
+    the device's busy time and idle share, and the host and device time of
+    each of the sweep's spans (fibers with f, QR, LU pivots, swaps, solves,
+    interfaces, validation). Returns its tt_eval launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    te.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, info, sec = _cross(cfg, f, torch.float32)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False) and not e.key.startswith("tn.")]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    spans = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith("tn."):
+            dev = getattr(e, "device_time_total", None)
+            dev = e.cuda_time_total if dev is None else dev
+            n, host, d = spans.get(e.name, (0, 0.0, 0.0))
+            spans[e.name] = (n + 1, host + e.cpu_time_total / 1e3, d + dev / 1e3)
+    wall = sec * 1e3
+    print(f"{name}, {len(info['val_epss'])} iteration(s) profiled: wall {wall:.1f} ms, device "
+          f"busy {busy:.1f} ms (idle share {max(0.0, 1 - busy / wall):.3f}); host gaps (wall - "
+          f"device busy) {wall - busy:.1f} ms; by span (count, host ms, device ms):")
+    for span, (n, host, d) in sorted(spans.items(), key=lambda x: -x[1][1]):
+        print(f"  {span:22s} x{n:<4d} host {host:9.2f}  device {d:9.2f}")
+    tt = sum(e.self_device_time_total for e in kernels if "tt_eval" in e.key) / 1e3
+    print(f"  tt_eval kernels: device {tt:.3f} ms; top kernels:")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / 1e3:8.2f} ms x{e.count:<5d} {e.key[:80]}")
+    return te.tt_eval_kernel.launches
+
+
+def cross_path():
+    """Phase 10; returns each kernel's launches in it."""
+    import torch
+
+    import tntorch_tpu_torch as tn
+
+    tn.set_policy("highest")
+    phase("10a. BASELINE config 3: tn.cross of a 10-D sum of sines on 32^10, eps=1e-6, "
+          "seed=0, float32 and float64")
+    launches = cross_checks("config 3", CROSS3, _sines, lambda ax, X: torch.sin(ax[X]).sum(1))
+    launches += cross_profile("10a", CROSS3, _sines)
+    phase("10b. the reference's tutorial cross: 1/sum(x) on 32^5, eps=1e-6, seed=7, float32 "
+          "and float64")
+    launches += cross_checks("5-D Hilbert", HILBERT5, _hilbert, lambda ax, X: 1 / ax[X].sum(1))
+    phase("10c. fixed-rank throughput: 1/sum(x) on 256^5, ranks_tt=100, max_iter=2, seed=0, "
+          "float32")
+    launches += cross_fixed()
+    return {"tt_eval": launches}
+
+
 PHASES = {"3": "check_kernels", "3b": "check_tt_kernels", "4": "main_path",
           "5": "nonbatch_pass", "6": "eval_path", "7": "train_path", "8": "train_design_path",
-          "9": "baseline_path"}
+          "9": "baseline_path", "10": "cross_path"}
 
 
 def main():
@@ -1260,8 +1651,9 @@ def main():
     trains = train_path()
     designs = train_design_path()
     baselines = baseline_path()
+    crosses = cross_path()
     launches.update({k: evals[k] + trains[k] + designs[k] for k in evals})
-    launches = {k: n + baselines.get(k, 0) for k, n in launches.items()}
+    launches = {k: n + baselines.get(k, 0) + crosses.get(k, 0) for k, n in launches.items()}
 
     import torch
 

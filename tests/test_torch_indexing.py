@@ -64,6 +64,12 @@ KEYS = {
     "ellipsis_mid": (0, Ellipsis, slice(1, 3)),
     "all_index_arrays": (np.array([0, 4, -1]), np.array([5, 0, 2]), np.array([1, 1, 6]),
                          np.array([3, -4, 0])),
+    # a boolean array as long as its mode is a mask over it, as in NumPy
+    "bool_mask": (np.array([True, False, True, True, False]),),
+    "bool_mask_mid": (slice(None), np.array([True, False, False, True, True, False])),
+    "bool_mask_after_ellipsis": (Ellipsis, np.array([False, True, True, False])),
+    "bool_mask_with_index_array": (np.array([True, False, True, False, True]),
+                                   np.array([5, 0, 2])),
 }
 
 
@@ -108,6 +114,8 @@ BATCH_KEYS = {
     "none": (slice(None), None, 1),
     "ellipsis": (Ellipsis, 2),
     "sample_ellipsis": (1, Ellipsis, slice(0, 2)),
+    "slice_then_bool_mask": (slice(None), np.array([True, False, True, True, False])),
+    "bool_mask_mid": (slice(None), slice(None), np.array([False, True, True, False, True, True])),
 }
 
 
@@ -130,6 +138,8 @@ ERRORS = {
     "float_key": ((1.5,), IndexError, None),
     "out_of_range_array": ((np.array([0, 5]),), IndexError, "out of range"),
     "out_of_range_coordinates": (np.array([[0, 0, 0, 4]]), IndexError, None),
+    "bool_mask_of_another_length": ((np.array([True, False]),), IndexError, "boolean index"),
+    "two_dimensional_bool": ((np.ones((5, 1), bool),), IndexError, "boolean index"),
 }
 
 
@@ -154,6 +164,18 @@ def test_batch_getitem_errors_match_jax(key, match):
     for x in (t, jt):
         with pytest.raises(ValueError, match=match):
             x[key]
+
+
+def test_bool_masks_on_every_mode_follow_numpy():
+    # Several masks select their coordinates jointly, as in NumPy; the JAX
+    # package raises here (it compares a mask's length, not its count of
+    # True, with the arrays before it), so the dense tensor is the reference
+    t, jt = _pair(9, shape=(5, 5, 5, 5))
+    rng = np.random.default_rng(10)
+    masks = tuple(np.isin(np.arange(5), rng.choice(5, 3, replace=False)) for _ in range(4))
+    _close(t[masks], _dense(jt)[masks])
+    with pytest.raises(ValueError, match="same length"):
+        jt[masks]
 
 
 def test_mask_tensor_key_is_not_ported():

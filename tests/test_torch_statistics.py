@@ -177,7 +177,7 @@ def test_tensor_conveniences_match_jax():
 
 def test_tools_outside_the_slice_raise():
     t, _ = _pair(9)
-    for name in ("cat", "transpose", "flip", "stack", "mask", "pad", "shift_mode"):
+    for name in ("cat", "transpose", "flip", "unbind", "mask", "pad", "shift_mode"):
         with pytest.raises(NotImplementedError, match="queue 1 item 8"):
             getattr(tn.tools, name)(t)
 

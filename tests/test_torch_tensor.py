@@ -8,6 +8,7 @@ import inspect
 import os
 import subprocess
 import sys
+import types
 
 import jax
 import jax.numpy as jnp
@@ -283,18 +284,78 @@ def test_functional_round_tt_leaves_input():
     assert r.ranks_tt.tolist() == [1, 3, 4, 3, 1]
 
 
+# The JAX package's public API that the slices have ported; every other
+# public name of ``dir(tntorch_tpu)`` is a stub in the port
+PORTED = {
+    "Tensor", "asarray", "autodiff", "create", "cross", "default_dtype", "dist", "dof", "dot",
+    "get_policy", "init_interfaces", "matmul_precision", "maxvol", "mean", "meshgrid",
+    "metrics", "next_key", "norm", "normsq", "ops", "optimize", "parallel", "py_maxvol",
+    "py_rect_maxvol", "r_squared", "rand", "randn", "rect_maxvol", "relative_error", "rmse",
+    "round", "round_tt", "round_tt_fixed", "round_tt_gram", "round_tucker", "set_policy",
+    "squeeze", "stack", "std", "sum", "tensor", "tools", "truncated_svd", "tt_dot", "tt_eval",
+    "tt_full", "ttm", "unsqueeze", "utils", "var",
+}
+
+
+def _jax_api():
+    """The public names of ``tntorch_tpu`` that are its own: not the names
+    that its star imports leak (typing, jax, numpy, time, the package)."""
+    for name in dir(jtn):
+        obj = getattr(jtn, name)
+        module = isinstance(obj, types.ModuleType)
+        where = obj.__name__ if module else getattr(obj, "__module__", "")
+        if not name.startswith("_") and obj is not jtn and str(where).startswith("tntorch_tpu"):
+            yield name
+
+
 def test_entry_points_outside_the_slice_raise():
     a, _ = _pair(20, 0)
+    api = set(_jax_api())
+    assert PORTED <= api
+    for name in sorted(api):
+        assert hasattr(tn, name), name
+        obj = getattr(tn, name)
+        item = vars(obj).get("roadmap_item")
+        assert (item is None) == (name in PORTED), name
+        if item is None:
+            continue
+        with pytest.raises(NotImplementedError, match=rf"ROADMAP.md, {item}\)"):
+            obj.anything() if isinstance(obj, types.ModuleType) else obj(a)
+    for name in (n for n in dir(jtn.Tensor) if not n.startswith("_")):
+        assert hasattr(tn.Tensor, name), name
+
     def setitem():
         a[0, 0, 0, 0] = 1.0
 
-    for call in (lambda: tn.cross(), lambda: tn.randn(3, 3, ranks_cp=2, device="cpu"),
+    domain = [np.arange(4.0)] * 3
+    for call in (lambda: tn.randn(3, 3, ranks_cp=2, device="cpu"),
                  lambda: tn.sobol(a), lambda: tn.Tensor(np.ones((3, 3)), ranks_cp=2),
                  lambda: a[a], setitem,
                  lambda: tn.Tensor([np.ones((3, 2)), np.ones((3, 2))], device="cpu"),
-                 lambda: tn.tools.transpose(a)):
+                 lambda: tn.tools.transpose(a), lambda: tn.minimum(a), lambda: tn.exp(a),
+                 lambda: tn.ones(3, 3), lambda: tn.cat([a, a]), lambda: tn.skew(a),
+                 lambda: tn.hadamard_sum([a, a]), lambda: tn.anova.sobol(a),
+                 lambda: a.set_factors("legendre"), lambda: a ** 2, lambda: 2.0 ** a,
+                 lambda: 2.0 / a, lambda: a / a,
+                 lambda: tn.cross(domain=domain, device="cpu", record_samples=True),
+                 lambda: tn.cross(domain=domain, device="cpu", _minimize=True),
+                 lambda: tn.cross(domain=domain, device="cpu", fuse="host"),
+                 lambda: tn.cross(domain=domain, device="cpu", mesh="mesh")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+    # with cross ported, a call without a domain or tensors fails as the
+    # JAX package's does
+    for package in (tn, jtn):
+        with pytest.raises(AssertionError):
+            package.cross()
+
+
+def test_as_leaf_detaches_in_place_as_jax():
+    a, ja = _pair(21, 0)
+    t = tn.Tensor([c.clone().requires_grad_() for c in a.cores])
+    assert t.as_leaf() is t and ja.as_leaf() is ja
+    assert not any(c.requires_grad for c in t.cores)
+    _close(t.numpy(), ja.numpy())
 
 
 def test_policy_pins_full_float32_matmuls():
@@ -318,6 +379,9 @@ def test_policy_pins_full_float32_matmuls():
 
 
 def test_package_never_imports_jax():
-    code = "import tntorch_tpu_torch, sys; assert 'jax' not in sys.modules"
+    # nor the JAX package, not even its modules without JAX (maxvol.py)
+    code = ("import tntorch_tpu_torch, sys; bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'jaxlib', 'tntorch_tpu.')) or m == 'tntorch_tpu']; "
+            "assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr

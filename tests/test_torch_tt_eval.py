@@ -75,6 +75,20 @@ def test_tt_eval_matches_jax_f64(shape):
         assert _rel(got.numpy(), want) <= 1e-12
 
 
+def test_use_pallas_is_the_reference_name_of_use_kernel(monkeypatch):
+    cores, X, _ = _problem([1, 4, 5, 1], [6, 7, 8], 50, seed=5)
+    want = np.asarray(jtn.tt_eval([jnp.asarray(c) for c in cores], jnp.asarray(X),
+                                  use_pallas=False))
+
+    def refuse(*args):
+        raise AssertionError("took TTEval")
+
+    monkeypatch.setattr(te.TTEval, "apply", refuse)
+    assert _rel(tn.tt_eval(_torch(cores), X, use_pallas=False).numpy(), want) <= 1e-12
+    with pytest.raises(AssertionError, match="took TTEval"):
+        tn.tt_eval(_torch(cores), X, use_pallas=None)
+
+
 @pytest.mark.parametrize("shape", SHAPES, ids=list(SHAPES))
 def test_gradient_matches_jax_grad_f64(shape):
     # d/dC sum_b w_b f_b: TTEval's plain backward (index_add_ of the outer
@@ -97,6 +111,18 @@ def test_tteval_passes_gradcheck():
     cores, X, _ = _problem([2, 3, 2, 2], [4, 3, 5], 9, seed=4, negative=True)
     params = tuple(c.requires_grad_() for c in _torch(cores))
     assert torch.autograd.gradcheck(lambda *cs: te.TTEval.apply(torch.from_numpy(X), *cs), params)
+
+
+def test_checked_evaluation_is_the_same_function():
+    # checked=True (coordinates known to be in range) only drops the flag
+    # read on the card: values within 1e-12 of the JAX package's, and the
+    # same gradient
+    cores, X, _ = _problem([2, 3, 2, 2], [4, 3, 5], 9, seed=4)
+    want = np.asarray(jax_tt_batch_forward([jnp.asarray(c) for c in cores], jnp.asarray(X)))
+    assert _rel(tn.tt_eval(_torch(cores), X, checked=True).detach().numpy(), want) <= 1e-12
+    params = tuple(c.requires_grad_() for c in _torch(cores))
+    assert torch.autograd.gradcheck(
+        lambda *cs: te.CheckedTTEval.apply(torch.from_numpy(X), *cs), params)
 
 
 def test_complex_cores_take_the_plain_chain():

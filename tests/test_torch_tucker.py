@@ -98,6 +98,19 @@ def test_factors_through_dot_clone_repeat(batch):
     _close((a + b.repeat(1, 1, 1, 1)).numpy(), (ja + jb).numpy())
 
 
+@BATCH
+def test_repeat_appends_trailing_modes(batch):
+    # more counts than modes: each extra count appends a mode of that size
+    a, ja = _pair(7, batch)
+    got, want = a.repeat(2, 1, 1, 3, 4), ja.repeat(2, 1, 1, 3, 4)
+    off = (batch,) if batch else ()
+    assert got.shape == tuple(want.shape) == off + (12, 7, 8, 15, 4)
+    assert tuple(got.cores[-1].shape) == off + (1, 4, 1)
+    _close(got.numpy(), want.numpy())
+    with pytest.raises(ValueError):
+        a.repeat(2, 1, 1)
+
+
 @pytest.mark.parametrize("key", [
     (3, slice(None), 5, slice(1, 4)), (slice(None, None, -2), 1), (Ellipsis, 2),
     (0, None, slice(2, 6), 1), ([0, 2, 5], [1, 1, 3], slice(None), 2),

@@ -10,16 +10,21 @@ rounding, batched on hand-written Hopper kernels; ``round_tucker``;
 ``round``, both in turn), measure it (``dot``, ``norm``, ``dist``,
 ``relative_error``, ``rmse``, ``r_squared``, ``sum``, ``mean``, ``var``,
 ``std``), reshape it (``ttm``, ``squeeze``, ``unsqueeze``), index and
-evaluate it (``t[key]``, ``tt_eval``, on the card's evaluation kernels)
-and fit it (``optimize``). Data without a device lands on the CUDA card
-(`utils.default_device`). The package imports torch and numpy, never jax.
-Names of ``tntorch_tpu`` outside the slices exist here as functions that
-raise ``NotImplementedError`` naming the ROADMAP item that will port them.
+evaluate it (``t[key]``, ``tt_eval``, on the card's evaluation kernels),
+fit it (``optimize``), and build it from a black-box function by TT-cross
+(``cross``, with ``maxvol``/``rect_maxvol``, ``meshgrid`` and ``stack``).
+Data without a device lands on the CUDA card (`utils.default_device`). The
+package imports torch, numpy and scipy, never jax. Names of ``tntorch_tpu``
+outside the slices exist here as functions (or, for its submodules,
+modules) that raise ``NotImplementedError`` naming the ROADMAP item that
+will port them.
 """
 
 from tntorch_tpu_torch import interop, parallel, tools, utils
 from tntorch_tpu_torch.autodiff import dof, optimize
 from tntorch_tpu_torch.create import rand, randn
+from tntorch_tpu_torch.cross import cross, init_interfaces
+from tntorch_tpu_torch.maxvol import maxvol, py_maxvol, py_rect_maxvol, rect_maxvol
 from tntorch_tpu_torch.metrics import (
     dist, dot, mean, norm, normsq, r_squared, relative_error, rmse, std, sum, var,
 )
@@ -28,19 +33,51 @@ from tntorch_tpu_torch.ops.rounding import (
     round_tt_fixed, round_tt_gram, round_tt_gram_batched, tt_dot, tt_full,
 )
 from tntorch_tpu_torch.round import round, round_tt, round_tucker, truncated_svd
-from tntorch_tpu_torch.tensor import Tensor, _not_ported_stub
-from tntorch_tpu_torch.tools import squeeze, ttm, unsqueeze
-from tntorch_tpu_torch.utils import get_policy, set_policy
+from tntorch_tpu_torch.tensor import Tensor, _not_ported_module, _not_ported_stub
+from tntorch_tpu_torch.tools import meshgrid, squeeze, stack, ttm, unsqueeze
+from tntorch_tpu_torch.utils import (
+    asarray, default_dtype, get_policy, matmul_precision, next_key, set_policy,
+)
 
+# The JAX package's public names that no slice has ported yet, by the ROADMAP
+# item (queue 1) that will port them
 _NOT_PORTED = {
-    "cross": "queue 1 item 7",
-    "maxvol": "queue 1 item 7",
-    "sobol": "queue 1 item 10",
-    "save": "queue 1 item 11",
-    "load": "queue 1 item 11",
+    "queue 1 item 5": (
+        "ones", "ones_like", "zeros", "zeros_like", "full", "full_like", "eye", "gaussian",
+        "gaussian_like", "rand_like", "randn_like", "arange", "linspace", "logspace",
+        "hadamard_sum", "raw_moment", "normalized_moment"),
+    "queue 1 item 7": ("cross_forward", "minimum", "maximum", "argmin", "argmax"),
+    "queue 1 item 8": (
+        "abs", "acos", "add", "asin", "atan", "atan2", "cos", "cosh", "cumprod", "cumsum",
+        "div", "erf", "erfinv", "exp", "log", "log10", "log2", "mul", "pow", "reciprocal",
+        "rsqrt", "sigmoid", "sin", "sinh", "sqrt", "tan", "tanh", "skew", "kurtosis"),
+    "queue 1 item 9": (
+        "als_completion", "sparse_tt_svd", "get_bounding_box", "features2indices",
+        "indices2features", "empirical_marginals", "gram_schmidt", "lars_path",
+        "PCEInterpolator", "TTRegressor", "TTClassifier"),
+    "queue 1 item 10": (
+        "anova_decomposition", "undo_anova_decomposition", "truncate_anova", "sobol",
+        "mean_dimension", "dimension_distribution", "true", "false", "all", "none", "any",
+        "one", "symbols", "relevant_symbols", "irrelevant_symbols", "only", "presence",
+        "absence", "is_tautology", "is_contradiction", "is_satisfiable", "implies", "equiv",
+        "weight_mask", "weight_one_hot", "weight", "length", "accepted_inputs", "partialset",
+        "partial", "gradient", "active_subspace", "dgsm", "divergence", "curl", "laplacian",
+        "TTMatrix", "CPMatrix", "tt_multiply", "cp_multiply"),
+    "queue 1 item 11": (
+        "save", "load", "save_matrix", "load_matrix", "save_orbax", "load_orbax",
+        "save_orbax_sharded", "load_orbax_sharded"),
+}
+# ... and its submodules
+_NOT_PORTED_MODULES = {
+    "queue 1 item 9": ("interpolation", "models"),
+    "queue 1 item 10": ("anova", "automata", "derivatives", "logic", "matrix"),
+    "queue 1 item 11": ("serialization",),
 }
 
-
-globals().update({name: _not_ported_stub(name, item) for name, item in _NOT_PORTED.items()})
+globals().update({name: _not_ported_stub(name, item)
+                  for item, names in _NOT_PORTED.items() for name in names})
+globals().update({name: _not_ported_module(name, item)
+                  for item, names in _NOT_PORTED_MODULES.items() for name in names})
+globals().update({name: getattr(tools, name) for name in tools._NOT_PORTED})
 
 __version__ = "0.1.0"

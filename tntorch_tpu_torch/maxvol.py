@@ -1,0 +1,311 @@
+"""Quasi-max-volume pivot selection for cross approximation.
+
+Counterpart of ``tntorch_tpu/maxvol.py`` (maxvol: Goreinov et al., "How to
+find a good submatrix", 2010; rectangular maxvol: Mikhalev & Oseledets,
+2018), in two parts:
+
+- the host API, `maxvol` and `rect_maxvol` (and their ``py_*`` aliases), in
+  NumPy and SciPy: the JAX package's NumPy algorithm. Its hybrid of a BLAS
+  start and the native C++ swap loop (``csrc/maxvol.cpp``) is not ported: it
+  loads through the JAX package, and falls back to the NumPy loop when its
+  library is missing, which would hide what ran. A warm start
+  (``init_rows=``) is read from a copy: the caller's array is never written.
+- the device path, `maxvol_device` and `rect_maxvol_device`, in torch on the
+  input's device: the pivots that cross approximation uses. The initial rows
+  are the pivots of a partially pivoted LU (``torch.linalg.lu_factor``,
+  with the JAX package's tournament over blocks for tall matrices, so the
+  same rows win), then the swap loop runs eagerly in blocks of `_BLOCK`
+  guarded iterations between host checks of ``max|C| > tol``. A guarded
+  iteration after convergence changes nothing, so the result is the JAX
+  package's ``lax.while_loop``'s, with one host read per block instead of
+  one per iteration. The host also reads the LU's pivots (LAPACK's
+  successive swaps) once per LU stage, to compose them into rows.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import warnings
+
+import numpy as np
+import scipy.linalg
+import torch
+
+from tntorch_tpu_torch.utils import asarray, policy_precision, trace_annotation
+
+# Guarded swap iterations between two host checks of max|C| > tol in
+# `maxvol_device`: each check is one read back from the card
+_BLOCK = 4
+
+
+# ---------------------------------------------------------------------------
+# Host (NumPy)
+# ---------------------------------------------------------------------------
+
+def _initial_pivots(A: np.ndarray, top: int) -> np.ndarray:
+    """Row order of a partially pivoted LU of A's first ``top`` rows (the
+    first r entries are its pivots)."""
+    N, r = A.shape
+    # LAPACK's ipiv: successive row swaps
+    _, piv = scipy.linalg.lu_factor(np.asfortranarray(A[:top]), check_finite=False)
+    index = np.arange(N)
+    for i in range(r):
+        index[i], index[piv[i]] = index[piv[i]], index[i]
+    return index
+
+
+def _coefficients(A: np.ndarray, rows: np.ndarray) -> np.ndarray:
+    """C = A @ inv(A[rows]), by a solve with A[rows]^T."""
+    with warnings.catch_warnings():
+        # A near-singular start is what the swaps repair
+        warnings.simplefilter("ignore", scipy.linalg.LinAlgWarning)
+        return scipy.linalg.solve(A[rows].T, A.T, check_finite=False).T
+
+
+def maxvol(A, tol: float = 1.05, max_iters: int = 100, top_k_index: int = -1,
+           init_rows=None):
+    """Select r rows of A (N x r) whose submatrix has quasi-maximal volume.
+
+    Returns (row indices [r], C = A @ inv(A[rows]) [N x r]).
+
+    :param top_k_index: only the first ``top_k_index`` rows may be picked;
+        -1 means all rows.
+    :param init_rows: optional warm start, r distinct rows among the
+        candidates (for example the pivots of a previous call on a similar
+        matrix). It is copied, never written. A singular or otherwise
+        unusable warm block falls back to the LU start.
+    """
+    A = np.asarray(A)
+    tol = max(tol, 1.0)
+    N, r = A.shape
+    if N <= r:
+        return np.arange(N, dtype=np.int64), np.eye(N, dtype=A.dtype)
+    top = N if top_k_index == -1 or top_k_index > N else max(top_k_index, r)
+
+    C = None
+    if init_rows is not None:
+        rows = np.array(init_rows, dtype=np.int64)  # a copy
+        if rows.shape == (r,) and rows.min() >= 0 and rows.max() < top:
+            try:
+                C = _coefficients(A, rows)
+            except scipy.linalg.LinAlgError:
+                C = None
+            if C is not None and not np.all(np.isfinite(C)):
+                C = None
+    if C is None:
+        rows = _initial_pivots(A, top)[:r].copy()
+        C = _coefficients(A, rows)
+
+    for _ in range(max_iters):
+        flat = np.argmax(np.abs(C[:top]))
+        i, j = divmod(flat, r)
+        if abs(C[i, j]) <= tol:
+            break
+        # Swap row i into pivot slot j; rank-1 update of C
+        rows[j] = i
+        col = C[:, j].copy()
+        row = C[i, :].copy()
+        row[j] -= 1.0
+        C -= np.outer(col / C[i, j], row)
+    return rows, C
+
+
+def rect_maxvol(A, tol: float = 1.0, maxK: int = None, min_add_K: int = None,
+                minK: int = None, start_maxvol_iters: int = 10,
+                identity_submatrix: bool = True, top_k_index: int = -1):
+    """Greedy rectangular maxvol: start from the square maxvol pivots and add
+    the row of largest coefficient norm while it exceeds ``tol`` (within the
+    bounds on K). Returns (row indices [K], C [N x K]).
+
+    :param top_k_index: only the first ``top_k_index`` rows may be picked;
+        -1 means all rows."""
+    A = np.asarray(A)
+    tol2 = tol**2
+    N, r = A.shape
+    if N <= r:
+        return np.arange(N, dtype=np.int64), np.eye(N, dtype=A.dtype)
+    top = N if top_k_index == -1 or top_k_index > N else max(top_k_index, r)
+    maxK = N if maxK is None or maxK > N else max(maxK, r)
+    minK = r if minK is None or minK < r else min(minK, N)
+    if min_add_K is not None:
+        minK = max(minK, r + min_add_K)
+    minK = min(minK, maxK)
+
+    index = np.zeros(N, dtype=np.int64)
+    chosen = np.ones(top)
+    tmp_index, C = maxvol(A, 1.05, start_maxvol_iters, top_k_index=top)
+    index[:r] = tmp_index
+    chosen[tmp_index] = 0
+
+    row_norm_sqr = np.einsum("ij,ij->i", C[:top], C[:top].conj()).real * chosen
+    i = int(np.argmax(row_norm_sqr))
+    K = r
+    while (row_norm_sqr[i] > tol2 and K < maxK) or K < minK:
+        index[K] = i
+        chosen[i] = 0
+        c = C[i].copy()
+        v = C.dot(c.conj())
+        l = 1.0 / (1 + v[i])
+        C = C - l * np.outer(v, c)
+        C = np.hstack([C, l * v.reshape(-1, 1)])
+        row_norm_sqr = (row_norm_sqr - (l * v[:top] * v[:top].conj()).real) * chosen
+        i = int(np.argmax(row_norm_sqr))
+        K += 1
+
+    if identity_submatrix:
+        C[index[:K]] = np.eye(K, dtype=C.dtype)
+    return index[:K].copy(), C
+
+
+# The reference tntorch's names
+py_maxvol = maxvol
+py_rect_maxvol = rect_maxvol
+
+
+# ---------------------------------------------------------------------------
+# Device (torch)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _cusolver(device):
+    """On the card, LU by cuSOLVER's getrf: torch's default sends a tall
+    matrix to MAGMA's batched LU, which is built for small matrices (several
+    times slower here, and it prints a warning per call)."""
+    if device.type != "cuda":
+        yield
+        return
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
+
+
+def _lu_rows(mats) -> np.ndarray:
+    """The row order of a partially pivoted LU of each (n x r) matrix in
+    ``mats``, as NumPy (len(mats), n): the first r entries of a row are its
+    pivots. One LU per matrix, and one read of all their LAPACK-style
+    pivots back from the device."""
+    n, r = mats[0].shape
+    with _cusolver(mats[0].device):
+        piv = torch.stack([torch.linalg.lu_factor_ex(A)[1] for A in mats])
+    piv = piv.cpu().numpy() - 1  # successive row swaps
+    order = np.tile(np.arange(n), (len(mats), 1))
+    for b in range(len(mats)):
+        for i, p in enumerate(piv[b]):
+            order[b, i], order[b, p] = order[b, p], order[b, i]
+    return order
+
+
+def _device_lu_pivots(A: torch.Tensor) -> torch.Tensor:
+    """The first r LU row pivots of a tall A (n x r), on A's device.
+
+    Above ``chunk`` rows, tournament pivoting (CALU, Grigori-Demmel-Xiang)
+    as the JAX package does it: LU each block of ``chunk`` rows (the last
+    padded with zero rows, which never win first), then LU the blocks'
+    winners, and keep the first r winners that are real rows."""
+    n, r = A.shape
+    chunk = max(r, (1 << 20) // max(r, 1))
+    if n <= chunk:
+        return torch.from_numpy(_lu_rows([A])[0, :r]).to(A.device)
+    m = -(-n // chunk)
+    Ap = torch.cat([A, A.new_zeros(m * chunk - n, r)])
+    rows = _lu_rows(Ap.reshape(m, chunk, r))[:, :r]
+    cand = (rows + (np.arange(m) * chunk)[:, None]).reshape(-1)
+    piv = cand[_lu_rows([Ap[torch.from_numpy(cand).to(A.device)]])[0]]
+    piv = piv[np.argsort(piv >= n, kind="stable")]
+    return torch.from_numpy(piv[:r]).to(A.device)
+
+
+def _swap(C: torch.Tensor, idx: torch.Tensor, tol: float, eye: torch.Tensor):
+    """One guarded maxvol iteration: where max|C| > tol, swap the row of the
+    largest |C[i, j]| into pivot slot j and update C by rank 1; elsewhere
+    return C and idx as they are. The JAX package's loop body, op by op
+    (``eye``, the r x r identity, gives row i minus 1 at j). Every index
+    stays a one-element tensor: a 0-d tensor index would be read back to the
+    host."""
+    r = C.shape[1]
+    flat = C.abs().argmax().reshape(1)
+    i, j = flat // r, flat % r
+    piv = C.reshape(-1).gather(0, flat)
+    ok = piv.abs() > tol
+    row = C.index_select(0, i)[0] - eye.index_select(0, j)[0]
+    col = C.index_select(1, j)[:, 0]
+    C = torch.where(ok, C - torch.outer(col / piv, row), C)
+    idx = torch.where(ok, idx.scatter(0, j, i), idx)
+    return C, idx
+
+
+@policy_precision
+def maxvol_device(A, tol: float = 1.05, max_iters: int = 100):
+    """Maxvol on A's device: LU pivots, then at most ``max_iters`` swaps.
+    Returns (row indices [r] int64, C = A @ inv(A[rows]) [n x r]) on that
+    device. The host reads the LU pivots (twice above the tournament's
+    block) and, after every `_BLOCK` iterations, whether ``max|C| > tol``
+    still holds."""
+    A = asarray(A)
+    n, r = A.shape
+    if n <= r:
+        return (torch.arange(n, device=A.device),
+                torch.eye(n, dtype=A.dtype, device=A.device))
+    with trace_annotation("tn.maxvol:lu"):
+        idx = _device_lu_pivots(A)
+    with trace_annotation("tn.maxvol:solve"):
+        # as jnp.linalg.solve(S.T, A.T).T, without solve's check (a host sync)
+        C = torch.linalg.solve_ex(A[idx].T, A.T)[0].T.contiguous()
+    with trace_annotation("tn.maxvol:swaps"):
+        eye = torch.eye(r, dtype=C.dtype, device=C.device)
+        done = 0
+        while done < max_iters:
+            block = min(_BLOCK, max_iters - done)
+            for _ in range(block):
+                C, idx = _swap(C, idx, tol, eye)
+            done += block
+            if not bool(C.abs().max() > tol):
+                break
+    return idx, C
+
+
+@policy_precision
+def rect_maxvol_device(A, tol: float = 1.0, maxK: int = None, minK: int = None,
+                       start_maxvol_iters: int = 10, identity_submatrix: bool = True):
+    """Rectangular maxvol on A's device: `maxvol_device`'s pivots, then rows
+    added as in `rect_maxvol`, with C held at ``maxK`` columns as the JAX
+    package holds it. Returns (row indices [K], C [n x K]); the host reads
+    the stopping test once per added row."""
+    A = asarray(A)
+    n, r = A.shape
+    if n <= r:
+        return (torch.arange(n, device=A.device),
+                torch.eye(n, dtype=A.dtype, device=A.device))
+    maxK = n if maxK is None or maxK > n else max(maxK, r)
+    minK = r if minK is None or minK < r else min(minK, n)
+    minK = min(minK, maxK)
+    tol2 = tol * tol
+
+    idx_sq, C0 = maxvol_device(A, 1.05, start_maxvol_iters)
+    index = torch.zeros(maxK, dtype=torch.int64, device=A.device)
+    index[:r] = idx_sq
+    real = A.real.dtype if A.is_complex() else A.dtype
+    chosen = torch.ones(n, dtype=real, device=A.device)
+    chosen[idx_sq] = 0.0
+    C = torch.zeros((n, maxK), dtype=A.dtype, device=A.device)
+    C[:, :r] = C0
+    rns = torch.einsum("ij,ij->i", C0, C0.conj()).real * chosen
+    K = r
+    while K < minK or (K < maxK and bool(rns.max() > tol2)):
+        i = rns.argmax().reshape(1)  # one-element indices: no read back
+        index[K:K + 1] = i
+        chosen.index_fill_(0, i, 0.0)
+        c = C.index_select(0, i)[0]  # zero beyond column K, so the products stay exact
+        v = C @ c.conj()
+        l = 1.0 / (1.0 + v.gather(0, i))
+        C = C - l * torch.outer(v, c)
+        C[:, K] = l * v
+        rns = (rns - (l * v * v.conj()).real) * chosen
+        K += 1
+    index, C = index[:K], C[:, :K]
+    if identity_submatrix:
+        C[index] = torch.eye(K, dtype=C.dtype, device=C.device)
+    return index, C

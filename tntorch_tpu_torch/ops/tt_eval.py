@@ -61,7 +61,8 @@ coordinates wrap as in NumPy; an out-of-range one raises ``IndexError``
 (the wrapper reads one flag back from the card per call). `TTEval`'s
 backward passes ``checked=True``, since its forward already raised on the
 same X: it reads no flag, so a training step reads the flag once (in its
-forward), not twice. Each wrapper counts its calls that launched in a
+forward), not twice. `CheckedTTEval`'s forward (``tt_eval(...,
+checked=True)``) reads none, for coordinates in range by construction. Each wrapper counts its calls that launched in a
 plain integer attribute (``tt_eval_kernel.launches``), which only a launch
 raises; ``.grouped`` counts those that took the grouped path.
 """
@@ -373,8 +374,11 @@ def _tt_eval_backward_grouped(dcode, cores, X, g, ranks, check):
     return grads, flag
 
 
-def tt_eval_kernel(cores, X):
-    """Values (B,) of the TT ``cores`` at the rows of X (B, N)."""
+def tt_eval_kernel(cores, X, checked=False):
+    """Values (B,) of the TT ``cores`` at the rows of X (B, N).
+    ``checked=True`` says that X's coordinates are known to be in range: on
+    the card the call then reads no flag back (the kernels still guard every
+    load)."""
     cores = list(cores)
     if _on_cpu(*cores, X):
         return tt_eval_plain(cores, X)
@@ -395,7 +399,8 @@ def tt_eval_kernel(cores, X):
                     ctypes.c_void_p(X.data_ptr()), B, ctypes.c_void_p(out.data_ptr()),
                     ctypes.c_void_p(flag.data_ptr()))
     tt_eval_kernel.launches += 1
-    _raise_if_flagged(flag, "tt_eval")
+    if not checked:
+        _raise_if_flagged(flag, "tt_eval")
     return out
 
 
@@ -459,10 +464,7 @@ class TTEval(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, X, *cores):
-        X = X.contiguous()
-        cores = [c.contiguous() for c in cores]
-        ctx.save_for_backward(X, *cores)
-        return tt_eval_kernel(cores, X)
+        return _save_and_eval(ctx, X, cores, False)
 
     @staticmethod
     @once_differentiable
@@ -474,6 +476,22 @@ class TTEval(torch.autograd.Function):
         # checked: the forward raised on any out-of-range coordinate of X
         grads = tt_eval_backward_kernel(cores, X, g.contiguous(), True)
         return (None, *(d if need else None for d, need in zip(grads, needs)))
+
+
+class CheckedTTEval(TTEval):
+    """`TTEval` for coordinates known to be in range: on the card the
+    forward reads no flag back, so it does not wait for the card."""
+
+    @staticmethod
+    def forward(ctx, X, *cores):
+        return _save_and_eval(ctx, X, cores, True)
+
+
+def _save_and_eval(ctx, X, cores, checked):
+    X = X.contiguous()
+    cores = [c.contiguous() for c in cores]
+    ctx.save_for_backward(X, *cores)
+    return tt_eval_kernel(cores, X, checked)
 
 
 def _as_coords(X, cores):
@@ -490,7 +508,7 @@ def _as_coords(X, cores):
     return X.to(device)
 
 
-def tt_eval(cores, X, use_kernel=None):
+def tt_eval(cores, X, use_kernel=None, use_pallas=None, checked=False):
     """Evaluate a TT (list of cores (R_k, I_k, R_{k+1})) at the B integer
     coordinate rows of X (B, N); returns (B,) values, column 0 of the last
     interface (as the JAX package's ``tt_eval``/``tt_batch_forward``).
@@ -499,13 +517,17 @@ def tt_eval(cores, X, use_kernel=None):
     kernels run (float32 and float64; other dtypes raise), on the CPU their
     plain versions. Complex cores take the plain gather-and-einsum chain,
     as the JAX dispatcher takes its XLA chain for non-float32 input.
-    ``use_kernel=False`` (the counterpart of ``use_pallas=False``) takes
-    that chain for any input. Differentiable with respect to the cores."""
+    ``use_kernel=False`` takes that chain for any input; ``use_pallas``,
+    the JAX package's name for it, is an alias. ``checked=True`` says that
+    X's coordinates are known to be in range (`CheckedTTEval`: on the card
+    no flag is read back). Differentiable with respect to the cores."""
+    if use_kernel is None:
+        use_kernel = use_pallas
     cores = list(cores)
     X = _as_coords(X, cores)
     if use_kernel is False or cores[0].is_complex():
         return tt_eval_plain(cores, X)
-    return TTEval.apply(X, *cores)
+    return (CheckedTTEval if checked else TTEval).apply(X, *cores)
 
 
 def tt_batch_forward(cores, X):

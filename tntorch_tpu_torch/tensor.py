@@ -21,12 +21,14 @@ through `ops.tt_eval.TTEval`, the card's evaluation kernels.
 ``requires_grad=True`` makes the cores and factors leaf tensors for
 autograd and `optimize`.
 
-CP cores (``ranks_cp=``), index sets (``idxs=``), ``__setitem__`` and
-mask-Tensor keys are not ported yet and raise ``NotImplementedError``
-naming their ROADMAP item.
+CP cores (``ranks_cp=``), index sets (``idxs=``), ``__setitem__``,
+mask-Tensor keys, division by a Tensor, ``**`` and ``set_factors`` are not
+ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
+
+import types
 
 import numpy as np
 import torch
@@ -44,7 +46,24 @@ def _not_ported_stub(name: str, item: str):
         raise _not_ported(f"tn.{name}", item)
 
     stub.__name__ = stub.__qualname__ = name
+    stub.roadmap_item = item
     return stub
+
+
+def _not_ported_module(name: str, item: str) -> types.ModuleType:
+    """A stand-in for the JAX package's submodule ``name``: every public
+    attribute raises `_not_ported` for ``tn.name.attr``."""
+    module = types.ModuleType(f"tntorch_tpu_torch.{name}",
+                              f"Not ported yet (ROADMAP.md, {item}).")
+
+    def __getattr__(attr):
+        if attr.startswith("__"):
+            raise AttributeError(attr)
+        raise _not_ported(f"tn.{name}.{attr}", item)
+
+    module.__getattr__ = __getattr__
+    module.roadmap_item = item
+    return module
 
 
 def _full_rank_tt(data: torch.Tensor, batch: bool = False) -> list:
@@ -366,6 +385,15 @@ class Tensor:
             raise _not_ported("Division by a Tensor (cross approximation)", "queue 1 item 7")
         return self * (1.0 / other)
 
+    def __rtruediv__(self, other):
+        raise _not_ported("Division by a Tensor (tn.reciprocal)", "queue 1 item 8")
+
+    def __pow__(self, other):
+        raise _not_ported("Tensor ** (cross approximation)", "queue 1 item 8")
+
+    def __rpow__(self, other):
+        raise _not_ported("Scalar ** Tensor (cross approximation)", "queue 1 item 8")
+
     # Boolean algebra on {0, 1} tensors
     def __invert__(self):
         return 1 - self
@@ -552,6 +580,15 @@ class Tensor:
                 raise _not_ported("CP cores", "queue 1 item 3")
         return factor
 
+    def as_leaf(self):
+        """Detach the cores and factors from autograd, in place; returns self."""
+        self.cores = [c.detach() for c in self.cores]
+        self.Us = [None if U is None else U.detach() for U in self.Us]
+        return self
+
+    def set_factors(self, *args, **kwargs):
+        raise _not_ported("Tensor.set_factors (tn.tools.generate_basis)", "queue 1 item 8")
+
     def clone(self):
         t = Tensor(list(self.cores), Us=list(self.Us), batch=self.batch)
         t.requires_grad = self.requires_grad
@@ -560,13 +597,22 @@ class Tensor:
 
     def repeat(self, *rep):
         """Tile along modes, like torch.repeat (a mode's factor, where it
-        has one, is tiled instead of its core)."""
+        has one, is tiled instead of its core). Counts beyond the modes
+        append trailing modes of that size, constant along the new mode:
+        each a core that passes the last rank through (ones when it is 1)."""
         if len(rep) == 1 and hasattr(rep[0], "__len__"):
             rep = tuple(rep[0])
-        if len(rep) != self.dim() or any(r < 1 for r in rep):
-            raise ValueError("repeat takes one count >= 1 per mode")
+        if len(rep) < self.dim() or any(r < 1 for r in rep):
+            raise ValueError("repeat takes a count >= 1 for every mode, and for each new one")
         t = self.clone()
-        for n, r in enumerate(rep):
+        last = t.cores[-1]
+        R = last.shape[-1]
+        eye = torch.eye(R, dtype=last.dtype, device=last.device)[:, None, :]
+        for r in rep[self.dim():]:
+            core = eye.expand(last.shape[:-3] + (R, r, R)).contiguous()
+            t.cores.append(core)
+            t.Us.append(None)
+        for n, r in enumerate(rep[:self.dim()]):
             x = t.cores[n] if t.Us[n] is None else t.Us[n]
             x = x.repeat(*((1,) * (x.ndim - 2) + (r, 1)))
             if t.Us[n] is None:
@@ -837,16 +883,28 @@ class Tensor:
                 f"Too many index entries {len(self.shape)} vs {len(key) - nonecount}")
         return key + [slice(None)] * (len(self.shape) - (len(key) - nonecount))
 
-    def _index_array(self, k, size: int) -> torch.Tensor:
-        """A 1-D coordinate array for a mode of ``size``, checked and wrapped
-        on the host, as an int64 tensor on the cores' device."""
+    @staticmethod
+    def _coordinates(k, size: int) -> np.ndarray:
+        """A 1-D index array for a mode of ``size`` as int64 coordinates: a
+        boolean mask of the mode's length selects its True positions (as
+        NumPy reads it); integers are checked, negative ones wrapped."""
         k = np.asarray(to_numpy(k))
+        if k.dtype == bool:
+            if k.shape != (size,):
+                raise IndexError(f"a boolean index of shape {k.shape} does not match a mode "
+                                 f"of size {size}")
+            return np.flatnonzero(k)
         if k.ndim != 1 or not (k.dtype.kind in "iu" or k.size == 0):
-            raise IndexError(f"index arrays must be 1-D integer arrays, got {k.dtype} {k.shape}")
+            raise IndexError(f"index arrays must be 1-D integer or boolean arrays, "
+                             f"got {k.dtype} {k.shape}")
         k = k.astype(np.int64)
         if k.size and (k.min() < -size or k.max() >= size):
             raise IndexError(f"index out of range for a mode of size {size}")
-        return torch.from_numpy(np.where(k < 0, k + size, k)).to(self.device)
+        return np.where(k < 0, k + size, k)
+
+    def _index_array(self, k, size: int) -> torch.Tensor:
+        """`_coordinates` as an int64 tensor on the cores' device."""
+        return torch.from_numpy(self._coordinates(k, size)).to(self.device)
 
     @policy_precision
     def __getitem__(self, key):
@@ -870,7 +928,8 @@ class Tensor:
         if self._all_modes(key):
             if len({len(k) for k in key}) > 1:
                 raise ValueError("Index arrays must have the same length")
-            return self._evaluate(np.stack([np.asarray(to_numpy(k)) for k in key], axis=1))
+            return self._evaluate(np.stack([self._coordinates(k, size)
+                                            for k, size in zip(key, self.shape)], axis=1))
         return self._getitem_impl(key)
 
     def _all_modes(self, key) -> bool:

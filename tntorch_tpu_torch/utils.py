@@ -48,6 +48,15 @@ def resolve_precision(precision=None) -> str:
     return _precision_policy if precision is None else precision
 
 
+def matmul_precision(precision=None) -> str:
+    """The float32 matmul precision (``torch.set_float32_matmul_precision``)
+    that the policy ``precision`` (default: the library's) maps to here:
+    'highest' for every policy (see `set_policy`)."""
+    if resolve_precision(precision) not in _PRECISION_MODES:
+        raise ValueError(f"precision must be one of {_PRECISION_MODES}")
+    return "highest"
+
+
 def policy_precision(fn):
     """Decorator: run ``fn`` with float32 matmuls in full float32 (no TF32),
     the matmul precision every policy maps to in this package, and restore
@@ -79,6 +88,16 @@ def seed(s: int, device=None) -> torch.Generator:
     seeded with ``s``. The package keeps no global random state: callers
     pass generators."""
     return torch.Generator(device=device or default_device()).manual_seed(int(s))
+
+
+def next_key(key: Optional[torch.Generator] = None, device=None) -> torch.Generator:
+    """``key`` if given, else a fresh ``torch.Generator`` on ``device``
+    (default: `default_device`) seeded from the operating system's entropy:
+    the counterpart of the JAX package's key stream, without its global
+    state."""
+    if key is not None:
+        return key
+    return seed(int(np.random.SeedSequence().entropy % (2**63)), device)
 
 
 def default_dtype() -> torch.dtype:
