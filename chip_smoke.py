@@ -104,7 +104,29 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    kernel, on both its routes, is held to its plain version (``KERNEL_TOL``)
    at every shape the crosses give it: the inputs at the validation set,
    the approximation at the validation set and at the held-out points;
-   those launches are not counted. ``--only 10`` runs it alone.
+   those launches are not counted. ``--only 10`` runs it alone;
+11. the elementwise family, the minimizing cross and ``cross_forward``:
+   (11a) every name of ``tn.ops.__all__``, ``t / t2``, ``2.0 / t``,
+   ``t ** 2``, ``2.0 ** t``, ``cumsum`` and ``cumprod`` along modes 1 and
+   3, in float64 and float32, on BASELINE config 1's size (32^4; inputs
+   1.5 + u and u - 0.5, u a ``tn.rand`` rank-5 TT mapped onto [0, 1]), each
+   against the same function of the dense tensor on the card (1,048,576
+   values, ``FAMILY_TOL``), ``skew`` and ``kurtosis`` of config 1's own
+   ``tn.randn`` TT against the dense moments (``KURTOSIS_TOL``), ``tn.exp`` and ``tn.sqrt``
+   of config 3's cross result at 10^5 held-out points, and f-evals/s of a
+   warm ``tn.exp``; (11b) the minimizing cross in float64: the separable
+   5-D function of tests/test_cross.py on 32^5 within ``MIN_OPT_TOL`` of
+   the dense optimum on the device path and the ``record_samples`` host
+   path, ``minimum``/``argmin``/``maximum``/``argmax`` of config 1's
+   ``tn.randn`` and ``minimum`` of config 3's sines against the port on
+   the CPU, the warm times at 32^5 and 32^10, and the host syncs of one
+   iteration (CUDA's sync debug mode: one outside ``maxvol_device``);
+   (11c) ``cross_forward`` of x**2 on a 32^4 rank-5 TT with autograd: the
+   forward against the cross's result, the gradient of ``normsq`` against
+   the same replay on the CPU, the warm forward + backward time. The
+   ``tt_eval`` kernel, both routes, is then held to its plain version at
+   the shapes the phase gave it, and one float32 ``tn.exp`` is profiled
+   (idle share). ``--only 11`` runs it alone.
 
 The data of phases 6 to 8 comes without a device and lands on the card by
 the package's default. The second-to-last line is one JSON object with
@@ -203,6 +225,25 @@ TUCKER_TOL = 1e-3
 #   1e-4 (float32 against the float64 solve).
 CROSS_F32_TOL = 1e-5
 CROSS_FIXED_TOL, CROSS_FIXED_F64_TOL = 1e-4, 1e-10
+# - the elementwise family (phase 11a): the JAX package's own limit for
+#   cross-based ops, 1e-4 relative to the dense result
+#   (tests/test_cross.py:44-59), and skew relative to its value. Kurtosis
+#   1e-3 relative: the 4th power of config 1's standardized TT needs more
+#   rank than 25 iterations of kickrank 3 reach (73), and ``**`` draws its
+#   pivots unseeded (as the JAX package's does), so its error is random:
+#   over 24 runs of the port on the CPU, float64, median 2.9e-5 and at most
+#   1.7e-4 (float32: at most 8.2e-6).
+# - the minimizing cross (11b): the dense optimum within 1e-10, the JAX
+#   package's own limit (tests/test_cross.py:116-140); the card against the
+#   port on the CPU, float64: 1e-12 relative (the same sweep; the fibers'
+#   einsums sum in another order), the argmins equal.
+# - cross_forward (11c): the replay within 1e-5 of the cross's result (the
+#   JAX package's limit, tests/test_cross.py:36-41; least squares at the
+#   recorded pivots), and its gradient within 1e-8 of the CPU's, relative
+#   to the largest entry (float64 roundoff through an SVD per core).
+FAMILY_TOL, KURTOSIS_TOL = 1e-4, 1e-3
+MIN_OPT_TOL, MIN_CPU_TOL = 1e-10, 1e-12
+FORWARD_TOL, GRAD_TOL = 1e-5, 1e-8
 MAXVOL_TOL = {"float32": 1e-4, "float64": 1e-12}
 
 BENCH = dict(B=32, N=4, I=256, R=128, rmax=64)
@@ -1329,12 +1370,13 @@ def _cross(cfg, f, dtype, device=None):
         torch.set_default_dtype(prev)
 
 
-def _held_out(cfg, n):
-    """``n`` random grid coordinates of ``cfg`` on the card."""
+def _held_out(cfg, n, device="cuda"):
+    """``n`` random grid coordinates of ``cfg`` on ``device``."""
     import numpy as np
     import torch
 
-    return torch.from_numpy(np.random.default_rng(11).integers(0, cfg["I"], (n, cfg["N"]))).cuda()
+    return torch.from_numpy(np.random.default_rng(11).integers(0, cfg["I"], (n, cfg["N"]))).to(
+        device)
 
 
 def _inputs(cfg, dtype):
@@ -1565,11 +1607,19 @@ def cross_fixed():
 
 
 def cross_profile(name, cfg, f):
-    """One float32 cross on ``cfg`` under torch.profiler: its wall time,
-    the device's busy time and idle share, and the host and device time of
-    each of the sweep's spans (fibers with f, QR, LU pivots, swaps, solves,
-    interfaces, validation). Returns its tt_eval launches."""
+    """One float32 cross on ``cfg`` under torch.profiler (`profile_cross`).
+    Returns its tt_eval launches."""
     import torch
+
+    return profile_cross(name, lambda: _cross(cfg, f, torch.float32)[1:])
+
+
+def profile_cross(name, run):
+    """``run()`` (a cross: it returns its info and wall time in seconds)
+    under torch.profiler: its wall time, the device's busy time and idle
+    share, and the host and device time of each of the sweep's spans
+    (fibers with f, QR, LU pivots, swaps, solves, interfaces, validation).
+    Returns its tt_eval launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1577,7 +1627,7 @@ def cross_profile(name, cfg, f):
 
     te.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, info, sec = _cross(cfg, f, torch.float32)
+        info, sec = run()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False) and not e.key.startswith("tn.")]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -1621,9 +1671,410 @@ def cross_path():
     return {"tt_eval": launches}
 
 
+# Phase 11: the elementwise family, the minimizing cross and cross_forward.
+# BASELINE config 1's size (benchmarks/bench_cross.py's neighbours in
+# BASELINE.json: configs[0], a 32^4 TT of rank 5) for the family and the
+# replay; the separable 5-D function of tests/test_cross.py:116-140 on 32^5
+# and config 3's 10-D sum of sines for the minimizing cross.
+CONFIG1 = dict(N=4, I=32, R=5)
+SEPARABLE = dict(N=5, I=32, shifts=(0.3, -0.1, 0.0, 0.7, -0.5))
+# ops whose domain is (-0.9, 0.9) (acos, asin, erfinv) or that a positive
+# input would put across a pole (tan at pi/2): they take u - 0.5, u in [0, 1]
+SYMMETRIC_OPS = ("acos", "asin", "erfinv", "tan")
+
+
+def _dense_fns():
+    """Each unary op of `tn.ops` as a torch function of dense values."""
+    import torch
+
+    return {
+        "abs": torch.abs, "acos": torch.arccos, "asin": torch.arcsin, "atan": torch.arctan,
+        "cos": torch.cos, "cosh": torch.cosh, "erf": torch.special.erf,
+        "erfinv": torch.special.erfinv, "exp": torch.exp, "log": torch.log,
+        "log10": torch.log10, "log2": torch.log2, "reciprocal": lambda x: 1 / x,
+        "rsqrt": torch.rsqrt, "sigmoid": torch.sigmoid, "sin": torch.sin, "sinh": torch.sinh,
+        "sqrt": torch.sqrt, "tan": torch.tan, "tanh": torch.tanh,
+    }
+
+
+def _sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _config1(seed, dtype, device):
+    """BASELINE config 1, ``tn.randn(32, 32, 32, 32, ranks_tt=5)``, drawn on
+    the host from ``seed`` (the same numbers on every device)."""
+    import torch
+
+    import tntorch_tpu_torch as tn
+
+    return tn.randn(*[CONFIG1["I"]] * CONFIG1["N"], ranks_tt=CONFIG1["R"],
+                    generator=torch.Generator().manual_seed(seed), device=device, dtype=dtype)
+
+
+def _unit_tt(seed, dtype, device):
+    """Config 1's shape and rank, ``tn.rand`` (positive cores) drawn on the
+    host from ``seed``, mapped affinely onto [0, 1] by its dense min and max
+    (a TT of rank R + 1)."""
+    import torch
+
+    import tntorch_tpu_torch as tn
+
+    gen = torch.Generator().manual_seed(seed)
+    u = tn.rand(*[CONFIG1["I"]] * CONFIG1["N"], ranks_tt=CONFIG1["R"], generator=gen,
+                device=device, dtype=dtype)
+    x = u.full()
+    lo, hi = x.min(), x.max()
+    return (u - lo) * (1 / (hi - lo))
+
+
+def family_checks(dtype, device="cuda"):
+    """11a for one dtype: every name of ``tn.ops.__all__``, ``/``, ``**``,
+    ``skew`` and ``kurtosis`` on config 1's size, each against the same
+    function of the dense tensor (FAMILY_TOL, relative in norm; the
+    moments, of config 1's own randn TT, relative to their value, kurtosis
+    within KURTOSIS_TOL).
+    Positive inputs are 1.5 + u (the JAX package's own test takes rand +
+    1.5), the others u - 0.5. Returns the results' (name, cores) and the
+    failures."""
+    import torch
+
+    import tntorch_tpu_torch as tn
+
+    u, u2 = _unit_tt(0, dtype, device), _unit_tt(1, dtype, device)
+    pos, pos2, sym = 1.5 + u, 1.5 + u2, u - 0.5
+    x, y, z = (t.full().double() for t in (pos, pos2, sym))
+    fns = _dense_fns()
+    cases = [(name, (lambda n=name: getattr(tn, n)(sym if n in SYMMETRIC_OPS else pos)),
+              fns[name](z if name in SYMMETRIC_OPS else x)) for name in fns]
+    cases += [
+        ("add", lambda: tn.add(pos, pos2), x + y),
+        ("atan2", lambda: tn.atan2(sym, pos), torch.arctan2(z, x)),
+        ("div", lambda: tn.div(pos, pos2), x / y),
+        ("mul", lambda: tn.mul(pos, pos2), x * y),
+        ("pow", lambda: tn.pow(pos, pos2), x ** y),
+        ("t / t2", lambda: pos / pos2, x / y),
+        ("2.0 / t", lambda: 2.0 / pos, 2.0 / x),
+        ("t ** 2", lambda: pos ** 2, x ** 2),
+        ("2.0 ** t", lambda: 2.0 ** pos, 2.0 ** x),
+    ]
+    for dim in (1, 3):
+        cases += [(f"cumsum({dim})", lambda d=dim: tn.cumsum(pos, d), torch.cumsum(x, dim)),
+                  (f"cumprod({dim})", lambda d=dim: tn.cumprod(pos, d), torch.cumprod(x, dim))]
+    failed, outs, parts = [], [], []
+    for name, compute, want in cases:
+        t0 = time.perf_counter()
+        out = compute()
+        _sync(device)
+        sec = time.perf_counter() - t0
+        err = rel(out.full().double(), want)
+        parts.append(f"{name} {err:.1e} (rank {max(int(r) for r in out.ranks_tt)}, "
+                     f"{sec * 1e3:.0f} ms)")
+        outs.append((name, out.cores))
+        if out.device.type != torch.device(device).type or out.dtype != dtype \
+                or not err <= FAMILY_TOL:
+            failed.append(f"{name}: rel err {err:.3e} on {out.device}, {out.dtype}")
+    w = _config1(0, dtype, device)
+    xc = w.full().double()
+    xc = xc - xc.mean()
+    moments = {"skew": (tn.skew(w), (xc ** 3).mean() / xc.pow(2).mean() ** 1.5, FAMILY_TOL),
+               "kurtosis": (tn.kurtosis(w), (xc ** 4).mean() / xc.pow(2).mean() ** 2 - 3,
+                            KURTOSIS_TOL)}
+    for name, (got, want, tol) in moments.items():
+        err = abs(float(got) - float(want)) / abs(float(want))
+        parts.append(f"{name} {float(got):.6g} vs dense {float(want):.6g}: {err:.1e} (tol {tol})")
+        if not err <= tol:
+            failed.append(f"{name}: rel err {err:.3e}")
+    print(f"11a, {str(dtype)[6:]}, {len(cases) + 2} results against dense (tol {FAMILY_TOL}): "
+          + "; ".join(parts))
+    return outs, failed
+
+
+def family_on_config3(device="cuda"):
+    """11a: ``tn.exp`` and ``tn.sqrt`` of config 3's cross result t3 (the
+    sqrt of t3 + 11, which is positive: |t3| <= 10), float64, at the
+    held-out points against exp and sqrt of t3[X]. Returns (cases for
+    hold_tt_eval, failures)."""
+    import torch
+
+    import tntorch_tpu_torch as tn
+
+    t3 = _cross(CROSS3, _sines, torch.float64, device=device)[0]
+    X = _held_out(CROSS3, HELD_OUT, device)
+    base = t3[X].full()
+    failed, parts, cases = [], [], []
+    for name, out, want in (("exp", tn.exp(t3), torch.exp(base)),
+                            ("sqrt(t + 11)", tn.sqrt(t3 + 11), torch.sqrt(base + 11))):
+        err = rel(out[X].full(), want)
+        parts.append(f"{name}: rank {max(int(r) for r in out.ranks_tt)}, held-out rel err "
+                     f"{err:.2e}")
+        cases.append((f"config 3 {name}", out.cores, X))
+        if not err <= FAMILY_TOL:
+            failed.append(f"config 3 {name}: held-out rel err {err:.3e}")
+    print(f"11a, config 3's result (32^10) at {HELD_OUT} held-out points (tol {FAMILY_TOL}): "
+          + "; ".join(parts))
+    return cases, failed
+
+
+def _separable_problem(device):
+    """The separable 5-D function on 32^5: its input tensors, the
+    function, the dense minimum and the grid."""
+    import torch
+
+    import tntorch_tpu_torch as tn
+
+    grid = torch.linspace(-1, 1, SEPARABLE["I"], dtype=torch.float64)
+    tensors = tn.meshgrid([grid] * SEPARABLE["N"], device=device)
+
+    def f(*xs):
+        return sum((x - s) ** 2 for x, s in zip(xs, SEPARABLE["shifts"]))
+
+    dense_min = float(sum(((grid - s) ** 2).min() for s in SEPARABLE["shifts"]))
+    return tensors, f, dense_min, grid
+
+
+def minimize_checks(device="cuda"):
+    """11b: the minimizing cross, float64. The separable function on 32^5
+    (device path and record_samples host path) within MIN_OPT_TOL of the
+    dense optimum, with its coordinates; config 1's randn TT (minimum,
+    argmin, maximum, argmax) and config 3's sum of sines against the port
+    on the CPU (MIN_CPU_TOL, argmins equal); the host reads per iteration;
+    warm times. Returns (cases for hold_tt_eval, failures)."""
+    import torch
+
+    import tntorch_tpu_torch as tn
+
+    prev = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)  # meshgrid's dtype
+    try:
+        failed, cases = [], []
+        tensors, f, dense_min, grid = _separable_problem(device)
+        tn.minimum(function=f, tensors=tensors, seed=0)  # warm-up
+        _sync(device)
+        t0 = time.perf_counter()
+        m = tn.minimum(function=f, tensors=tensors, seed=0)
+        _sync(device)
+        sec5 = time.perf_counter() - t0
+        am = tn.argmin(function=f, tensors=tensors, seed=0)
+        _, info = tn.cross(function=f, tensors=tensors, rmax=10, max_iter=10, verbose=False,
+                           seed=0, return_info=True, record_samples=True, _minimize=True)
+        found = [float(f(*[grid[c] for c in a])) for a in (am, info["argmin"])]
+        print(f"11b, separable 5-D on 32^5: minimum {m:.15g} (device path, {sec5 * 1e3:.1f} ms "
+              f"warm), {info['min']:.15g} (record_samples host path, {info['nsamples']} samples "
+              f"recorded), dense {dense_min:.15g}; f at the argmins {found} (tol {MIN_OPT_TOL})")
+        if not all(abs(v - dense_min) <= MIN_OPT_TOL for v in [m, info["min"]] + found):
+            failed.append("the separable optimum was missed")
+        if len(info["sample_values"]) != info["nsamples"]:
+            failed.append("record_samples kept another count than nsamples")
+        cases.append(("separable input", [c for c in tensors[0].cores], _held_out(
+            dict(N=SEPARABLE["N"], I=SEPARABLE["I"]), VAL_SIZE, device)))
+
+        w = _config1(0, torch.float64, device)
+        x = w.full()
+        got = {name: getattr(tn, name)(w, seed=0)
+               for name in ("minimum", "argmin", "maximum", "argmax")}
+        cpu = {name: getattr(tn, name)(w.clone().to("cpu"), seed=0) for name in got}
+        print(f"11b, config 1 randn 32^4 rank 5: minimum {got['minimum']:.15g} at "
+              f"{got['argmin']} (CPU {cpu['minimum']:.15g} at {cpu['argmin']}; dense "
+              f"{float(x.min()):.15g}), maximum {got['maximum']:.15g} at {got['argmax']} (CPU "
+              f"{cpu['maximum']:.15g} at {cpu['argmax']}; dense {float(x.max()):.15g})")
+        for name in ("minimum", "maximum"):
+            if not abs(got[name] - cpu[name]) <= MIN_CPU_TOL * abs(cpu[name]):
+                failed.append(f"config 1 {name} differs from the CPU's")
+        for name in ("argmin", "argmax"):
+            if got[name] != cpu[name]:
+                failed.append(f"config 1 {name} differs from the CPU's")
+        cases.append(("config 1 randn", w.cores, _held_out(
+            dict(N=CONFIG1["N"], I=CONFIG1["I"]), VAL_SIZE, device)))
+
+        sines = dict(function=_sines, domain=_axes(CROSS3), seed=CROSS3["seed"])
+        tn.minimum(**sines, device=device)  # warm-up
+        _sync(device)
+        t0 = time.perf_counter()
+        m3 = tn.minimum(**sines, device=device)
+        _sync(device)
+        sec10 = time.perf_counter() - t0
+        m3_cpu = tn.minimum(**sines, device="cpu")
+        dense3 = CROSS3["N"] * float(torch.sin(torch.tensor(_axes(CROSS3)[0])).min())
+        print(f"11b, config 3 sum of sines on 32^10: minimum {m3:.15g} ({sec10 * 1e3:.1f} ms "
+              f"warm; CPU {m3_cpu:.15g}; dense {dense3:.15g})")
+        if not abs(m3 - m3_cpu) <= MIN_CPU_TOL * abs(m3_cpu):
+            failed.append("config 3 minimum differs from the CPU's")
+        if torch.device(device).type == "cuda":
+            failed += host_reads(tensors, f)
+        return cases, failed
+    finally:
+        torch.set_default_dtype(prev)
+
+
+def host_reads(tensors, f):
+    """11b: the host's synchronizing operations per iteration of the
+    minimizing cross on 32^5, by CUDA's sync debug mode: two runs one
+    iteration apart, both past the last rank increase (rmax 10 from rank 1
+    by kickrank 3: iteration 4), so the difference is one iteration's. The
+    target: one outside maxvol_device; inside it, the LU pivots' read, the
+    pivots' copy back and one check per block of guarded swaps."""
+    import importlib
+    import warnings
+
+    import torch
+
+    import tntorch_tpu_torch as tn
+
+    cr = importlib.import_module("tntorch_tpu_torch.cross")
+    maxvol_device = cr.maxvol_device
+    inside = {"syncs": 0, "calls": 0}
+
+    def counted(*args, **kwargs):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = maxvol_device(*args, **kwargs)
+        inside["syncs"] += sum("synchroniz" in str(w.message) for w in caught)
+        inside["calls"] += 1
+        return out
+
+    runs = []
+    cr.maxvol_device = counted
+    torch.cuda.set_sync_debug_mode(1)
+    try:
+        for max_iter in (6, 7):
+            inside.update(syncs=0, calls=0)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                tn.minimum(function=f, tensors=tensors, seed=0, max_iter=max_iter)
+            outside = sum("synchroniz" in str(w.message) for w in caught)
+            runs.append((outside, inside["syncs"], inside["calls"]))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        cr.maxvol_device = maxvol_device
+    outside, syncs, calls = (b - a for a, b in zip(*runs))
+    print(f"11b, host syncs in one iteration of the minimizing cross on 32^5 (runs of 6 and 7 "
+          f"iterations: {runs}): {outside} outside maxvol_device (target 1), {calls} maxvol "
+          f"calls with {syncs} syncs ({syncs / max(calls, 1):.2f} per call: the LU pivots' "
+          f"read, their copy back, one check per block of {_maxvol_block()} guarded swaps)")
+    return [] if outside == 1 else [f"{outside} host syncs per iteration outside maxvol"]
+
+
+def _maxvol_block():
+    import importlib
+
+    return importlib.import_module("tntorch_tpu_torch.maxvol")._BLOCK
+
+
+def forward_checks(device="cuda"):
+    """11c: ``cross_forward`` with autograd on config 1's size, float64: a
+    cross of x**2 on a 32^4 rank-5 randn TT w, replayed by cross_forward
+    from its info with w's cores as leaves; the forward within FORWARD_TOL
+    of the cross's result, the gradient of normsq within GRAD_TOL
+    (relative to its largest entry) of the same replay on the CPU, and the
+    forward + backward's warm time. Returns (cases for hold_tt_eval,
+    failures)."""
+    import torch
+
+    import tntorch_tpu_torch as tn
+    from tntorch_tpu_torch import interop
+
+    w = _config1(2, torch.float64, device)
+    t2, info = tn.cross(lambda x: x ** 2, tensors=[w], verbose=False, return_info=True, seed=0)
+
+    def replay(dev, info):
+        leaf = tn.Tensor([c.to(dev) for c in w.cores], requires_grad=True)
+        out = tn.cross_forward(info, lambda x: x ** 2, tensors=[leaf])
+        tn.normsq(out).backward()
+        return out, [c.grad for c in leaf.cores]
+
+    replay(device, info)  # warm-up
+    _sync(device)
+    t0 = time.perf_counter()
+    out, grads = replay(device, info)
+    _sync(device)
+    sec = time.perf_counter() - t0
+    _, grads_cpu = replay("cpu", interop.cross_info_from_arrays(info, device="cpu"))
+    fwd = rel(out.full().detach(), t2.full())
+    gerr = max(float((g.cpu() - gc).abs().max() / gc.abs().max())
+               for g, gc in zip(grads, grads_cpu))
+    print(f"11c, cross_forward of x**2 on a 32^4 rank-5 TT: ranks {[int(r) for r in info['Rs']]}, "
+          f"forward vs the cross {fwd:.2e} (tol {FORWARD_TOL}), gradient of normsq vs the CPU "
+          f"{gerr:.2e} (tol {GRAD_TOL}); forward + backward {sec * 1e3:.1f} ms warm")
+    failed = []
+    if not fwd <= FORWARD_TOL:
+        failed.append(f"forward {fwd:.3e} from the cross")
+    if not gerr <= GRAD_TOL:
+        failed.append(f"gradient {gerr:.3e} from the CPU's")
+    X = _held_out(dict(N=CONFIG1["N"], I=CONFIG1["I"]), VAL_SIZE, device)
+    return [("cross_forward input", w.cores, X),
+            ("cross_forward output", [c.detach() for c in out.cores], X)], failed
+
+
+def exp_rate(device="cuda"):
+    """11a's time: f-evals/s of a warm ``tn.exp`` on config 1's size
+    (float32 and float64, seed 0), the wall ending in a synchronize."""
+    import torch
+
+    parts = []
+    for dtype in (torch.float32, torch.float64):
+        _exp_run(dtype, device)  # warm-up
+        info, sec = _exp_run(dtype, device)
+        parts.append(f"{str(dtype)[6:]} {info['nsamples']} f-evals in {sec * 1e3:.1f} ms, "
+                     f"{info['nsamples'] / sec:.4g} f-evals/s, {len(info['val_epss'])} "
+                     f"iterations, ranks {[int(r) for r in info['Rs']]}")
+    print("11a, tn.exp on config 1's size, warm: " + "; ".join(parts))
+
+
+def elementwise_path():
+    """Phase 11; returns each kernel's launches in it."""
+    import torch
+
+    import tntorch_tpu_torch as tn
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    tn.set_policy("highest")
+    phase("11a. the elementwise family on BASELINE config 1's size (32^4, rank 5), float32 and "
+          "float64, and on config 3's cross result")
+    te.reset_launches()
+    failed, holds = [], []
+    for dtype in (torch.float64, torch.float32):
+        outs, bad = family_checks(dtype)
+        failed += bad
+        X_val = _held_out(dict(N=CONFIG1["N"], I=CONFIG1["I"]), VAL_SIZE)
+        holds += [(f"11a {name}", cores, X_val) for name, cores in outs[::6]]
+    cases, bad = family_on_config3()
+    failed, holds = failed + bad, holds + cases
+    exp_rate()
+    phase("11b. the minimizing cross: separable 5-D on 32^5, config 1's randn, config 3's sines")
+    cases, bad = minimize_checks()
+    failed, holds = failed + bad, holds + cases
+    phase("11c. cross_forward with autograd on config 1's size, float64")
+    cases, bad = forward_checks()
+    failed, holds = failed + bad, holds + cases
+    torch.cuda.synchronize()
+    launches = te.tt_eval_kernel.launches
+    print(f"11, tt_eval launches: {launches}")
+    hold_tt_eval("11", holds)
+    launches += profile_cross("11a tn.exp, float32", lambda: _exp_run(torch.float32))
+    if failed:
+        raise AssertionError("phase 11: " + "; ".join(failed))
+    return {"tt_eval": launches}
+
+
+def _exp_run(dtype, device="cuda"):
+    """A warm-started ``tn.exp`` on config 1's size: its info and wall time."""
+    import tntorch_tpu_torch as tn
+
+    pos = 1.5 + _unit_tt(0, dtype, device)
+    _sync(device)
+    t0 = time.perf_counter()
+    _, info = tn.exp(pos, seed=0, return_info=True)
+    _sync(device)
+    return info, time.perf_counter() - t0
+
+
 PHASES = {"3": "check_kernels", "3b": "check_tt_kernels", "4": "main_path",
           "5": "nonbatch_pass", "6": "eval_path", "7": "train_path", "8": "train_design_path",
-          "9": "baseline_path", "10": "cross_path"}
+          "9": "baseline_path", "10": "cross_path", "11": "elementwise_path"}
 
 
 def main():
@@ -1652,8 +2103,10 @@ def main():
     designs = train_design_path()
     baselines = baseline_path()
     crosses = cross_path()
+    elementwise = elementwise_path()
     launches.update({k: evals[k] + trains[k] + designs[k] for k in evals})
-    launches = {k: n + baselines.get(k, 0) + crosses.get(k, 0) for k, n in launches.items()}
+    launches = {k: n + baselines.get(k, 0) + crosses.get(k, 0) + elementwise.get(k, 0)
+                for k, n in launches.items()}
 
     import torch
 

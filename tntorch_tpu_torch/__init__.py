@@ -4,15 +4,24 @@ The same flat ``tn.*`` namespace, for the slices ported so far: build a
 tensor train with optional Tucker factors (from cores and factors; from
 dense data, exactly or by TT-SVD and Tucker rounding to ``ranks_tt``/
 ``ranks_tucker`` or an error budget ``eps``; at random with
-``rand``/``randn``), do arithmetic on it (``+``, ``-``, ``*``, ``~ & | ^``),
+``rand``/``randn``; as constants and grids with ``ones``, ``zeros``,
+``full``, ``eye``, ``gaussian``, the ``*_like`` forms, ``arange``,
+``linspace``, ``logspace``), do arithmetic on it (``+``, ``-``, ``*``,
+``/``, ``**``, ``~ & | ^``), apply elementwise functions to it (``exp``,
+``log``, ``sqrt``, ``sin`` ... ``tanh``, ``add``, ``mul``, ``div``,
+``pow``, ``atan2``, ``cumsum``, ``cumprod``; by TT-cross),
 round it (``round_tt``: the error-budgeted sweep and fixed-rank Gram
 rounding, batched on hand-written Hopper kernels; ``round_tucker``;
 ``round``, both in turn), measure it (``dot``, ``norm``, ``dist``,
 ``relative_error``, ``rmse``, ``r_squared``, ``sum``, ``mean``, ``var``,
-``std``), reshape it (``ttm``, ``squeeze``, ``unsqueeze``), index and
+``std``, ``skew``, ``kurtosis``, ``raw_moment``, ``normalized_moment``,
+``hadamard_sum``), reshape it (``ttm``, ``squeeze``, ``unsqueeze``), index and
 evaluate it (``t[key]``, ``tt_eval``, on the card's evaluation kernels),
-fit it (``optimize``), and build it from a black-box function by TT-cross
-(``cross``, with ``maxvol``/``rect_maxvol``, ``meshgrid`` and ``stack``).
+fit it (``optimize``), build it from a black-box function by TT-cross
+(``cross``, with ``maxvol``/``rect_maxvol``, ``meshgrid`` and ``stack``;
+``cross_forward`` replays a cross differentiably), and find its extremes
+(``minimum``, ``argmin``, ``maximum``, ``argmax``, by the minimizing
+cross).
 Data without a device lands on the CUDA card (`utils.default_device`). The
 package imports torch, numpy and scipy, never jax. Names of ``tntorch_tpu``
 outside the slices exist here as functions (or, for its submodules,
@@ -22,12 +31,19 @@ will port them.
 
 from tntorch_tpu_torch import interop, parallel, tools, utils
 from tntorch_tpu_torch.autodiff import dof, optimize
-from tntorch_tpu_torch.create import rand, randn
-from tntorch_tpu_torch.cross import cross, init_interfaces
+from tntorch_tpu_torch.create import (
+    arange, eye, full, full_like, gaussian, gaussian_like, linspace, logspace, ones, ones_like,
+    rand, rand_like, randn, randn_like, zeros, zeros_like,
+)
+from tntorch_tpu_torch.cross import (
+    argmax, argmin, cross, cross_forward, init_interfaces, maximum, minimum,
+)
 from tntorch_tpu_torch.maxvol import maxvol, py_maxvol, py_rect_maxvol, rect_maxvol
 from tntorch_tpu_torch.metrics import (
-    dist, dot, mean, norm, normsq, r_squared, relative_error, rmse, std, sum, var,
+    dist, dot, hadamard_sum, kurtosis, mean, norm, normalized_moment, normsq, r_squared,
+    raw_moment, relative_error, rmse, skew, std, sum, var,
 )
+from tntorch_tpu_torch.ops import *  # noqa: F401,F403 (the elementwise family)
 from tntorch_tpu_torch.ops.tt_eval import tt_eval
 from tntorch_tpu_torch.ops.rounding import (
     round_tt_fixed, round_tt_gram, round_tt_gram_batched, tt_dot, tt_full,
@@ -42,15 +58,6 @@ from tntorch_tpu_torch.utils import (
 # The JAX package's public names that no slice has ported yet, by the ROADMAP
 # item (queue 1) that will port them
 _NOT_PORTED = {
-    "queue 1 item 5": (
-        "ones", "ones_like", "zeros", "zeros_like", "full", "full_like", "eye", "gaussian",
-        "gaussian_like", "rand_like", "randn_like", "arange", "linspace", "logspace",
-        "hadamard_sum", "raw_moment", "normalized_moment"),
-    "queue 1 item 7": ("cross_forward", "minimum", "maximum", "argmin", "argmax"),
-    "queue 1 item 8": (
-        "abs", "acos", "add", "asin", "atan", "atan2", "cos", "cosh", "cumprod", "cumsum",
-        "div", "erf", "erfinv", "exp", "log", "log10", "log2", "mul", "pow", "reciprocal",
-        "rsqrt", "sigmoid", "sin", "sinh", "sqrt", "tan", "tanh", "skew", "kurtosis"),
     "queue 1 item 9": (
         "als_completion", "sparse_tt_svd", "get_bounding_box", "features2indices",
         "indices2features", "empirical_marginals", "gram_schmidt", "lars_path",

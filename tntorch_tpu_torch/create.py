@@ -1,11 +1,17 @@
-"""Random tensor trains: ``rand`` and ``randn`` with TT and Tucker ranks.
+"""Constructors: random, constant and structured tensor trains.
 
-Counterpart of ``tntorch_tpu/create.py``'s ``rand``/``randn``. JAX's
-``key=`` becomes a ``torch.Generator`` (``generator=``), which draws the
-factors and the cores, mode by mode, factor first; the two packages give
-different numbers from the same seed. Cores land on ``device``, by default
-the package's default device (the CUDA card). CP ranks are not ported
-(ROADMAP.md, queue 1 item 3).
+Counterpart of ``tntorch_tpu/create.py``. ``rand``/``randn`` take TT and
+Tucker ranks; JAX's ``key=`` becomes a ``torch.Generator``
+(``generator=``), which draws the factors and the cores, mode by mode,
+factor first; the two packages give different numbers from the same seed.
+``ones``, ``zeros`` and ``full`` are rank 1 (with ones as factors where
+``ranks_tucker`` asks for them), ``eye`` a rank-m matrix, ``gaussian`` a
+rank-1 Tucker tensor of normalized Gaussian bells, and ``arange``,
+``linspace``, ``logspace`` 1-D tensors of NumPy's grids (the JAX package's
+signatures). Cores land on ``device``, by default the package's default
+device (the CUDA card); the ``*_like`` forms default to the model tensor's
+device and take its shape, not its dtype, as in the JAX package. CP ranks
+are not ported (ROADMAP.md, queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -27,6 +33,118 @@ def rand(*shape, **kwargs) -> Tensor:
 def randn(*shape, **kwargs) -> Tensor:
     """TT with standard-normal random cores."""
     return _create(torch.randn, *shape, **kwargs)
+
+
+def rand_like(t, **kwargs) -> Tensor:
+    """Uniform random tensor of ``t``'s shape."""
+    return rand(t.shape, **_like(t, kwargs))
+
+
+def randn_like(t, **kwargs) -> Tensor:
+    """Standard-normal random tensor of ``t``'s shape."""
+    return randn(t.shape, **_like(t, kwargs))
+
+
+def _constant(value):
+    def draw(shape, generator=None, dtype=None, device=None):
+        return torch.full(shape, float(value), dtype=dtype, device=device)
+
+    return draw
+
+
+def ones(*shape, **kwargs) -> Tensor:
+    """Rank-1 TT of ones."""
+    return _create(_constant(1), *shape, ranks_tt=1, **kwargs)
+
+
+def ones_like(t, **kwargs) -> Tensor:
+    return ones(t.shape, **_like(t, kwargs))
+
+
+def zeros(*shape, **kwargs) -> Tensor:
+    """Rank-1 TT of zeros."""
+    return _create(_constant(0), *shape, ranks_tt=1, **kwargs)
+
+
+def zeros_like(t, **kwargs) -> Tensor:
+    return zeros(t.shape, **_like(t, kwargs))
+
+
+def full(shape, fill_value, **kwargs) -> Tensor:
+    """Rank-1 TT of ``fill_value``."""
+    return fill_value * ones(*shape, **kwargs)
+
+
+def full_like(t, fill_value, **kwargs) -> Tensor:
+    return full(t.shape, fill_value=fill_value, **_like(t, kwargs))
+
+
+def _like(t, kwargs) -> dict:
+    """``kwargs`` with ``t``'s device unless they name one."""
+    return {"device": t.device, **kwargs}
+
+
+def eye(n: int, m: Optional[int] = None, device=None, requires_grad=None, dtype=None) -> Tensor:
+    """The n x m identity matrix as a 2-D TT of rank m."""
+    if m is None:
+        m = n
+    dtype = dtype or default_dtype()
+    device = device or default_device()
+    c1 = torch.eye(n, m, dtype=dtype, device=device)
+    c2 = torch.eye(m, m, dtype=dtype, device=device)
+    return Tensor([c1[None], c2[:, :, None]], requires_grad=requires_grad)
+
+
+def gaussian(*shape, sigma_factor=0.2, device=None, dtype=None) -> Tensor:
+    """Axis-aligned Gaussian bell that sums to 1: a rank-1 Tucker tensor
+    whose mode-n factor is a normalized bell of width ``sigma_factor[n] *
+    shape[n]`` over ``linspace(-shape[n]/2, shape[n]/2)``."""
+    if hasattr(shape[0], "__len__"):
+        shape = shape[0]
+    N = len(shape)
+    if not hasattr(sigma_factor, "__len__"):
+        sigma_factor = [sigma_factor] * N
+    dtype = dtype or default_dtype()
+    device = device or default_device()
+    cores = [torch.ones((1, 1, 1), dtype=dtype, device=device) for _ in range(N)]
+    Us = []
+    for n in range(N):
+        sigma = sigma_factor[n] * shape[n]
+        if shape[n] == 1:
+            x = torch.zeros(1, dtype=dtype, device=device)
+        else:
+            x = torch.linspace(-shape[n] / 2, shape[n] / 2, shape[n], dtype=dtype, device=device)
+        U = torch.exp(-(x ** 2) / (2 * sigma ** 2))
+        Us.append(U[:, None] / U.sum())
+    return Tensor(cores, Us)
+
+
+def gaussian_like(t, **kwargs) -> Tensor:
+    return gaussian(t.shape, **_like(t, kwargs))
+
+
+def _grid(numpy_fn, args, kwargs) -> Tensor:
+    """A 1-D TT of NumPy's ``numpy_fn(*args, **kwargs)`` (the JAX package's
+    signatures), in ``dtype`` on ``device``."""
+    dtype = kwargs.pop("dtype", None) or default_dtype()
+    device = kwargs.pop("device", None) or default_device()
+    x = torch.from_numpy(np.asarray(numpy_fn(*args, **kwargs))).to(device=device, dtype=dtype)
+    return Tensor([x[None, :, None]])
+
+
+def arange(*args, **kwargs) -> Tensor:
+    """1-D TT of ``np.arange(*args)``."""
+    return _grid(np.arange, args, kwargs)
+
+
+def linspace(*args, **kwargs) -> Tensor:
+    """1-D TT of ``np.linspace(*args)``."""
+    return _grid(np.linspace, args, kwargs)
+
+
+def logspace(*args, **kwargs) -> Tensor:
+    """1-D TT of ``np.logspace(*args)``."""
+    return _grid(np.logspace, args, kwargs)
 
 
 def _full_ranks(spatial) -> list:

@@ -1,7 +1,8 @@
 """Carry tensors between this package and ``tntorch_tpu`` as NumPy arrays.
 
 Neither side imports the other: cores cross as NumPy arrays (a JAX array
-converts with ``np.asarray``), so the same weights feed both packages.
+converts with ``np.asarray``), so the same weights feed both packages; a
+cross's recorded index sets cross the same way (`cross_info_from_arrays`).
 """
 
 from __future__ import annotations
@@ -10,7 +11,7 @@ import numpy as np
 import torch
 
 from tntorch_tpu_torch.tensor import Tensor
-from tntorch_tpu_torch.utils import default_device
+from tntorch_tpu_torch.utils import default_device, to_numpy
 
 
 def tensor_from_arrays(cores, Us=None, batch: bool = False, device=None) -> Tensor:
@@ -27,3 +28,18 @@ def tensor_from_arrays(cores, Us=None, batch: bool = False, device=None) -> Tens
 def tensor_to_arrays(t: Tensor) -> list:
     """The cores of ``t`` as NumPy arrays on the host."""
     return [c.detach().cpu().numpy() for c in t.cores]
+
+
+def cross_info_from_arrays(info: dict, device=None) -> dict:
+    """A copy of a cross's ``info`` whose index sets (``lsets``, ``rsets``,
+    ``left_locals``: NumPy or JAX arrays, as the JAX package returns them,
+    or torch tensors on any device) are int64 tensors on ``device`` (default: the package's default
+    device), as the port's `cross` returns them: what `cross_forward` needs
+    to replay a run of either package."""
+    device = device or default_device()
+    out = dict(info)
+    for key in ("lsets", "rsets", "left_locals"):
+        out[key] = [torch.from_numpy(np.array(to_numpy(x), dtype=np.int64)).to(device)
+                    for x in info[key]]
+    out["Rs"] = np.array(info["Rs"], dtype=np.int64)
+    return out

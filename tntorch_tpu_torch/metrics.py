@@ -1,10 +1,13 @@
 """Inner products, distances and statistics computed in compressed form.
 
 Counterpart of ``tntorch_tpu/metrics.py`` (dot, normsq, norm, dist,
-relative_error, rmse, r_squared, sum, mean, var, std). Batch tensors give
-one value per sample, shape (B,). The statistics ride on `tools.ttm`
-(rank-1 contractions with ones or marginal weights) and on `dot`; their
-helper arrays take the tensor's device and dtype.
+relative_error, rmse, r_squared, sum, mean, var, std, skew, kurtosis,
+raw_moment, normalized_moment, hadamard_sum). Batch tensors give one value
+per sample, shape (B,). The statistics ride on `tools.ttm` (rank-1
+contractions with ones or marginal weights) and on `dot`; their helper
+arrays take the tensor's device and dtype. ``skew`` and ``kurtosis`` raise
+the standardized tensor to a power by cross approximation (``**``); the
+moments of `raw_moment` are Hadamard sums, exact or by rounding.
 """
 
 from __future__ import annotations
@@ -244,3 +247,117 @@ def var(t, marginals=None):
 def std(t):
     """Standard deviation, sqrt(var)."""
     return torch.sqrt(var(t))
+
+
+def skew(t):
+    """Skewness, E[((t - E t) / std t)^3]; the power by cross approximation."""
+    return mean(((t - mean(t)) / std(t)) ** 3)
+
+
+def kurtosis(t, fisher=True):
+    """Kurtosis, E[((t - E t) / std t)^4], less 3 when ``fisher`` (the
+    excess kurtosis); the power by cross approximation."""
+    return mean(((t - mean(t)) / std(t)) ** 4) - fisher * 3
+
+
+def raw_moment(t, k, marginals=None, eps=1e-6, algorithm="eig"):
+    """E[t^k], the Hadamard sum of k copies of t over the entries' count, or
+    with ``marginals`` (one weight vector per mode) under their product."""
+    if marginals is not None:
+        pdf = _pdf_cores(t, marginals, range(t.dim()), uniform=lambda n: False)
+        return hadamard_sum([t] * (k - 1) + [t * pdf], eps=eps, algorithm=algorithm)
+    n = t.numel() / (t.shape[0] if t.batch else 1)  # entries per sample
+    return hadamard_sum([t] * k, eps=eps, algorithm=algorithm) / n
+
+
+def normalized_moment(t, k, marginals=None, eps=1e-12, algorithm="eig"):
+    """E[(t - E t)^k] / var(t)^(k/2)."""
+    return raw_moment(t - mean(t, marginals=marginals), k=k, marginals=marginals, eps=eps,
+                      algorithm=algorithm) / var(t, marginals=marginals) ** (k / 2.0)
+
+
+def hadamard_sum(ts, algorithm="exact", eps=None):
+    """The sum of the entries of the elementwise product of the tensors
+    ``ts`` (one shape): contracted exactly (``'exact'``, batches in one
+    pass), or mode by mode with a TT rounding of the M-tensor chain to
+    ``eps`` (default 1e-14) by ``algorithm`` ('eig', 'svd'; batches one
+    sample at a time, the ranks being the data's)."""
+    M = len(ts)
+    if eps is None:
+        eps = 1e-14
+    batch = ts[0].batch
+    if any(t.batch != batch for t in ts):
+        raise ValueError("Cannot mix batch and non-batch tensors in hadamard_sum")
+    for t in ts[1:]:
+        if tuple(ts[0].shape) != tuple(t.shape):
+            raise ValueError(f"hadamard_sum expects equal shapes (incl. batch size), got "
+                             f"{tuple(t.shape)} vs {tuple(ts[0].shape)}")
+    if batch and algorithm != "exact":
+        values = [hadamard_sum([t[b] for t in ts], algorithm=algorithm, eps=eps)
+                  for b in range(ts[0].shape[0])]
+        return torch.stack([torch.as_tensor(v) for v in values])
+    cores = [t.tt().cores for t in ts]
+    if algorithm == "exact" or ts[0].dim() == 1:
+        return _hadamard_sum_exact(cores, batch)
+    return _hadamard_sum_rounded(cores, eps, algorithm)
+
+
+@policy_precision
+def _hadamard_sum_exact(core_lists, batch):
+    """Exact M-tensor Hadamard sum of TT cores (a leading batch axis on
+    every core when ``batch``): a state with one rank axis per tensor,
+    carried along the modes, each tensor's core contracted into its axis
+    at every index of the mode, then the mode summed."""
+    M = len(core_lists)
+    c0 = core_lists[0][0]
+    lead = tuple(c0.shape[:1]) if batch else ()
+    ranks = "".join(chr(ord("b") + m) for m in range(M))  # the state's rank axes
+    state = torch.ones(lead + (1,) * M, dtype=c0.dtype, device=c0.device)
+    for n in range(len(core_lists[0])):
+        state = state.unsqueeze(len(lead)).expand(
+            lead + (core_lists[0][n].shape[-2],) + state.shape[len(lead):])
+        for m in range(M):
+            out = ranks[:m] + "Z" + ranks[m + 1:]
+            state = torch.einsum(f"...a{ranks},...{ranks[m]}aZ->...a{out}", state,
+                                 core_lists[m][n])
+        state = state.sum(len(lead))
+    return state.reshape(lead)
+
+
+@policy_precision
+def _hadamard_sum_rounded(core_lists, eps, algorithm):
+    """The rounded Hadamard sum of plain TTs: the M tensors' cores at one
+    mode as an M-core chain of diagonal cores, rounded; each mode's chain
+    contracted into the running one, which is rounded again."""
+    M = len(core_lists)
+
+    def diag_core(c, m):
+        # (Rl, I, Rr) -> (I, Rl, Rr, I): core[a, l, r, b] = delta(a, b) c[l, a, r]
+        eye = torch.eye(c.shape[1], dtype=c.dtype, device=c.device)
+        core = eye[:, None, None, :] * c.permute(1, 0, 2)[:, :, :, None]
+        if m == 0:
+            core = core.sum(0, keepdim=True)
+        if m == M - 1:
+            core = core.sum(-1, keepdim=True)
+        return core
+
+    def chain(cores):
+        cs = [diag_core(cores[m], m) for m in range(M)]
+        t = Tensor([c.reshape(c.shape[0], c.shape[1] * c.shape[2], c.shape[3]) for c in cs])
+        t.round_tt(eps, algorithm=algorithm)
+        return [c.reshape(c.shape[0], cores[m].shape[0], cores[m].shape[2], c.shape[-1])
+                for m, c in enumerate(t.cores)]
+
+    N = len(core_lists[0])
+    this = chain([cs[0] for cs in core_lists])
+    for n in range(1, N):
+        nxt = chain([cs[n] for cs in core_lists])
+        cores = []
+        for m in range(M):
+            c = torch.einsum("ijkl,akbc->iajblc", this[m], nxt[m])
+            cores.append(c.reshape(c.shape[0] * c.shape[1] * c.shape[2], c.shape[3],
+                                   c.shape[4] * c.shape[5]))
+        t = Tensor(cores)
+        t.round_tt(eps, algorithm=algorithm)
+        this = [c.reshape(c.shape[0], 1, c.shape[1], -1) for c in t.cores]
+    return Tensor([c.reshape(c.shape[0], c.shape[2], c.shape[3]) for c in this]).full().reshape(())

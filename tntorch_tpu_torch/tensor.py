@@ -19,11 +19,14 @@ the CPU. A dense array decomposes exactly (full rank), or to
 every mode of a TT without factors with coordinate arrays evaluates it
 through `ops.tt_eval.TTEval`, the card's evaluation kernels.
 ``requires_grad=True`` makes the cores and factors leaf tensors for
-autograd and `optimize`.
+autograd and `optimize`. Division by a Tensor (``t / t2``, ``2.0 / t``)
+and ``**`` are cross approximations (`tn.reciprocal`, `tn.cross`). Each
+mode carries an index annotation ``idxs`` (NumPy; ``arange`` by default,
+with a leading ``arange(B)`` for a batch), as in the JAX package.
 
-CP cores (``ranks_cp=``), index sets (``idxs=``), ``__setitem__``,
-mask-Tensor keys, division by a Tensor, ``**`` and ``set_factors`` are not
-ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
+CP cores (``ranks_cp=``), ``__setitem__``, mask-Tensor keys and
+``set_factors`` are not ported yet and raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -202,8 +205,6 @@ class Tensor:
         change nothing here. ``algorithm`` picks the rounding ('svd',
         'eig'), or for ``ranks_tt`` alone the fixed-rank TT-SVD kernels
         ('gram', 'randomized')."""
-        if idxs is not None:
-            raise _not_ported("Index sets (idxs=)", "queue 1 item 7")
         if ranks_cp is not None:
             raise _not_ported("CP-ALS (ranks_cp=)", "queue 1 item 3")
         if eps is not None and (ranks_tucker is not None or ranks_tt is not None):
@@ -231,6 +232,9 @@ class Tensor:
         else:
             self._decompose(asarray(data, dtype=dtype, device=device), ranks_tt,
                             ranks_tucker, algorithm)
+        if idxs is None:
+            idxs = [np.arange(sh) for sh in self.shape]
+        self.idxs = [None if i is None else to_numpy(i) for i in idxs]
         if self.requires_grad:  # leaves of autograd (sharing torch input's storage)
             self.cores = [c.detach().requires_grad_(True) for c in self.cores]
             self.Us = [None if U is None else U.detach().requires_grad_(True) for U in self.Us]
@@ -382,17 +386,27 @@ class Tensor:
 
     def __truediv__(self, other):
         if isinstance(other, Tensor):
-            raise _not_ported("Division by a Tensor (cross approximation)", "queue 1 item 7")
+            import tntorch_tpu_torch as tn
+
+            return self * tn.reciprocal(other)
         return self * (1.0 / other)
 
     def __rtruediv__(self, other):
-        raise _not_ported("Division by a Tensor (tn.reciprocal)", "queue 1 item 8")
+        import tntorch_tpu_torch as tn
+
+        return other * tn.reciprocal(self)
 
     def __pow__(self, other):
-        raise _not_ported("Tensor ** (cross approximation)", "queue 1 item 8")
+        from tntorch_tpu_torch.cross import cross
+
+        if isinstance(other, Tensor):
+            return cross(function=lambda x, y: x ** y, tensors=[self, other], verbose=False)
+        return cross(function=lambda x: x ** other, tensors=[self], verbose=False)
 
     def __rpow__(self, other):
-        raise _not_ported("Scalar ** Tensor (cross approximation)", "queue 1 item 8")
+        from tntorch_tpu_torch.cross import cross
+
+        return cross(function=lambda x: other ** x, tensors=[self], verbose=False)
 
     # Boolean algebra on {0, 1} tensors
     def __invert__(self):
@@ -538,7 +552,7 @@ class Tensor:
             else:
                 cores.append(c)
                 Us.append(U)
-        return Tensor(cores, Us=Us, batch=self.batch)
+        return Tensor(cores, Us=Us, idxs=getattr(self, "idxs", None), batch=self.batch)
 
     def tt(self):
         """The same tensor as a plain TT (factors multiplied in)."""
@@ -590,7 +604,8 @@ class Tensor:
         raise _not_ported("Tensor.set_factors (tn.tools.generate_basis)", "queue 1 item 8")
 
     def clone(self):
-        t = Tensor(list(self.cores), Us=list(self.Us), batch=self.batch)
+        t = Tensor(list(self.cores), Us=list(self.Us), idxs=getattr(self, "idxs", None),
+                   batch=self.batch)
         t.requires_grad = self.requires_grad
         t.frozen_Us = set(self.frozen_Us)
         return t
@@ -612,6 +627,7 @@ class Tensor:
             core = eye.expand(last.shape[:-3] + (R, r, R)).contiguous()
             t.cores.append(core)
             t.Us.append(None)
+            t.idxs.append(np.arange(r))
         for n, r in enumerate(rep[:self.dim()]):
             x = t.cores[n] if t.Us[n] is None else t.Us[n]
             x = x.repeat(*((1,) * (x.ndim - 2) + (r, 1)))
