@@ -126,7 +126,32 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    the same replay on the CPU, the warm forward + backward time. The
    ``tt_eval`` kernel, both routes, is then held to its plain version at
    the shapes the phase gave it, and one float32 ``tn.exp`` is profiled
-   (idle share). ``--only 11`` runs it alone.
+   (idle share). ``--only 11`` runs it alone;
+12. BASELINE config 4, tensor completion and regression, at the repo's own
+   sizes, float64 unless named: (12a) ALS completion at bench.py's shape
+   (32^4 rank 3, 20,000 samples, every slice sampled, 5 sweeps; float64
+   and float32 from one x0): training eps, the error at 10^5 held-out
+   points, samples/s, the float64 reconstruction against the port on the
+   CPU; (12b) ``tn.optimize`` at bench.py's ``bench_optimize`` shape (64^3
+   rank 8, 20,000 samples, Adam lr 1e-3, 640 steps, block_iters 64; also in
+   float32) and exponential machines (examples/exponential_machines.py: 10
+   binary features, 2000 samples, rank 4, Adam lr 1e-2, up to 2000 steps):
+   a falling loss, the first 20 losses against the CPU, iters/s, the
+   machine's train R^2 and one forward and one backward launch a step;
+   (12c) ``TTClassifier`` on the Swiss roll (single and 4 bagged) and
+   ``TTRegressor`` at 2^16 samples (DCT factors, and a plain TT on the
+   evaluation kernels), 300 steps each, against the same fits on the CPU;
+   (12d) sparse TT-SVD on its dense path (196,608 samples of a planted
+   rank-3 32^4 TT) and sketched path (61,440 samples of a 16384 x 32 x 32
+   rank-4 TT), ``lars_path`` against its NumPy oracle, and the PCE
+   surrogate (examples/pce.py's size) against the CPU; (12e) the tools on
+   config 1's size against the dense tensor on the card (cat, transpose,
+   the partial dot, flip, unbind, pad, mask, reduce of 64 TTs,
+   shift_mode), hash across representations, sample (10^6 points,
+   marginals within 5 sigma), convolve against scipy, generate_basis. Then
+   one block of exponential machines and one ALS sweep are profiled, the
+   launches are read, and the ``tt_eval`` kernel, both routes, is held to
+   its plain version at the phase's shapes. ``--only 12`` runs it alone.
 
 The data of phases 6 to 8 comes without a device and lands on the card by
 the package's default. The second-to-last line is one JSON object with
@@ -134,6 +159,7 @@ each kernel's launches, error, times and bound; the last is
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import os
 import re
@@ -2072,9 +2098,584 @@ def _exp_run(dtype, device="cuda"):
     return info, time.perf_counter() - t0
 
 
+# Phase 12: BASELINE config 4 (tensor completion and regression: ALS and
+# autodiff on sparse samples, exponential machines), at the repo's own
+# sizes (bench.py:609-671, examples/exponential_machines.py,
+# examples/classification.py, examples/pce.py, tests/test_interpolation.py)
+ALS4 = dict(P=20000, N=4, I=32, R=3, niter=5)
+OPT4 = dict(N=3, I=64, R=8, P=20000, gt_rank=4, steps=640, block=64)
+EXPM = dict(N=10, P=2000, R=4, steps=2000, block=64, lr=1e-2)
+LEARN = dict(steps=300, cpu_steps=10, regressor_P=1 << 16, regressor_N=4)
+SPARSE_DENSE = dict(shape=(32, 32, 32, 32), R=3, slices=6)
+SPARSE_TALL = dict(shape=(16384, 32, 32), R=4, slices=60, eps=1e-7, rmax=16)
+PCE = dict(P=200, N=5, ticks=32, p=3)
+# Tolerances of phase 12, each with its reason:
+# - the same float64 computation on the card and on the CPU (ALS from one
+#   x0 over 5 sweeps, dense reconstructions; the first 20 losses of a
+#   gradient fit; the learners' losses over their steps): the two sum in
+#   other orders, and each sweep's or step's roundoff is carried by the
+#   next (Adam normalizes each gradient entry, so an entry near zero may
+#   step either way); 1e-8, the limit the CPU tests hold the port to
+#   against the JAX package (tests/test_torch_{interpolation,learners}.py).
+# - sparse TT-SVD at its samples, float64: the planted tensors are exactly
+#   rank 3 and 4 and every kept direction is resolved, 1e-7, the JAX
+#   package's own limit (tests/test_interpolation.py:82).
+# - LARS on the card against the NumPy oracle, PCE's predictions and
+#   to_tensor against the CPU, the tools against the dense tensor on the
+#   card, float64: 1e-10 (roundoff of a few hundred sums and a few
+#   eigendecompositions).
+# - convolve against scipy.signal.convolve: 1e-6, the JAX package's own
+#   limit (tests/test_tools.py:131; three crosses at eps 1e-9).
+# - sample: each empirical marginal within 5 standard deviations of the
+#   PMF's, sqrt(p (1 - p) / P) each.
+# - exponential machines: train R^2 above 0.9 (the example's model fits
+#   the planted interactions; the CPU reaches ~0.997).
+CPU4_TOL, SPARSE4_TOL, EXACT4_TOL, CONV4_TOL, R2_MIN = 1e-8, 1e-7, 1e-10, 1e-6, 0.9
+
+
+@contextlib.contextmanager
+def _default_dtype(name):
+    """torch's default dtype set to ``torch.<name>`` for the block (or the
+    function it decorates): what the port's ALS, sparse TT-SVD, PCE and
+    learners cast their data to, as the JAX package casts to its own
+    default."""
+    import torch
+
+    prev = torch.get_default_dtype()
+    torch.set_default_dtype(getattr(torch, name))
+    try:
+        yield
+    finally:
+        torch.set_default_dtype(prev)
+
+
+def _cores(rng, shape, R, lo=0.0, hi=1.0):
+    """Uniform [lo, hi) TT cores of rank R (as ``tn.rand`` draws them), as
+    float64 NumPy arrays."""
+    ranks = [1] + [R] * (len(shape) - 1) + [1]
+    return [rng.uniform(lo, hi, (ranks[n], s, ranks[n + 1])) for n, s in enumerate(shape)]
+
+
+def _tensor(cores, dtype, device, **kw):
+    import torch
+
+    import tntorch_tpu_torch as tn
+
+    return tn.Tensor([torch.from_numpy(c).to(device=device, dtype=dtype) for c in cores], **kw)
+
+
+def _als_problem():
+    """12a's problem: the shape, the ground truth's and x0's cores, the
+    sampled coordinates, and the generator that drew them."""
+    import numpy as np
+
+    A = ALS4
+    rng = np.random.default_rng(1)
+    shape = [A["I"]] * A["N"]
+    gt_cores, x0_cores = _cores(rng, shape, A["R"]), _cores(rng, shape, A["R"])
+    return shape, gt_cores, x0_cores, rng.integers(0, A["I"], (A["P"], A["N"])), rng
+
+
+def als_checks(device="cuda"):
+    """12a: ALS completion at bench.py's ``bench_als_completion`` shape (a
+    32^4 rank-3 TT, 20,000 samples, every slice sampled, 5 sweeps) in
+    float64 and float32 from one x0: the training eps, the error at 10^5
+    held-out points against the ground truth, samples/s (P * niter over the
+    call's wall), the float64 run's dense reconstruction against the port on
+    the CPU from the same x0. Returns (cases for hold_tt_eval, failures)."""
+    import numpy as np
+    import torch
+
+    import tntorch_tpu_torch as tn
+
+    A = ALS4
+    shape, gt_cores, x0_cores, X, rng = _als_problem()
+    Xh = torch.from_numpy(rng.integers(0, A["I"], (HELD_OUT, A["N"]))).to(device)
+    failed, cases, dense = [], [], {}
+    if any(len(np.unique(X[:, n])) != A["I"] for n in range(A["N"])):
+        failed.append("a slice of the ALS problem is not sampled")
+    gt = _tensor(gt_cores, torch.float64, device)
+    y = gt[X].full()  # the samples, on the evaluation kernel
+    want = gt[Xh].full()
+
+    def run(dtype, dev, niter):
+        x0 = _tensor(x0_cores, dtype, dev)
+        with _default_dtype(str(dtype)[6:]):  # what als_completion casts y to
+            _sync(dev)
+            t0 = time.perf_counter()
+            t, eps = tn.als_completion(X, y.to(dev), ranks_tt=A["R"], shape=shape, x0=x0,
+                                       niter=niter, verbose=False, _return_eps=True)
+            _sync(dev)
+        return t, eps, time.perf_counter() - t0
+
+    for dtype in (torch.float64, torch.float32):
+        run(dtype, device, 1)  # warm-up: the dtype's first solves load their kernels
+        t, eps, sec = run(dtype, device, A["niter"])
+        got = t[Xh].full()
+        err = rel(got.double(), want)
+        key = str(dtype)[6:]
+        dense[key] = t.full()
+        cases += [(f"12a ALS {key}, held-out", t.cores, Xh)]
+        print(f"12a ALS completion {key}: 32^4 rank {A['R']}, {A['P']} samples, {A['niter']} "
+              f"sweeps in {sec * 1e3:.1f} ms, {A['P'] * A['niter'] / sec:.4g} samples/s; training "
+              f"eps {eps:.3e}, held-out rel err at {HELD_OUT} points {err:.3e}; on {t.device}")
+        if t.device.type != torch.device(device).type or not np.isfinite([eps, err]).all():
+            failed.append(f"ALS {key}: not finite, or off the device")
+    cpu = run(torch.float64, "cpu", A["niter"])[0].full()
+    err = rel(dense["float64"].cpu(), cpu)
+    print(f"12a ALS float64, dense reconstruction vs the port on the CPU from the same x0: rel "
+          f"{err:.3e} (tol {CPU4_TOL})")
+    if not err <= CPU4_TOL:
+        failed.append(f"ALS float64 is {err:.3e} from the CPU's")
+    return cases, failed
+
+
+def _fit(cores, X, y, steps, block, lr, dtype, device, tol=None):
+    """``tn.optimize`` (Adam) of a TT from ``cores`` on mean((t[X] - y)^2):
+    the tensor, its losses and the wall time in seconds."""
+    import torch
+
+    import tntorch_tpu_torch as tn
+
+    t = _tensor(cores, dtype, device, requires_grad=True)
+    Xd = torch.from_numpy(X).to(device)
+    yd = torch.from_numpy(y).to(device, dtype)
+    _sync(device)
+    t0 = time.perf_counter()
+    hist = tn.optimize([t], lambda t: torch.mean((t[Xd].full() - yd) ** 2), tol=tol,
+                       max_iter=steps - 1, block_iters=block, verbose=False,
+                       optimizer=lambda ps: torch.optim.Adam(ps, lr=lr))
+    _sync(device)
+    return t, hist, time.perf_counter() - t0
+
+
+def _check_fit(name, t, hist, sec, ref, failed):
+    import numpy as np
+
+    err = float(np.max(np.abs(np.array(hist[:len(ref)]) - ref) / np.abs(ref)))
+    print(f"{name}: {len(hist)} steps in {sec * 1e3:.1f} ms, {len(hist) / sec:.1f} iters/s; loss "
+          f"{hist[0]:.6g} -> {hist[-1]:.6g}; first {len(ref)} losses vs the port on the CPU, "
+          f"float64: max rel {err:.3e} (tol {CPU4_TOL}); on {t.device}")
+    if not (np.isfinite(hist).all() and hist[-1] < hist[0]):
+        failed.append(f"{name}: the loss did not fall")
+    if not err <= CPU4_TOL:
+        failed.append(f"{name}: the losses are {err:.3e} from the CPU's")
+
+
+def gradient_checks(device="cuda"):
+    """12b: gradient completion by ``tn.optimize`` at bench.py's
+    ``bench_optimize`` shape (64^3, rank 8, 20,000 samples of a rank-4
+    ground truth, Adam lr 1e-3, 640 steps, block_iters 64) and exponential
+    machines at examples/exponential_machines.py's size (10 binary
+    features, 2000 samples, rank 4, cores x 0.3, Adam lr 1e-2, block_iters
+    64, up to 2000 steps, tol 1e-7), float64: a falling loss, the first 20
+    losses against the port on the CPU, iters/s, the machine's train R^2
+    and its launches. Returns (cases, failures, the machine's problem)."""
+    import numpy as np
+    import torch
+
+    import tntorch_tpu_torch as tn
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    failed, cases = [], []
+    O = OPT4
+    rng = np.random.default_rng(0)
+    shape = [O["I"]] * O["N"]
+    gt = _tensor(_cores(rng, shape, O["gt_rank"]), torch.float64, "cpu")
+    X = rng.integers(0, O["I"], (O["P"], O["N"]))
+    y = gt[X].full().numpy()
+    init = _cores(rng, shape, O["R"])
+    _, ref, _ = _fit(init, X, y, 20, 1, 1e-3, torch.float64, "cpu")
+    t, hist, sec = _fit(init, X, y, O["steps"], O["block"], 1e-3, torch.float64, device)
+    _check_fit(f"12b optimize, 64^3 rank {O['R']}, {O['P']} samples, float64", t, hist, sec, ref,
+               failed)
+    cases.append(("12b optimize 64^3", [c.detach() for c in t.cores],
+                  torch.from_numpy(X).to(device)))
+    t32, hist32, sec32 = _fit(init, X, y, O["steps"], O["block"], 1e-3, torch.float32, device)
+    print(f"12b optimize, the same in float32: {len(hist32)} steps in {sec32 * 1e3:.1f} ms, "
+          f"{len(hist32) / sec32:.1f} iters/s; loss {hist32[0]:.6g} -> {hist32[-1]:.6g}")
+    if not (np.isfinite(hist32).all() and hist32[-1] < hist32[0]):
+        failed.append("12b optimize float32: the loss did not fall")
+
+    machine = _machine()
+    Xb, yb, w0 = machine
+    _, ref, _ = _fit(w0, Xb, yb, 20, 1, EXPM["lr"], torch.float64, "cpu")
+    launches = [k.launches for k in te.KERNELS]
+    w, hist, sec = _fit(w0, Xb, yb, EXPM["steps"], EXPM["block"], EXPM["lr"], torch.float64,
+                        device, tol=1e-7)
+    launched = [k.launches - n for k, n in zip(te.KERNELS, launches)]
+    _check_fit("12b exponential machines, 2^10 weights rank 4, float64", w, hist, sec, ref, failed)
+    with torch.no_grad():
+        pred = w[torch.from_numpy(Xb).to(device)].full().cpu().numpy()
+    r2 = 1 - float(((pred - yb) ** 2).sum() / ((yb - yb.mean()) ** 2).sum())
+    print(f"12b exponential machines: train R^2 {r2:.6f} (above {R2_MIN}); launches (forward, "
+          f"backward) {launched} for {len(hist)} steps")
+    if not r2 > R2_MIN:
+        failed.append(f"exponential machines: train R^2 {r2:.4f}")
+    if torch.device(device).type == "cuda" and launched != [len(hist), len(hist)]:
+        failed.append(f"exponential machines: launches {launched}, expected one forward and one "
+                      f"backward a step")
+    cases.append(("12b exponential machines", [c.detach() for c in w.cores],
+                  torch.from_numpy(Xb).to(device)))
+    return cases, failed
+
+
+def _machine():
+    """examples/exponential_machines.py's problem: binary features, planted
+    interactions, noise; its initial cores (uniform x 0.3)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    N, P = EXPM["N"], EXPM["P"]
+    Xb = rng.integers(0, 2, (P, N))
+    y = (1.5 * Xb[:, 0] - 2.0 * Xb[:, 1] + 0.8 * Xb[:, 2] * Xb[:, 3]
+         - 1.2 * Xb[:, 1] * Xb[:, 4] * Xb[:, 5] + 0.1 * rng.standard_normal(P))
+    return Xb, y, [0.3 * c for c in _cores(rng, [2] * N, EXPM["R"])]
+
+
+def _spiral_data():
+    """examples/classification.py's Swiss roll: two spirals of 100 points,
+    permuted; the first 75% train, the rest test."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    r = rng.uniform(2, 10, 100)[:, None]
+    c0 = np.concatenate([r * np.cos(r), r * np.sin(r)], axis=1)
+    c0 += rng.standard_normal(c0.shape) / 1.5
+    X = np.concatenate([c0, -c0])
+    y = np.concatenate([np.zeros(100), np.ones(100)])
+    idx = rng.permutation(len(X))
+    return X[idx], y[idx], int(len(X) * 0.75)
+
+
+def _smooth_data():
+    """A smooth function of 4 features on [-1, 1]^4, 2^16 samples."""
+    import numpy as np
+
+    rng = np.random.default_rng(2)
+    X = rng.uniform(-1, 1, (LEARN["regressor_P"], LEARN["regressor_N"]))
+    return X, np.sin(2 * X[:, 0]) * np.cos(X[:, 1]) + X[:, 2] * X[:, 3] ** 2
+
+
+@_default_dtype("float64")
+def learner_checks(device="cuda"):
+    """12c: `TTClassifier` on the Swiss roll (nticks 128, ranks_tt 10,
+    ranks_tucker 6, the default Adam lr 1e-3; single and 4 bagged members)
+    and `TTRegressor` on a smooth 4-feature function at 2^16 samples
+    (nticks 64, ranks_tt 10, ranks_tucker 8 (DCT) and None (a plain TT: the
+    evaluation kernels), Adam lr 1e-2), LEARN['steps'] steps each, float64,
+    timed. Each is held to the same fit on the CPU (an int key: the same
+    initial tensor and rows): losses within CPU4_TOL and the test score
+    within CPU4_TOL, over all its steps for the classifiers and over the
+    first LEARN['cpu_steps'] for the regressors (a fit of 2^16 samples
+    costs the CPU 0.1-0.5 s a step). Returns (cases, failures)."""
+    import numpy as np
+    import torch
+
+    import tntorch_tpu_torch as tn
+
+    failed, cases = [], []
+    Xs, ys, ntrain = _spiral_data()
+    Xr, yr = _smooth_data()
+    adam2 = dict(optimizer=lambda ps: torch.optim.Adam(ps, lr=1e-2))
+    steps, short = LEARN["steps"], LEARN["cpu_steps"]
+    runs = [
+        ("TTClassifier single", tn.TTClassifier, dict(nticks=128, ranks_tt=10, ranks_tucker=6),
+         steps, Xs[:ntrain], ys[:ntrain], Xs[ntrain:], ys[ntrain:]),
+        ("TTClassifier 4 bagged", tn.TTClassifier,
+         dict(nticks=128, ranks_tt=10, ranks_tucker=6, n_estimators=4),
+         steps, Xs[:ntrain], ys[:ntrain], Xs[ntrain:], ys[ntrain:]),
+        ("TTRegressor DCT", tn.TTRegressor, dict(nticks=64, ranks_tt=10, ranks_tucker=8, **adam2),
+         short, Xr, yr, Xr[::64], yr[::64]),
+        ("TTRegressor plain TT", tn.TTRegressor,
+         dict(nticks=64, ranks_tt=10, ranks_tucker=None, **adam2), short, Xr, yr, Xr[::64],
+         yr[::64]),
+    ]
+
+    def fit(cls, kw, n, dev, X, y, Xt, yt):
+        learner = cls(key=0, device=dev, max_iter=n - 1, tol=0.0, **kw)
+        _sync(dev)
+        t0 = time.perf_counter()
+        learner.fit(X, y)
+        _sync(dev)
+        return learner, time.perf_counter() - t0, learner.score(Xt, yt)
+
+    for name, cls, kw, n_cpu, X, y, Xt, yt in runs:
+        lrn, sec, score = fit(cls, kw, steps, device, X, y, Xt, yt)
+        held = lrn if n_cpu == steps else fit(cls, kw, n_cpu, device, X, y, Xt, yt)[0]
+        ref = fit(cls, kw, n_cpu, "cpu", X, y, Xt, yt)[0]
+        err = float(np.max(np.abs(np.array(held.losses_) - ref.losses_)
+                           / np.abs(ref.losses_)))
+        s_err = abs(held.score(Xt, yt) - ref.score(Xt, yt))
+        metric = "accuracy" if "Class" in name else "R^2"
+        print(f"12c {name}: {len(lrn.losses_)} steps, fit {sec * 1e3:.1f} ms "
+              f"({len(lrn.losses_) / sec:.1f} iters/s), loss {lrn.losses_[0]:.5g} -> "
+              f"{lrn.losses_[-1]:.5g}, test {metric} {score:.6f}; over {n_cpu} steps vs the "
+              f"CPU: losses max rel {err:.3e}, {metric} {s_err:.1e} apart (tol {CPU4_TOL}); "
+              f"on {lrn.tensor_.device}")
+        if not (err <= CPU4_TOL and s_err <= CPU4_TOL and lrn.losses_[-1] < lrn.losses_[0]):
+            failed.append(f"12c {name}: off the CPU's run, or the loss did not fall")
+        if kw["ranks_tucker"] is None:
+            cases.append((f"12c {name}", [c.detach() for c in lrn.tensor_.cores],
+                          lrn._indices(X)))
+    return cases, failed
+
+
+def _sliced(shape, R, slices, seed):
+    """Complete slices (along mode 0) of a planted rank-R TT: unique
+    coordinates whose zero-filled tensor keeps rank R."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cores = _cores(rng, shape, R)
+    S = np.sort(rng.choice(shape[0], slices, replace=False))
+    rest = np.stack(np.meshgrid(*[np.arange(s) for s in shape[1:]], indexing="ij"),
+                    axis=-1).reshape(-1, len(shape) - 1)
+    X = np.concatenate([np.repeat(S, len(rest))[:, None], np.tile(rest, (slices, 1))], axis=1)
+    return cores, X
+
+
+@_default_dtype("float64")
+def sparse_checks(device="cuda"):
+    """12d: sparse TT-SVD on its dense path (complete slices of a planted
+    rank-3 32^4 TT, 196,608 unique samples) and its sketched path
+    (tests/test_interpolation.py's tall 16384 x 32 x 32 rank-4 case at full
+    size, 61,440 samples), float64: ranks as on the CPU and the error at
+    the samples; `lars_path` on the card against the NumPy oracle; the
+    PCE surrogate at examples/pce.py's size (fit, predict, to_tensor)
+    against the CPU. Returns (cases, failures)."""
+    import numpy as np
+    import torch
+
+    import tntorch_tpu_torch as tn
+    from tntorch_tpu_torch import interpolation as interp
+
+    failed, cases = [], []
+    for name, cfg, kw in (("dense path", SPARSE_DENSE, dict(eps=1e-10)),
+                          ("sketched path", SPARSE_TALL,
+                           dict(eps=SPARSE_TALL["eps"], rmax=SPARSE_TALL["rmax"]))):
+        cores, X = _sliced(cfg["shape"], cfg["R"], cfg["slices"], seed=3)
+        gt = _tensor(cores, torch.float64, device)
+        Xd = torch.from_numpy(X).to(device)
+        y = gt[Xd].full()
+        ranks = {}
+        for dev in (device, "cpu"):
+            _sync(dev)
+            t0 = time.perf_counter()
+            t = tn.sparse_tt_svd(X, y.to(dev), shape=cfg["shape"], **kw)
+            _sync(dev)
+            ranks[dev] = ([int(r) for r in t.ranks_tt], time.perf_counter() - t0, t)
+        (Rs, sec, t), cpu_Rs = ranks[device], ranks["cpu"][0]
+        err = rel(t[Xd].full(), y)
+        print(f"12d sparse TT-SVD, {name}: shape {list(cfg['shape'])}, {len(X)} samples, ranks "
+              f"{Rs} (CPU {cpu_Rs}) in {sec * 1e3:.1f} ms; rel err at the samples {err:.3e} "
+              f"(tol {SPARSE4_TOL}); on {t.device}")
+        if Rs != cpu_Rs or max(Rs) > cfg["R"] or not err <= SPARSE4_TOL:
+            failed.append(f"12d sparse TT-SVD {name}: ranks {Rs} (CPU {cpu_Rs}), err {err:.3e}")
+        cases.append((f"12d sparse TT-SVD {name}", t.cores, Xd))
+
+    rng = np.random.default_rng(5)
+    A = rng.standard_normal((400, 60))
+    beta = np.zeros(60)
+    beta[rng.choice(60, 8, replace=False)] = rng.standard_normal(8)
+    b = A @ beta + 0.05 * rng.standard_normal(400)
+    _sync(device)
+    t0 = time.perf_counter()
+    path = tn.lars_path(torch.from_numpy(A).to(device), torch.from_numpy(b).to(device))
+    sec = time.perf_counter() - t0
+    host = interp._lars_path_host(A, b)
+    err = (float(np.abs(path - host).max() / np.abs(host).max()) if path.shape == host.shape
+           else float("inf"))
+    print(f"12d lars_path on the card, 400 x 60: {path.shape[1] - 1} steps in {sec * 1e3:.1f} ms; "
+          f"vs the NumPy oracle: max rel {err:.3e} (tol {EXACT4_TOL})")
+    if not err <= EXACT4_TOL:
+        failed.append(f"12d lars_path is {err:.3e} from the oracle")
+
+    rng = np.random.default_rng(0)
+    X = rng.integers(0, PCE["ticks"], (PCE["P"], PCE["N"])).astype(np.float64)
+    y = (X ** 2) @ rng.uniform(size=PCE["N"])
+    y += rng.standard_normal(PCE["P"]) * y.std() / 10
+    Xt = rng.uniform(0, PCE["ticks"] - 1, (1000, PCE["N"]))
+    out = {}
+    for dev in (device, "cpu"):
+        pce = tn.PCEInterpolator(device=dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        pce.fit(X, y, p=PCE["p"], verbose=False)
+        pred = pce.predict(Xt)
+        t = pce.to_tensor(domain=64, eps=1e-6, verbose=False)
+        _sync(dev)
+        idx = rng.integers(0, 64, (1000, PCE["N"])) if dev == device else idx
+        out[dev] = (pce, pred.cpu(), t, t[idx].full().cpu(), time.perf_counter() - t0)
+    (pce, pred, t, vals, sec), (cpce, cpred, ct, cvals, _) = out[device], out["cpu"]
+    e_pred, e_tt = rel(pred, cpred), rel(vals, cvals)
+    fit_err = float(np.linalg.norm(out[device][0].predict(X).cpu().numpy() - y)
+                    / np.linalg.norm(y))
+    print(f"12d PCE, P={PCE['P']} N={PCE['N']} p={PCE['p']}: {len(pce.coef)} terms (CPU "
+          f"{len(cpce.coef)}), training rel err {fit_err:.3e}; fit + predict + to_tensor "
+          f"{sec * 1e3:.1f} ms; to_tensor ranks {[int(r) for r in t.ranks_tt]} (CPU "
+          f"{[int(r) for r in ct.ranks_tt]}); vs the CPU: predict {e_pred:.3e}, to_tensor at "
+          f"1000 grid points {e_tt:.3e} (tol {EXACT4_TOL})")
+    if (not np.array_equal(pce.coords, cpce.coords) or not e_pred <= EXACT4_TOL
+            or not e_tt <= EXACT4_TOL or list(t.ranks_tt) != list(ct.ranks_tt)):
+        failed.append("12d PCE differs from the CPU's")
+    return cases, failed
+
+
+def tools_checks(device="cuda"):
+    """12e: the tools on BASELINE config 1's size (``tn.randn(32, 32, 32,
+    32, ranks_tt=5)``, float64), each against the dense tensor on the card
+    (EXACT4_TOL): cat, transpose, the partial dot, flip, unbind, pad, mask,
+    reduce (64 rank-5 TTs, eps 1e-10), shift_mode (eps 1e-12 against the
+    permuted tensor; 'same' against the CPU), hash (the TT, its round_tt(1e-14)
+    and a Tucker form), sample (10^6 points of a rand TT: marginals within
+    5 sigma), convolve (64 x 64 rank 4 with 8 x 8, the three modes, against
+    scipy), generate_basis (every name, equal to the CPU's). Returns
+    failures."""
+    import operator
+
+    import numpy as np
+    import torch
+
+    import tntorch_tpu_torch as tn
+
+    failed, errs = [], {}
+    t = _config1(0, torch.float64, device)
+    t2 = _config1(1, torch.float64, device)
+    x, x2 = t.full(), t2.full()
+    checks = {
+        "cat": (lambda: tn.cat([t, t2], dim=1), lambda: torch.cat([x, x2], dim=1)),
+        "transpose": (lambda: tn.transpose(t), lambda: x.permute(3, 2, 1, 0)),
+        "partial dot": (lambda: tn.dot(t, t2, k=2), lambda: torch.einsum("abcd,abef->dcef", x, x2)),
+        "flip": (lambda: tn.flip(t, [0, 2]), lambda: torch.flip(x, [0, 2])),
+        "unbind": (lambda: tn.unbind(t, 3)[7], lambda: x[..., 7]),
+        "pad": (lambda: tn.pad(t, 40, dim=1), lambda: torch.cat([x, 0 * x[:, :8]], dim=1)),
+    }
+    keep = torch.zeros(32, dtype=torch.float64, device=device)
+    keep[::3] = 1
+    m = tn.Tensor([keep[None, :, None], *[torch.ones((1, 32, 1), dtype=torch.float64,
+                                                     device=device)] * 3])
+    checks["mask"] = (lambda: tn.mask(t, m), lambda: x * keep[:, None, None, None])
+    ts = [_config1(10 + i, torch.float64, device) for i in range(64)]
+    checks["reduce"] = (lambda: tn.reduce(ts, operator.add, eps=1e-10),
+                        lambda: sum(s.full() for s in ts))
+    checks["shift_mode 1e-12"] = (lambda: tn.shift_mode(t.clone(), 0, 2, eps=1e-12),
+                                  lambda: x.permute(1, 2, 0, 3))
+    for name, (fn, dense) in checks.items():
+        _sync(device)
+        t0 = time.perf_counter()
+        got = fn()
+        _sync(device)
+        sec = time.perf_counter() - t0
+        errs[name] = (rel(got.full(), dense()), sec * 1e3)
+    same = tn.shift_mode(t.clone(), 0, 2, eps="same")
+    same_cpu = tn.shift_mode(_config1(0, torch.float64, "cpu"), 0, 2, eps="same")
+    errs["shift_mode same vs CPU"] = (rel(same.full().cpu(), same_cpu.full()), 0.0)
+    tucker = t.clone()
+    tucker.round_tucker(eps=1e-14)
+    rounded = tn.round_tt(t, eps=1e-14)
+    h = [float(tn.hash(s)) for s in (t, rounded, tucker)]
+    errs["hash"] = (max(abs(v - h[0]) for v in h) / abs(h[0]), 0.0)
+    print("12e tools on config 1's size vs dense on the card (rel err, ms): " + "; ".join(
+        f"{k} {e:.2e} ({ms:.1f})" for k, (e, ms) in errs.items()) + f" (tol {EXACT4_TOL}); "
+        f"hash {h[0]:.15g}, Tucker ranks {[int(r) for r in tucker.ranks_tucker]}")
+    failed += [f"12e {k}: {e:.3e}" for k, (e, _) in errs.items() if not e <= EXACT4_TOL]
+
+    u = tn.rand(*[CONFIG1["I"]] * CONFIG1["N"], ranks_tt=CONFIG1["R"], device=device,
+                dtype=torch.float64, generator=torch.Generator().manual_seed(2))
+    P = 10 ** 6
+    _sync(device)
+    t0 = time.perf_counter()
+    Xs = tn.sample(u, P=P, seed=0)
+    _sync(device)
+    sec = time.perf_counter() - t0
+    dense = u.full()
+    worst = 0.0
+    for n in range(CONFIG1["N"]):
+        p = dense.sum(dim=[d for d in range(CONFIG1["N"]) if d != n]) / dense.sum()
+        emp = torch.bincount(Xs[:, n], minlength=CONFIG1["I"]).double() / P
+        worst = max(worst, float(((emp - p).abs() / torch.sqrt(p * (1 - p) / P)).max()))
+    print(f"12e sample: {P} points in {sec * 1e3:.1f} ms on {Xs.device}; worst marginal "
+          f"deviation {worst:.2f} sigma (limit 5)")
+    if not worst <= 5 or Xs.device.type != torch.device(device).type:
+        failed.append(f"12e sample: a marginal {worst:.2f} sigma off")
+
+    from scipy.signal import convolve as spconv
+
+    g = torch.Generator().manual_seed(3)
+    a = tn.rand([64, 64], ranks_tt=4, dtype=torch.float64, device=device, generator=g)
+    b = tn.rand([8, 8], ranks_tt=4, dtype=torch.float64, device=device, generator=g)
+    parts = []
+    for mode in ("full", "same", "valid"):
+        _sync(device)
+        t0 = time.perf_counter()
+        c = tn.convolve(a, b, mode=mode, eps=1e-9, verbose=False, seed=0)
+        _sync(device)
+        want = spconv(a.numpy(), b.numpy(), mode=mode)
+        err = float(np.linalg.norm(c.numpy() - want) / np.linalg.norm(want))
+        parts.append(f"{mode} {tuple(c.shape)} {err:.2e} ({(time.perf_counter() - t0) * 1e3:.1f}"
+                     " ms)")
+        if tuple(c.shape) != want.shape or not err <= CONV4_TOL:
+            failed.append(f"12e convolve {mode}: {err:.3e}")
+    print(f"12e convolve 64x64 rank 4 by 8x8 vs scipy.signal.convolve: " + "; ".join(parts)
+          + f" (tol {CONV4_TOL})")
+    for name in ("dct", "legendre", "chebyshev", "hermite", "identity"):
+        got = tn.generate_basis(name, (64, 8), dtype=torch.float64, device=device)
+        if not torch.equal(got.cpu(), tn.generate_basis(name, (64, 8), dtype=torch.float64,
+                                                        device="cpu")):
+            failed.append(f"12e generate_basis {name} differs from the CPU's")
+    return failed
+
+
+def config4_path():
+    """Phase 12; returns each kernel's launches in it."""
+    import torch
+
+    import tntorch_tpu_torch as tn
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    tn.set_policy("highest")
+    te.reset_launches()
+    phase("12a. BASELINE config 4: ALS completion, 32^4 rank 3, 20,000 samples")
+    holds, failed = als_checks()
+    phase("12b. gradient completion and exponential machines (tn.optimize)")
+    cases, bad = gradient_checks()
+    holds, failed = holds + cases, failed + bad
+    phase("12c. the learners: TTClassifier on the Swiss roll, TTRegressor at 2^16 samples")
+    cases, bad = learner_checks()
+    holds, failed = holds + cases, failed + bad
+    phase("12d. sparse TT-SVD (dense and sketched paths), LARS, PCE")
+    cases, bad = sparse_checks()
+    holds, failed = holds + cases, failed + bad
+    phase("12e. the tools on BASELINE config 1's size")
+    failed += tools_checks()
+    print("profile, one block of 64 exponential-machines steps (float64):")
+    Xb, yb, w0 = _machine()
+    profile_device(lambda: _fit(w0, Xb, yb, EXPM["block"], EXPM["block"], EXPM["lr"],
+                                torch.float64, "cuda"), steps=EXPM["block"])
+    print("profile, one ALS sweep (32^4 rank 3, 20,000 samples, float64):")
+    shape, gt_cores, x0_cores, X, _ = _als_problem()
+    y = _tensor(gt_cores, torch.float64, "cuda")[X].full()
+    with _default_dtype("float64"):
+        profile_device(lambda: tn.als_completion(X, y, ranks_tt=ALS4["R"], shape=shape, niter=1,
+                                                 x0=_tensor(x0_cores, torch.float64, "cuda"),
+                                                 verbose=False), steps=1)
+    torch.cuda.synchronize()
+    launches = {"tt_eval": te.tt_eval_kernel.launches,
+                "tt_eval_backward": te.tt_eval_backward_kernel.launches}
+    print(f"12, launches (forward, backward): {launches}")
+    if not all(launches.values()):
+        failed.append(f"a kernel of the path was not launched: {launches}")
+    hold_tt_eval("12", holds)
+    if failed:
+        raise AssertionError("phase 12: " + "; ".join(failed))
+    return launches
+
+
 PHASES = {"3": "check_kernels", "3b": "check_tt_kernels", "4": "main_path",
           "5": "nonbatch_pass", "6": "eval_path", "7": "train_path", "8": "train_design_path",
-          "9": "baseline_path", "10": "cross_path", "11": "elementwise_path"}
+          "9": "baseline_path", "10": "cross_path", "11": "elementwise_path",
+          "12": "config4_path"}
 
 
 def main():
@@ -2104,8 +2705,9 @@ def main():
     baselines = baseline_path()
     crosses = cross_path()
     elementwise = elementwise_path()
+    config4 = config4_path()
     launches.update({k: evals[k] + trains[k] + designs[k] for k in evals})
-    launches = {k: n + baselines.get(k, 0) + crosses.get(k, 0) + elementwise.get(k, 0)
+    launches = {k: n + sum(p.get(k, 0) for p in (baselines, crosses, elementwise, config4))
                 for k, n in launches.items()}
 
     import torch

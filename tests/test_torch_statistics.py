@@ -176,10 +176,20 @@ def test_tensor_conveniences_match_jax():
 
 
 def test_tools_outside_the_slice_raise():
-    t, _ = _pair(9)
-    for name in ("cat", "transpose", "flip", "unbind", "mask", "pad", "shift_mode"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            getattr(tn.tools, name)(t)
+    # The tools this test once held to their stubs are ported: each now runs
+    # and meets the JAX package's (tests/test_torch_tools.py holds them to
+    # it at large); what raises is the misuse that raises there too
+    t, jt = _pair(9, tucker=True)
+    calls = {"cat": lambda m, x: m.cat([x, x], dim=1), "transpose": lambda m, x: m.transpose(x),
+             "flip": lambda m, x: m.flip(x, 2), "unbind": lambda m, x: m.unbind(x, 0)[1],
+             "mask": lambda m, x: m.mask(x, x), "pad": lambda m, x: m.pad(x, 9, dim=2),
+             "shift_mode": lambda m, x: m.shift_mode(x.clone(), 1, 2, eps=1e-12)}
+    for name, call in calls.items():
+        _close(call(tn.tools, t), call(jtn.tools, jt))
+    with pytest.raises(ValueError):
+        tn.tools.cat([t, tn.tools.pad(t, 9, dim=2)], dim=1)
+    with pytest.raises(ValueError):
+        tn.tools.shift_mode(t.clone(), 1, 1, eps="lossy")
 
 
 @pytest.mark.cuda

@@ -306,6 +306,14 @@ PORTED = {
     # creation (tests/test_torch_create.py)
     "ones", "ones_like", "zeros", "zeros_like", "full", "full_like", "eye", "gaussian",
     "gaussian_like", "rand_like", "randn_like", "arange", "linspace", "logspace",
+    # the tools (tests/test_torch_tools.py)
+    "cat", "transpose", "flip", "unbind", "unfolding", "right_unfolding", "left_unfolding",
+    "mask", "sample", "hash", "generate_basis", "reduce", "pad", "convolve", "shift_mode",
+    # completion, interpolation and learning (tests/test_torch_interpolation.py,
+    # tests/test_torch_learners.py)
+    "als_completion", "sparse_tt_svd", "get_bounding_box", "features2indices",
+    "indices2features", "empirical_marginals", "gram_schmidt", "lars_path", "PCEInterpolator",
+    "TTRegressor", "TTClassifier", "interpolation", "models",
 }
 
 
@@ -344,16 +352,17 @@ def test_entry_points_outside_the_slice_raise():
                  lambda: tn.sobol(a), lambda: tn.Tensor(np.ones((3, 3)), ranks_cp=2),
                  lambda: a[a], setitem,
                  lambda: tn.Tensor([np.ones((3, 2)), np.ones((3, 2))], device="cpu"),
-                 lambda: tn.tools.transpose(a), lambda: tn.cat([a, a]),
-                 lambda: tn.anova.sobol(a), lambda: a.set_factors("legendre"),
+                 lambda: tn.anova.sobol(a), lambda: tn.models.TTMatrix(a),
                  lambda: tn.cross(domain=domain, device="cpu", fuse="host"),
                  lambda: tn.cross(domain=domain, device="cpu", mesh="mesh")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
     # what this list held until the minimizing cross, the elementwise family,
-    # creation and the moments were ported now runs; each has its positive
-    # test in tests/test_torch_{minimize,ops,create,moments}.py
-    for call in (lambda: tn.minimum(a, verbose=False), lambda: tn.exp(a),
+    # creation, the moments and the tools were ported now runs; each has its
+    # positive test in tests/test_torch_{minimize,ops,create,moments,tools}.py
+    for call in (lambda: tn.tools.transpose(a), lambda: tn.cat([a, a], dim=0),
+                 lambda: a.clone().set_factors("legendre"), lambda: tn.dot(a, a, k=1),
+                 lambda: tn.minimum(a, verbose=False), lambda: tn.exp(a),
                  lambda: tn.ones(3, 3, device="cpu"), lambda: tn.skew(a),
                  lambda: tn.hadamard_sum([a, a]), lambda: a ** 2, lambda: 2.0 ** a,
                  lambda: 2.0 / (a * a + 1), lambda: (a * a + 1) / (a * a + 1),

@@ -19,9 +19,15 @@ rounding, batched on hand-written Hopper kernels; ``round_tucker``;
 evaluate it (``t[key]``, ``tt_eval``, on the card's evaluation kernels),
 fit it (``optimize``), build it from a black-box function by TT-cross
 (``cross``, with ``maxvol``/``rect_maxvol``, ``meshgrid`` and ``stack``;
-``cross_forward`` replays a cross differentiably), and find its extremes
+``cross_forward`` replays a cross differentiably), find its extremes
 (``minimum``, ``argmin``, ``maximum``, ``argmax``, by the minimizing
-cross).
+cross), manipulate it (``cat``,
+``transpose``, ``flip``, ``unbind``, ``pad``, ``mask``, ``sample``,
+``hash``, ``reduce``, ``convolve``, ``shift_mode``, the unfoldings, and
+Tucker bases by ``generate_basis``/``Tensor.set_factors``), complete it
+from sparse samples (``als_completion``, ``sparse_tt_svd``), build
+surrogates (``lars_path``, ``PCEInterpolator`` and its feature helpers)
+and learn with it (``TTRegressor``, ``TTClassifier``).
 Data without a device lands on the CUDA card (`utils.default_device`). The
 package imports torch, numpy and scipy, never jax. Names of ``tntorch_tpu``
 outside the slices exist here as functions (or, for its submodules,
@@ -29,7 +35,7 @@ modules) that raise ``NotImplementedError`` naming the ROADMAP item that
 will port them.
 """
 
-from tntorch_tpu_torch import interop, parallel, tools, utils
+from tntorch_tpu_torch import interop, interpolation, models, parallel, tools, utils
 from tntorch_tpu_torch.autodiff import dof, optimize
 from tntorch_tpu_torch.create import (
     arange, eye, full, full_like, gaussian, gaussian_like, linspace, logspace, ones, ones_like,
@@ -37,6 +43,10 @@ from tntorch_tpu_torch.create import (
 )
 from tntorch_tpu_torch.cross import (
     argmax, argmin, cross, cross_forward, init_interfaces, maximum, minimum,
+)
+from tntorch_tpu_torch.interpolation import (
+    PCEInterpolator, als_completion, empirical_marginals, features2indices, get_bounding_box,
+    gram_schmidt, indices2features, lars_path, sparse_tt_svd,
 )
 from tntorch_tpu_torch.maxvol import maxvol, py_maxvol, py_rect_maxvol, rect_maxvol
 from tntorch_tpu_torch.metrics import (
@@ -50,7 +60,12 @@ from tntorch_tpu_torch.ops.rounding import (
 )
 from tntorch_tpu_torch.round import round, round_tt, round_tucker, truncated_svd
 from tntorch_tpu_torch.tensor import Tensor, _not_ported_module, _not_ported_stub
-from tntorch_tpu_torch.tools import meshgrid, squeeze, stack, ttm, unsqueeze
+from tntorch_tpu_torch.models import TTClassifier, TTRegressor
+from tntorch_tpu_torch.tools import (
+    cat, convolve, flip, generate_basis, hash, left_unfolding, mask, meshgrid, pad, reduce,
+    right_unfolding, sample, shift_mode, squeeze, stack, transpose, ttm, unbind, unfolding,
+    unsqueeze,
+)
 from tntorch_tpu_torch.utils import (
     asarray, default_dtype, get_policy, matmul_precision, next_key, set_policy,
 )
@@ -58,10 +73,6 @@ from tntorch_tpu_torch.utils import (
 # The JAX package's public names that no slice has ported yet, by the ROADMAP
 # item (queue 1) that will port them
 _NOT_PORTED = {
-    "queue 1 item 9": (
-        "als_completion", "sparse_tt_svd", "get_bounding_box", "features2indices",
-        "indices2features", "empirical_marginals", "gram_schmidt", "lars_path",
-        "PCEInterpolator", "TTRegressor", "TTClassifier"),
     "queue 1 item 10": (
         "anova_decomposition", "undo_anova_decomposition", "truncate_anova", "sobol",
         "mean_dimension", "dimension_distribution", "true", "false", "all", "none", "any",
@@ -76,7 +87,6 @@ _NOT_PORTED = {
 }
 # ... and its submodules
 _NOT_PORTED_MODULES = {
-    "queue 1 item 9": ("interpolation", "models"),
     "queue 1 item 10": ("anova", "automata", "derivatives", "logic", "matrix"),
     "queue 1 item 11": ("serialization",),
 }
@@ -85,6 +95,5 @@ globals().update({name: _not_ported_stub(name, item)
                   for item, names in _NOT_PORTED.items() for name in names})
 globals().update({name: _not_ported_module(name, item)
                   for item, names in _NOT_PORTED_MODULES.items() for name in names})
-globals().update({name: getattr(tools, name) for name in tools._NOT_PORTED})
 
 __version__ = "0.1.0"

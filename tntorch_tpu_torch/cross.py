@@ -477,7 +477,7 @@ def cross(
             pred = tt_eval(cores, X_val, checked=True)
             err = torch.linalg.vector_norm(ys_val - pred) / norm_ys_val
             finite = torch.stack(finite_flags).all() if finite_flags else torch.ones((), device=dev)
-            read = torch.cat([torch.stack([err.double(), finite.double(), best.double(),
+            read = torch.cat([torch.stack([err.double(), finite.double(), best.real.double(),
                                            has_best.double()]), argbest.double()]).tolist()
         val_eps, finite = read[0], read[1]
         finite_flags.clear()

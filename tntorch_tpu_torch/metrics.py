@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tntorch_tpu_torch.tensor import Tensor, _not_ported
+from tntorch_tpu_torch.tensor import Tensor
 from tntorch_tpu_torch.utils import asarray, policy_precision
 
 
@@ -88,12 +88,16 @@ def dot(t1, t2, k=None):
     if k == t1.dim() and k == t2.dim():
         return Lprod.sum((-2, -1))
     if k < t1.dim():
-        if k < t2.dim():
-            raise _not_ported("A partial dot leaving modes on both sides (tn.transpose)",
-                              "queue 1 item 8")
         t1trail = Tensor(list(t1.cores[k:]), Us=list(t1.Us[k:]), batch=batch)
         t1trail.cores[0] = _project_left(t1trail.cores[0], Lprod)
-        return t1trail
+        if k == t2.dim():
+            return t1trail
+        # modes left on both sides: t1's trailing modes reversed, then t2's
+        from tntorch_tpu_torch.tools import transpose
+
+        t2trail = Tensor(list(t2.cores[k:]), Us=list(t2.Us[k:]), batch=batch)
+        t1trail = transpose(t1trail)
+        return Tensor(t1trail.cores + t2trail.cores, Us=t1trail.Us + t2trail.Us, batch=batch)
     t2trail = Tensor(list(t2.cores[k:]), Us=list(t2.Us[k:]), batch=batch)
     t2trail.cores[0] = _project_left(t2trail.cores[0], Lprod.mT)
     return t2trail

@@ -24,9 +24,8 @@ and ``**`` are cross approximations (`tn.reciprocal`, `tn.cross`). Each
 mode carries an index annotation ``idxs`` (NumPy; ``arange`` by default,
 with a leading ``arange(B)`` for a batch), as in the JAX package.
 
-CP cores (``ranks_cp=``), ``__setitem__``, mask-Tensor keys and
-``set_factors`` are not ported yet and raise ``NotImplementedError``
-naming their ROADMAP item.
+CP cores (``ranks_cp=``), ``__setitem__`` and mask-Tensor keys are not
+ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -600,8 +599,29 @@ class Tensor:
         self.Us = [None if U is None else U.detach() for U in self.Us]
         return self
 
-    def set_factors(self, *args, **kwargs):
-        raise _not_ported("Tensor.set_factors (tn.tools.generate_basis)", "queue 1 item 8")
+    def set_factors(self, name, dim="all", requires_grad: bool = False):
+        """Give the modes ``dim`` Tucker factors from the basis family
+        ``name`` (`tools.generate_basis`: square where the mode has no
+        factor yet, else the factor's shape), in the cores' dtype and on
+        their device, in place. ``requires_grad`` governs the new factors
+        only: by default they are frozen (`optimize` leaves them alone and
+        `dof` does not count them); the cores keep their flag."""
+        from tntorch_tpu_torch.tools import generate_basis
+
+        if dim == "all":
+            dim = range(self.dim())
+        off = 1 if self.batch else 0
+        for m in dim:
+            shape = ((self.shape[m + off],) * 2 if self.Us[m] is None
+                     else tuple(self.Us[m].shape[-2:]))
+            U = generate_basis(name, shape, dtype=self.dtype, device=self.device)
+            if self.batch:
+                U = U[None].repeat(self.shape[0], 1, 1)
+            self.Us[m] = U
+            if requires_grad:
+                self.frozen_Us.discard(m)
+            else:
+                self.frozen_Us.add(m)
 
     def clone(self):
         t = Tensor(list(self.cores), Us=list(self.Us), idxs=getattr(self, "idxs", None),
