@@ -152,6 +152,30 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    one block of exponential machines and one ALS sweep are profiled, the
    launches are read, and the ``tt_eval`` kernel, both routes, is held to
    its plain version at the phase's shapes. ``--only 12`` runs it alone.
+13. CP tensors and BASELINE config 5, float64 unless named: (13a) CP-ALS
+   of benchmarks/bench_cp_als.py's 128^3 field at rank 3 (BASELINE.md row
+   10), float64 and float32 (warm wall, sweeps, error to the data), the
+   float64 result against the port on the CPU; ``randn`` with ``ranks_cp``
+   at 32^4, CP + TT arithmetic, ``dot``, ``norm``, ``full`` and slicing
+   against dense; ``t[X]`` of the CP tensor at 2^20 coordinates (its TT
+   view on the ``tt_eval`` kernel); ``tn.exp`` of a CP tensor by cross;
+   (13b) the Sobol indices, mean dimension and dimension distribution of
+   examples/sobol_indices.py's 20-D g-function at 32 points a mode against
+   their closed forms, the same calls on a 20-D randn TT of rank 10 against
+   the port on the CPU, logic formulas, ``accepted_inputs`` and a
+   mask-Tensor key; (13c) 32 potentials on 256^3 at TT rank 16 in one
+   batch: gradient, divergence, curl and laplacian, ``div grad -
+   laplacian`` and ``curl grad`` at roundoff over the batch, two fields
+   against NumPy's differences and the port on the CPU, the divergences
+   (rank 49) rounded to 16 by 'gram' (float64) and 'randgram' (float32) on
+   the Gram kernels; (13d) a 4096 x 4096 operator (a sum of 4 Kronecker
+   products) as ``TTMatrix`` and ``CPMatrix`` in the (8, 8, 8, 8) layout,
+   ``tt_multiply`` and ``cp_multiply`` of 16 TT vectors against the dense
+   product, a Kronecker ``TTMatrix``'s determinant and inverse against
+   torch.linalg. Then the launches are read, the field chain is profiled,
+   and ``tt_eval`` (both routes) and each Gram kernel are held to their
+   plain versions at the phase's shapes, the Gram kernels timed against
+   them in turns. ``--only 13`` runs it alone.
 
 The data of phases 6 to 8 comes without a device and lands on the card by
 the package's default. The second-to-last line is one JSON object with
@@ -288,14 +312,16 @@ HELD_OUT = 10 ** 5
 VAL_SIZE = 1000  # cross's default validation set
 TRAIN = dict(N=3, I=256, R=16, B=8192, steps=20)
 # Published peaks of one H100 SXM (NVIDIA data sheet): FP32 outside the
-# tensor cores, HBM3 bandwidth
-PEAK_FP32, HBM = 67e12, 3.35e12
+# tensor cores (TF32 would lose precision under the 'highest' policy), FP64
+# on the tensor cores (DMMA, full precision), HBM3 bandwidth
+PEAK_FP32, PEAK_FP64, HBM = 67e12, 67e12, 3.35e12
 
 
-def bound_ms(flops, nbytes):
+def bound_ms(flops, nbytes, peak=PEAK_FP32):
     """The least time for the work: the larger of its operations over the
-    FP32 peak and its bytes over the memory rate; and which one bounds it."""
-    t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / HBM * 1e3
+    peak of their type (FP32 unless given) and its bytes over the memory
+    rate; and which one bounds it."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -469,6 +495,36 @@ def kernel_inputs(shape, dtype, gen):
     }
 
 
+def gram_flops(name, B, Rl, I, Rr, r1, r2):
+    """The FLOPs of one call of a Gram kernel at B, Rl, I, Rr (and proj2's
+    r1, r2): an FMA counts 2."""
+    per = {"gram_edge": Rl * Rr * Rr + Rl * Rr * Rl, "wgram": Rl * Rl * Rr + Rl * Rr * Rr,
+           "proj2": r1 * Rl * Rr + r1 * Rr * r2}[name]
+    return 2.0 * B * I * per
+
+
+GRAM_EINSUM = {"gram_edge": "zaib,zbc,zdic->zad", "wgram": "zaib,zad,zdic->zbc",
+               "proj2": "zra,zaib,zbc->zric"}
+
+
+def gram_library(name, *args):
+    """One PyTorch call that computes Gram kernel ``name``'s function on its
+    arguments: a yardstick the port never calls."""
+    import torch
+
+    operands = args if name == "proj2" else (args[0], args[1], args[0])
+    return torch.einsum(GRAM_EINSUM[name], *operands)
+
+
+def in_turns(variants):
+    """Each call of ``variants`` (name -> call) timed by cuda_time in turns,
+    in order and then in reverse; each name's list of times (ms)."""
+    turns = {v: [] for v in variants}
+    for v in list(variants) + list(variants)[::-1]:
+        turns[v].append(cuda_time(variants[v]))
+    return turns
+
+
 def check_kernels():
     phase("3. kernels against their plain versions")
     import torch
@@ -484,19 +540,7 @@ def check_kernels():
     shapes = [bench_shape, (B, R, I, 1, r, 1), (3, 5, 37, 3, 4, 2), (2, 5, 37, 1, 3, 1),
               (2, 70, 37, 130, 65, 3), (2, 256, 16, 256, 128, 128)]
     kernels = {"gram_edge": gk.gram_edge, "wgram": gk.wgram, "proj2": gk.proj2}
-    # One PyTorch call that computes each function (a yardstick the port
-    # never calls), and each kernel's work at a shape
-    library = {
-        "gram_edge": lambda C, G: torch.einsum("zaib,zbc,zdic->zad", C, G, C),
-        "wgram": lambda C, W: torch.einsum("zaib,zad,zdic->zbc", C, W, C),
-        "proj2": lambda Y, C, X: torch.einsum("zra,zaib,zbc->zric", Y, C, X),
-    }
-
-    def flops(name, B, Rl, I, Rr, r1, r2):
-        per = {"gram_edge": Rl * Rr * Rr + Rl * Rr * Rl, "wgram": Rl * Rl * Rr + Rl * Rr * Rr,
-               "proj2": r1 * Rl * Rr + r1 * Rr * r2}[name]
-        return 2.0 * B * I * per
-
+    flops = gram_flops
     report = {name: {} for name in kernels}
     gen = torch.Generator(device="cuda").manual_seed(0)
     for dtype in (torch.float32, torch.float64):
@@ -539,11 +583,9 @@ def check_kernels():
                                 "plain": lambda: gk.PLAIN[kernel](*args)}
                     if resident[name]:
                         variants["two-stage"] = lambda: TWO_STAGE[name](lambda: kernel(*args))
-                    turns = {v: [] for v in variants}
-                    for v in list(variants) + list(variants)[::-1]:
-                        turns[v].append(cuda_time(variants[v]))
+                    turns = in_turns(variants)
                     ms, plain_ms = min(turns["kernel"]), min(turns["plain"])
-                    library_ms = cuda_time(lambda: library[name](*args))
+                    library_ms = cuda_time(lambda: gram_library(name, *args))
                     bound, by = bound_ms(flops(name, *shape), nbytes(*args, got))
                     report[name].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                         bound_ms=bound, bound_by=by, library_ms=library_ms)
@@ -566,7 +608,7 @@ def check_kernels():
     ms = cuda_time(lambda: gk.gram_edge(C, G))
     routed_ms = cuda_time(lambda: (Cm * G) @ Cm.mT)
     plain_ms = cuda_time(lambda: gk.gram_edge_plain(C, G))
-    library_ms = cuda_time(lambda: library["gram_edge"](C, G))
+    library_ms = cuda_time(lambda: gram_library("gram_edge", C, G))
     bound, by = bound_ms(flops("gram_edge", B, R, I, 1, r, 1), nbytes(C, G) + B * R * R * 4)
     err = float(((Cm * G) @ Cm.mT - gk.gram_edge(C, G)).abs().max())
     print(f"gram_edge float32 last edge C {tuple(C.shape)}: kernel {ms:.3f} ms, routed "
@@ -2672,10 +2714,619 @@ def config4_path():
     return launches
 
 
+# Phase 13: CP tensors and BASELINE config 5 (ANOVA/Sobol on a 20-D
+# surrogate and batched 3-D vector-field calculus), at full size.
+# - CP-ALS of benchmarks/bench_cp_als.py's 128^3 analytic field at rank 3
+#   (BASELINE.md row 10); the tensor ops at config 1's size (32^4, CP rank
+#   and TT rank 5); t[X] at 2^20 coordinates
+CP13 = dict(I=128, R=3, ops_I=32, ops_N=4, ops_R=5, points=1 << 20)
+# - the 20-D Sobol g-function of examples/sobol_indices.py on a grid of 32,
+#   and a randn TT of that shape at rank 10
+SOBOL13 = dict(N=20, I=32, R=10)
+# - B potentials on I^3 at TT rank R, their divergence rounded back to rmax
+#   (two fields checked densely: the first and the last)
+FIELDS13 = dict(B=32, I=256, R=16, rmax=16, chunk=8)
+# - a 4096 x 4096 operator in the (8, 8, 8, 8) layout, a sum of R
+#   Kronecker products, applied to a batch of TT vectors
+OPERATOR13 = dict(dims=(8, 8, 8, 8), R=4, vectors=16, vector_rank=4)
+# Tolerances of phase 13, each with its reason:
+# - float64 on the card against the port on the CPU, or against a closed
+#   form computed in float64 (CP-ALS reconstructions, Sobol indices,
+#   derivatives, the operators' products): the same sums in other orders,
+#   1e-10 relative (the CPU tests hold the port to the JAX package at 1e-10
+#   for these, tests/test_torch_{anova,derivatives,matrix}.py).
+# - CP and CP+TT tensor ops against the dense tensor on the card, float64:
+#   contractions of a few hundred terms, 1e-12.
+# - CP-ALS against the data: the reference notebook's error class, within
+#   twice its 9.9e-4 (decompositions.ipynb cell 10; the port on the CPU
+#   reaches 9.3e-4 in float64 and 1.2e-3 in float32).
+# - tn.exp of a CP tensor by cross against dense: FAMILY_TOL (phase 11).
+# - div grad phi - laplacian phi and curl grad phi: the central differences
+#   commute exactly in this representation (each mode's core is differenced
+#   on its own), so both vanish to roundoff: 1e-10 relative to the
+#   Laplacian and to the first term of each curl component.
+# - the divergence rounded by 'gram' on the card against the CPU: the Gram
+#   method squares the condition number, so the two libraries' rank-16
+#   subspaces may differ by more than roundoff; held within GRAM_SHARE of
+#   the truncation error, as phase 9 holds TT-SVD. Float32 'randgram': its
+#   truncation error within RANDGRAM_FACTOR of float64 'gram''s (randomized
+#   edges are quasi-optimal: the port on the CPU gives 1.20x at B=4, 16^3,
+#   rank 4, and the card 1.00x at the full size).
+# - CPMatrix of an operator of exact CP rank R: its fit within 1e-3 (CP-ALS
+#   stops once a sweep gains less than tol = 1e-4; the port on the CPU
+#   reaches 2.6e-7 in 4 sweeps at this size).
+CP_REF_ERR, CP_ERR_FACTOR, CP13_TOL, OPS13_TOL, ROUNDOFF13 = 9.9e-4, 2.0, 1e-10, 1e-12, 1e-10
+RANDGRAM_FACTOR, CPFIT13_TOL = 1.5, 1e-3
+
+
+def _cp_field(I):
+    """benchmarks/bench_cp_als.py's analytic field on I^3, float64 NumPy."""
+    import numpy as np
+
+    X, Y, Z = np.meshgrid(range(I), range(I), range(I))
+    return np.sqrt(np.sqrt(X) * (Y + Z) + Y * Z ** 2) * (X + np.sin(Y) * np.cos(Z))
+
+
+@contextlib.contextmanager
+def _counted_sweeps():
+    """Counts the CP-ALS sweeps run in the block (the port's
+    `tensor._cp_als_iter`, wrapped): yields the list that collects them."""
+    import importlib
+
+    ttensor = importlib.import_module("tntorch_tpu_torch.tensor")
+    real, sweeps = ttensor._cp_als_iter, []
+
+    def counted(*args, **kwargs):
+        sweeps.append(1)
+        return real(*args, **kwargs)
+
+    ttensor._cp_als_iter = counted
+    try:
+        yield sweeps
+    finally:
+        ttensor._cp_als_iter = real
+
+
+def _timed(fn, device):
+    """(fn(), its wall in ms) after one warm-up call, synchronized."""
+    fn()
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def cp_checks(device="cuda", cfg=CP13):
+    """13a: CP-ALS of the 128^3 field at rank 3 (float64, float32: warm
+    wall, sweeps, error to the data; float64 against the CPU), ``randn``
+    with ``ranks_cp`` at 32^4, CP + TT arithmetic, ``dot``, ``full`` and
+    slicing against dense, ``t[X]`` at 2^20 coordinates, ``tn.exp`` by
+    cross. Returns (cases for hold_tt_eval, failures)."""
+    import numpy as np
+    import torch
+
+    import tntorch_tpu_torch as tn
+
+    failed, cases = [], []
+    data = torch.from_numpy(_cp_field(cfg["I"]))
+    R = cfg["R"]
+    dense = {}
+    with _counted_sweeps() as sweeps:
+        for dtype in (torch.float64, torch.float32):
+            x = data.to(device, dtype)
+            sweeps.clear()
+            t, ms = _timed(lambda: tn.Tensor(x, ranks_cp=R), device)
+            n = len(sweeps) // 2  # _timed calls twice
+            err = rel(t.full().double(), data.to(device))
+            key = str(dtype)[6:]
+            dense[key] = t.full().double()
+            print(f"13a CP-ALS {key}, {cfg['I']}^3 rank {R}: warm wall {ms:.2f} ms, {n} sweeps, "
+                  f"rel err to the data {err:.4e} (the reference notebook: 9.9e-4); "
+                  f"ranks {t.ranks_tt.tolist()} on {t.device}")
+            if not err <= CP_ERR_FACTOR * CP_REF_ERR or t.device.type != torch.device(device).type:
+                failed.append(f"CP-ALS {key}: rel err {err:.3e} on {t.device}")
+        cpu = tn.Tensor(data, ranks_cp=R).full()
+    err = rel(dense["float64"].cpu(), cpu)
+    print(f"13a CP-ALS float64 vs the port on the CPU: rel {err:.3e} (tol {CP13_TOL})")
+    if not err <= CP13_TOL:
+        failed.append(f"CP-ALS float64 is {err:.3e} from the CPU's")
+
+    N, I, r = cfg["ops_N"], cfg["ops_I"], cfg["ops_R"]
+    gen = torch.Generator().manual_seed(13)  # drawn on the host: the same numbers anywhere
+    cp, ms = _timed(lambda: tn.randn(*[I] * N, ranks_cp=r, generator=gen.manual_seed(13),
+                                     device=device, dtype=torch.float64), device)
+    tt = tn.randn(*[I] * N, ranks_tt=r, generator=gen.manual_seed(0), device=device,
+                  dtype=torch.float64)  # config 1 at full size
+    cp_cpu = tn.randn(*[I] * N, ranks_cp=r, generator=gen.manual_seed(13), device="cpu",
+                      dtype=torch.float64)
+    xc, xt = cp.full(), tt.full()
+    own = torch.einsum("ir,jr,kr,lr->ijkl", *cp.cores) if N == 4 else xc
+    checks = {"randn(ranks_cp) vs the CPU's": (xc.cpu(), cp_cpu.full()),
+              "full vs its factors' einsum": (xc, own),
+              "cp + tt": ((cp + tt).full(), xc + xt), "cp * tt": ((cp * tt).full(), xc * xt),
+              "cp - 2 cp": ((cp - 2 * cp).full(), -xc),
+              "dot(cp, tt)": (tn.dot(cp, tt), (xc * xt).sum()),
+              "norm(cp)": (tn.norm(cp), torch.linalg.vector_norm(xc)),
+              "cp[3, :, 5:20, ::2]": (cp[3, :, 5:20, ::2].full(), xc[3, :, 5:20, ::2]),
+              "(cp + tt)[..., 7]": ((cp + tt)[..., 7].full(), (xc + xt)[..., 7])}
+    parts = []
+    for name, (got, want) in checks.items():
+        err = rel(got.reshape(-1), want.reshape(-1))
+        parts.append(f"{name} {err:.1e}")
+        if not err <= OPS13_TOL:
+            failed.append(f"13a {name}: rel {err:.3e}")
+    print(f"13a CP (randn {I}^{N}, rank {r}, {ms:.2f} ms) and CP+TT against dense (tol "
+          f"{OPS13_TOL}): " + "; ".join(parts))
+
+    X = torch.from_numpy(np.random.default_rng(13).integers(0, I, (cfg["points"], N))).to(device)
+    vals, ms = _timed(lambda: cp[X].full().reshape(-1), device)
+    err = rel(vals, xc[tuple(X.T)])
+    print(f"13a cp[X] at {cfg['points']} coordinates: {ms:.3f} ms warm, "
+          f"{cfg['points'] / ms * 1e3:.4g} evals/s, rel {err:.1e} against dense")
+    if not err <= OPS13_TOL:
+        failed.append(f"13a cp[X]: rel {err:.3e}")
+    cases.append(("13a cp[X]", cp.tt().cores, X))
+
+    u = tn.rand(*[I] * N, ranks_cp=2, generator=gen.manual_seed(14), device=device,
+                dtype=torch.float64) * 0.5
+    e, ms = _timed(lambda: tn.exp(u), device)
+    err = rel(e.full(), torch.exp(u.full()))
+    print(f"13a tn.exp of a CP tensor (rank 2, values in [0, 1)) by cross: {ms:.1f} ms warm, "
+          f"ranks {e.ranks_tt.tolist()}, rel {err:.1e} against dense (tol {FAMILY_TOL})")
+    if not err <= FAMILY_TOL:
+        failed.append(f"13a exp of a CP tensor: rel {err:.3e}")
+    return cases, failed
+
+
+def _g_function(N, I, device):
+    """examples/sobol_indices.py's g-function on a grid of I per mode: the
+    rank-1 TT of g_n(x) = (|4x - 2| + a_n) / (1 + a_n), a_n = (n - 1) / 2,
+    and the closed forms of its Sobol indices from the grid's own moments:
+    V_n = var(g_n) / mean(g_n)^2, D = prod(1 + V) - 1; first-order S_n =
+    V_n / D, total S^T_n = V_n prod_{m != n}(1 + V_m) / D, the mean
+    dimension sum S^T, and the share of order k, e_k(V) / D."""
+    import numpy as np
+    import torch
+
+    import tntorch_tpu_torch as tn
+
+    x = np.linspace(0, 1, I)
+    gs = [(np.abs(4 * x - 2) + (n - 1) / 2) / (1 + (n - 1) / 2) for n in range(1, N + 1)]
+    V = np.array([g.var() / g.mean() ** 2 for g in gs])
+    D = np.prod(1 + V) - 1
+    total = np.array([V[n] * np.prod(np.delete(1 + V, n)) for n in range(N)]) / D
+    e = np.array([1.0])
+    for v in V:  # the coefficients of prod(1 + V_n z)
+        e = np.concatenate([e, [0.0]]) + np.concatenate([[0.0], v * e])
+    t = tn.Tensor([torch.from_numpy(g)[None, :, None].to(device) for g in gs])
+    return t, dict(first=V / D, total=total, mean_dimension=total.sum(),
+                   distribution=e[1:] / D)
+
+
+def _sobol_suite(t, syms, n_first):
+    """The Sobol calls of 13b on ``t``: first-order indices of the first
+    ``n_first`` variables, the total index of variable 0, the closed index
+    of {0, 1}, the mean dimension and the dimension distribution; each
+    result a float64 tensor on the host."""
+    import torch
+
+    import tntorch_tpu_torch as tn
+
+    def host(x):
+        return torch.as_tensor(x).double().cpu().reshape(-1)
+
+    return {"first": torch.cat([host(tn.sobol(t, tn.only(syms[n]))) for n in range(n_first)]),
+            "total_0": host(tn.sobol(t, syms[0])),
+            "closed_01": host(tn.sobol(t, tn.only(syms[0] | syms[1]))),
+            "mean_dimension": host(tn.mean_dimension(t)),
+            "distribution": host(tn.dimension_distribution(t))}
+
+
+def sobol_checks(device="cuda", cfg=SOBOL13):
+    """13b: BASELINE config 5's sensitivity analysis. The 20-D g-function's
+    Sobol indices, mean dimension and dimension distribution against their
+    closed forms; the same calls on a 20-D randn TT of rank 10 against the
+    port on the CPU; logic formulas, ``accepted_inputs`` and a mask-Tensor
+    key on the card against the CPU. Each call's warm wall. Returns the
+    failures."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    import tntorch_tpu_torch as tn
+
+    failed = []
+    N, I = cfg["N"], cfg["I"]
+    kw = dict(device=device, dtype=torch.float64)
+    syms = tn.symbols(N, **kw)
+    g, closed = _g_function(N, I, device)
+    walls = {}
+    for name, call in (("sobol(only(x0))", lambda: tn.sobol(g, tn.only(syms[0]))),
+                       ("sobol(x0) (total)", lambda: tn.sobol(g, syms[0])),
+                       ("mean_dimension", lambda: tn.mean_dimension(g)),
+                       ("dimension_distribution", lambda: tn.dimension_distribution(g))):
+        walls[name] = _timed(call, device)[1]
+    got = _sobol_suite(g, syms, N)
+    want = {"first": closed["first"], "total_0": closed["total"][:1],
+            "closed_01": None, "mean_dimension": closed["mean_dimension"],
+            "distribution": closed["distribution"]}
+    parts = []
+    for key, w in want.items():
+        if w is None:
+            continue
+        err = rel(got[key], torch.as_tensor(np.atleast_1d(w), dtype=torch.float64))
+        parts.append(f"{key} {err:.1e}")
+        if not err <= CP13_TOL:
+            failed.append(f"13b g-function {key}: rel {err:.3e} from the closed form")
+    print(f"13b the {N}-D g-function on {I}^{N}: S_0..3 = "
+          f"{[round(float(v), 6) for v in got['first'][:4]]}, mean dimension "
+          f"{float(got['mean_dimension']):.6f}, orders 1-3 "
+          f"{[round(float(v), 6) for v in got['distribution'][:3]]}; against the closed form "
+          f"(tol {CP13_TOL}): " + "; ".join(parts))
+    print("13b warm walls (ms): " + "; ".join(f"{k} {v:.2f}" for k, v in walls.items()))
+
+    gen = torch.Generator()
+    t = tn.randn(*[I] * N, ranks_tt=cfg["R"], generator=gen.manual_seed(20), **kw)
+    t_cpu = tn.randn(*[I] * N, ranks_tt=cfg["R"], generator=gen.manual_seed(20), device="cpu",
+                     dtype=torch.float64)
+    card, ms = _timed(lambda: _sobol_suite(t, syms, 4), device)
+    cpu = _sobol_suite(t_cpu, tn.symbols(N, device="cpu", dtype=torch.float64), 4)
+    parts = []
+    for key in card:
+        err = rel(card[key], cpu[key])
+        parts.append(f"{key} {err:.1e}")
+        if not err <= CP13_TOL:
+            failed.append(f"13b randn TT {key}: rel {err:.3e} from the CPU's")
+    print(f"13b randn TT {I}^{N} rank {cfg['R']}: the suite in {ms:.1f} ms warm; mean dimension "
+          f"{float(card['mean_dimension']):.6f}; card vs CPU (tol {CP13_TOL}): " + "; ".join(parts))
+
+    f = (syms[0] & syms[1]) | ~syms[2]
+    checks = {"relevant_symbols": (tn.relevant_symbols(f), [0, 1, 2]),
+              "De Morgan": (tn.equiv(syms[0] | syms[3], ~(~syms[0] & ~syms[3])), True),
+              "implies": (tn.implies(syms[0] & syms[1], syms[1]), True),
+              "satisfiable": (tn.is_satisfiable(syms[4] & ~syms[4]), False)}
+    (acc, ms) = _timed(lambda: tn.accepted_inputs(tn.weight_mask(N, 2, **kw)), device)
+    want_acc = [[int(n in pair) for n in range(N)] for pair in
+                itertools.combinations(range(N), 2)]
+    checks["accepted_inputs(weight_mask(N, 2))"] = (
+        sorted(acc.cpu().tolist()), sorted(want_acc))
+    for name, (got_v, want_v) in checks.items():
+        if got_v != want_v:
+            failed.append(f"13b {name}: {got_v} != {want_v}")
+    a = tn.anova_decomposition(t)
+    key = tn.presence(N, [0, 5], **kw) & tn.absence(N, [n for n in range(N) if n not in (0, 5)],
+                                                    **kw)
+    term, ms_key = _timed(lambda: a[key], device)
+    a_cpu = tn.anova_decomposition(t_cpu)
+    key_cpu = tn.presence(N, [0, 5], device="cpu", dtype=torch.float64) & tn.absence(
+        N, [n for n in range(N) if n not in (0, 5)], device="cpu", dtype=torch.float64)
+    err = rel(term.full().cpu(), a_cpu[key_cpu].full())
+    print(f"13b logic: {', '.join(f'{k} ok' for k in checks)}; accepted_inputs "
+          f"{tuple(acc.shape)} in {ms:.2f} ms; the ANOVA term f_(0,5) by a mask key: "
+          f"{tuple(term.shape)} in {ms_key:.2f} ms, rel {err:.1e} from the CPU's")
+    if not err <= CP13_TOL:
+        failed.append(f"13b mask key: rel {err:.3e}")
+    return failed
+
+
+def _np_central(x, axis, step):
+    """Central differences along ``axis`` with the ends extrapolated
+    linearly, in NumPy: the JAX package's convention (its
+    tests/test_derivatives.py reference)."""
+    import numpy as np
+
+    x = np.moveaxis(x, axis, 0)
+    out = np.empty_like(x)
+    out[1:-1] = x[2:] - x[:-2]
+    out[0] = 2 * (x[1] - x[0])  # (x1 - (x0 - (x1 - x0)))
+    out[-1] = 2 * (x[-1] - x[-2])
+    return np.moveaxis(out / step, 0, axis)
+
+
+def _chunked_ratio(pairs, B, chunk):
+    """max over ``pairs`` of ||a|| / ||b|| over the whole batch, each pair
+    (a, b) of batch Tensors decompressed ``chunk`` samples at a time."""
+    import torch
+
+    worst = 0.0
+    for a, b in pairs:
+        num = den = 0.0
+        for b0 in range(0, B, chunk):
+            num += float(torch.sum(a[b0:b0 + chunk].full() ** 2))
+            den += float(torch.sum(b[b0:b0 + chunk].full() ** 2))
+        worst = max(worst, (num / den) ** 0.5)
+    return worst
+
+
+def field_checks(device="cuda", cfg=FIELDS13):
+    """13c: B potentials phi on I^3 at TT rank R, float64, one batch:
+    gradient, divergence, curl, laplacian; fields 0 and B - 1 against
+    NumPy's differences and against the port on the CPU (the check of the
+    difference stencils); div grad phi - laplacian phi and curl grad phi at
+    roundoff over the batch (a check of the rank sums only); the divergence
+    rounded to rmax by 'gram' (float64) and 'randgram' (float32), the
+    first and last fields against the CPU. Returns (the divergence's middle
+    core, the one the Gram kernels take, failures, the chain to
+    profile)."""
+    import numpy as np
+    import torch
+
+    import tntorch_tpu_torch as tn
+
+    failed = []
+    B, I, R, rmax = cfg["B"], cfg["I"], cfg["R"], cfg["rmax"]
+    phi = tn.randn(B, I, I, I, ranks_tt=R, batch=True, generator=torch.Generator().manual_seed(30),
+                   device=device, dtype=torch.float64)
+
+    def derivatives():
+        g = tn.gradient(phi)
+        return g, tn.divergence(g), tn.curl(g), tn.laplacian(phi)
+
+    (g, div, curl, lap), ms = _timed(derivatives, device)
+    print(f"13c {B} potentials on {I}^3, rank {R}, float64: gradient + divergence + curl + "
+          f"laplacian {ms:.2f} ms warm; divergence ranks {div.ranks_tt.tolist()}, curl "
+          f"{curl[0].ranks_tt.tolist()}")
+    # Both sides of these two run the same central differences on the same
+    # cores, so they vanish whether or not the stencil is right: they check
+    # the sums of ranks (TT + and - over the batch) on the card. The stencil
+    # is checked against NumPy below
+    commute = _chunked_ratio([(div - lap, lap)], B, cfg["chunk"])
+    firsts = [tn.partial(g[2], 1), tn.partial(g[0], 2), tn.partial(g[1], 0)]
+    curl_err = _chunked_ratio(list(zip(curl, firsts)), B, cfg["chunk"])
+    print(f"13c over the batch: |div grad - laplacian| / |laplacian| {commute:.2e}, "
+          f"|curl grad| / |its first term| {curl_err:.2e} (tol {ROUNDOFF13})")
+    if not (commute <= ROUNDOFF13 and curl_err <= ROUNDOFF13):
+        failed.append(f"13c div grad - laplacian {commute:.3e}, curl grad {curl_err:.3e}")
+
+    # Two fields against NumPy's differences and the port on the CPU
+    step = I / (I + 1) * 2  # partial's default bounds [0, I]
+    pick = [0, B - 1]
+    sub = tn.Tensor([c[pick].cpu() for c in phi.cores], batch=True)
+    g_cpu = tn.gradient(sub)
+    div_cpu, lap_cpu = tn.divergence(g_cpu), tn.laplacian(sub)
+    worst_np = worst_cpu = 0.0
+    for i, b in enumerate(pick):
+        x = phi[b].full().cpu().numpy()
+        gn = [_np_central(x, n, step) for n in range(3)]
+        want = {"gradient": gn, "divergence": [sum(_np_central(gn[n], n, step)
+                                                   for n in range(3))],
+                "laplacian": [sum(_np_central(_np_central(x, n, step), n, step)
+                                  for n in range(3))]}
+        got = {"gradient": [t[b].full().cpu().numpy() for t in g],
+               "divergence": [div[b].full().cpu().numpy()],
+               "laplacian": [lap[b].full().cpu().numpy()]}
+        cpu = {"gradient": [t[i].full().numpy() for t in g_cpu],
+               "divergence": [div_cpu[i].full().numpy()], "laplacian": [lap_cpu[i].full().numpy()]}
+        for key in got:
+            for u, v, w in zip(got[key], want[key], cpu[key]):
+                worst_np = max(worst_np, np.linalg.norm(u - v) / np.linalg.norm(v))
+                worst_cpu = max(worst_cpu, np.linalg.norm(u - w) / np.linalg.norm(w))
+    print(f"13c fields {pick}: against NumPy's differences rel {worst_np:.2e}, against the port on "
+          f"the CPU rel {worst_cpu:.2e} (tol {CP13_TOL})")
+    if not (worst_np <= CP13_TOL and worst_cpu <= CP13_TOL):
+        failed.append(f"13c fields vs NumPy {worst_np:.3e}, vs the CPU {worst_cpu:.3e}")
+
+    # The divergences rounded: float64 'gram' and float32 'randgram', on the
+    # Gram kernels
+    rounded, ms64 = _timed(lambda: tn.round_tt(div, rmax=rmax, algorithm="gram"), device)
+    div32 = tn.Tensor([c.float() for c in div.cores], batch=True)
+    rounded32, ms32 = _timed(lambda: tn.round_tt(div32, rmax=rmax, algorithm="randgram"), device)
+    trunc = tn.relative_error(div, rounded)
+    trunc32 = tn.relative_error(div, tn.Tensor([c.double() for c in rounded32.cores], batch=True))
+    sub_div = tn.Tensor([c[pick].cpu() for c in div.cores], batch=True)
+    ref = tn.round_tt(sub_div, rmax=rmax, algorithm="gram")
+    got = tn.Tensor([c[pick].cpu() for c in rounded.cores], batch=True)
+    dev = tn.relative_error(ref, got)
+    ref_trunc = tn.relative_error(sub_div, ref)
+    worst32 = float((trunc32 / trunc).max())
+    print(f"13c round_tt(rmax={rmax}) of the divergences: 'gram' float64 {ms64:.2f} ms warm "
+          f"({B / ms64 * 1e3:.1f} fields/s), truncation err {float(trunc.min()):.3e}.."
+          f"{float(trunc.max()):.3e}; 'randgram' float32 {ms32:.2f} ms warm, its error over "
+          f"float64's at most {worst32:.3f} (tol {RANDGRAM_FACTOR}); fields {pick} against the "
+          f"CPU {dev.tolist()} (tol {GRAM_SHARE} x the CPU's truncation error {ref_trunc.tolist()})")
+    if not bool((dev <= GRAM_SHARE * ref_trunc).all()) or not worst32 <= RANDGRAM_FACTOR:
+        failed.append(f"13c rounding: card vs CPU {dev.tolist()}, randgram {worst32:.3f}")
+
+    def chain():
+        g = tn.gradient(phi)
+        d = tn.divergence(g)
+        tn.curl(g)
+        return tn.round_tt(d, rmax=rmax, algorithm="gram")
+
+    _, ms = _timed(chain, device)
+    print(f"13c the chain gradient + divergence + curl + round_tt('gram'): {ms:.2f} ms warm, "
+          f"{B / ms * 1e3:.1f} fields/s")
+    return div.cores[1], failed, chain
+
+
+def operator_checks(device="cuda", cfg=OPERATOR13):
+    """13d: a 4096 x 4096 operator, the sum of R Kronecker products of
+    8 x 8 blocks, as a TTMatrix (TT-SVD to ranks R) and a CPMatrix (CP-ALS
+    to rank R) in the (8, 8, 8, 8) layout, applied by ``tt_multiply`` and
+    ``cp_multiply`` to a batch of TT vectors against the dense product; a
+    Kronecker TTMatrix's determinant, log-determinant and inverse against
+    torch.linalg on the dense matrix. Returns the failures."""
+    import numpy as np
+    import torch
+
+    import tntorch_tpu_torch as tn
+
+    failed = []
+    dims, R = list(cfg["dims"]), cfg["R"]
+    rng = np.random.default_rng(40)
+    blocks = torch.from_numpy(rng.standard_normal((R, len(dims), dims[0], dims[0])) /
+                              np.sqrt(dims[0])).to(device)
+
+    def kron(bs):
+        k = bs[0]
+        for b in bs[1:]:
+            k = torch.kron(k, b)
+        return k
+
+    M = sum(kron(blocks[r]) for r in range(R))
+    x = tn.randn(cfg["vectors"], *dims, ranks_tt=cfg["vector_rank"], batch=True,
+                 generator=torch.Generator().manual_seed(41), device=device, dtype=torch.float64)
+    V = x.full().reshape(cfg["vectors"], -1)
+    want = V @ M
+    ttm, ms_tt = _timed(lambda: tn.TTMatrix(M, [R] * (len(dims) - 1), dims, dims), device)
+    y, ms_ttmul = _timed(lambda: tn.tt_multiply(ttm, V), device)
+    cpm, ms_cp = _timed(lambda: tn.CPMatrix(M, R, dims, dims), device)
+    z, ms_cpmul = _timed(lambda: tn.cp_multiply(cpm, V), device)
+    fit = rel(cpm.full(), M)
+    errs = {"tt_multiply vs V @ M": rel(y, want), "TTMatrix.full vs M": rel(ttm.full(), M),
+            "cp_multiply vs V @ CPMatrix.full": rel(z, V @ cpm.full())}
+    print(f"13d operator {M.shape[0]}x{M.shape[1]} (sum of {R} Kronecker products), "
+          f"{cfg['vectors']} TT vectors: TTMatrix {ms_tt:.1f} ms, tt_multiply {ms_ttmul:.3f} ms, "
+          f"CPMatrix {ms_cp:.1f} ms (CP fit rel err {fit:.2e}), cp_multiply {ms_cpmul:.3f} ms; "
+          + "; ".join(f"{k} {v:.1e}" for k, v in errs.items()) + f" (tol {CP13_TOL})")
+    for k, v in errs.items():
+        if not v <= CP13_TOL:
+            failed.append(f"13d {k}: rel {v:.3e}")
+    if not fit <= CPFIT13_TOL:
+        failed.append(f"13d CP fit of an exact rank-{R} operator: rel {fit:.3e}")
+
+    # A Kronecker TTMatrix of SPD blocks with eigenvalues in [0.9, 1.1]
+    Qs = [torch.linalg.qr(torch.from_numpy(rng.standard_normal((d, d))))[0] for d in dims]
+    As = [(Q * torch.from_numpy(rng.uniform(0.9, 1.1, d))) @ Q.T for Q, d in zip(Qs, dims)]
+    K = tn.TTMatrix([A[None, :, :, None].to(device) for A in As], None, dims, dims)
+    Kd = kron([A.to(device) for A in As])
+    (sign, logdet), ms_ld = _timed(K.slog_determinant, device)
+    det, _ = _timed(K.determinant, device)
+    inv, ms_inv = _timed(lambda: K.inv().full(), device)
+    want_sign, want_ld = torch.linalg.slogdet(Kd)
+    errs = {"logdet": abs(float(logdet) - float(want_ld)) / abs(float(want_ld)),
+            "det": abs(float(det) - float(torch.exp(want_ld))) / float(torch.exp(want_ld)),
+            "inv": rel(inv, torch.linalg.inv(Kd))}
+    print(f"13d Kronecker TTMatrix {Kd.shape[0]}^2: slog_determinant {ms_ld:.3f} ms (sign "
+          f"{float(sign):+.0f}, logdet {float(logdet):.6f}), inv().full() {ms_inv:.2f} ms; "
+          + "; ".join(f"{k} {v:.1e}" for k, v in errs.items()) + f" (tol {CP13_TOL})")
+    if float(sign) != float(want_sign) or not all(v <= CP13_TOL for v in errs.values()):
+        failed.append(f"13d Kronecker operations: {errs}, sign {float(sign)}")
+    return failed
+
+
+def hold_gram(name, C, r):
+    """The three Gram kernels on the rounding's middle core ``C`` (B, Rl,
+    I, Rr), float64 and float32, with seeded G and W (B x Rr x Rr, Rl x Rl,
+    positive semidefinite) and projectors Y (B, r, Rl), X (B, Rr, r), as
+    the sweep gives them: each against its plain version (KERNEL_TOL of max
+    |plain|), then the kernel and the plain version timed in turns, with
+    its bound (float64 at the FP64 peak) and one einsum. The caller has
+    read the launch counts."""
+    import torch
+
+    from tntorch_tpu_torch.ops import gram_kernels as gk
+
+    gen = torch.Generator(device=C.device).manual_seed(13)
+    cases = {}
+    for dtype in (torch.float64, torch.float32):
+        B, Rl, I, Rr = C.shape
+
+        def rn(*shape):
+            return torch.randn(*shape, generator=gen, dtype=torch.float64,
+                               device=C.device).to(dtype)
+
+        def psd(n):
+            A = rn(B, n, n)
+            return (A @ A.mT / n).contiguous()
+
+        Cd = C.to(dtype).contiguous()
+        cases[("gram_edge", dtype)] = (Cd, psd(Rr))
+        cases[("wgram", dtype)] = (Cd, psd(Rl))
+        cases[("proj2", dtype)] = (rn(B, r, Rl).contiguous(), Cd, rn(B, Rr, r).contiguous())
+    kernels = {k.__name__: k for k in gk.KERNELS}
+    failed, report = [], {}
+    for (kname, dtype), args in cases.items():
+        kernel, plain = kernels[kname], gk.PLAIN[kernels[kname]]
+        got, want = kernel(*args), plain(*args)
+        err = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-300)
+        dname = str(dtype)[6:]
+        C = args[1] if kname == "proj2" else args[0]
+        B, Rl, I, Rr = C.shape
+        r1, r2 = (args[0].shape[1], args[2].shape[2]) if kname == "proj2" else (0, 0)
+        turns = in_turns({"kernel": lambda: kernel(*args), "plain": lambda: plain(*args)})
+        ms, plain_ms = min(turns["kernel"]), min(turns["plain"])
+        library_ms = cuda_time(lambda: gram_library(kname, *args))
+        peak = PEAK_FP64 if dtype == torch.float64 else PEAK_FP32
+        bound, by = bound_ms(gram_flops(kname, B, Rl, I, Rr, r1, r2), nbytes(*args, got), peak)
+        report[(kname, dname)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, err=err)
+        print(f"{name} {kname} {dname} B,Rl,I,Rr={tuple(C.shape)}"
+              + (f" r1,r2={r1},{r2}" if kname == "proj2" else "")
+              + f": rel {err:.2e} against plain (tol {KERNEL_TOL[dname]}); kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, one einsum {library_ms:.3f} ms, bound {bound:.4f} ms "
+              f"({by}); in turns {turns}")
+        if not bool(torch.isfinite(got).all()) or not err <= KERNEL_TOL[dname]:
+            failed.append(f"{kname} {dname}: rel {err:.3e}")
+    if failed:
+        raise AssertionError(f"{name}: a Gram kernel disagrees with its plain version: "
+                             + "; ".join(failed))
+    return report
+
+
+def time_tt_eval(name, cores, X):
+    """The tt_eval kernel on both of its routes and its plain version, timed
+    in turns at one of the phase's shapes, beside the forward's bound
+    (float64 at the FP64 peak). The caller has read the launch counts."""
+    import torch
+
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    cores = [c.contiguous() for c in cores]
+    turns = {"grouped": [], "per-sample": []}
+    for route in ("grouped", "per-sample", "per-sample", "grouped"):
+        turns[route].append(tt_path(route == "grouped", lambda: cuda_time(
+            lambda: te.tt_eval_kernel(cores, X))))
+    plain_ms = cuda_time(lambda: te.tt_eval_plain(cores, X), reps=3, inner=3)
+    peak = PEAK_FP64 if cores[0].dtype == torch.float64 else PEAK_FP32
+    bound, by = bound_ms(tt_work(cores, X)[0], nbytes(*cores, X, te.tt_eval_kernel(cores, X)),
+                         peak)
+    print(f"{name} tt_eval {str(cores[0].dtype)[6:]} ranks {[int(c.shape[0]) for c in cores]} "
+          f"I={cores[0].shape[1]} B={X.shape[0]}: in turns (ms) {turns}; plain {plain_ms:.3f} "
+          f"ms; bound {bound:.4f} ms ({by})")
+
+
+def config5_path():
+    """Phase 13; returns each kernel's launches in it."""
+    import torch
+
+    import tntorch_tpu_torch as tn
+    from tntorch_tpu_torch.ops import gram_kernels as gk
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    tn.set_policy("highest")  # 'gram' takes exact eigh edges
+    te.reset_launches()
+    gk.reset_launches()
+    phase("13a. CP: CP-ALS of the 128^3 field at rank 3, CP tensors at config 1's size")
+    holds, failed = cp_checks()
+    phase("13b. BASELINE config 5: Sobol indices of the 20-D g-function, logic, automata")
+    failed += sobol_checks()
+    phase("13c. BASELINE config 5: 32 potentials on 256^3, gradient/divergence/curl/laplacian")
+    core, bad, chain = field_checks()
+    failed += bad
+    phase("13d. TTMatrix and CPMatrix of a 4096 x 4096 operator")
+    failed += operator_checks()
+    torch.cuda.synchronize()
+    launches = {"tt_eval": te.tt_eval_kernel.launches,
+                **{k.__name__: k.launches for k in gk.KERNELS}}
+    print(f"13, launches: {launches}")
+    if not all(launches.values()):
+        failed.append(f"a kernel of the path was not launched: {launches}")
+    print("profile, the field chain (gradient, divergence, curl, round_tt 'gram'):")
+    profile_device(chain, steps=1)
+    hold_tt_eval("13", holds)
+    time_tt_eval("13", *holds[0][1:])
+    hold_gram("13", core, FIELDS13["rmax"])
+    if failed:
+        raise AssertionError("phase 13: " + "; ".join(failed))
+    return launches
+
+
 PHASES = {"3": "check_kernels", "3b": "check_tt_kernels", "4": "main_path",
           "5": "nonbatch_pass", "6": "eval_path", "7": "train_path", "8": "train_design_path",
           "9": "baseline_path", "10": "cross_path", "11": "elementwise_path",
-          "12": "config4_path"}
+          "12": "config4_path", "13": "config5_path"}
 
 
 def main():
@@ -2706,8 +3357,10 @@ def main():
     crosses = cross_path()
     elementwise = elementwise_path()
     config4 = config4_path()
+    config5 = config5_path()
     launches.update({k: evals[k] + trains[k] + designs[k] for k in evals})
-    launches = {k: n + sum(p.get(k, 0) for p in (baselines, crosses, elementwise, config4))
+    launches = {k: n + sum(p.get(k, 0) for p in (baselines, crosses, elementwise, config4,
+                                                         config5))
                 for k, n in launches.items()}
 
     import torch

@@ -164,8 +164,10 @@ def test_rand_and_randn(fn, mean, var):
     b = make([2, 3, 4, 5], batch=True, ranks_tt=2, device="cpu")
     jb = jtn.rand([2, 3, 4, 5], batch=True, ranks_tt=2)
     assert b.shape == tuple(jb.shape) and b.ranks_tt.tolist() == jb.ranks_tt.tolist()
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        make([3, 4], ranks_cp=2, device="cpu")
+    # CP ranks give CP factors, as in the JAX package
+    cp = make([3, 4], ranks_cp=2, device="cpu")
+    assert [tuple(c.shape) for c in cp.cores] == [(3, 2), (4, 2)]
+    assert cp.ranks_tt.tolist() == getattr(jtn, fn)([3, 4], ranks_cp=2).ranks_tt.tolist()
 
 
 def test_parallel_ports_only_tt_batch_forward():

@@ -179,9 +179,26 @@ def test_bool_masks_on_every_mode_follow_numpy():
 
 
 def test_mask_tensor_key_is_not_ported():
+    """Reading through a mask-Tensor key is ported (below); assigning
+    through one waits, with every assignment, for queue 1 item 2."""
     t, _ = _pair(8)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    key = tn.presence(4, [0, 2], device="cpu", dtype=t.dtype)
+    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+        t[key] = 0.0
+
+
+def test_mask_tensor_key_matches_jax():
+    """A mask-Tensor key with one accepted string selects as in the JAX
+    package (tests/test_torch_logic.py holds more of them), and a tensor
+    that is not such a mask is refused as the JAX package refuses it."""
+    t, jt = _pair(8)
+    with pytest.raises(ValueError, match="exactly 1 accepting string"):
         t[t]
+    key = tn.presence(4, [0, 2], device="cpu", dtype=t.dtype) & tn.absence(
+        4, [1, 3], device="cpu", dtype=t.dtype)
+    # with the default idxs, symbol 1 is every coordinate but 0
+    _close(t[key], jt[jtn.presence(4, [0, 2]) & jtn.absence(4, [1, 3])])
+    _close(t[key], _dense(jt)[1:, 0, 1:, 0])
 
 
 def test_gradient_through_indexing_matches_jax_grad():

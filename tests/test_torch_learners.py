@@ -139,10 +139,8 @@ def test_learners_own_draws_and_errors():
     with pytest.raises(tn.parallel.ParallelNotPorted):
         tn.TTRegressor(mesh="mesh")
     assert tn.models.TTRegressor is tn.TTRegressor
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tn.models.TTMatrix()
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tn.models.matrix.TTMatrix
+    # the operators of models/matrix.py are ported (tests/test_torch_matrix.py)
+    assert tn.models.TTMatrix is tn.models.matrix.TTMatrix is tn.TTMatrix
 
 
 def test_exponential_machines_match_jax():

@@ -313,8 +313,9 @@ def test_rand_with_tucker_ranks_and_the_setters():
     full = tn.rand([2, 6, 7], batch=True, ranks_tucker=3, device="cpu")
     jfull = jtn.rand([2, 6, 7], batch=True, ranks_tucker=3)
     assert full.ranks_tt.tolist() == jfull.ranks_tt.tolist() and full.Us[1].shape == (2, 7, 3)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        tn.rand([3, 4], ranks_cp=2, device="cpu")
+    hybrid = tn.rand([3, 4, 5], ranks_cp=[2, None, None], ranks_tt=[None, 3], device="cpu")
+    jhybrid = jtn.rand([3, 4, 5], ranks_cp=[2, None, None], ranks_tt=[None, 3])
+    assert [c.shape for c in hybrid.cores] == [tuple(c.shape) for c in jhybrid.cores]
     a, ja = _tt(16, ranks=(5, 5, 5))
     a.ranks_tt, ja.ranks_tt = 2, 2
     a.ranks_tucker, ja.ranks_tucker = 3, 3

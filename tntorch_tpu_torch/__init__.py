@@ -1,9 +1,10 @@
 """tntorch_tpu_torch: the PyTorch + CUDA port of ``tntorch_tpu``.
 
 The same flat ``tn.*`` namespace, for the slices ported so far: build a
-tensor train with optional Tucker factors (from cores and factors; from
-dense data, exactly or by TT-SVD and Tucker rounding to ``ranks_tt``/
-``ranks_tucker`` or an error budget ``eps``; at random with
+tensor train, CP tensor or hybrid with optional Tucker factors (from cores
+and factors; from dense data, exactly or by TT-SVD and Tucker rounding to
+``ranks_tt``/``ranks_tucker``, by CP-ALS to ``ranks_cp``, or to an error
+budget ``eps``; at random with
 ``rand``/``randn``; as constants and grids with ``ones``, ``zeros``,
 ``full``, ``eye``, ``gaussian``, the ``*_like`` forms, ``arange``,
 ``linspace``, ``logspace``), do arithmetic on it (``+``, ``-``, ``*``,
@@ -27,7 +28,14 @@ cross), manipulate it (``cat``,
 Tucker bases by ``generate_basis``/``Tensor.set_factors``), complete it
 from sparse samples (``als_completion``, ``sparse_tt_svd``), build
 surrogates (``lars_path``, ``PCEInterpolator`` and its feature helpers)
-and learn with it (``TTRegressor``, ``TTClassifier``).
+and learn with it (``TTRegressor``, ``TTClassifier``), analyse it (ANOVA
+and Sobol indices: ``anova_decomposition``, ``sobol``, ``mean_dimension``,
+``dimension_distribution``, ...; propositional logic on {0, 1}^N masks:
+``symbols``, ``only``, ``implies``, ...; weighted automata:
+``weight_mask``, ``accepted_inputs``, ...; finite-difference calculus:
+``partial``, ``gradient``, ``divergence``, ``curl``, ``laplacian``,
+``active_subspace``, ``dgsm``), and build operators from it (``TTMatrix``,
+``CPMatrix``, ``tt_multiply``, ``cp_multiply``).
 Data without a device lands on the CUDA card (`utils.default_device`). The
 package imports torch, numpy and scipy, never jax. Names of ``tntorch_tpu``
 outside the slices exist here as functions (or, for its submodules,
@@ -35,7 +43,14 @@ modules) that raise ``NotImplementedError`` naming the ROADMAP item that
 will port them.
 """
 
-from tntorch_tpu_torch import interop, interpolation, models, parallel, tools, utils
+from tntorch_tpu_torch import (
+    anova, automata, derivatives, interop, interpolation, logic, models, parallel, tools, utils,
+)
+from tntorch_tpu_torch.anova import (
+    anova_decomposition, dimension_distribution, mean_dimension, sobol, truncate_anova,
+    undo_anova_decomposition,
+)
+from tntorch_tpu_torch.automata import accepted_inputs, length, weight, weight_mask, weight_one_hot
 from tntorch_tpu_torch.autodiff import dof, optimize
 from tntorch_tpu_torch.create import (
     arange, eye, full, full_like, gaussian, gaussian_like, linspace, logspace, ones, ones_like,
@@ -44,9 +59,16 @@ from tntorch_tpu_torch.create import (
 from tntorch_tpu_torch.cross import (
     argmax, argmin, cross, cross_forward, init_interfaces, maximum, minimum,
 )
+from tntorch_tpu_torch.derivatives import (
+    active_subspace, curl, dgsm, divergence, gradient, laplacian, partial, partialset,
+)
 from tntorch_tpu_torch.interpolation import (
     PCEInterpolator, als_completion, empirical_marginals, features2indices, get_bounding_box,
     gram_schmidt, indices2features, lars_path, sparse_tt_svd,
+)
+from tntorch_tpu_torch.logic import (
+    absence, all, any, equiv, false, implies, irrelevant_symbols, is_contradiction,
+    is_satisfiable, is_tautology, none, one, only, presence, relevant_symbols, symbols, true,
 )
 from tntorch_tpu_torch.maxvol import maxvol, py_maxvol, py_rect_maxvol, rect_maxvol
 from tntorch_tpu_torch.metrics import (
@@ -60,7 +82,9 @@ from tntorch_tpu_torch.ops.rounding import (
 )
 from tntorch_tpu_torch.round import round, round_tt, round_tucker, truncated_svd
 from tntorch_tpu_torch.tensor import Tensor, _not_ported_module, _not_ported_stub
-from tntorch_tpu_torch.models import TTClassifier, TTRegressor
+from tntorch_tpu_torch.models import (
+    CPMatrix, TTClassifier, TTMatrix, TTRegressor, cp_multiply, matrix, tt_multiply,
+)
 from tntorch_tpu_torch.tools import (
     cat, convolve, flip, generate_basis, hash, left_unfolding, mask, meshgrid, pad, reduce,
     right_unfolding, sample, shift_mode, squeeze, stack, transpose, ttm, unbind, unfolding,
@@ -73,21 +97,12 @@ from tntorch_tpu_torch.utils import (
 # The JAX package's public names that no slice has ported yet, by the ROADMAP
 # item (queue 1) that will port them
 _NOT_PORTED = {
-    "queue 1 item 10": (
-        "anova_decomposition", "undo_anova_decomposition", "truncate_anova", "sobol",
-        "mean_dimension", "dimension_distribution", "true", "false", "all", "none", "any",
-        "one", "symbols", "relevant_symbols", "irrelevant_symbols", "only", "presence",
-        "absence", "is_tautology", "is_contradiction", "is_satisfiable", "implies", "equiv",
-        "weight_mask", "weight_one_hot", "weight", "length", "accepted_inputs", "partialset",
-        "partial", "gradient", "active_subspace", "dgsm", "divergence", "curl", "laplacian",
-        "TTMatrix", "CPMatrix", "tt_multiply", "cp_multiply"),
     "queue 1 item 11": (
         "save", "load", "save_matrix", "load_matrix", "save_orbax", "load_orbax",
         "save_orbax_sharded", "load_orbax_sharded"),
 }
 # ... and its submodules
 _NOT_PORTED_MODULES = {
-    "queue 1 item 10": ("anova", "automata", "derivatives", "logic", "matrix"),
     "queue 1 item 11": ("serialization",),
 }
 

@@ -1,7 +1,8 @@
 """Constructors: random, constant and structured tensor trains.
 
-Counterpart of ``tntorch_tpu/create.py``. ``rand``/``randn`` take TT and
-Tucker ranks; JAX's ``key=`` becomes a ``torch.Generator``
+Counterpart of ``tntorch_tpu/create.py``. ``rand``/``randn`` take TT, CP
+and Tucker ranks (a mode with a CP rank gets an (I, R) factor, and the TT
+ranks beside it must be left out); JAX's ``key=`` becomes a ``torch.Generator``
 (``generator=``), which draws the factors and the cores, mode by mode,
 factor first; the two packages give different numbers from the same seed.
 ``ones``, ``zeros`` and ``full`` are rank 1 (with ones as factors where
@@ -10,8 +11,7 @@ rank-1 Tucker tensor of normalized Gaussian bells, and ``arange``,
 ``linspace``, ``logspace`` 1-D tensors of NumPy's grids (the JAX package's
 signatures). Cores land on ``device``, by default the package's default
 device (the CUDA card); the ``*_like`` forms default to the model tensor's
-device and take its shape, not its dtype, as in the JAX package. CP ranks
-are not ported (ROADMAP.md, queue 1 item 3).
+device and take its shape, not its dtype, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tntorch_tpu_torch.tensor import Tensor, _not_ported
+from tntorch_tpu_torch.tensor import Tensor
 from tntorch_tpu_torch.utils import default_device, default_dtype
 
 
@@ -160,8 +160,6 @@ def _create(draw, *shape, ranks_tt=None, ranks_cp=None, ranks_tucker=None,
             generator: Optional[torch.Generator] = None) -> Tensor:
     if hasattr(shape[0], "__len__"):
         shape = tuple(shape[0])
-    if ranks_cp is not None:
-        raise _not_ported("CP ranks", "queue 1 item 3")
     dtype = dtype or default_dtype()
     device = device or default_device()
     bdim = tuple(shape[:1]) if batch else ()
@@ -171,13 +169,25 @@ def _create(draw, *shape, ranks_tt=None, ranks_cp=None, ranks_tucker=None,
         ranks_tucker = [ranks_tucker] * N
     # the cores' middle axes: a mode's Tucker rank where it has a factor
     inner = [s if rt is None else int(rt) for s, rt in zip(spatial, ranks_tucker)]
-    if ranks_tt is None:
+    if ranks_tt is None and ranks_cp is None:
         ranks_tt = _full_ranks(inner)
     if not hasattr(ranks_tt, "__len__"):
         ranks_tt = [ranks_tt] * (N - 1)
-    ranks = [1, *ranks_tt, 1]
-    if len(ranks) != N + 1 or any(r is None for r in ranks):
-        raise ValueError("One or more TT ranks were not specified")
+    if not hasattr(ranks_cp, "__len__"):
+        ranks_cp = [ranks_cp] * N
+    tt_edges = [None, *ranks_tt, None]
+    if len(tt_edges) != N + 1 or len(ranks_cp) != N:
+        raise ValueError("ranks_tt needs N - 1 entries and ranks_cp N")
+    ranks = list(tt_edges)
+    for n, rc in enumerate(ranks_cp):  # a CP factor's rank is both of its edges
+        if rc is not None:
+            if tt_edges[n] is not None or tt_edges[n + 1] is not None:
+                raise ValueError("The ranks_tt and ranks_cp provided are incompatible")
+            ranks[n] = ranks[n + 1] = rc
+    ranks[0] = 1 if ranks[0] is None else ranks[0]
+    ranks[-1] = 1 if ranks[-1] is None else ranks[-1]
+    if any(r is None for r in ranks):
+        raise ValueError("One or more TT/CP ranks were not specified")
     # Draw where the generator lives (the caller's stream of numbers), then move
     where = generator.device if generator is not None else device
 
@@ -187,5 +197,6 @@ def _create(draw, *shape, ranks_tt=None, ranks_cp=None, ranks_tucker=None,
     cores, Us = [], []
     for n in range(N):
         Us.append(None if ranks_tucker[n] is None else sample(spatial[n], inner[n]))
-        cores.append(sample(ranks[n], inner[n], ranks[n + 1]))
+        cores.append(sample(ranks[n], inner[n], ranks[n + 1]) if ranks_cp[n] is None
+                     else sample(inner[n], ranks_cp[n]))
     return Tensor(cores, Us=Us, batch=batch, requires_grad=requires_grad)

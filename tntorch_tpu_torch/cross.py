@@ -251,6 +251,8 @@ def cross(
     iterations ran; with ``ranks_tt`` they stay fixed. A batch of tensors
     runs one cross per sample (seeds ``seed + b``) and stacks the results
     (`tools.stack`); ``return_info`` then returns one info dict per sample.
+    Input tensors enter as their TT view (`Tensor.tt`: Tucker factors
+    multiplied in, CP factors as diagonal TT cores).
 
     The sweep runs where the inputs are: ``domain`` vectors that are not
     torch tensors land on ``device`` (default: the card), and ``tensors``
@@ -311,7 +313,7 @@ def cross(
             outs.append(r)
         stacked = stack(outs)
         return (stacked, infos) if return_info else stacked
-    tensors = [t.decompress_tucker_factors() for t in tensors]
+    tensors = [t.tt() for t in tensors]
     Is = list(tensors[0].shape)
     if any(list(t.shape) != Is for t in tensors):
         raise ValueError(f"the tensors must have one shape, got {[list(t.shape) for t in tensors]}")
@@ -626,7 +628,7 @@ def cross_forward(info, function=lambda x: x, domain=None, tensors=None,
         tensors = meshgrid(domain, device=device)
     if not hasattr(tensors, "__len__"):
         tensors = [tensors]
-    tensors = [t.decompress_tucker_factors() for t in tensors]
+    tensors = [t.tt() for t in tensors]
     Is = list(tensors[0].shape)
     N = len(Is)
     dev = tensors[0].device

@@ -17,7 +17,9 @@ from tntorch_tpu_torch.utils import default_device, to_numpy
 def tensor_from_arrays(cores, Us=None, batch: bool = False, device=None) -> Tensor:
     """Build a `Tensor` from array cores (NumPy, or anything ``np.asarray``
     takes), keeping their dtype, on ``device`` (default: the package's
-    default device, the CUDA card)."""
+    default device, the CUDA card). The cores are the JAX package's: TT
+    cores (R, I, R'), CP factors (I, R), or a mix of both, with a leading
+    batch axis when ``batch``."""
     device = device or default_device()
     cores = [torch.from_numpy(np.array(c)) for c in cores]
     if Us is not None:
@@ -26,7 +28,8 @@ def tensor_from_arrays(cores, Us=None, batch: bool = False, device=None) -> Tens
 
 
 def tensor_to_arrays(t: Tensor) -> list:
-    """The cores of ``t`` as NumPy arrays on the host."""
+    """The cores of ``t`` (TT cores and CP factors as they are) as NumPy
+    arrays on the host, the JAX package's layout."""
     return [c.detach().cpu().numpy() for c in t.cores]
 
 

@@ -43,7 +43,9 @@ def _flat(x, batch):
 @policy_precision
 def dot(t1, t2, k=None):
     """Generalized dot: contract the k leading modes (default: all), without
-    conjugation. Full contractions give a scalar, or (B,) for batches."""
+    conjugation. Full contractions give a scalar, or (B,) for batches. CP
+    factors take part as they are: each keeps the running product's axis
+    of its rank instead of contracting it."""
     t1, t2, dbatch = _process(t1, t2)
     if not isinstance(t1, Tensor) and not isinstance(t2, Tensor):
         return (_flat(t1, dbatch) * _flat(t2, dbatch)).sum(-1)
@@ -52,10 +54,16 @@ def dot(t1, t2, k=None):
     batch = t1.batch
     dtype = torch.promote_types(t1.dtype, t2.dtype)
 
+    m = 3 if batch else 2  # the ndim of a CP factor
+
     def _project_left(core, M):
+        if core.ndim == m:
+            return torch.einsum("...sr,...ar->...sar", M, core.to(dtype))
         return torch.einsum("...sr,...rai->...sai", M, core.to(dtype))
 
     def _project_spatial(core, M):
+        if core.ndim == m:
+            return torch.einsum("...ak,...aj->...jk", core.to(dtype), M.to(dtype))
         return torch.einsum("...iak,...aj->...ijk", core.to(dtype), M.to(dtype))
 
     Lprod = torch.ones((int(t2.ranks_tt[0]), int(t1.ranks_tt[0])), dtype=dtype, device=t1.device)
@@ -83,7 +91,8 @@ def dot(t1, t2, k=None):
             core2 = _project_spatial(core2, torch.einsum("...as,...ar->...sr", U2.to(dtype),
                                                          U1.to(dtype)))
         Ucore = _project_left(core1, Lprod)
-        Lprod = torch.einsum("...sai,...saj->...ij", core2.to(dtype), Ucore)
+        spec = "...as,...sar->...sr" if core2.ndim == m else "...sai,...saj->...ij"
+        Lprod = torch.einsum(spec, core2.to(dtype), Ucore)
 
     if k == t1.dim() and k == t2.dim():
         return Lprod.sum((-2, -1))

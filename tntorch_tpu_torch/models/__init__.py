@@ -1,13 +1,7 @@
-"""Model families: supervised TT-Tucker learners (`TTRegressor`,
-`TTClassifier`). The matrix-free operators of the JAX package's
-``models/matrix.py`` (``TTMatrix``, ``CPMatrix``, ``tt_multiply``,
-``cp_multiply``) are not ported yet and raise ``NotImplementedError``
-(ROADMAP.md, queue 1 item 10)."""
+"""Model families: matrix-free linear operators in TT and CP format
+(`matrix`: ``TTMatrix``, ``CPMatrix``, ``tt_multiply``, ``cp_multiply``)
+and supervised TT-Tucker learners (`TTRegressor`, `TTClassifier`)."""
 
+from tntorch_tpu_torch.models import matrix
 from tntorch_tpu_torch.models.learners import TTClassifier, TTRegressor
-from tntorch_tpu_torch.tensor import _not_ported_module, _not_ported_stub
-
-matrix = _not_ported_module("models.matrix", "queue 1 item 10")
-TTMatrix, CPMatrix, tt_multiply, cp_multiply = (
-    _not_ported_stub(name, "queue 1 item 10")
-    for name in ("TTMatrix", "CPMatrix", "tt_multiply", "cp_multiply"))
+from tntorch_tpu_torch.models.matrix import CPMatrix, TTMatrix, cp_multiply, tt_multiply

@@ -1,10 +1,11 @@
-"""The tensor-network container: tensor trains with optional Tucker factors.
+"""The tensor-network container: tensor trains, CP tensors and hybrids of
+the two, with optional Tucker factors.
 
-Counterpart of ``tntorch_tpu/tensor.py``. A `Tensor` holds N TT cores
-(R_{n-1} x S_n x R_n), with a leading batch axis B on every core when
-``batch=True``; mode n may carry a Tucker factor U_n (I_n x S_n, or
-B x I_n x S_n), in which case the core's middle axis is the factor's
-S_n and the mode's size is I_n. Cores and factors are ``torch.Tensor``s on
+Counterpart of ``tntorch_tpu/tensor.py``. A `Tensor` holds N cores, each a
+TT core (R_{n-1} x S_n x R_n) or a CP factor (S_n x R), with a leading
+batch axis B on every core when ``batch=True``; mode n may carry a Tucker
+factor U_n (I_n x S_n, or B x I_n x S_n), in which case the core's mode
+axis (-2) is the factor's S_n and the mode's size is I_n. Cores and factors are ``torch.Tensor``s on
 one device, chosen by the caller (``device=``); every method works where
 they are, and the batched Gram rounding runs on the card's kernels when
 they are on the card.
@@ -14,18 +15,26 @@ device, the CUDA card (`utils.default_device`); ``device="cpu"`` keeps it on
 the CPU. A dense array decomposes exactly (full rank), or to
 ``ranks_tt=``/``ranks_tucker=`` (TT-SVD, Tucker rounding; ``algorithm=
 'gram'``/``'randomized'`` for the fixed-rank kernels of
-`ops.decomposition`), or to an error budget ``eps=`` (`round`). Indexing
+`ops.decomposition`), or to an error budget ``eps=`` (`round`), or to
+``ranks_cp=`` by CP-ALS (`_cp_als_iter`, from the sequentially truncated
+HOSVD of `_cp_hosvd_factors`; on a Tucker core with ``ranks_tucker=``). A
+core list may mix CP factors, (I, R) or (B, I, R) in a batch, with TT
+cores: a CP factor is a TT core with diagonal slices (`_cp_to_tt`), and
+``+``, ``*``, ``dot``, ``full`` and indexing act on it as it is. Indexing
 (``t[key]``) follows NumPy over the compressed cores; a key that indexes
-every mode of a TT without factors with coordinate arrays evaluates it
-through `ops.tt_eval.TTEval`, the card's evaluation kernels.
+every mode of a TT or CP tensor without factors with coordinate arrays
+evaluates it through `ops.tt_eval.TTEval`, the card's evaluation kernels
+(CP factors converted to TT cores first); a mask Tensor with one accepted
+string (`automata.accepted_inputs`) selects the entries whose ``idxs``
+match that string.
 ``requires_grad=True`` makes the cores and factors leaf tensors for
 autograd and `optimize`. Division by a Tensor (``t / t2``, ``2.0 / t``)
 and ``**`` are cross approximations (`tn.reciprocal`, `tn.cross`). Each
 mode carries an index annotation ``idxs`` (NumPy; ``arange`` by default,
 with a leading ``arange(B)`` for a batch), as in the JAX package.
 
-CP cores (``ranks_cp=``), ``__setitem__`` and mask-Tensor keys are not
-ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
+``__setitem__`` is not ported yet and raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -187,47 +196,147 @@ def _rmax_per_mode(rmax, n: int) -> list:
     return list(rmax)
 
 
+def _cp_khatri_asc(cores, batch: bool):
+    """Khatri-Rao product of CP factors (..., I_n, R), rows in C order
+    (earlier modes slower), so that they align with reshapes of the data."""
+    R = cores[0].shape[-1]
+    bshape = tuple(cores[0].shape[:1]) if batch else ()
+    k = cores[0]
+    for c in cores[1:]:
+        k = (k[..., :, None, :] * c[..., None, :, :]).reshape(bshape + (-1, R))
+    return k
+
+
+def _cp_als_iter(data, cores, normsq_data, batch: bool = False):
+    """One CP-ALS sweep over every mode, then the relative error, as a
+    device scalar (the batch's mean for a batch). The right-hand side of
+    mode n is three GEMMs on the data as it lies, ``sum_l [reshape(data,
+    (L I_n, T)) @ KR]_{l,i,r} KL_{l,r}``, with no mode-n unfolding copy;
+    each mode solves its R x R normal equations by ``pinv``. The error
+    comes from ``|data - X|^2 = |data|^2 - 2<data, X> + |X|^2``, whose
+    terms the last mode's equations already hold: no dense
+    reconstruction. ``cores`` may be any start (the tests feed the JAX
+    package's)."""
+    N = len(cores)
+    bshape = tuple(data.shape[:1]) if batch else ()
+    shapes = data.shape[len(bshape):]
+    R = cores[0].shape[-1]
+    cores = list(cores)
+    grams = [c.mT @ c for c in cores]
+    rhs = prod = None
+    for n in range(N):
+        prod = torch.ones_like(grams[0])
+        for m in range(N):
+            if m != n:
+                prod = prod * grams[m]
+        L = int(np.prod(shapes[:n], dtype=np.int64))
+        if n == N - 1:  # the trailing mode: unf^T @ KL as one transposed GEMM
+            M2 = data.reshape(bshape + (L, shapes[n]))
+            rhs = torch.einsum("...li,...lr->...ir", M2, _cp_khatri_asc(cores[:n], batch))
+        else:
+            KR = _cp_khatri_asc(cores[n + 1:], batch)
+            Y = (data.reshape(bshape + (L * shapes[n], -1)) @ KR).reshape(
+                bshape + (L, shapes[n], R))
+            if n == 0:
+                rhs = Y.reshape(bshape + (shapes[0], R))
+            else:
+                rhs = (Y * _cp_khatri_asc(cores[:n], batch)[..., :, None, :]).sum(-3)
+        cores[n] = (torch.linalg.pinv(prod) @ rhs.mT).mT
+        grams[n] = cores[n].mT @ cores[n]
+    red = (-2, -1)
+    dot_dx = (rhs * cores[N - 1]).sum(red)
+    normsq_x = (prod * grams[N - 1]).sum(red)
+    relsq = (normsq_data - 2 * dot_dx + normsq_x).clamp(min=0) / normsq_data
+    return tuple(cores), (relsq.sqrt().mean() if batch else relsq.sqrt())
+
+
+def _cp_hosvd_factors(data, R: int, batch: bool = False):
+    """The CP-ALS start: the sequentially truncated HOSVD. Mode n's factor
+    is the top min(R, I_n) eigenvectors of the Gram of the data projected
+    onto the factors of modes 0..n-1, so only mode 0 reads the whole
+    tensor, on its own layout. ``eigh`` fixes each column up to its sign,
+    which torch and JAX may choose differently: the tests compare the
+    factors by their projectors and carry the JAX package's across."""
+    bshape = tuple(data.shape[:1]) if batch else ()
+    shapes = data.shape[len(bshape):]
+    N = len(shapes)
+    core = data.reshape(bshape + (1,) + tuple(shapes))
+    factors = []
+    for n in range(N):
+        P, I = core.shape[len(bshape)], shapes[n]
+        M = core.reshape(bshape + (P, I, -1))
+        gram = torch.einsum("...pit,...pjt->...ij", M, M)
+        U = torch.linalg.eigh(gram)[1].flip(-1)[..., :min(R, I)]
+        factors.append(U)
+        if n < N - 1:
+            core = torch.einsum("...pit,...ir->...prt", M, U).reshape(
+                bshape + (P * U.shape[-1],) + tuple(shapes[n + 1:]))
+    return tuple(factors)
+
+
+def _cp_random_factors(shapes, R: int, like: torch.Tensor):
+    """Standard-normal (..., I, R) CP factors, one per size in ``shapes``,
+    in ``like``'s dtype and on its device, from fresh entropy: the start of
+    CP-ALS on a Tucker core, and the columns that pad the HOSVD start where
+    R > I_n (the JAX package draws ``jax.random.normal`` from its key
+    stream, which torch cannot replay; the tests patch this helper)."""
+    from tntorch_tpu_torch.utils import next_key
+
+    g = next_key(device=like.device)
+    return [torch.randn(tuple(s) + (R,), generator=g, dtype=like.dtype, device=like.device)
+            for s in shapes]
+
+
 class Tensor:
-    """A tensor train with optional Tucker factors, or a batch of B of them
-    of one shape."""
+    """A tensor train, CP tensor or hybrid with optional Tucker factors, or
+    a batch of B of them of one shape."""
 
     def __init__(self, data, Us=None, idxs=None, device=None, requires_grad=None,
                  ranks_cp=None, ranks_tucker=None, ranks_tt=None, eps=None,
                  max_iter: int = 25, tol: float = 1e-4, verbose: bool = False,
                  batch: bool = False, algorithm: str = "svd", dtype=None):
-        """Build from a list of TT cores (and optional Tucker factors
-        ``Us``), or from a dense array: exactly (full rank), to
-        ``ranks_tt``/``ranks_tucker``, or to the relative error ``eps``.
+        """Build from a list of TT cores and CP factors (and optional Tucker
+        factors ``Us``), or from a dense array: exactly (full rank), to
+        ``ranks_tt``/``ranks_tucker``, by CP-ALS to ``ranks_cp`` (with
+        ``ranks_tucker``: on the Tucker core), or to the relative error
+        ``eps``.
         ``device``/``dtype`` move and cast the cores and factors. The
-        parameters are the JAX package's, in its order; ``max_iter``,
-        ``tol`` and ``verbose`` steer CP-ALS, which is not ported, and
-        change nothing here. ``algorithm`` picks the rounding ('svd',
-        'eig'), or for ``ranks_tt`` alone the fixed-rank TT-SVD kernels
-        ('gram', 'randomized')."""
-        if ranks_cp is not None:
-            raise _not_ported("CP-ALS (ranks_cp=)", "queue 1 item 3")
-        if eps is not None and (ranks_tucker is not None or ranks_tt is not None):
+        parameters are the JAX package's, in its order; ``ranks_cp`` runs
+        CP-ALS (at most ``max_iter`` sweeps, until a sweep gains less than
+        ``tol`` of relative error; ``verbose`` prints each sweep's).
+        ``algorithm`` picks the rounding ('svd', 'eig'), or for
+        ``ranks_tt`` alone the fixed-rank TT-SVD kernels ('gram',
+        'randomized')."""
+        if eps is not None and (ranks_tucker is not None or ranks_tt is not None
+                                or ranks_cp is not None):
             raise ValueError("Specify eps or ranks, but not both")
         self.batch = bool(batch)
         self.requires_grad = bool(requires_grad)  # None means False
         # Modes whose Tucker factor is fixed: not trained by optimize, not
         # counted by dof
         self.frozen_Us = set()
-        tt_ndim = 4 if self.batch else 3
         if isinstance(data, (list, tuple)):
             cores = [asarray(d, dtype=dtype, device=device) for d in data]
-            if any(c.ndim == tt_ndim - 1 for c in cores):
-                raise _not_ported("CP cores", "queue 1 item 3")
-            if not all(c.ndim == tt_ndim for c in cores):
-                raise ValueError(f"All tensor cores must have {tt_ndim} dimensions")
+            if not all(self._m <= c.ndim <= self._m + 1 for c in cores):
+                raise ValueError("All tensor cores must have 2 (for CP) or 3 (for TT) "
+                                 "dimensions, one more in a batch")
             if len({c.device for c in cores}) > 1:
                 raise ValueError("All tensor cores must be on one device")
-            d = 1 if self.batch else 0
             for n in range(len(cores) - 1):
-                if cores[n].shape[-1] != cores[n + 1].shape[d]:
+                # a TT core's left rank, or a CP factor's rank (its last axis)
+                nxt = cores[n + 1].shape[-1 if cores[n + 1].ndim == self._m else -3]
+                if cores[n].shape[-1] != nxt:
                     raise ValueError("Core ranks do not match")
             self.cores = cores
             self.Us = self._factors(Us, dtype)
+        elif ranks_cp is not None:
+            if ranks_tt is not None:
+                raise ValueError("ALS for CP-TT is not yet supported")
+            if hasattr(ranks_cp, "__len__"):
+                raise ValueError("ranks_cp of a dense tensor is one rank")
+            data = asarray(data, dtype=dtype, device=device)
+            self._init_cp_als(data[None] if data.ndim == 0 else data, int(ranks_cp),
+                              ranks_tucker, max_iter, tol, verbose, algorithm)
         else:
             self._decompose(asarray(data, dtype=dtype, device=device), ranks_tt,
                             ranks_tucker, algorithm)
@@ -256,6 +365,40 @@ class Tensor:
                 raise ValueError(f"Tucker factor {n} has shape {tuple(U.shape)}: it must have "
                                  f"{fd} dimensions and {self.cores[n].shape[-2]} columns")
         return Us
+
+    @policy_precision
+    def _init_cp_als(self, data, R, ranks_tucker, max_iter, tol, verbose, algorithm):
+        """CP-ALS of the dense ``data``: from the HOSVD start
+        (`_cp_hosvd_factors`, padded by `_cp_random_factors` where R > I_n),
+        or, with ``ranks_tucker``, on the Tucker core of the Tucker-rounded
+        data from a random start, the factors kept. One read of the error a
+        sweep."""
+        bshape = tuple(data.shape[:1]) if self.batch else ()
+        if ranks_tucker is None:
+            self.Us = [None] * (data.ndim - len(bshape))
+            cores = []
+            for c in _cp_hosvd_factors(data, R, self.batch):
+                if c.shape[-1] < R:
+                    pad = _cp_random_factors([c.shape[:-1]], R - c.shape[-1], c)[0]
+                    c = torch.cat([c, pad], dim=-1)
+                cores.append(c)
+        else:
+            self.cores = _full_rank_tt(data, self.batch)
+            self.Us = [None] * len(self.cores)
+            self.round_tucker(rmax=ranks_tucker, algorithm=algorithm)
+            data = self.tucker_core()
+            cores = _cp_random_factors([bshape + (s,) for s in data.shape[len(bshape):]], R,
+                                       data)
+        errors = []
+        normsq = (data * data).sum(tuple(range(len(bshape), data.ndim)))
+        for it in range(max_iter):
+            cores, rel = _cp_als_iter(data, cores, normsq, self.batch)
+            errors.append(float(rel))
+            if verbose:
+                print(f"iter: {it} | eps: {errors[-1]:.8f}")
+            if len(errors) >= 2 and errors[-2] - errors[-1] < tol:
+                break
+        self.cores = list(cores)
 
     def _decompose(self, data, ranks_tt, ranks_tucker, algorithm):
         """TT (and Tucker) cores of the dense ``data``, as the JAX package
@@ -287,6 +430,28 @@ class Tensor:
     # ------------------------------------------------------------------
     # Arithmetic
     # ------------------------------------------------------------------
+    @property
+    def _m(self) -> int:
+        """The ndim of a CP factor in this tensor's layout (a TT core has
+        one more)."""
+        return 3 if self.batch else 2
+
+    def _is_tt(self, core) -> bool:
+        return core.ndim == self._m + 1
+
+    def _absorb(self, core, U):
+        """Mode factor ``U`` (..., I, S) multiplied into ``core``: a CP
+        factor (..., S, R) becomes (..., I, R), a TT core (..., Rl, S, Rr)
+        becomes (..., Rl, I, Rr)."""
+        if core.ndim == self._m:
+            return torch.einsum("...jk,...aj->...ak", core, U)
+        return _absorb(core, U)
+
+    def _lift(self, core):
+        """A CP factor (..., I, R) as the (..., 1, I, R) TT core of rank-1
+        left; a TT core as it is."""
+        return core.unsqueeze(-3) if core.ndim == self._m else core
+
     def __add__(self, other):
         if not isinstance(other, Tensor):  # scalar, or one scalar per sample
             c0 = self.cores[0]
@@ -301,12 +466,23 @@ class Tensor:
         this, other = _broadcast(self, other)
 
         if this.dim() == 1:
-            a, b = this.tt().cores[0], other.tt().cores[0]
-            return Tensor([a + b], batch=self.batch)
+            def one_mode(t):
+                # a CP factor's values are its column sums: adding (I, R) to
+                # (1, I, 1) core by core would count the other operand R times
+                c = t.decompress_tucker_factors().cores[0]
+                return self._lift(c.sum(-1, keepdim=True)) if c.ndim == self._m else c
 
+            return Tensor([one_mode(this) + one_mode(other)], batch=self.batch)
+
+        cp = [this.cores[n].ndim == self._m and other.cores[n].ndim == self._m
+              for n in range(this.dim())]
         cores, Us = [], []
         for n in range(this.dim()):
             core1, core2 = this.cores[n], other.cores[n]
+            if cp[n]:  # two CP factors: block-diagonal over the lifted views
+                core1, core2 = self._lift(core1), self._lift(core2)
+            else:
+                core1, core2 = self._cp_to_tt(core1), self._cp_to_tt(core2)
             U1, U2 = this.Us[n], other.Us[n]
             if U1 is not None and U2 is not None:
                 # Block-diagonal over the rank axes and the Tucker axis
@@ -319,10 +495,13 @@ class Tensor:
                 core2 = _absorb(core2, U2)
             cores.append(_block_diag(core1, core2, spatial=False))
             Us.append(None)
-        # Boundary rank-1 collapses
+        # Boundary rank-1 collapses; two CP factors drop their lifted axis
         d = 1 if self.batch else 0
-        cores[0] = cores[0].sum(dim=d, keepdim=True)
-        cores[-1] = cores[-1].sum(dim=-1, keepdim=True)
+        if not cp[0]:
+            cores[0] = cores[0].sum(dim=d, keepdim=True)
+        if not cp[-1]:
+            cores[-1] = cores[-1].sum(dim=-1, keepdim=True)
+        cores = [c.sum(dim=d) if both else c for c, both in zip(cores, cp)]
         return Tensor(cores, Us=Us, batch=self.batch)
 
     def __radd__(self, other):
@@ -345,11 +524,15 @@ class Tensor:
                 # graph); one scalar per sample, shape (B,), spreads per core
                 arr = torch.as_tensor(other)
                 factor, sign = arr.abs() ** (1.0 / self.dim()), torch.sgn(arr)
-                if self.batch and arr.ndim == 1:
-                    factor, sign = factor.reshape(-1, 1, 1, 1), sign.reshape(-1, 1, 1, 1)
-                result.cores = [c * factor.to(c.device, c.dtype) for c in result.cores]
+
+                def per_sample(x, c):  # (B,) over a TT core's or a CP factor's axes
+                    if self.batch and arr.ndim == 1:
+                        x = x.reshape((-1,) + (1,) * (c.ndim - 1))
+                    return x.to(c.device, c.dtype)
+
+                result.cores = [c * per_sample(factor, c) for c in result.cores]
                 c0 = result.cores[0]
-                result.cores[0] = c0 * sign.to(c0.device, c0.dtype)
+                result.cores[0] = c0 * per_sample(sign, c0)
                 return result
             # Python floats keep the cores' dtype
             factor = float(np.abs(other) ** (1.0 / self.dim()))
@@ -361,6 +544,11 @@ class Tensor:
         cores, Us = [], []
         for n in range(this.dim()):
             core1, core2 = this.cores[n], other.cores[n]
+            cp = core1.ndim == self._m and core2.ndim == self._m
+            if cp:  # two CP factors: the Kronecker product of the lifted views
+                core1, core2 = self._lift(core1), self._lift(core2)
+            else:
+                core1, core2 = self._cp_to_tt(core1), self._cp_to_tt(core2)
             U1, U2 = this.Us[n], other.Us[n]
             if (U1 is not None and U2 is not None
                     and core1.shape[-2] * core2.shape[-2] < this.shape[n + off]):
@@ -371,13 +559,15 @@ class Tensor:
                     core1.shape[-1] * core2.shape[-1])))
                 U = torch.einsum("...ij,...ik->...ijk", U1, U2)
                 Us.append(U.reshape(U.shape[:-2] + (-1,)))
-                continue
-            if U1 is not None:
-                core1 = _absorb(core1, U1)
-            if U2 is not None:
-                core2 = _absorb(core2, U2)
-            cores.append(_core_kron(core1, core2, self.batch))
-            Us.append(None)
+            else:
+                if U1 is not None:
+                    core1 = _absorb(core1, U1)
+                if U2 is not None:
+                    core2 = _absorb(core2, U2)
+                cores.append(_core_kron(core1, core2, self.batch))
+                Us.append(None)
+            if cp:
+                cores[-1] = cores[-1].squeeze(-3)
         return Tensor(cores, Us=Us, batch=self.batch)
 
     def __rmul__(self, other):
@@ -448,7 +638,9 @@ class Tensor:
 
     @property
     def ranks_tt(self):
-        first = self.cores[0].shape[1 if self.batch else 0]
+        # a CP factor's rank is its last axis, on both sides
+        c0 = self.cores[0]
+        first = c0.shape[-1] if c0.ndim == self._m else c0.shape[-3]
         return np.array([first] + [c.shape[-1] for c in self.cores])
 
     @ranks_tt.setter
@@ -490,7 +682,9 @@ class Tensor:
         # The JAX package's tensor-network diagram
         N = self.dim()
         tucker = any(U is not None for U in self.Us)
-        s = "{}D {} tensor:\n\n".format(N, "TT-Tucker" if tucker else "TT")
+        kinds = [("TT", any(self._is_tt(c) for c in self.cores)),
+                 ("CP", any(c.ndim == self._m for c in self.cores)), ("Tucker", tucker)]
+        s = "{}D {} tensor:\n\n".format(N, "-".join(k for k, present in kinds if present))
         if self.batch:
             s += f"with batch = {self.cores[0].shape[0]}\n"
 
@@ -516,7 +710,7 @@ class Tensor:
             s += "".join(row) + "\n"
         row = [" "] * (4 * N - 1)
         for n in range(N):
-            node = f"({n})"
+            node = f"<{n}>" if self.cores[n].ndim == self._m else f"({n})"
             p = (n + 1) * 4 - (len(node) - 1) // 2
             row[p:p + len(node)] = node
         s += "".join(row[2:]) + "\n"
@@ -546,7 +740,7 @@ class Tensor:
         cores, Us = [], []
         for n, (c, U) in enumerate(zip(self.cores, self.Us)):
             if n in dim and U is not None:
-                cores.append(_absorb(c, U))
+                cores.append(self._absorb(c, U))
                 Us.append(None)
             else:
                 cores.append(c)
@@ -554,8 +748,11 @@ class Tensor:
         return Tensor(cores, Us=Us, idxs=getattr(self, "idxs", None), batch=self.batch)
 
     def tt(self):
-        """The same tensor as a plain TT (factors multiplied in)."""
-        return self.decompress_tucker_factors()
+        """The same tensor as a plain TT: factors multiplied in, CP factors
+        as TT cores."""
+        t = self.decompress_tucker_factors()
+        t._cp_to_tt()
+        return t
 
     @policy_precision
     def full(self) -> torch.Tensor:
@@ -564,8 +761,14 @@ class Tensor:
         c0 = t.cores[0]
         bshape = (c0.shape[0],) if self.batch else ()
         factor = torch.ones(bshape + (1, int(self.ranks_tt[0])), dtype=c0.dtype, device=c0.device)
-        for core in t.cores:
-            factor = torch.einsum("...ai,...ibj->...abj", factor, core)
+        last = t.dim() - 1
+        for n, core in enumerate(t.cores):
+            if core.ndim == self._m:  # a CP factor: a diagonal core
+                spec = "...ai,...bi->...ab" if n == last else "...ai,...bi->...abi"
+                factor = torch.einsum(spec, factor, core)
+                factor = factor[..., None] if n == last else factor
+            else:
+                factor = torch.einsum("...ai,...ibj->...abj", factor, core)
             factor = factor.reshape(bshape + (-1, factor.shape[-1]))
         factor = factor.sum(-1) if factor.shape[-1] > 1 else factor[..., 0]
         return factor.reshape(self.shape)
@@ -586,12 +789,23 @@ class Tensor:
         return self
 
     def _cp_to_tt(self, factor=None):
-        """TT cores are already TT: a no-op (CP cores are not ported)."""
-        tt_ndim = 4 if self.batch else 3
-        for c in self.cores if factor is None else [factor]:
-            if c.ndim != tt_ndim:
-                raise _not_ported("CP cores", "queue 1 item 3")
-        return factor
+        """A CP factor (..., I, R) as the TT core with diagonal slices
+        ``C[..., a, i, b] = delta(a, b) factor[..., i, a]``; a TT core as it
+        is. Without ``factor``, converts every core in place: the first
+        factor becomes (..., 1, I, R) and the last (..., R, I, 1)."""
+        m = self._m
+        if factor is None:
+            if self.cores[0].ndim == m:
+                self.cores[0] = self._lift(self.cores[0])
+            for mu in range(1, self.dim() - 1):
+                self.cores[mu] = self._cp_to_tt(self.cores[mu])
+            if self.cores[-1].ndim == m:
+                self.cores[-1] = self.cores[-1].mT[..., None]
+            return None
+        if factor.ndim == m + 1:
+            return factor
+        eye = torch.eye(factor.shape[-1], dtype=factor.dtype, device=factor.device)
+        return eye[:, None, :] * factor.mT[..., :, :, None]
 
     def as_leaf(self):
         """Detach the cores and factors from autograd, in place; returns self."""
@@ -667,7 +881,7 @@ class Tensor:
             return
         Q, R = torch.linalg.qr(self.Us[mu])
         self.Us[mu] = Q
-        self.cores[mu] = _absorb(self.cores[mu], R)
+        self.cores[mu] = self._absorb(self.cores[mu], R)
 
     @policy_precision
     def left_orthogonalize(self, mu: int):
@@ -699,6 +913,7 @@ class Tensor:
         factors of the swept modes orthogonalized on the way)."""
         if mu < 0:
             mu += self.dim()
+        self._cp_to_tt()
         c0 = self.cores[0]
         bshape = (c0.shape[0],) if self.batch else ()
         L = torch.ones(bshape + (1, 1), dtype=c0.dtype, device=c0.device)
@@ -735,6 +950,7 @@ class Tensor:
             dim = range(N)
         if not hasattr(dim, "__len__"):
             dim = [dim]
+        self._cp_to_tt()
         kernel = algorithm in ("eig", "svd") and all(U is None for U in self.Us)
         if kernel and self.batch:
             with trace_annotation("tn.round_tucker:batch_kernel"):
@@ -803,6 +1019,7 @@ class Tensor:
         N = self.dim()
         rmax = _rmax_per_mode(rmax, N - 1)
         self._round_reached_dev = None
+        self._cp_to_tt()
 
         if self._round_tt_computes_reached(algorithm, verbose):
             with trace_annotation("tn.round_tt:eps_sweep"):
@@ -948,13 +1165,22 @@ class Tensor:
         array, ``None`` and ``Ellipsis``, for batch and non-batch tensors.
         A mode's Tucker factor is indexed in place of its core.
 
-        A key of index arrays for every mode of a non-batch TT without
-        factors and with boundary ranks 1 (a (P, N) array, or N arrays of
-        length P) returns the one-core TT (1, P, 1) of the P values,
-        evaluated by `TTEval` (the card's forward and backward kernels for
-        real cores on the card). Mask-Tensor keys are not ported."""
+        A key of index arrays for every mode of a non-batch TT or CP tensor
+        without factors and with boundary ranks 1 (a (P, N) array, or N
+        arrays of length P) returns the one-core TT (1, P, 1) of the P
+        values, evaluated by `TTEval` (the card's forward and backward
+        kernels for real cores on the card; CP factors become TT cores
+        first, `_cp_to_tt`).
+
+        A non-batch mask Tensor with exactly one accepted string s
+        (`automata.accepted_inputs`) selects, on each mode, the entries whose
+        ``idxs`` (clipped to 1) equal s's symbol: an int where one entry
+        does, else the slice from the first to the last (the JAX package's
+        rule, for the {0, 1+} annotations of `anova_decomposition` and
+        `partialset`); a batch keeps every sample (the JAX package reads
+        the batch axis as a mode there and fails)."""
         if isinstance(key, Tensor):
-            raise _not_ported("Indexing with a mask Tensor", "queue 1 item 10")
+            return self[self._mask_key(key)]
         if isinstance(key, (np.ndarray, torch.Tensor)) and key.ndim == 2:
             if self._all_modes(key):
                 return self._evaluate(key)
@@ -968,13 +1194,36 @@ class Tensor:
                                             for k, size in zip(key, self.shape)], axis=1))
         return self._getitem_impl(key)
 
+    def _mask_key(self, mask):
+        """The key of a mask Tensor (see `__getitem__`)."""
+        from tntorch_tpu_torch.automata import accepted_inputs
+        from tntorch_tpu_torch.metrics import sum as tn_sum
+
+        if mask.batch:
+            raise ValueError("Batch mask Tensors are not supported as indices; "
+                             "index with one sample, e.g. t[mask_sample]")
+        if abs(float(tn_sum(mask)) - 1) > 1e-8:
+            raise ValueError("When indexing via a mask tensor, that mask should have exactly "
+                             "1 accepting string")
+        s = to_numpy(accepted_inputs(mask)[0])
+        off = 1 if self.batch else 0
+        key = [slice(None)] * off  # a batch keeps every sample
+        for n in range(self.dim()):
+            idx = np.minimum(np.asarray(self.idxs[n + off]).astype(np.int64), 1)
+            w = np.flatnonzero(idx == s[n])
+            key.append(int(w[0]) if len(w) == 1 else slice(int(w[0]), int(w[-1]) + 1))
+        return tuple(key)
+
     def _all_modes(self, key) -> bool:
         """Whether ``key`` (a (P, N) array or a processed key) indexes every
-        mode of this non-batch, boundary-rank-1 TT with coordinate arrays.
-        A tensor with Tucker factors never qualifies: its cores' middle axis
-        is the factor's, not the mode's."""
-        if (self.batch or self.ranks_tt[0] != 1 or self.ranks_tt[-1] != 1
-                or any(U is not None for U in self.Us)):
+        mode of this non-batch tensor, whose TT view (`_cp_to_tt`) has
+        boundary ranks 1, with coordinate arrays. A tensor with Tucker
+        factors never qualifies: its cores' middle axis is the factor's, not
+        the mode's."""
+        c0, cN = self.cores[0], self.cores[-1]
+        first = 1 if c0.ndim == self._m else c0.shape[-3]
+        last = 1 if cN.ndim == self._m and self.dim() > 1 else cN.shape[-1]
+        if self.batch or first != 1 or last != 1 or any(U is not None for U in self.Us):
             return False
         if isinstance(key, (np.ndarray, torch.Tensor)):
             return key.shape[1] == self.dim()
@@ -989,7 +1238,10 @@ class Tensor:
             if X.dtype.kind not in "iu" and X.size:
                 raise IndexError(f"index arrays must be integer arrays, got {X.dtype}")
             X = X.astype(np.int64)
-        values = tt_eval(self.cores, X)
+        cores = self.cores
+        if any(c.ndim == self._m for c in cores):
+            cores = self.tt().cores
+        values = tt_eval(cores, X)
         return Tensor([values.reshape(1, -1, 1)])
 
     def __setitem__(self, key, value):
@@ -1054,13 +1306,14 @@ class Tensor:
 
         def get_key(c, k):
             """Mode ``c`` at ``k`` (an int or a coordinate array), its Tucker
-            factor absorbed."""
+            factor absorbed (a CP factor's core is (S, R))."""
             if self.Us[c] is None:
                 return bsel(self.cores[c][..., k, :])
             sl, core = bsel(self.Us[c][..., k, :]), bsel(self.cores[c])
+            cp = nd(core) == 2
             if nd(sl) == 1:  # k was an int
-                return einsum("~ijk,~j->~ik", core, sl)
-            return einsum("~ijk,~aj->~iak", core, sl)
+                return einsum("~ji,~j->~i" if cp else "~ijk,~j->~ik", core, sl)
+            return einsum("~ji,~aj->~ai" if cp else "~ijk,~aj->~iak", core, sl)
 
         for i in range(len(key)):
             if hasattr(key[i], "__len__"):

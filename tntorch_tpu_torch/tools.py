@@ -8,8 +8,10 @@ as a PMF), ``hash``, ``generate_basis`` (the Tucker bases of
 `Tensor.set_factors`), ``reduce`` (a rounded binary-tree fold),
 ``convolve`` (FFT of the cores and TT-cross) and ``shift_mode`` (pairwise
 SVD swaps). The mode axis of every core and factor is axis -2, batch or
-not. CP cores are not ported (ROADMAP.md, queue 1 item 3): a tensor that
-holds them raises.
+not, CP factors (I, R) included: the tools keep CP factors as they are,
+except ``sample``, ``convolve`` and ``shift_mode``, which work on the TT
+view (`Tensor.tt`; ``shift_mode`` converts ``t`` in place, as its
+orthogonalization does).
 
 Two draws cannot be the JAX package's, whose keys torch cannot replay:
 ``sample``'s uniforms (`_sample_uniforms`) and ``hash``'s weights
@@ -29,12 +31,6 @@ from tntorch_tpu_torch.tensor import Tensor
 from tntorch_tpu_torch.utils import (
     asarray, default_device, default_dtype, policy_precision, trace_annotation,
 )
-
-
-def _tt(t):
-    """``t``, after checking that it holds TT cores (CP cores raise)."""
-    t._cp_to_tt()
-    return t
 
 
 def squeeze(t, dim=None):
@@ -99,7 +95,8 @@ def ttm(t, U, dim=None, transpose: bool = False):
         dtype = torch.promote_types(t.dtype, factor.dtype)
         factor = factor.to(dtype)
         if t.Us[n] is None:
-            cores.append(torch.einsum("...iak,...ja->...ijk", t.cores[n].to(dtype), factor))
+            spec = "...ai,...ja->...ji" if t.cores[n].ndim == t._m else "...iak,...ja->...ijk"
+            cores.append(torch.einsum(spec, t.cores[n].to(dtype), factor))
             Us.append(None)
         else:
             cores.append(t.cores[n])
@@ -168,7 +165,6 @@ def cat(*ts, dim):
     tensors are summed (their ranks add)."""
     if hasattr(ts[0], "__len__"):
         ts = ts[0]
-    ts = [_tt(t) for t in ts]
     if len(ts) == 1:
         return ts[0].clone()
     if dim < 0:
@@ -192,14 +188,14 @@ def cat(*ts, dim):
 
 
 def transpose(t):
-    """Reverse the order of the modes: each core swaps its rank axes (a
-    batch keeps its leading axis), factors and ``idxs`` follow their
-    modes."""
-    _tt(t)
+    """Reverse the order of the modes: each TT core swaps its rank axes (a
+    batch keeps its leading axis; a CP factor is symmetric in its rank),
+    factors and ``idxs`` follow their modes."""
     off = 1 if t.batch else 0
     perm = (0, 3, 2, 1) if off else (2, 1, 0)
     n_order = range(t.dim() - 1, -1, -1)
-    return Tensor([t.cores[n].permute(perm) for n in n_order], [t.Us[n] for n in n_order],
+    return Tensor([t.cores[n] if t.cores[n].ndim == t._m else t.cores[n].permute(perm)
+                   for n in n_order], [t.Us[n] for n in n_order],
                   idxs=t.idxs[:off] + [t.idxs[n + off] for n in n_order], batch=t.batch)
 
 
@@ -207,7 +203,7 @@ def flip(t, dim):
     """Reverse the order along the modes ``dim``."""
     if not hasattr(dim, "__len__"):
         dim = [dim]
-    result = _tt(t).clone()
+    result = t.clone()
     for d in dim:
         if d < 0:
             d += t.dim()
@@ -263,7 +259,7 @@ def pad(t, shape, dim=None, fill_value=0):
         dim = [dim]
     if not hasattr(shape, "__len__"):
         shape = [shape] * len(dim)
-    t = _tt(t).clone()
+    t = t.clone()
     for i in range(len(dim)):
         d = dim[i] + t.dim() if dim[i] < 0 else dim[i]
         mult = fill_value if i == 0 else 0
@@ -343,7 +339,7 @@ def sample(t, P: int = 1, seed=None) -> torch.Tensor:
     unnormalized PMF: a (P, N) int64 tensor on ``t``'s device. ``seed``
     seeds the uniforms (`_sample_uniforms`); without one they come from
     fresh entropy."""
-    t2 = _tt(t.decompress_tucker_factors())
+    t2 = t.tt()
     us = _sample_uniforms(t2.dim(), int(P), t2.cores[0].real.dtype, t2.device, seed)
     return _sample_rows(t2.cores, us)
 
@@ -434,8 +430,7 @@ def convolve(t1, t2, mode: str = "full", **kwargs):
     N = t1.dim()
     if N != t2.dim():
         raise ValueError(f"convolve needs tensors of one order, got {N} and {t2.dim()}")
-    t1 = _tt(t1.decompress_tucker_factors())
-    t2 = _tt(t2.decompress_tucker_factors())
+    t1, t2 = t1.tt(), t2.tt()
     n_fft = [t1.shape[n] + t2.shape[n] - 1 for n in range(N)]
     t1f = Tensor([torch.fft.fft(t1.cores[n], n=n_fft[n], dim=1) for n in range(N)])
     t2f = Tensor([torch.fft.fft(t2.cores[n], n=n_fft[n], dim=1) for n in range(N)])
@@ -484,7 +479,7 @@ def shift_mode(t, n, shift, eps=1e-3):
     if any(U is not None for U in t.Us):
         t2 = t.decompress_tucker_factors()
         t.cores, t.Us = t2.cores, t2.Us
-    _tt(t).orthogonalize(n)
+    t.orthogonalize(n)
     cores = t.cores
     sign = int(np.sign(shift))
     with trace_annotation("tn.shift_mode"):
