@@ -175,7 +175,30 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    torch.linalg. Then the launches are read, the field chain is profiled,
    and ``tt_eval`` (both routes) and each Gram kernel are held to their
    plain versions at the phase's shapes, the Gram kernels timed against
-   them in turns. ``--only 13`` runs it alone.
+   them in turns. ``--only 13`` runs it alone;
+14. the modules ported last, float64 unless named: (14a) assignment at the
+   evaluation design shape (N=4, I=1024, R=64, float64 and float32): a
+   rank-1 TT into the slab ``t[:, 5:9]``, a scalar at the repeated rows
+   ``t[[3, 700, 3]]`` and a rank-1 TT at the negative int key ``t[:, -2]``,
+   each on a clone, its wall and ranks printed, then ``t[X]`` at 2^20
+   points forced onto the grouped ``tt_eval`` kernel: the original's values
+   outside the assigned region and the value's inside (``ASSIGN_TOL``);
+   (14b) ``save``/``load`` of phase 4's B=32 ensemble, a Tucker and a CP
+   tensor and 13d's ``TTMatrix``/``CPMatrix`` through a temporary
+   directory (walls, sizes, loaded arrays bitwise equal), then
+   ``round_tt(rmax=64, 'randgram')`` of the loaded ensemble (2/2/2 Gram
+   launches) bitwise equal to the rounding before saving; (14c) the bf16
+   Gram variant (``set_policy('bf16')``) of the ensemble: its truncation
+   error within ``BF16_FACTOR`` of the float32 sweep's, its distance to the
+   CPU's float64 rounding and to the float32 sweep, two samples against
+   the port's bf16 body on the CPU (``BF16_CPU_TOL``), and both sweeps
+   timed in turns; (14d) BASELINE config 3 by ``cross(fuse='host')`` with
+   a NumPy function and by the eager device sweep, in turns: equal ranks,
+   val_eps and 10^5 held-out points (``t[X]`` on the card) within 1e-6,
+   f-evals/s of both and the host sweep's share in maxvol. Then the
+   launches are read, and ``tt_eval`` (both routes) and each Gram call of
+   14b's path (recorded by ``recording_gram``) are held to their plain
+   versions. ``--only 14`` runs it alone.
 
 The data of phases 6 to 8 comes without a device and lands on the card by
 the package's default. The second-to-last line is one JSON object with
@@ -1414,10 +1437,10 @@ def _axes(cfg):
     return [np.linspace(cfg["lo"], cfg["hi"], cfg["I"])] * cfg["N"]
 
 
-def _cross(cfg, f, dtype, device=None):
+def _cross(cfg, f, dtype, device=None, **kw):
     """``tn.cross`` of ``f`` on ``cfg``'s grid in ``dtype`` (torch's default
-    dtype is what meshgrid casts the grid to); its result, info and wall
-    time in seconds, ending in a synchronize."""
+    dtype is what meshgrid casts the grid to), with the keywords ``kw``; its
+    result, info and wall time in seconds, ending in a synchronize."""
     import torch
 
     import tntorch_tpu_torch as tn
@@ -1430,7 +1453,7 @@ def _cross(cfg, f, dtype, device=None):
             torch.cuda.synchronize()
         t0 = time.perf_counter()
         t, info = tn.cross(function=f, domain=_axes(cfg), device=device, verbose=False,
-                           return_info=True, suppress_warnings=True, **args)
+                           return_info=True, suppress_warnings=True, **args, **kw)
         if device is None:
             torch.cuda.synchronize()
         return t, info, time.perf_counter() - t0
@@ -1455,6 +1478,19 @@ def _inputs(cfg, dtype):
     return [[c.to(dtype) for c in t.cores] for t in tn.meshgrid(_axes(cfg), device="cuda")]
 
 
+def plain_values(cores, X):
+    """``tt_eval_plain(cores, X)`` in chunks of X whose gathered slices
+    stay within 8 GiB (at 2^20 points a rank-129 float64 chain gathers 140
+    GB); each value is computed as in one call."""
+    import torch
+
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    per = max(int(c.shape[0] * c.shape[2]) for c in cores) * cores[0].element_size()
+    step = max(1, (8 << 30) // per)
+    return torch.cat([te.tt_eval_plain(cores, X[i:i + step]) for i in range(0, X.shape[0], step)])
+
+
 def hold_tt_eval(name, cases):
     """Each (tag, cores, X) of ``cases`` through the tt_eval kernel on both
     of its routes, against the plain version on the same inputs, within
@@ -1469,7 +1505,7 @@ def hold_tt_eval(name, cases):
     for tag, cores, X in cases:
         cores = [c.contiguous() for c in cores]  # as TTEval passes them
         dname = str(cores[0].dtype)[6:]
-        want = te.tt_eval_plain(cores, X)
+        want = plain_values(cores, X)
         ranks = [int(c.shape[0]) for c in cores] + [1]
         dims = [int(c.shape[1]) for c in cores]
         takes = ("grouped" if te._grouped(ranks, dims, X.shape[0], cores[0].element_size())
@@ -3141,6 +3177,27 @@ def field_checks(device="cuda", cfg=FIELDS13):
     return div.cores[1], failed, chain
 
 
+def _kron(bs):
+    import torch
+
+    k = bs[0]
+    for b in bs[1:]:
+        k = torch.kron(k, b)
+    return k
+
+
+def _operator(cfg, rng, device):
+    """13d's operator: the sum of R Kronecker products of seeded blocks
+    (drawn from ``rng``), dense on ``device``."""
+    import numpy as np
+    import torch
+
+    dims, R = list(cfg["dims"]), cfg["R"]
+    blocks = torch.from_numpy(rng.standard_normal((R, len(dims), dims[0], dims[0])) /
+                              np.sqrt(dims[0])).to(device)
+    return sum(_kron(blocks[r]) for r in range(R))
+
+
 def operator_checks(device="cuda", cfg=OPERATOR13):
     """13d: a 4096 x 4096 operator, the sum of R Kronecker products of
     8 x 8 blocks, as a TTMatrix (TT-SVD to ranks R) and a CPMatrix (CP-ALS
@@ -3156,16 +3213,7 @@ def operator_checks(device="cuda", cfg=OPERATOR13):
     failed = []
     dims, R = list(cfg["dims"]), cfg["R"]
     rng = np.random.default_rng(40)
-    blocks = torch.from_numpy(rng.standard_normal((R, len(dims), dims[0], dims[0])) /
-                              np.sqrt(dims[0])).to(device)
-
-    def kron(bs):
-        k = bs[0]
-        for b in bs[1:]:
-            k = torch.kron(k, b)
-        return k
-
-    M = sum(kron(blocks[r]) for r in range(R))
+    M = _operator(cfg, rng, device)
     x = tn.randn(cfg["vectors"], *dims, ranks_tt=cfg["vector_rank"], batch=True,
                  generator=torch.Generator().manual_seed(41), device=device, dtype=torch.float64)
     V = x.full().reshape(cfg["vectors"], -1)
@@ -3191,7 +3239,7 @@ def operator_checks(device="cuda", cfg=OPERATOR13):
     Qs = [torch.linalg.qr(torch.from_numpy(rng.standard_normal((d, d))))[0] for d in dims]
     As = [(Q * torch.from_numpy(rng.uniform(0.9, 1.1, d))) @ Q.T for Q, d in zip(Qs, dims)]
     K = tn.TTMatrix([A[None, :, :, None].to(device) for A in As], None, dims, dims)
-    Kd = kron([A.to(device) for A in As])
+    Kd = _kron([A.to(device) for A in As])
     (sign, logdet), ms_ld = _timed(K.slog_determinant, device)
     det, _ = _timed(K.determinant, device)
     inv, ms_inv = _timed(lambda: K.inv().full(), device)
@@ -3323,10 +3371,414 @@ def config5_path():
     return launches
 
 
+# Phase 14: the modules ported last, each at the size of the phase whose
+# path it extends:
+# - assignment at the evaluation design shape (phases 3b and 6): a slab of
+#   mode 1 from a rank-1 TT, a scalar at repeated rows of mode 0, and a
+#   rank-1 TT at a negative int key of mode 1; each raises the middle ranks
+#   from R to R + R + 1 = 129, which the grouped kernel's shared-memory
+#   block holds in float64 (up to 147)
+ASSIGN14 = dict(N=4, I=1024, R=64, B=1 << 20, slab=(5, 9), rows=(3, 700, 3), row=-2,
+                value=2.5)
+# - serialization of the rounding ensemble (phase 4), a Tucker and a CP
+#   tensor on 64^3, and 13d's TTMatrix and CPMatrix
+SERIAL14 = dict(shape=(64, 64, 64), R=8, tucker=16, cp=5)
+# Tolerances of phase 14, each with its reason:
+# - assignment, the assigned tensor at 2^20 points: outside the assigned
+#   region against the original's values, inside against the value's, max
+#   |diff| over the largest of both: float64 1e-12 (the subtracted chunk
+#   cancels the original's values to roundoff, ~1e-16 relative through a
+#   rank-129 chain of 4 modes), float32 EVAL_TOL.
+ASSIGN_TOL = {"float64": 1e-12, "float32": EVAL_TOL}
+# - the bf16 rounding of the B=32 ensemble: its truncation error (against
+#   the unrounded input) within 5x the float32 sweep's (the cut of a flat
+#   spectrum to 64 of 128 directions leaves ~0.83 of the norm, and bf16's
+#   2^-8 roundoff moves it by far less); against the port's bf16 body on
+#   the CPU, samples 0-1, 2e-2 relative (tests/test_torch_bf16.py: where
+#   two sums differ in their last bit, a bf16 re-rounding flips).
+BF16_FACTOR, BF16_CPU_TOL = 5.0, 2e-2
+
+
+def _random_tt(shape, R, seed, dtype, device):
+    """A TT of ``shape`` at rank R, cores N(0, 1)/sqrt(R_left) from a NumPy
+    seed."""
+    import numpy as np
+    import torch
+
+    import tntorch_tpu_torch as tn
+
+    rng = np.random.default_rng(seed)
+    ranks = [1] + [R] * (len(shape) - 1) + [1]
+    return tn.Tensor([torch.from_numpy(rng.standard_normal((ranks[k], s, ranks[k + 1]))
+                                       / np.sqrt(ranks[k])).to(device, dtype)
+                      for k, s in enumerate(shape)])
+
+
+def assignment_checks(device="cuda", cfg=ASSIGN14):
+    """14a: three assignments into a clone of a rank-R TT, each evaluated
+    at B points through ``t[X]`` forced onto the grouped kernel: outside
+    the assigned region it must give the original's values, inside the
+    value's (ASSIGN_TOL), float64 and float32. Prints each assignment's
+    wall and ranks and the warm wall of its ``t[X]``. Returns the (tag,
+    cores, X) to hold and the failures."""
+    import numpy as np
+    import torch
+
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    N, I, R, B = (cfg[k] for k in ("N", "I", "R", "B"))
+    a, b = cfg["slab"]
+    rows, row, value = list(cfg["rows"]), cfg["row"], cfg["value"]
+    X = torch.from_numpy(np.random.default_rng(140).integers(0, I, (B, N))).to(device)
+    Xs = X.clone()
+    Xs[:, 1] -= a
+    rest = [0] + list(range(2, N))
+    holds, failed = [], []
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype)[6:]
+        t = _random_tt([I] * N, R, 141, dtype, device)
+        v = _random_tt([I, b - a] + [I] * (N - 2), 1, 142, dtype, device)
+        w = _random_tt([I] * (N - 1), 1, 143, dtype, device)
+        orig = tt_path(True, lambda: t[X].full())
+        cases = {
+            f"t[:, {a}:{b}] = v": ((slice(None), slice(a, b)), v, (X[:, 1] >= a) & (X[:, 1] < b),
+                                   lambda m: te.tt_eval_plain(v.cores, Xs[m])),
+            f"t[{rows}] = {value}": ((rows,), value,
+                                     torch.isin(X[:, 0], torch.tensor(rows, device=device)),
+                                     lambda m: torch.full((int(m.sum()),), value, dtype=dtype,
+                                                          device=device)),
+            f"t[:, {row}] = w": ((slice(None), row), w, X[:, 1] == I + row,
+                                 lambda m: te.tt_eval_plain(w.cores, X[m][:, rest])),
+        }
+        for name, (key, val, inside, values_inside) in cases.items():
+            t2 = t.clone()
+            _sync(device)
+            t0 = time.perf_counter()
+            t2[key] = val
+            _sync(device)
+            wall = (time.perf_counter() - t0) * 1e3
+            got, eval_ms = _timed(lambda: tt_path(True, lambda: t2[X].full()), device)
+            want = orig.clone()
+            want[inside] = values_inside(inside)
+            scale = max(float(want.abs().max()), 1e-300)
+            err_out = float((got - want)[~inside].abs().max()) / scale
+            err_in = float((got - want)[inside].abs().max()) / scale
+            tol = ASSIGN_TOL[dname]
+            print(f"14a {name}, {dname}: {wall:.2f} ms, ranks {t.ranks_tt.tolist()} -> "
+                  f"{t2.ranks_tt.tolist()}; t[X] {eval_ms:.3f} ms (warm, the grouped kernel), "
+                  f"at {B} points ({int(inside.sum())} inside): "
+                  f"outside {err_out:.2e} from the original, inside {err_in:.2e} from the "
+                  f"value (tol {tol})")
+            if not (err_out <= tol and err_in <= tol and bool(torch.isfinite(got).all())):
+                failed.append(f"14a {name} {dname}: outside {err_out:.3e}, inside {err_in:.3e}")
+            holds.append((name, t2.cores, X))
+    return holds, failed
+
+
+@contextlib.contextmanager
+def recording_gram(calls):
+    """Within the block, every call of a Gram kernel's wrapper is recorded in
+    ``calls`` as (wrapper, args) and then made: the shapes a path gives the
+    kernels, to hold them there afterwards."""
+    from tntorch_tpu_torch.ops import gram_kernels as gk
+
+    kernels = {k.__name__: k for k in gk.KERNELS}
+
+    class Spy:
+        # A wrapper counts its launches on its module-level name, which is
+        # this spy while the block runs: the count goes to the wrapper
+        launches = property(lambda self: self.kernel.launches,
+                            lambda self, n: setattr(self.kernel, "launches", n))
+
+        def __init__(self, kernel):
+            self.kernel = kernel
+
+        def __call__(self, *args):
+            calls.append((self.kernel, args))
+            return self.kernel(*args)
+
+    for name, kernel in kernels.items():
+        setattr(gk, name, Spy(kernel))
+    try:
+        yield calls
+    finally:
+        for name, kernel in kernels.items():
+            setattr(gk, name, kernel)
+
+
+def hold_gram_calls(name, calls):
+    """Each recorded Gram call (``recording_gram``) on its kernel against
+    the plain version on the same arguments, within KERNEL_TOL of max
+    |plain|. The caller has read its launch counts."""
+    import torch
+
+    from tntorch_tpu_torch.ops import gram_kernels as gk
+
+    failed, parts = [], []
+    for kernel, args in calls:
+        got, want = kernel(*args), gk.PLAIN[kernel](*args)
+        dname = str(want.dtype)[6:]
+        err = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-300)
+        C = args[1] if kernel.__name__ == "proj2" else args[0]
+        parts.append(f"{kernel.__name__} {dname} {tuple(C.shape)} {err:.1e}")
+        if not bool(torch.isfinite(got).all()) or not err <= KERNEL_TOL[dname]:
+            failed.append(f"{kernel.__name__} {dname} {tuple(C.shape)}: rel {err:.3e}")
+    print(f"{name}, Gram kernels vs plain at the path's {len(calls)} calls (tol {KERNEL_TOL}): "
+          + "; ".join(parts))
+    if failed:
+        raise AssertionError(f"{name}: a Gram kernel disagrees with its plain version: "
+                             + "; ".join(failed))
+
+
+def serialization_checks(device="cuda", cores=None, cfg=SERIAL14, op=OPERATOR13, rmax=64):
+    """14b: save and load, through a temporary directory, the batch of
+    ``cores`` (the rounding ensemble), a Tucker and a CP tensor and 13d's
+    TTMatrix and CPMatrix: loaded arrays bitwise equal, on ``device``;
+    then ``round_tt(rmax, 'randgram')`` of the loaded batch bitwise equal to
+    the rounding of the batch before saving, with 2/2/2 Gram launches on
+    the card. Prints the walls and sizes. Returns the failures."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import tntorch_tpu_torch as tn
+    from tntorch_tpu_torch.ops import gram_kernels as gk
+
+    tn.set_policy("high")
+    batch = tn.Tensor([torch.from_numpy(c) for c in cores], batch=True, device=device)
+    g = torch.Generator().manual_seed(144)
+    kw = dict(generator=g, device=device, dtype=torch.float64)
+    tucker = tn.randn(*cfg["shape"], ranks_tt=cfg["R"], ranks_tucker=cfg["tucker"], **kw)
+    tucker.frozen_Us = {1}
+    cp = tn.randn(*cfg["shape"], ranks_cp=cfg["cp"], **kw)
+    dims, R = list(op["dims"]), op["R"]
+    M = _operator(op, np.random.default_rng(40), device)
+    objects = {"the B=32 ensemble": (batch, tn.save, tn.load),
+               "a Tucker tensor": (tucker, tn.save, tn.load),
+               "a CP tensor": (cp, tn.save, tn.load),
+               "13d's TTMatrix": (tn.TTMatrix(M, [R] * (len(dims) - 1), dims, dims),
+                                  tn.save_matrix, tn.load_matrix),
+               "13d's CPMatrix": (tn.CPMatrix(M, R, dims, dims), tn.save_matrix,
+                                  tn.load_matrix)}
+    failed = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, (name, (obj, save, load)) in enumerate(objects.items()):
+            path = os.path.join(tmp, f"{k}.npz")
+            _sync(device)
+            t0 = time.perf_counter()
+            save(obj, path)
+            t1 = time.perf_counter()
+            back = load(path, device=device)
+            _sync(device)
+            t2 = time.perf_counter()
+            arrays = [list(x.cores) + list(getattr(x, "Us", [])) for x in (obj, back)]
+            same = (len(arrays[0]) == len(arrays[1])
+                    and all((x is None and y is None) or (x is not None and y is not None
+                                                          and x.dtype == y.dtype
+                                                          and y.device == x.device
+                                                          and torch.equal(x, y))
+                            for x, y in zip(*arrays)))
+            if isinstance(obj, tn.Tensor):
+                same = same and back.batch == obj.batch and back.frozen_Us == obj.frozen_Us
+            print(f"14b {name}: save {(t1 - t0) * 1e3:.1f} ms, load {(t2 - t1) * 1e3:.1f} ms, "
+                  f"{os.path.getsize(path) / 2**20:.2f} MiB, loaded bitwise equal: {same}")
+            if not same:
+                failed.append(f"14b {name}: the loaded arrays differ from the saved ones")
+            if k == 0:
+                loaded = back
+    ref = tn.round_tt(batch, rmax=rmax, algorithm="randgram")
+    before = {k.__name__: k.launches for k in gk.KERNELS}
+    out = tn.round_tt(loaded, rmax=rmax, algorithm="randgram")
+    _sync(device)
+    launches = {k.__name__: k.launches - before[k.__name__] for k in gk.KERNELS}
+    equal = all(torch.equal(x, y) for x, y in zip(ref.cores, out.cores))
+    print(f"14b round_tt(rmax={rmax}, 'randgram') of the loaded ensemble: launches {launches}, "
+          f"ranks {out.ranks_tt.tolist()}, bitwise equal to the rounding before saving: {equal}")
+    if not equal:
+        failed.append("14b: the loaded ensemble rounds to other cores")
+    if torch.device(device).type == "cuda" and launches != {"gram_edge": 2, "wgram": 2,
+                                                           "proj2": 2}:
+        failed.append(f"14b: expected launches 2/2/2, got {launches}")
+    return failed
+
+
+def bf16_checks(device="cuda", cores=None, rmax=64, cpu_samples=2):
+    """14c: the bf16 Gram rounding (``set_policy('bf16')``) of the batch of
+    ``cores`` against the float32 'randgram' sweep on its kernels, the port
+    on the CPU in float64 and the port's bf16 body on the CPU (samples
+    0-1). Returns the failures and a function that times both sweeps in
+    turns."""
+    import torch
+
+    import tntorch_tpu_torch as tn
+
+    t = tn.Tensor([torch.from_numpy(c) for c in cores], batch=True, device=device)
+    cpu_in = tn.Tensor([torch.from_numpy(c[:cpu_samples]) for c in cores], batch=True,
+                       device="cpu")
+
+    def sweep(policy, x):
+        tn.set_policy(policy)
+        try:
+            return tn.round_tt(x, rmax=rmax, algorithm="randgram")
+        finally:
+            tn.set_policy("high")
+
+    f32, bf = sweep("high", t), sweep("bf16", t)
+    bf_cpu = sweep("bf16", cpu_in)
+    ref64 = sweep("high", tn.Tensor([c.double() for c in cpu_in.cores], batch=True))
+
+    def head(x):  # the first samples, float64 on the CPU
+        return tn.Tensor([c[:cpu_samples].double().cpu() for c in x.cores], batch=True)
+
+    trunc = {k: tn.relative_error(t, x) for k, x in (("bf16", bf), ("float32", f32))}
+    ratio = float((trunc["bf16"] / trunc["float32"]).max())
+    d = {"bf16 vs CPU float64": tn.relative_error(ref64, head(bf)).max(),
+         "float32 vs CPU float64": tn.relative_error(ref64, head(f32)).max(),
+         "bf16 vs float32 sweep": tn.relative_error(f32, bf).max(),
+         "bf16 vs CPU bf16": tn.relative_error(head(bf_cpu), head(bf)).max()}
+    print(f"14c bf16 rounding of the B={len(cores[0])} ensemble {rmax}: ranks "
+          f"{bf.ranks_tt.tolist()}, {bf.dtype}; truncation error bf16 "
+          f"{float(trunc['bf16'].max()):.6f}, float32 {float(trunc['float32'].max()):.6f}, "
+          f"ratio {ratio:.4f} (at most {BF16_FACTOR}); "
+          + ", ".join(f"{k} {float(v):.3e}" for k, v in d.items())
+          + f" (bf16 vs CPU bf16 tol {BF16_CPU_TOL})")
+    failed = []
+    if not ratio <= BF16_FACTOR or not all(bool(torch.isfinite(c).all()) for c in bf.cores):
+        failed.append(f"14c: bf16 truncation error {ratio:.3f}x the float32 sweep's")
+    if not float(d["bf16 vs CPU bf16"]) <= BF16_CPU_TOL:
+        failed.append(f"14c: bf16 on the card vs the CPU {float(d['bf16 vs CPU bf16']):.3e}")
+    if bf.dtype != t.dtype or bf.ranks_tt.tolist() != [1] + [rmax] * (len(cores) - 1) + [1]:
+        failed.append(f"14c: ranks {bf.ranks_tt.tolist()}, dtype {bf.dtype}")
+
+    def timing():
+        runs = in_turns({"bf16 (torch ops)": lambda: sweep("bf16", t),
+                         "float32 kernels": lambda: sweep("high", t)})
+        print(f"14c sweep time in turns, B={len(cores[0])} (ms, CUDA events): {runs}; bf16 / "
+              f"float32 {min(runs['bf16 (torch ops)']) / min(runs['float32 kernels']):.3f}")
+
+    return failed, timing
+
+
+def _np_sines(*xs):
+    import numpy as np
+
+    return sum(np.sin(x) for x in xs)
+
+
+def host_cross_checks(device=None, cfg=CROSS3, rounds=2):
+    """14d: ``tn.cross(fuse='host')`` of config 3 with a NumPy function, and
+    the same cross on the eager device sweep with the torch function, in
+    float64, timed in turns: equal ranks, val_eps below eps and 10^5
+    held-out points (``t[X]``, on the tt_eval kernel on the card) within
+    eps; f-evals/s of both and the host sweep's time in maxvol. Returns the
+    (tag, cores, X) to hold and the failures."""
+    import importlib
+
+    import torch
+
+    host = importlib.import_module("tntorch_tpu_torch.cross_host")
+    where = device or "cuda"
+    X = _held_out(cfg, HELD_OUT, where)
+    want = torch.sin(torch.tensor(_axes(cfg)[0], device=where)[X]).sum(1)
+    spent = []
+    maxvol = host._host_maxvol
+
+    def timed_maxvol(*args):
+        t0 = time.perf_counter()
+        out = maxvol(*args)
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    runs = {"host": [], "device": []}
+    results = {}
+    host._host_maxvol = timed_maxvol
+    try:
+        for _ in range(rounds):
+            for sweep in ("host", "device", "device", "host"):
+                spent.clear()
+                if sweep == "host":
+                    t, info, sec = _cross(cfg, _np_sines, torch.float64, device, fuse="host")
+                else:
+                    t, info, sec = _cross(cfg, _sines, torch.float64, device)
+                runs[sweep].append((sec, info["nsamples"] / sec, sum(spent) / sec))
+                results[sweep] = (t, info)
+    finally:
+        host._host_maxvol = maxvol
+    failed, holds = [], []
+    for sweep, (t, info) in results.items():
+        err = rel(t[X].full(), want)
+        Rs = [int(r) for r in info["Rs"]]
+        best = min(runs[sweep])
+        print(f"14d config 3, {sweep} sweep (host_sweep {info['host_sweep']}): "
+              f"{len(info['val_epss'])} iterations, ranks {Rs}, {info['nsamples']} f-evals, "
+              f"val_eps {info['val_eps']:.3e}, held-out rel err at {HELD_OUT} points {err:.3e} "
+              f"(tol {cfg['eps']}); on {t.device}, {t.dtype}; in turns (s, f-evals/s"
+              + (", maxvol share" if sweep == "host" else "") + "): "
+              + "; ".join(f"{r[0]:.4f} s {r[1]:.4g}" + (f" {r[2]:.3f}" if sweep == "host"
+                                                         else "") for r in runs[sweep])
+              + f"; best {best[1]:.4g} f-evals/s")
+        if not (info["val_eps"] < cfg["eps"] and err <= cfg["eps"]):
+            failed.append(f"14d {sweep}: val_eps {info['val_eps']:.3e}, held-out {err:.3e}")
+        if t.device.type != torch.device(where).type or t.dtype != torch.float64:
+            failed.append(f"14d {sweep}: the result is on {t.device}, {t.dtype}")
+        holds.append((f"config 3 {sweep} sweep", t.cores, X))
+    if [int(r) for r in results["host"][1]["Rs"]] != [int(r) for r in results["device"][1]["Rs"]]:
+        failed.append("14d: the host and device sweeps reach other ranks")
+    if not results["host"][1]["host_sweep"] or results["device"][1]["host_sweep"]:
+        failed.append("14d: a sweep ran on the other path")
+    return holds, failed
+
+
+def missing_modules_path():
+    """Phase 14; returns each kernel's launches in it."""
+    import torch
+
+    import tntorch_tpu_torch as tn
+    from tntorch_tpu_torch.ops import gram_kernels as gk
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    tn.set_policy("highest")
+    te.reset_launches()
+    gk.reset_launches()
+    phase("14a. assignment at the evaluation design shape (N=4, I=1024, R=64): t[key] = value, "
+          "then t[X] at 2^20 points on the grouped tt_eval kernel, float64 and float32")
+    holds, failed = assignment_checks()
+    if te.tt_eval_kernel.grouped != te.tt_eval_kernel.launches:
+        failed.append(f"14a: {te.tt_eval_kernel.launches} tt_eval launches, "
+                      f"{te.tt_eval_kernel.grouped} grouped")
+    phase("14b. serialization: save and load the B=32 ensemble, Tucker, CP, TTMatrix, "
+          "CPMatrix; round_tt of the loaded ensemble on the Gram kernels")
+    cores = bench_cores()
+    calls = []
+    with recording_gram(calls):
+        failed += serialization_checks(cores=cores)
+    phase("14c. the bf16 Gram variant at the rounding shape (B=32, N=4, I=256, 128 -> 64)")
+    bad, bf16_timing = bf16_checks(cores=cores)
+    failed += bad
+    phase("14d. the host sweep, cross(fuse='host'), on BASELINE config 3 (32^10, float64), "
+          "and the eager device sweep")
+    tn.set_policy("highest")
+    cross_holds, bad = host_cross_checks()
+    failed += bad
+    torch.cuda.synchronize()
+    launches = {"tt_eval": te.tt_eval_kernel.launches,
+                **{k.__name__: k.launches for k in gk.KERNELS}}
+    print(f"14, launches: {launches} (grouped tt_eval {te.tt_eval_kernel.grouped})")
+    if not all(launches.values()):
+        failed.append(f"a kernel of the path was not launched: {launches}")
+    hold_tt_eval("14", holds + cross_holds)
+    hold_gram_calls("14b", calls)
+    bf16_timing()
+    if failed:
+        raise AssertionError("phase 14: " + "; ".join(failed))
+    return launches
+
+
 PHASES = {"3": "check_kernels", "3b": "check_tt_kernels", "4": "main_path",
           "5": "nonbatch_pass", "6": "eval_path", "7": "train_path", "8": "train_design_path",
           "9": "baseline_path", "10": "cross_path", "11": "elementwise_path",
-          "12": "config4_path", "13": "config5_path"}
+          "12": "config4_path", "13": "config5_path", "14": "missing_modules_path"}
 
 
 def main():
@@ -3358,9 +3810,10 @@ def main():
     elementwise = elementwise_path()
     config4 = config4_path()
     config5 = config5_path()
+    missing = missing_modules_path()
     launches.update({k: evals[k] + trains[k] + designs[k] for k in evals})
     launches = {k: n + sum(p.get(k, 0) for p in (baselines, crosses, elementwise, config4,
-                                                         config5))
+                                                         config5, missing))
                 for k, n in launches.items()}
 
     import torch

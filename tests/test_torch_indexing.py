@@ -179,12 +179,19 @@ def test_bool_masks_on_every_mode_follow_numpy():
 
 
 def test_mask_tensor_key_is_not_ported():
-    """Reading through a mask-Tensor key is ported (below); assigning
-    through one waits, with every assignment, for queue 1 item 2."""
-    t, _ = _pair(8)
-    key = tn.presence(4, [0, 2], device="cpu", dtype=t.dtype)
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        t[key] = 0.0
+    """Assigning through a mask-Tensor key (ported with every assignment)
+    writes where reading through it selects; the JAX package's assignment
+    fails on such a key with a TypeError."""
+    t, jt = _pair(8)
+    key = tn.presence(4, [0, 2], device="cpu", dtype=t.dtype) & tn.absence(
+        4, [1, 3], device="cpu", dtype=t.dtype)
+    # with the default idxs, symbol 1 is every coordinate but 0
+    want = t.numpy()
+    want[1:, 0, 1:, 0] = 0.0
+    t[key] = 0.0
+    _close(t.numpy(), want)
+    with pytest.raises(TypeError):
+        jt[jtn.presence(4, [0, 2]) & jtn.absence(4, [1, 3])] = 0.0
 
 
 def test_mask_tensor_key_matches_jax():

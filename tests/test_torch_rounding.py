@@ -257,6 +257,10 @@ def test_complex_batch_takes_the_einsum_branch(monkeypatch):
 
 
 def test_bf16_gram_is_not_ported():
+    # Ported: 'bf16' takes the bf16 body (held to the JAX package's in
+    # tests/test_torch_bf16.py), in the input's dtype, one sample as a batch
+    # of one
     cores = _torch(_tt((4, 4, 4), (2, 2), seed=9))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.round_tt_gram(cores, 2, precision="bf16")
+    got = tr.round_tt_gram(cores, 2, precision="bf16")
+    want = tr.round_tt_gram_bf16([c[None] for c in cores], 2, "rand")
+    assert all(g.dtype == torch.float64 and torch.equal(g, w[0]) for g, w in zip(got, want))

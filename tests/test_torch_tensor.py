@@ -17,6 +17,8 @@ import pytest
 import torch
 
 import tntorch_tpu as jtn
+# imported on first use otherwise, and dir(jtn) must not depend on the tests before
+import tntorch_tpu.cross_host  # noqa: F401
 import tntorch_tpu_torch as tn
 from tntorch_tpu_torch import interop
 from tntorch_tpu_torch.ops import rounding as tr
@@ -323,6 +325,8 @@ PORTED = {
     "derivatives", "partialset", "partial", "gradient", "active_subspace", "dgsm",
     "divergence", "curl", "laplacian", "matrix", "TTMatrix", "CPMatrix", "tt_multiply",
     "cp_multiply",
+    # serialization and the host sweep (tests/test_torch_{serialization,cross_host}.py)
+    "serialization", "save", "load", "save_matrix", "load_matrix", "cross_host",
 }
 
 
@@ -337,7 +341,7 @@ def _jax_api():
             yield name
 
 
-def test_entry_points_outside_the_slice_raise():
+def test_entry_points_outside_the_slice_raise(tmp_path):
     a, _ = _pair(20, 0)
     api = set(_jax_api())
     assert PORTED <= api
@@ -353,14 +357,32 @@ def test_entry_points_outside_the_slice_raise():
     for name in (n for n in dir(jtn.Tensor) if not n.startswith("_")):
         assert hasattr(tn.Tensor, name), name
 
+    domain = [np.arange(4.0)] * 3
+    for call in (lambda: tn.cross(domain=domain, device="cpu", mesh="mesh"),
+                 lambda: tn.cross(domain=domain, device="cpu", mesh="mesh", fuse="host")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
+
     def setitem():
         a[0, 0, 0, 0] = 1.0
 
-    domain = [np.arange(4.0)] * 3
-    for call in (setitem, lambda: tn.cross(domain=domain, device="cpu", fuse="host"),
-                 lambda: tn.cross(domain=domain, device="cpu", mesh="mesh")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    # what this list held until assignment, serialization, the bf16 Gram
+    # variant and the host sweep were ported now runs; each has its positive
+    # test in tests/test_torch_{setitem,serialization,bf16,cross_host}.py
+    def bf16():
+        tn.set_policy("bf16")
+        try:
+            tn.round_tt(tn.Tensor([c[None] for c in a.cores], batch=True), rmax=2,
+                        algorithm="gram")
+        finally:
+            tn.set_policy("highest")
+
+    for call in (setitem, bf16,
+                 lambda: tn.cross(function=lambda *x: sum(x), domain=domain, device="cpu",
+                                  verbose=False, fuse="host"),
+                 lambda: tn.save(a, tmp_path / "a.npz"),
+                 lambda: tn.load(tmp_path / "a.npz", device="cpu")):
+        call()
     # what this list held until CP tensors and the analytics were ported now
     # runs; each has its positive test in tests/test_torch_{cp,anova,logic,matrix}.py
     x = tn.symbols(4, device="cpu", dtype=a.dtype)[0]

@@ -35,16 +35,20 @@ and Sobol indices: ``anova_decomposition``, ``sobol``, ``mean_dimension``,
 ``weight_mask``, ``accepted_inputs``, ...; finite-difference calculus:
 ``partial``, ``gradient``, ``divergence``, ``curl``, ``laplacian``,
 ``active_subspace``, ``dgsm``), and build operators from it (``TTMatrix``,
-``CPMatrix``, ``tt_multiply``, ``cp_multiply``).
+``CPMatrix``, ``tt_multiply``, ``cp_multiply``), assign into it
+(``t[key] = value``), and save and load it (``save``, ``load``,
+``save_matrix``, ``load_matrix``, in the JAX package's ``.npz`` layout).
 Data without a device lands on the CUDA card (`utils.default_device`). The
-package imports torch, numpy and scipy, never jax. Names of ``tntorch_tpu``
-outside the slices exist here as functions (or, for its submodules,
-modules) that raise ``NotImplementedError`` naming the ROADMAP item that
-will port them.
+package imports torch, numpy and scipy, never jax. The JAX package's orbax
+checkpoints (``save_orbax``, ``load_orbax`` and their sharded forms) exist
+here as functions that raise ``NotImplementedError`` naming their ROADMAP
+item, and ``mesh=`` arguments and the sharded names of `parallel` raise
+`parallel.ParallelNotPorted`.
 """
 
 from tntorch_tpu_torch import (
-    anova, automata, derivatives, interop, interpolation, logic, models, parallel, tools, utils,
+    anova, automata, cross_host, derivatives, interop, interpolation, logic, models, parallel,
+    serialization, tools, utils,
 )
 from tntorch_tpu_torch.anova import (
     anova_decomposition, dimension_distribution, mean_dimension, sobol, truncate_anova,
@@ -81,7 +85,11 @@ from tntorch_tpu_torch.ops.rounding import (
     round_tt_fixed, round_tt_gram, round_tt_gram_batched, tt_dot, tt_full,
 )
 from tntorch_tpu_torch.round import round, round_tt, round_tucker, truncated_svd
-from tntorch_tpu_torch.tensor import Tensor, _not_ported_module, _not_ported_stub
+from tntorch_tpu_torch.serialization import (
+    load, load_matrix, load_orbax, load_orbax_sharded, save, save_matrix, save_orbax,
+    save_orbax_sharded,
+)
+from tntorch_tpu_torch.tensor import Tensor
 from tntorch_tpu_torch.models import (
     CPMatrix, TTClassifier, TTMatrix, TTRegressor, cp_multiply, matrix, tt_multiply,
 )
@@ -93,22 +101,5 @@ from tntorch_tpu_torch.tools import (
 from tntorch_tpu_torch.utils import (
     asarray, default_dtype, get_policy, matmul_precision, next_key, set_policy,
 )
-
-# The JAX package's public names that no slice has ported yet, by the ROADMAP
-# item (queue 1) that will port them
-_NOT_PORTED = {
-    "queue 1 item 11": (
-        "save", "load", "save_matrix", "load_matrix", "save_orbax", "load_orbax",
-        "save_orbax_sharded", "load_orbax_sharded"),
-}
-# ... and its submodules
-_NOT_PORTED_MODULES = {
-    "queue 1 item 11": ("serialization",),
-}
-
-globals().update({name: _not_ported_stub(name, item)
-                  for item, names in _NOT_PORTED.items() for name in names})
-globals().update({name: _not_ported_module(name, item)
-                  for item, names in _NOT_PORTED_MODULES.items() for name in names})
 
 __version__ = "0.1.0"

@@ -199,7 +199,8 @@ def round_tt_gram(cores, rmax, precision: str = None, edge_solver: str = None):
     Gram SVD"). The Gram squares the condition number: a performance path.
 
     :param precision: the policy name (default: the library policy); every
-        policy computes in full precision here, and 'bf16' is not ported.
+        policy computes in full precision here, except that 'bf16' takes
+        `round_tt_gram_bf16` for real cores (complex ones keep their dtype).
     :param edge_solver: 'eigh' (exact truncation) or 'rand' (randomized
         subspace iteration); default follows the policy.
     """
@@ -208,10 +209,56 @@ def round_tt_gram(cores, rmax, precision: str = None, edge_solver: str = None):
     if not isinstance(rmax, int):
         rmax = tuple(int(r) for r in rmax)
     if precision == "bf16" and not cores[0].is_complex():
-        raise NotImplementedError(
-            "bf16 Gram rounding is not ported yet (ROADMAP.md, queue 1 item 4)"
-        )
+        return [c[0] for c in round_tt_gram_bf16([c[None] for c in cores], rmax, edge_solver)]
     return _round_tt_gram_body(list(cores), rmax, edge_solver)
+
+
+@policy_precision
+def round_tt_gram_bf16(cores, rmax, edge_solver: str = "eigh"):
+    """The bf16-in, f32-accumulate Gram rounding of a batch of real TTs
+    (cores (B, Rl, I, Rr)), the JAX package's ``_round_tt_gram_bf16_jit``
+    over a leading batch axis (its batch vmaps that body; this one is
+    batched natively, one batched ``eigh`` per edge, every sample on the
+    same `_sketch`).
+
+    The cores are rounded to bfloat16, and so are the right Gram chain's
+    products T = C G and the new cores; every large product takes its
+    bf16 operands upcast to float32 and runs in full float32 (a product of
+    two bf16 numbers is exact in float32, so only the order of the sums
+    differs from a bf16 x bf16 -> f32 unit). The Grams G and Lk and every
+    factorization stay float32, the Cholesky jitter at 1e-3 of the trace
+    (the bf16 contractions' noise floor). The output takes the input's
+    dtype."""
+    bf, f32 = torch.bfloat16, torch.float32
+    in_dtype = cores[0].dtype
+    cores = [c.to(bf) for c in cores]
+    N = len(cores)
+    B = cores[0].shape[0]
+
+    def mm(spec, a, b):
+        return torch.einsum(spec, a.to(f32), b.to(f32))
+
+    G = [None] * (N + 1)
+    G[N] = torch.ones((B, 1, 1), dtype=f32, device=cores[0].device)
+    for k in range(N, 1, -1):
+        C = cores[k - 1]
+        T = mm("zaib,zbc->zaic", C, G[k]).to(bf)
+        G[k - 1] = mm("zaic,zdic->zad", T, C)
+
+    for k in range(1, N):
+        C = cores[k - 1]
+        # The prefix interface is orthonormal after each edge's projection,
+        # so the left Gram is the plain Gram of the right unfolding
+        Lk = mm("zaib,zaid->zbd", C, C)
+        F, Finv = _sqrt_factor(Lk, eps_rel=1e-3)
+        r = _edge_rank(rmax, k, Lk.shape[-1])
+        U = _edge_basis(F.mT @ G[k] @ F, r, edge_solver)
+        X, Y = Finv @ U, U.mT @ F.mT
+        cores[k - 1] = mm("zaib,zbc->zaic", C, X).to(bf)
+        nxt = cores[k]
+        cores[k] = mm("zrb,zbj->zrj", Y, nxt.reshape(B, nxt.shape[1], -1)).reshape(
+            B, r, nxt.shape[2], nxt.shape[3]).to(bf)
+    return [c.to(in_dtype) for c in cores]
 
 
 def _round_tt_gram_body(cores, rmax, edge_solver="eigh"):

@@ -32,14 +32,11 @@ autograd and `optimize`. Division by a Tensor (``t / t2``, ``2.0 / t``)
 and ``**`` are cross approximations (`tn.reciprocal`, `tn.cross`). Each
 mode carries an index annotation ``idxs`` (NumPy; ``arange`` by default,
 with a leading ``arange(B)`` for a batch), as in the JAX package.
-
-``__setitem__`` is not ported yet and raises ``NotImplementedError``
-naming its ROADMAP item.
+``t[key] = value`` is assignment as algebra (`Tensor.__setitem__`): the
+ranks grow by the replaced and the assigned ranks.
 """
 
 from __future__ import annotations
-
-import types
 
 import numpy as np
 import torch
@@ -59,22 +56,6 @@ def _not_ported_stub(name: str, item: str):
     stub.__name__ = stub.__qualname__ = name
     stub.roadmap_item = item
     return stub
-
-
-def _not_ported_module(name: str, item: str) -> types.ModuleType:
-    """A stand-in for the JAX package's submodule ``name``: every public
-    attribute raises `_not_ported` for ``tn.name.attr``."""
-    module = types.ModuleType(f"tntorch_tpu_torch.{name}",
-                              f"Not ported yet (ROADMAP.md, {item}).")
-
-    def __getattr__(attr):
-        if attr.startswith("__"):
-            raise AttributeError(attr)
-        raise _not_ported(f"tn.{name}.{attr}", item)
-
-    module.__getattr__ = __getattr__
-    module.roadmap_item = item
-    return module
 
 
 def _full_rank_tt(data: torch.Tensor, batch: bool = False) -> list:
@@ -1056,8 +1037,9 @@ class Tensor:
             with trace_annotation("tn.round_tt:gram"):
                 if self.batch:
                     if precision == "bf16" and not self.dtype.is_complex:
-                        raise _not_ported("bf16 Gram rounding", "queue 1 item 4")
-                    self.cores = ops.round_tt_gram_batched(self.cores, rt, solver)
+                        self.cores = ops.round_tt_gram_bf16(self.cores, rt, solver)
+                    else:
+                        self.cores = ops.round_tt_gram_batched(self.cores, rt, solver)
                 else:
                     self.cores = ops.round_tt_gram(self.cores, rt, edge_solver=solver)
             return
@@ -1244,8 +1226,137 @@ class Tensor:
         values = tt_eval(cores, X)
         return Tensor([values.reshape(1, -1, 1)])
 
+    @policy_precision
     def __setitem__(self, key, value):
-        raise _not_ported("Assignment (__setitem__)", "queue 1 item 2")
+        """Assignment as algebra, not a write: ``self <- self - old + new``,
+        where ``old`` keeps the cores' slices at ``key`` (zeros elsewhere)
+        and ``new`` holds ``value`` there, so the ranks grow by both. The
+        JAX package's body (its tensor.py ``__setitem__``) step by step:
+        Tucker factors are multiplied in and CP factors become TT cores
+        first, in ``self`` and in a Tensor ``value`` (a clone); an array
+        value goes to ``self``'s device and dtype; a repeated fancy index
+        keeps its last write (deduplicated on the host, with the matching
+        rows of ``value``); an int batch key or mode key becomes a length-1
+        slice, negative ones wrapped; a mode an int key dropped from
+        ``value`` goes back at that mode's position. A mask Tensor key
+        selects what it selects in `__getitem__` (the JAX package raises
+        ``TypeError`` there). Each scatter writes into a fresh zero tensor,
+        so autograd flows from the cores. The cores are rebuilt as leaves
+        when ``self.requires_grad``, and ``frozen_Us`` is kept."""
+        from tntorch_tpu_torch.tools import unsqueeze
+
+        if isinstance(key, Tensor):  # a mask Tensor selects as in __getitem__
+            key = self._mask_key(key)
+        if any(U is not None for U in self.Us):
+            # The scatters index cores by mode-space keys
+            t2 = self.decompress_tucker_factors()
+            self.cores, self.Us = t2.cores, t2.Us
+        self._cp_to_tt()
+        key = self._process_key(key)
+        dev, dtype = self.device, self.dtype
+        scalar = False
+        if isinstance(value, (np.ndarray, torch.Tensor)):
+            value = asarray(value, dtype=dtype, device=dev)
+            if value.ndim == 0:
+                value, scalar = float(value), True
+            else:
+                if self.batch:
+                    if isinstance(key[0], (int, np.integer)):
+                        value = value[None]
+                    if value.ndim == 1:
+                        value = value[:, None]
+                value = Tensor(value, batch=self.batch)
+        elif isinstance(value, Tensor):
+            if any(c.ndim == value._m for c in value.cores) or any(
+                    U is not None for U in value.Us):
+                value = value.clone().decompress_tucker_factors()
+                value._cp_to_tt()
+        else:
+            scalar = True
+
+        off = 1 if self.batch else 0
+        key_length = len(key) - off
+        # A repeated fancy index keeps its last write (NumPy's assignment):
+        # CUDA scatters leave the order of repeats undefined, so the host
+        # keeps each index's last occurrence, and the matching rows of value
+        for i in range(key_length):
+            kk = key[i + off]
+            if isinstance(kk, slice) or not hasattr(kk, "__len__"):
+                continue
+            arr = np.asarray(to_numpy(kk))
+            if arr.ndim != 1 or arr.dtype == bool:
+                continue
+            arr = np.where(arr < 0, arr + int(self.shape[i + off]), arr).astype(np.int64)
+            if len(np.unique(arr)) != len(arr):
+                last = {int(v): p for p, v in enumerate(arr)}
+                keep = np.sort(np.asarray(list(last.values()), dtype=np.int64))
+                voff = 1 if (isinstance(value, Tensor) and value.batch) else 0
+                if (not scalar and i < value.dim()
+                        and int(value.shape[i + voff]) == len(arr)):
+                    sel = [slice(None)] * (value.dim() + voff)
+                    sel[i + voff] = keep.tolist()
+                    value = value[tuple(sel)]
+                    arr = arr[keep]
+                elif scalar:
+                    arr = arr[keep]
+            key[i + off] = arr
+
+        if self.batch and not isinstance(key[0], slice) and not hasattr(key[0], "__len__"):
+            # An int batch key stays a length-1 slice: dropping the batch
+            # axis would misalign every scatter below
+            k0 = int(key[0])
+            k0 = k0 + self.shape[0] if k0 < 0 else k0
+            key[0] = slice(k0, k0 + 1)
+
+        def index(k):
+            return k if isinstance(k, slice) else torch.as_tensor(np.asarray(k), device=dev)
+
+        subtract_cores, add_cores = [], []
+        for i in range(key_length):
+            k = i + off
+            if not isinstance(key[k], slice) and not hasattr(key[k], "__len__"):
+                kk = int(key[k])  # wrapped: slice(-1, 0) would be empty
+                kk = kk + int(self.shape[k]) if kk < 0 else kk
+                key[k] = slice(kk, kk + 1)
+            sel = ((index(key[0]),) if self.batch else ()) + (..., index(key[k]), slice(None))
+            core = self.cores[i]
+            chunk = core[sel]
+            sub = torch.zeros_like(core)
+            sub[sel] = chunk
+            subtract_cores.append(sub)
+            sh = chunk.shape[-2]
+
+            if scalar:
+                add = torch.zeros(core.shape[:-3] + (1, core.shape[-2], 1), dtype=dtype,
+                                  device=dev)
+                add[sel] = 1
+                if i == 0:
+                    add = add * value
+            else:
+                if len(value.shape) != len(key):
+                    # An int key dropped this mode from value: it goes back
+                    # at this mode's position (the JAX package rebuilds the
+                    # value densely there; a singleton mode is the same
+                    # values at the value's own ranks)
+                    if k >= len(value.shape) or (sh == 1 and value.shape[k] == sh):
+                        value = unsqueeze(value, value.dim())
+                    elif sh == 1:
+                        value = unsqueeze(value, i)
+                vc = value.cores[i]
+                if not self.batch and chunk.shape[1] != value.shape[i]:
+                    raise ValueError(
+                        "{}-th dimension mismatch in tensor assignment: {} (lhs) != {} (rhs)"
+                        .format(i, chunk.shape[1], value.shape[i]))
+                add = torch.zeros(core.shape[:-3] + (vc.shape[-3], core.shape[-2], vc.shape[-1]),
+                                  dtype=dtype, device=dev)
+                add[sel] = vc.to(dtype)
+            add_cores.append(add)
+
+        result = (self - Tensor(subtract_cores, batch=self.batch)
+                  + Tensor(add_cores, batch=self.batch))
+        rg, frozen = self.requires_grad, set(self.frozen_Us)
+        self.__init__(result.cores, result.Us, self.idxs, batch=self.batch, requires_grad=rg)
+        self.frozen_Us = frozen
 
     def _getitem_impl(self, key):
         batch = self.batch

@@ -30,7 +30,9 @@ def set_policy(precision: str) -> None:
     Hopper is open work. The policy still selects algorithm variants as in
     the JAX package: every performance policy takes CholeskyQR2 for the
     orthogonalization sweeps and randomized subspace edges for Gram
-    rounding. 'bf16' Gram rounding is not ported and raises.
+    rounding, and 'bf16' runs the Gram rounding of real cores on
+    bfloat16-rounded operands with float32 products
+    (`ops.rounding.round_tt_gram_bf16`).
     """
     global _precision_policy
     if precision not in _PRECISION_MODES:
