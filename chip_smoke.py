@@ -198,7 +198,24 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    f-evals/s of both and the host sweep's share in maxvol. Then the
    launches are read, and ``tt_eval`` (both routes) and each Gram call of
    14b's path (recorded by ``recording_gram``) are held to their plain
-   versions. ``--only 14`` runs it alone.
+   versions. ``--only 14`` runs it alone;
+15. the tutorials (``tntorch_tpu_torch/examples/``, the port of the JAX
+   package's ``examples/`` but ``multichip.py``), each through its
+   ``main()`` as a user runs it: the eight analytic ones (decompositions,
+   arithmetic and formats, Sobol indices, logic and automata, vector
+   fields, ANOVA and active subspaces, cross approximation, batch
+   ensembles) in float64, where vector_fields' batched 'gram' rounding
+   takes the Gram kernels, and the four training ones (completion, PCE,
+   classification, exponential machines) in float32 at their own sizes
+   and iteration counts, each held by ``examples.expected.check`` to the
+   JAX tutorials' figures and to its claims; per tutorial its wall, its
+   launches of each kernel, the grouped ``tt_eval`` count and the route
+   of each rounding. Every ``tt_eval``, ``tt_eval_backward`` and Gram call
+   the tutorials made (recorded by ``recording_tt_eval`` and
+   ``recording_gram``) is then held to its plain version, and one forward
+   call of each tutorial on both ``tt_eval`` routes. ``--only 15`` runs it
+   alone; ``tutorials_path("cpu", expected.CPU_CAPS)`` rehearses it on the
+   CPU.
 
 The data of phases 6 to 8 comes without a device and lands on the card by
 the package's default. The second-to-last line is one JSON object with
@@ -1493,10 +1510,10 @@ def plain_values(cores, X):
 
 def hold_tt_eval(name, cases):
     """Each (tag, cores, X) of ``cases`` through the tt_eval kernel on both
-    of its routes, against the plain version on the same inputs, within
-    KERNEL_TOL of max |plain|; prints the route that the cross path takes
-    at each. The caller has read its launch counts: these launches are not
-    the path's."""
+    of its routes (the per-sample one alone below 3 modes), against the
+    plain version on the same inputs, within KERNEL_TOL of max |plain|;
+    prints the route that the cross path takes at each. The caller has
+    read its launch counts: these launches are not the path's."""
     import torch
 
     from tntorch_tpu_torch.ops import tt_eval as te
@@ -1511,7 +1528,8 @@ def hold_tt_eval(name, cases):
         takes = ("grouped" if te._grouped(ranks, dims, X.shape[0], cores[0].element_size())
                  else "per-sample")
         rels = []
-        for route in ("grouped", "per-sample"):
+        # the grouped kernel takes N >= 3 modes
+        for route in ("grouped", "per-sample")[0 if len(cores) >= 3 else 1:]:
             got = tt_path(route == "grouped", lambda: te.tt_eval_kernel(cores, X))
             rel = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-300)
             rels.append(f"{route} {rel:.2e}")
@@ -3464,9 +3482,13 @@ def assignment_checks(device="cuda", cfg=ASSIGN14):
             err_out = float((got - want)[~inside].abs().max()) / scale
             err_in = float((got - want)[inside].abs().max()) / scale
             tol = ASSIGN_TOL[dname]
+            # t[X]'s bound: its forward FLOPs at the assigned ranks (FP64 on
+            # the tensor cores for float64), or its bytes, whichever is larger
+            bound, by = bound_ms(tt_work(t2.cores, X)[0], nbytes(*t2.cores, X, got),
+                                 PEAK_FP64 if dtype == torch.float64 else PEAK_FP32)
             print(f"14a {name}, {dname}: {wall:.2f} ms, ranks {t.ranks_tt.tolist()} -> "
-                  f"{t2.ranks_tt.tolist()}; t[X] {eval_ms:.3f} ms (warm, the grouped kernel), "
-                  f"at {B} points ({int(inside.sum())} inside): "
+                  f"{t2.ranks_tt.tolist()}; t[X] {eval_ms:.3f} ms (warm, the grouped kernel; "
+                  f"bound {bound:.4f} ms, {by}), at {B} points ({int(inside.sum())} inside): "
                   f"outside {err_out:.2e} from the original, inside {err_in:.2e} from the "
                   f"value (tol {tol})")
             if not (err_out <= tol and err_in <= tol and bool(torch.isfinite(got).all())):
@@ -3476,34 +3498,46 @@ def assignment_checks(device="cuda", cfg=ASSIGN14):
 
 
 @contextlib.contextmanager
+def _spying(module, record):
+    """Within the block, each kernel wrapper of ``module`` (its ``KERNELS``)
+    is replaced, under its module-level name, by a spy that calls
+    ``record(wrapper, args)`` and then the wrapper."""
+
+    class Spy:
+        # A wrapper counts its launches (and grouped calls) on its
+        # module-level name, which is this spy while the block runs: the
+        # counts go to the wrapper
+        launches = property(lambda self: self.kernel.launches,
+                            lambda self, n: setattr(self.kernel, "launches", n))
+        grouped = property(lambda self: self.kernel.grouped,
+                           lambda self, n: setattr(self.kernel, "grouped", n))
+
+        def __init__(self, kernel):
+            self.kernel = kernel
+
+        def __call__(self, *args):
+            record(self.kernel, args)
+            return self.kernel(*args)
+
+    kernels = {k.__name__: k for k in module.KERNELS}
+    for name, kernel in kernels.items():
+        setattr(module, name, Spy(kernel))
+    try:
+        yield
+    finally:
+        for name, kernel in kernels.items():
+            setattr(module, name, kernel)
+
+
+@contextlib.contextmanager
 def recording_gram(calls):
     """Within the block, every call of a Gram kernel's wrapper is recorded in
     ``calls`` as (wrapper, args) and then made: the shapes a path gives the
     kernels, to hold them there afterwards."""
     from tntorch_tpu_torch.ops import gram_kernels as gk
 
-    kernels = {k.__name__: k for k in gk.KERNELS}
-
-    class Spy:
-        # A wrapper counts its launches on its module-level name, which is
-        # this spy while the block runs: the count goes to the wrapper
-        launches = property(lambda self: self.kernel.launches,
-                            lambda self, n: setattr(self.kernel, "launches", n))
-
-        def __init__(self, kernel):
-            self.kernel = kernel
-
-        def __call__(self, *args):
-            calls.append((self.kernel, args))
-            return self.kernel(*args)
-
-    for name, kernel in kernels.items():
-        setattr(gk, name, Spy(kernel))
-    try:
+    with _spying(gk, lambda kernel, args: calls.append((kernel, args))):
         yield calls
-    finally:
-        for name, kernel in kernels.items():
-            setattr(gk, name, kernel)
 
 
 def hold_gram_calls(name, calls):
@@ -3775,10 +3809,208 @@ def missing_modules_path():
     return launches
 
 
+# Phase 15: the tutorials of tntorch_tpu_torch/examples/, each through its
+# main() as a user runs it, held to expected.check (the JAX tutorials'
+# figures and the tutorials' claims): the eight analytic ones in float64,
+# the JAX scripts' analysis mode (float64 is also what sends vector_fields'
+# batched 'gram' rounding to the Gram kernels; float32 under the 'highest'
+# policy takes the SVD sweep), the four training ones in float32 at their
+# own sizes and iteration counts, uncapped.
+
+
+@contextlib.contextmanager
+def recording_tt_eval(calls):
+    """Within the block, every call of the tt_eval kernels' wrappers is
+    recorded in ``calls`` as (wrapper, cores, X, *rest) and then made; the
+    cores and weights are copied, since training updates the cores in
+    place."""
+    import torch
+
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    def record(kernel, args):
+        cores, X, *rest = args
+        calls.append((kernel, [c.detach().clone() for c in cores], X,
+                      *(r.detach().clone() if isinstance(r, torch.Tensor) else r for r in rest)))
+
+    with _spying(te, record):
+        yield calls
+
+
+def hold_tt_eval_calls(name, calls, tags, chunk=256):
+    """Each recorded tt_eval and tt_eval_backward call (`recording_tt_eval`;
+    ``tags[i]`` names the tutorial of call i) on its kernel, by the route
+    the call took, against the plain version on the same arguments: max
+    |diff| within KERNEL_TOL of the largest sum of magnitudes that an output
+    entry adds up (the plain version on |cores| and |g|). Against max |plain|
+    a fitted optimum's gradient would not do: its sums cancel to ~1e-4 of
+    their terms, while float32 rounds each term. Both ratios are printed.
+    Calls with one X and one set of shapes are compared ``chunk`` at a time,
+    the plain versions by one ``torch.func.vmap`` over their cores (exact:
+    the same operations on each call's operands). The caller has read its
+    launch counts."""
+    import collections
+
+    import torch
+
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    def flat(outs):  # (calls, entries) from a (calls, B) tensor or a list of them
+        outs = outs if isinstance(outs, (list, tuple)) else [outs]
+        return torch.cat([o.reshape(o.shape[0], -1) for o in outs], dim=1)
+
+    groups = collections.defaultdict(list)
+    for tag, (kernel, cores, X, *rest) in zip(tags, calls):
+        groups[(tag, kernel, id(X), tuple(tuple(c.shape) for c in cores))].append(
+            (cores, X, rest))
+    worst, count = {}, collections.Counter()
+    for (tag, kernel, _, _), group in groups.items():
+        plain, X = te.PLAIN[kernel], group[0][1]
+        backward = kernel is te.tt_eval_backward_kernel
+
+        def plains(cores, gs):
+            if backward:
+                return torch.func.vmap(lambda g, *cs: plain(list(cs), X, g))(gs, *cores)
+            return torch.func.vmap(lambda *cs: plain(list(cs), X))(*cores)
+
+        for i in range(0, len(group), chunk):
+            part = group[i:i + chunk]
+            got = [kernel(cores, X, *rest) for cores, X, rest in part]
+            got = [torch.stack(o) for o in zip(*got)] if backward else torch.stack(got)
+            cores = [torch.stack(c) for c in zip(*(cores for cores, _, _ in part))]
+            gs = torch.stack([rest[0] for _, _, rest in part]) if backward else None
+            want = flat(plains(cores, gs))
+            terms = flat(plains([c.abs() for c in cores], gs.abs() if backward else None))
+            diff = (flat(got) - want).abs().amax(1).nan_to_num(nan=float("inf"))
+            errs = torch.stack([diff / terms.abs().amax(1).clamp(min=1e-300),
+                                diff / want.abs().amax(1).clamp(min=1e-300)]).amax(1)
+            key = (kernel.__name__, str(want.dtype)[6:], tag)
+            worst[key] = torch.maximum(worst[key], errs) if key in worst else errs
+            count[key] += len(part)
+    failed, parts = [], []
+    for key, errs in worst.items():
+        err, err_plain = errs.tolist()
+        parts.append(f"{key[0]} {key[1]} in {key[2]} at {count[key]} calls: worst {err:.1e} "
+                     f"of the terms' magnitude, {err_plain:.1e} of max |plain|")
+        if not err <= KERNEL_TOL[key[1]]:
+            failed.append(f"{key[0]} {key[1]} in {key[2]}: rel {err:.3e}")
+    print(f"{name}, tt_eval kernels vs plain at every call of the path (tol {KERNEL_TOL}): "
+          + "; ".join(parts))
+    if failed:
+        raise AssertionError(f"{name}: a tt_eval kernel disagrees with its plain version: "
+                             + "; ".join(failed))
+
+
+@contextlib.contextmanager
+def recording_roundings(routes):
+    """Within the block, each ``Tensor.round_tt`` call appends to ``routes``
+    the route it took: its algorithm, dtype, and the Gram kernels'
+    launches it made (none: the SVD or eigh sweep)."""
+    import inspect
+
+    import tntorch_tpu_torch as tn
+    from tntorch_tpu_torch.ops import gram_kernels as gk
+
+    real = tn.Tensor.round_tt
+    signature = inspect.signature(real)
+
+    def spy(self, *args, **kwargs):
+        algorithm = signature.bind(self, *args, **kwargs).arguments.get("algorithm", "svd")
+        before = sum(k.launches for k in gk.KERNELS)
+        out = real(self, *args, **kwargs)
+        n = sum(k.launches for k in gk.KERNELS) - before
+        routes.append(f"'{algorithm}' {str(self.dtype)[6:]}{' batch' if self.batch else ''}: "
+                      + (f"the Gram kernels ({n} launches)" if n else "a sweep without them"))
+        return out
+
+    tn.Tensor.round_tt = spy
+    try:
+        yield routes
+    finally:
+        tn.Tensor.round_tt = real
+
+
+def tutorials_path(device="cuda", caps=None):
+    """Phase 15; returns each kernel's launches in it. On the CPU
+    (``device="cpu"``, a rehearsal) the training tutorials take ``caps``
+    (``expected.CPU_CAPS``) and are held to the capped thresholds."""
+    import collections
+    import importlib
+
+    import torch
+
+    import tntorch_tpu_torch as tn
+    from tntorch_tpu_torch.examples import NAMES, expected
+    from tntorch_tpu_torch.ops import gram_kernels as gk
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    def counts():
+        return {"tt_eval": te.tt_eval_kernel.launches,
+                "tt_eval_backward": te.tt_eval_backward_kernel.launches,
+                **{g.__name__: g.launches for g in gk.KERNELS}}
+
+    tn.set_policy("highest")  # the package's default, as a user runs the tutorials
+    caps = caps or {}
+    te.reset_launches()
+    gk.reset_launches()
+    start = time.perf_counter()
+    failed, results, tt_calls, tags, gram_calls, samples = [], {}, [], [], [], []
+    for k, name in enumerate(NAMES):
+        dtype = torch.float64 if k < 8 else torch.float32
+        phase(f"15.{k + 1}. tutorial {name} on {device}, {str(dtype)[6:]}")
+        module = importlib.import_module(f"tntorch_tpu_torch.examples.{name}")
+        before, grouped = counts(), te.tt_eval_kernel.grouped
+        first, routes = len(tt_calls), []
+        with recording_roundings(routes), recording_tt_eval(tt_calls), \
+                recording_gram(gram_calls):
+            t0 = time.perf_counter()
+            out = module.main(device=device, dtype=dtype, **caps.get(name, {}))
+            _sync(device)
+            wall = time.perf_counter() - t0
+        launches = {key: n - before[key] for key, n in counts().items()}
+        bad = expected.check(name, out, dtype, capped=name in caps)
+        results[name] = out
+        print(f"15 {name}: wall {wall:.3f} s, launches {launches} (grouped tt_eval "
+              f"{te.tt_eval_kernel.grouped - grouped}); roundings: "
+              + (", ".join(f"{r} x{n}" for r, n in collections.Counter(routes).items())
+                 or "none")
+              + f"; held to the JAX figures and its claims: {'ok' if not bad else bad}")
+        failed += bad
+        tags += [name] * (len(tt_calls) - first)
+        fwd = next((c for c in tt_calls[first:] if c[0] is te.tt_eval_kernel), None)
+        if fwd is not None:  # one forward call of each tutorial on both routes
+            samples.append((name, fwd[1], fwd[2]))
+    _sync(device)
+    launches = counts()
+    print(f"15, launches: {launches} (grouped tt_eval {te.tt_eval_kernel.grouped}); the 12 "
+          f"tutorials {time.perf_counter() - start:.1f} s")
+    if torch.device(device).type == "cuda" and not all(launches.values()):
+        failed.append(f"a kernel of the path was not launched: {launches}")
+    if failed:
+        for name, out in results.items():
+            if any(f.startswith(f"{name}:") for f in failed):
+                print(f"15 {name}'s figures: {out}")
+        raise AssertionError("phase 15: " + "; ".join(failed))
+    hold_tt_eval_calls("15", tt_calls, tags)
+    hold_tt_eval("15", samples)
+    hold_gram_calls("15", gram_calls)
+    if torch.device(device).type == "cuda":
+        # 64 steps of each fit: exponential machines has one (in one block),
+        # classification three (its tensor, TTClassifier, the ensemble of 4)
+        for name, steps in (("exponential_machines", 64), ("classification", 192)):
+            module = importlib.import_module(f"tntorch_tpu_torch.examples.{name}")
+            print(f"profile, {name} at 64 steps a fit (float32):")
+            profile_device(lambda: module.main(device=device, dtype=torch.float32,
+                                               max_iter=63), steps=steps)
+    print(f"15: the phase {time.perf_counter() - start:.1f} s")
+    return launches
+
+
 PHASES = {"3": "check_kernels", "3b": "check_tt_kernels", "4": "main_path",
           "5": "nonbatch_pass", "6": "eval_path", "7": "train_path", "8": "train_design_path",
           "9": "baseline_path", "10": "cross_path", "11": "elementwise_path",
-          "12": "config4_path", "13": "config5_path", "14": "missing_modules_path"}
+          "12": "config4_path", "13": "config5_path", "14": "missing_modules_path",
+          "15": "tutorials_path"}
 
 
 def main():
@@ -3811,9 +4043,10 @@ def main():
     config4 = config4_path()
     config5 = config5_path()
     missing = missing_modules_path()
+    tutorials = tutorials_path()
     launches.update({k: evals[k] + trains[k] + designs[k] for k in evals})
     launches = {k: n + sum(p.get(k, 0) for p in (baselines, crosses, elementwise, config4,
-                                                         config5, missing))
+                                                         config5, missing, tutorials))
                 for k, n in launches.items()}
 
     import torch

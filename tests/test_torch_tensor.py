@@ -443,9 +443,13 @@ def test_policy_pins_full_float32_matmuls():
 
 
 def test_package_never_imports_jax():
-    # nor the JAX package, not even its modules without JAX (maxvol.py)
-    code = ("import tntorch_tpu_torch, sys; bad = [m for m in sys.modules if m == 'jax' "
-            "or m.startswith(('jax.', 'jaxlib', 'tntorch_tpu.')) or m == 'tntorch_tpu']; "
+    # nor the JAX package, not even its modules without JAX (maxvol.py); the
+    # tutorials (tntorch_tpu_torch/examples/) included, nor optax
+    code = ("import importlib, sys, tntorch_tpu_torch, tntorch_tpu_torch.examples as ex; "
+            "[importlib.import_module(f'tntorch_tpu_torch.examples.{n}') "
+            "for n in ex.NAMES + ('expected',)]; "
+            "bad = [m for m in sys.modules if m in ('jax', 'optax', 'tntorch_tpu') "
+            "or m.startswith(('jax.', 'jaxlib', 'optax.', 'tntorch_tpu.'))]; "
             "assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
