@@ -200,7 +200,7 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    14b's path (recorded by ``recording_gram``) are held to their plain
    versions. ``--only 14`` runs it alone;
 15. the tutorials (``tntorch_tpu_torch/examples/``, the port of the JAX
-   package's ``examples/`` but ``multichip.py``), each through its
+   package's ``examples/``; ``multichip.py`` runs in phase 16c), each through its
    ``main()`` as a user runs it: the eight analytic ones (decompositions,
    arithmetic and formats, Sobol indices, logic and automata, vector
    fields, ANOVA and active subspaces, cross approximation, batch
@@ -215,7 +215,24 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    ``recording_gram``) is then held to its plain version, and one forward
    call of each tutorial on both ``tt_eval`` routes. ``--only 15`` runs it
    alone; ``tutorials_path("cpu", expected.CPU_CAPS)`` rehearses it on the
-   CPU.
+   CPU;
+16. the parallel layer (``tntorch_tpu_torch/parallel``), each case at the
+   size of the phase it borrows from: the mode-sharded Gram rounding of
+   phase 4's first TT (float32 at tp=4 and tp=2, float64 at tp=4), the
+   batch-sharded rounding of phase 4's ensemble, ``tt_forward_sharded`` at
+   the evaluation design shape (dp=4; and at (2, 2), the alternating layout,
+   on all 2^20 rows) and ``optimize(mesh=)`` of phase 7's training: (16a) on
+   one rank of an NCCL process group, mesh (1, 1), (16b) on four ranks
+   sharing the card in a gloo process group (NCCL refuses two ranks on one
+   card), meshes (1, 4), (2, 2) and (4, 1); per rank its launches of each
+   kernel (2/2/2 Gram launches for a sweep), its collectives with their
+   sizes, its walls, and every kernel call it made held to the plain
+   version; each result against the single-process port on the card and
+   against the CPU in float64; (16c) the multichip tutorial on four ranks
+   of the card, held by ``examples.expected.check``. The walls are of ranks
+   sharing one card, their collectives through host memory: not
+   multi-card numbers. ``--only 16`` runs it alone;
+   ``parallel_path("cpu", small sizes)`` rehearses it on the CPU.
 
 The data of phases 6 to 8 comes without a device and lands on the card by
 the package's default. The second-to-last line is one JSON object with
@@ -224,6 +241,7 @@ each kernel's launches, error, times and bound; the last is
 """
 
 import contextlib
+import functools
 import json
 import os
 import re
@@ -855,12 +873,13 @@ def tt_bwd_crossover():
               + "; ".join(row), flush=True)
 
 
-def bench_cores():
+def bench_cores(cfg=BENCH):
     """The bench cell's cores (bench.py): N=4, I=256, R=128, scaled by
-    1/sqrt(R), stacked B times with 1% per-sample jitter, float32."""
+    1/sqrt(R), stacked B times with 1% per-sample jitter, float32 (``cfg``
+    another N, I, R, B)."""
     import numpy as np
 
-    N, I, R, B = BENCH["N"], BENCH["I"], BENCH["R"], BENCH["B"]
+    N, I, R, B = cfg["N"], cfg["I"], cfg["R"], cfg["B"]
     rng = np.random.default_rng(0)
     ranks = [1] + [R] * (N - 1) + [1]
     cores = [(rng.standard_normal((ranks[n], I, ranks[n + 1])) / np.sqrt(R)).astype(np.float32)
@@ -1031,6 +1050,19 @@ def profile_device(fn, steps, each=None):
         print(f"  each launch of {each}, in order: " + ", ".join(f"{t:.4f} ms" for t in times))
 
 
+def eval_data(cfg):
+    """Phase 6's problem at ``cfg``'s N, I, R, B (NumPy): cores
+    N(0, 1)/sqrt(R_k) in float32 and coordinates."""
+    import numpy as np
+
+    N, I, R, B = cfg["N"], cfg["I"], cfg["R"], cfg["B"]
+    rng = np.random.default_rng(4)
+    ranks = [1] + [R] * (N - 1) + [1]
+    cores = [(rng.standard_normal((ranks[k], I, ranks[k + 1])) / np.sqrt(ranks[k]))
+             .astype(np.float32) for k in range(N)]
+    return cores, rng.integers(0, I, (B, N))
+
+
 def eval_path():
     phase("6. evaluation path: tn.tt_eval and t[X].full(), N=4 I=1024 R=64 B=2^20 float32")
     import numpy as np
@@ -1040,11 +1072,7 @@ def eval_path():
     from tntorch_tpu_torch.ops import tt_eval as te
 
     N, I, R, B = EVAL["N"], EVAL["I"], EVAL["R"], EVAL["B"]
-    rng = np.random.default_rng(4)
-    ranks = [1] + [R] * (N - 1) + [1]
-    cores = [(rng.standard_normal((ranks[k], I, ranks[k + 1])) / np.sqrt(ranks[k]))
-             .astype(np.float32) for k in range(N)]
-    X_np = rng.integers(0, I, (B, N))
+    cores, X_np = eval_data(EVAL)
     t = tn.interop.tensor_from_arrays(cores)  # no device given: the card
     X = tn.utils.asarray(X_np)
     if t.device.type != "cuda" or X.device.type != "cuda":
@@ -1088,6 +1116,19 @@ def eval_path():
     return {k: sum(launches[n][i] for n in launches) for i, k in enumerate(("tt_eval", "tt_eval_backward"))}
 
 
+def train_data(cfg):
+    """Phase 7's problem at ``cfg``'s N, I, R, B (NumPy, float32): uniform
+    [0, 1) cores, as tn.rand draws them (benchmarks/bench_optimize.py),
+    coordinates and normal targets."""
+    import numpy as np
+
+    N, I, R, B = cfg["N"], cfg["I"], cfg["R"], cfg["B"]
+    rng = np.random.default_rng(5)
+    ranks = [1] + [R] * (N - 1) + [1]
+    cores = [rng.uniform(0, 1, (ranks[k], I, ranks[k + 1])).astype(np.float32) for k in range(N)]
+    return cores, rng.integers(0, I, (B, N)), rng.standard_normal(B).astype(np.float32)
+
+
 def train_path():
     T = TRAIN
     phase(f"7. training path: tn.optimize, {T['I']}^{T['N']} TT rank {T['R']}, "
@@ -1098,13 +1139,8 @@ def train_path():
     import tntorch_tpu_torch as tn
     from tntorch_tpu_torch.ops import tt_eval as te
 
-    N, I, R, B, steps = T["N"], T["I"], T["R"], T["B"], T["steps"]
-    rng = np.random.default_rng(5)
-    ranks = [1] + [R] * (N - 1) + [1]
-    # uniform [0, 1) cores, as tn.rand draws them (benchmarks/bench_optimize.py)
-    cores = [rng.uniform(0, 1, (ranks[k], I, ranks[k + 1])).astype(np.float32) for k in range(N)]
-    X_np = rng.integers(0, I, (B, N))
-    y_np = rng.standard_normal(B).astype(np.float32)
+    steps = T["steps"]
+    cores, X_np, y_np = train_data(T)
     X, y = tn.utils.asarray(X_np), tn.utils.asarray(y_np)  # no device given: the card
 
     def fit(max_iter, device=None, dtype=None):
@@ -3955,7 +3991,7 @@ def tutorials_path(device="cuda", caps=None):
     gk.reset_launches()
     start = time.perf_counter()
     failed, results, tt_calls, tags, gram_calls, samples = [], {}, [], [], [], []
-    for k, name in enumerate(NAMES):
+    for k, name in enumerate(n for n in NAMES if n != "multichip"):  # phase 16c runs it
         dtype = torch.float64 if k < 8 else torch.float32
         phase(f"15.{k + 1}. tutorial {name} on {device}, {str(dtype)[6:]}")
         module = importlib.import_module(f"tntorch_tpu_torch.examples.{name}")
@@ -4006,11 +4042,400 @@ def tutorials_path(device="cuda", caps=None):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the parallel layer (tntorch_tpu_torch/parallel)
+# ---------------------------------------------------------------------------
+# 16a runs each case on one rank of an NCCL process group (mesh (1, 1)) at
+# full size; 16b on four ranks that share the one card in a gloo process
+# group (NCCL refuses two ranks on one card; the port stages each gloo
+# collective of card tensors through host memory), on meshes (1, 4),
+# (2, 2) and (4, 1); 16c runs the multichip tutorial on its own four ranks.
+# Every wall of phase 16 is that of ranks sharing one card, their
+# collectives through host memory: not a multi-card number.
+#
+# The cases, each at the size of the phase it borrows from: 'round',
+# round_tt_gram_sharded of phase 4's first TT (N=4, I=256, rank 128 -> 64,
+# 'eigh' edges) with its modes sharded over tp; 'batch',
+# round_tt_batch_sharded of phase 4's B=32 ensemble over dp; 'forward',
+# tt_forward_sharded at phase 6's design shape (N=4, I=1024, R=64,
+# B=2^20) over dp, and at tp > 1 on the first fwd_tp_B rows: there the
+# alternating layout's einsums gather (R, B/dp, R/tp) per core, 4 GiB a
+# core and rank at (2, 2) and B=2^20, which four ranks sharing the card's
+# 80 GB hold one core at a time (a smaller fwd_tp_B where they would not);
+# 'optimize', phase 7's training (256^3 rank 16, 8192 samples, 20 steps,
+# Adam lr 1e-3, its loss closure unchanged) with mesh=.
+SIZES16 = dict(round=BENCH, fwd=EVAL, fwd_tp_B=1 << 20, train=TRAIN)
+CASES16 = (("round", (1, 4), "float32"), ("round", (2, 2), "float32"),
+           ("round", (1, 4), "float64"), ("batch", (4, 1), "float32"),
+           ("forward", (4, 1), "float32"), ("forward", (2, 2), "float32"),
+           ("optimize", (4, 1), "float32"))
+# Tolerances of phase 16, each with its reason:
+# - sharded Gram rounding against the single-process port on the card,
+#   relative error of the dense results (`_f64_dist`): the sharded sums run
+#   in another order, and the rank-64 cut of phase 4's flat random spectrum
+#   amplifies float32 roundoff: each float32 sweep on the card lies
+#   1.25e-4 to 1.36e-4 from the CPU's float64 rounding, and the sharded
+#   and single-process float32 sweeps 3.8e-5 to 5.1e-5 apart (one TT) and
+#   1.75e-4 (the worst of the B=32 batch, whose kernels split the work by
+#   B); 1e-3. Float64: roundoff, 1e-10. Against the CPU's float64 rounding:
+#   MAIN_TOL (phase 4), per sample for the batch.
+ROUND16_TOL = {"float32": 1e-3, "float64": 1e-10}
+# - the sharded forward against tn.tt_eval on the card, max |diff| over
+#   max |value|: float32 rank-64 chains summed in another order (the tp
+#   all-reduces; at tp=1 the same kernel): 1e-6. Against the CPU's float64
+#   values at the first 4096 rows: EVAL_TOL (phase 6).
+FWD16_TOL = 1e-6
+# - dp training, the 20 losses against the single-process run on the card
+#   and against the CPU's float64 run, max relative difference: TRAIN_TOL
+#   (phase 7); the trained cores against the single-process ones, max
+#   |diff| over max |core|: 1e-4 (20 Adam steps of lr 1e-3 on float32
+#   gradients summed in another order).
+CORES16_TOL = 1e-4
+
+
+@functools.lru_cache(maxsize=1)
+def _bench16(**cfg):
+    """`bench_cores`, drawn once per process: the phase's cases share them."""
+    return tuple(bench_cores(cfg))
+
+
+def _inputs16(case, cfg, dtype, device):
+    """The data of one case of phase 16 on ``device``, from the NumPy seeds
+    of the phase it borrows from."""
+    import torch
+
+    def put(x, dt=dtype):
+        return torch.from_numpy(x).to(device, dt)
+
+    if case in ("round", "batch"):
+        cores = _bench16(**{k: cfg["round"][k] for k in ("N", "I", "R", "B")})
+        return [put(c[0] if case == "round" else c) for c in cores]
+    if case == "forward":
+        cores, X = eval_data(cfg["fwd"])
+        return [put(c) for c in cores], put(X, torch.int64)
+    cores, X, y = train_data(cfg["train"])
+    return [put(c) for c in cores], put(X, torch.int64), put(y)
+
+
+def _call16(case, cfg, data, mesh=None):
+    """One case's call on its data: the sharded entry point over ``mesh``
+    (the data placed first, and not timed), or without a mesh the
+    single-process port."""
+    import torch
+
+    import tntorch_tpu_torch as tn
+    from tntorch_tpu_torch import parallel as par
+    from tntorch_tpu_torch.ops import rounding as tr
+
+    rmax = cfg["round"]["rmax"]
+    if case == "optimize":
+        cores, X, y = data
+        if mesh is not None:
+            X, y = par.shard_array(X, mesh), par.shard_array(y, mesh)
+
+        def fit():
+            t = tn.Tensor([c.clone() for c in cores], requires_grad=True)
+            hist = tn.optimize([t], lambda t: torch.mean((t[X].full() - y) ** 2), tol=None,
+                               max_iter=cfg["train"]["steps"] - 1, verbose=False, mesh=mesh)
+            return hist, t.cores
+        return fit
+    if case == "forward":
+        cores, X = data
+        if mesh is not None:
+            if mesh.size(mesh.mesh_dim_names.index("tp")) > 1:
+                X = X[:cfg["fwd_tp_B"]]
+            cores, X = par.replicate_pytree(cores, mesh), par.shard_array(X, mesh)
+            return lambda: par.tt_forward_sharded(cores, X, mesh)
+        return lambda: tn.tt_eval(cores, X)
+    if mesh is None:
+        if case == "round":
+            return lambda: tr.round_tt_gram(data, rmax, edge_solver="eigh")
+        return lambda: tr.round_tt_gram_batched(data, rmax, "eigh")
+    if case == "round":
+        placed = [par.place(c, mesh, (None, "tp")) for c in data]
+        return lambda: par.round_tt_gram_sharded(placed, rmax, mesh)
+    placed = [par.place(c, mesh, ("dp",)) for c in data]
+    return lambda: par.round_tt_batch_sharded(placed, rmax, mesh)
+
+
+def rank16(case, shape, dtype_name, cfg, repeats, device="cuda"):
+    """One case of phase 16 on this rank of the running process group:
+    the case's data and mesh, one recorded call (each kernel's launches,
+    every collective with its size, the Gram and tt_eval calls), then
+    ``repeats`` timed calls, each after a barrier, then the recorded kernel
+    calls held to their plain versions. Returns the counts, the walls, what
+    the rank printed, and on rank 0 the whole result (gathered)."""
+    import io
+
+    import torch
+    import torch.distributed as dist
+
+    from tntorch_tpu_torch import parallel as par
+    from tntorch_tpu_torch.ops import gram_kernels as gk
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    rank, log = dist.get_rank(), io.StringIO()
+    with contextlib.redirect_stdout(log):
+        mesh = par.make_mesh(shape, device=device)
+        t0 = time.perf_counter()
+        call = _call16(case, cfg, _inputs16(case, cfg, getattr(torch, dtype_name), device), mesh)
+        _sync(device)
+        setup = time.perf_counter() - t0
+        gram_calls, tt_calls = [], []
+        dist.barrier()
+        gk.reset_launches()
+        te.reset_launches()
+        with par.counting_collectives() as calls, recording_gram(gram_calls), \
+                recording_tt_eval(tt_calls):
+            t0 = time.perf_counter()
+            out = call()
+            _sync(device)
+            first = time.perf_counter() - t0
+        launches = {**{k.__name__: k.launches for k in gk.KERNELS},
+                    **{k.__name__.replace("_kernel", ""): k.launches for k in te.KERNELS}}
+        grouped = te.tt_eval_kernel.grouped
+        walls = []
+        for _ in range(repeats):
+            dist.barrier()
+            t0 = time.perf_counter()
+            call()
+            _sync(device)
+            walls.append(time.perf_counter() - t0)
+        if gram_calls:
+            hold_gram_calls(f"16 {case} rank {rank}", gram_calls)
+        if tt_calls:
+            hold_tt_eval_calls(f"16 {case} rank {rank}", tt_calls, [case] * len(tt_calls))
+        if case == "optimize":
+            whole = (out[0], [par.gather(c.detach()) for c in out[1]])
+        elif case == "forward":
+            whole = par.gather(out)
+        else:
+            whole = [par.gather(c) for c in out]
+    return dict(rank=rank, launches=launches, grouped=grouped, collectives=calls, setup=setup,
+                first=first, walls=walls, log=log.getvalue(), whole=whole if rank == 0 else None)
+
+
+def _f64_dist(got, want, batch=False):
+    """||got - want|| / ||want|| of two TTs (lists of cores), the largest
+    over the samples of a batch, in float64 on the CPU: each norm from a QR
+    sweep over the cores (of the difference: its TT of doubled rank), so
+    the distance is accurate to float64 roundoff, not to the square root of
+    it as the dot expansion of tn.relative_error is."""
+    import torch
+
+    import tntorch_tpu_torch as tn
+    from tntorch_tpu_torch.ops.rounding import _left_orthogonalize_sweep
+
+    def norm(t):
+        cores = [c if batch else c[None] for c in t.cores]
+        last = _left_orthogonalize_sweep(cores)[-1]
+        return torch.linalg.vector_norm(last.reshape(last.shape[0], -1), dim=-1)
+
+    def tt(cores):
+        return tn.Tensor([c.double().cpu() for c in cores], batch=batch)
+
+    return float((norm(tt(got) - tt(want)) / norm(tt(want))).max())
+
+
+def _check16(case, dtype, cfg, whole, data, single, device):
+    """The failures of one case's gathered result ``whole`` against the
+    single-process port's ``single`` on the card and the CPU in float64;
+    prints each distance."""
+    import numpy as np
+    import torch
+
+    import tntorch_tpu_torch as tn
+
+    failed, d = [], str(dtype)[6:]
+    if case in ("round", "batch"):
+        batch = case == "batch"
+        err = _f64_dist(whole, single, batch)
+        cpu_in = [c.double().cpu()[:2] if batch else c.double().cpu() for c in data]
+        cpu = _call16(case, cfg, cpu_in)()
+        got = [c[:2] for c in whole] if batch else whole
+        err_cpu = _f64_dist(got, cpu, batch)
+        equal = all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(whole, single))
+        print(f"  vs the single-process port on the card: rel {err:.3e} (tol "
+              f"{ROUND16_TOL[d]}; bitwise equal: {equal}); vs the CPU's float64 rounding"
+              f"{' (samples 0-1)' if batch else ''}: rel {err_cpu:.3e} (tol {MAIN_TOL})")
+        if not (err <= ROUND16_TOL[d] and err_cpu <= MAIN_TOL):
+            failed.append(f"{case} {d}: rel {err:.3e} vs the card, {err_cpu:.3e} vs the CPU")
+    elif case == "forward":
+        cores, X = data
+        want = single[:whole.shape[0]]
+        err = float((whole.cpu() - want.cpu()).abs().max() / want.abs().max())
+        rows = min(4096, whole.shape[0])
+        ref = tn.tt_eval([c.double().cpu() for c in cores], X[:rows].cpu())
+        err_cpu = float((whole[:rows].double().cpu() - ref).abs().max() / ref.abs().max())
+        print(f"  vs tn.tt_eval on the card: max |diff| / max |value| {err:.3e} (tol {FWD16_TOL}; "
+              f"bitwise equal: {torch.equal(whole.cpu(), want.cpu())}); vs the CPU's float64 at "
+              f"{rows} rows: {err_cpu:.3e} (tol {EVAL_TOL})")
+        if not (err <= FWD16_TOL and err_cpu <= EVAL_TOL):
+            failed.append(f"forward: rel {err:.3e} vs the card, {err_cpu:.3e} vs the CPU")
+    else:
+        hist, cores = whole
+        ref_hist, ref_cores = single
+        cores_in, X, y = data
+        cpu_hist, _ = _call16(case, cfg, ([c.double().cpu() for c in cores_in], X.cpu(),
+                                          y.double().cpu()))()
+        err = float(np.max(np.abs(np.array(hist) - ref_hist) / np.abs(ref_hist)))
+        err_cpu = float(np.max(np.abs(np.array(hist) - cpu_hist) / np.abs(cpu_hist)))
+        err_c = max(float((a.cpu() - b.detach().cpu()).abs().max() / b.detach().abs().max())
+                    for a, b in zip(cores, ref_cores))
+        print(f"  {len(hist)} losses {hist[0]:.6f} -> {hist[-1]:.6f}; vs the single-process run "
+              f"on the card: max rel {err:.3e}, cores {err_c:.3e} (tol {TRAIN_TOL}, "
+              f"{CORES16_TOL}); vs the CPU's float64 run: {err_cpu:.3e} (tol {TRAIN_TOL})")
+        if not (err <= TRAIN_TOL and err_c <= CORES16_TOL and err_cpu <= TRAIN_TOL
+                and hist[-1] < hist[0]):
+            failed.append(f"optimize: rel {err:.3e}/{err_c:.3e} vs the card, {err_cpu:.3e} vs "
+                          "the CPU, or the loss did not fall")
+    return failed
+
+
+def _expected16(case, shape, cfg):
+    """Each rank's launches of each kernel and its collectives (name,
+    count, largest size) in one call of a case on a mesh of ``shape``."""
+    gram = {"gram_edge": 2, "wgram": 2, "proj2": 2}  # the Rr=1 edge: a batched product
+    none = dict.fromkeys(gram, 0)
+    dp, tp = shape
+    if case == "round":
+        R = cfg["round"]["R"]
+        return {**gram, "tt_eval": 0, "tt_eval_backward": 0}, (
+            [("all_reduce", 2 * (cfg["round"]["N"] - 1), R * R)] if tp > 1 else [])
+    if case == "batch":
+        return {**gram, "tt_eval": 0, "tt_eval_backward": 0}, []
+    if case == "forward":
+        if tp > 1:  # the alternating layout: an all-reduce after each odd core
+            f = cfg["fwd"]
+            return {**none, "tt_eval": 0, "tt_eval_backward": 0}, [
+                ("all_reduce", f["N"] // 2, cfg["fwd_tp_B"] // dp * f["R"])]
+        return {**none, "tt_eval": 1, "tt_eval_backward": 0}, []
+    T = cfg["train"]
+    R, I, steps = T["R"], T["I"], T["steps"]
+    # a step: one all-reduce of each core's gradient and one of the loss
+    return {**none, "tt_eval": steps, "tt_eval_backward": steps}, (
+        [("all_reduce", steps * (T["N"] + 1), R * I * R)] if dp > 1 else [])
+
+
+def _collectives(calls):
+    """(name, count, largest size) of each kind of collective in ``calls``."""
+    kinds = {}
+    for name, size in calls:
+        n, top = kinds.get(name, (0, 0))
+        kinds[name] = (n + 1, max(top, size))
+    return [(name, n, top) for name, (n, top) in sorted(kinds.items())]
+
+
+def report16(group, tag, case, shape, dtype_name, cfg, device, repeats, total):
+    """One case of phase 16 on every rank of ``group`` against the
+    single-process port; adds its launches to ``total`` and returns its
+    failures."""
+    import torch
+
+    dtype = getattr(torch, dtype_name)
+    outs = group.run(rank16, case, shape, dtype_name, cfg, repeats, device)
+    data = _inputs16(case, cfg, dtype, device)
+    call = _call16(case, cfg, data)
+    single = call()
+    _sync(device)
+    single_walls = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        call()
+        _sync(device)
+        single_walls.append(time.perf_counter() - t0)
+    want_launches, want_calls = _expected16(case, shape, cfg)
+    failed = []
+    print(f"{tag} {case} mesh {shape} {dtype_name}, {len(outs)} rank(s):")
+    if case == "forward" and shape[1] > 1:
+        f = cfg["fwd"]
+        print(f"  on {cfg['fwd_tp_B']} of the {f['B']} rows: the alternating layout gathers "
+              f"(R, B/dp, R/tp) for each core, "
+              f"{f['R'] * cfg['fwd_tp_B'] // shape[0] * f['R'] // shape[1] * 4 / 2**30:.1f} GiB "
+              "a core and rank at this B, the four ranks sharing the card's memory")
+    for o in outs:
+        kinds = _collectives(o["collectives"])
+        wall = (f"first {o['first'] * 1e3:.3f} ms, then "
+                + ", ".join(f"{w * 1e3:.3f}" for w in o["walls"]) + " ms")
+        print(f"  rank {o['rank']}: launches {o['launches']} (grouped tt_eval {o['grouped']}), "
+              f"collectives {kinds or 'none'} (name, count, largest in elements); setup "
+              f"{o['setup']:.3f} s; {wall}")
+        for line in o["log"].splitlines():
+            print(f"    {line}")
+        if torch.device(device).type == "cuda" and o["launches"] != want_launches:
+            failed.append(f"{case} {shape} rank {o['rank']}: launches {o['launches']}, "
+                          f"expected {want_launches}")
+        if [k for k in kinds if k[0] != "broadcast"] != want_calls:
+            failed.append(f"{case} {shape} rank {o['rank']}: collectives {kinds}, "
+                          f"expected {want_calls}")
+        for name, n in o["launches"].items():
+            total[name] = total.get(name, 0) + n
+    if case != "optimize":
+        slowest = [max(o["walls"][i] for o in outs) * 1e3 for i in range(repeats)]
+        print(f"  wall of the call (slowest rank; ranks sharing one card, not a multi-card "
+              f"number): {', '.join(f'{w:.3f}' for w in slowest)} ms; the single-process port "
+              f"on the card: "
+              f"{', '.join(f'{w * 1e3:.3f}' for w in single_walls)} ms")
+    else:
+        steps = cfg["train"]["steps"]
+        print(f"  wall a step (slowest rank, {steps} steps a fit; ranks sharing one card, not a "
+              "multi-card number): "
+              + ", ".join(f"{max(o['walls'][i] for o in outs) / steps * 1e3:.3f}"
+                          for i in range(repeats))
+              + " ms; the single-process port on the card: "
+              + ", ".join(f"{w / steps * 1e3:.3f}" for w in single_walls) + " ms")
+    return failed + _check16(case, dtype, cfg, outs[0]["whole"], data, single, device)
+
+
+def parallel_path(device="cuda", cfg=SIZES16, repeats=3, smi=None):
+    """Phase 16; returns each kernel's launches in it, summed over the
+    ranks. On the CPU (``device="cpu"``, a rehearsal at the small sizes
+    ``cfg`` gives) 16a takes gloo, and no launches are counted."""
+    import torch
+
+    from tntorch_tpu_torch.examples import expected, multichip
+    from tntorch_tpu_torch.parallel import launch
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()  # the ranks share the card with this process
+        smi = smi or subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    start, failed, total = time.perf_counter(), [], {}
+    print(f"16: on {smi or device}; every wall below is of ranks sharing this one card, "
+          "their gloo collectives through host memory: not a multi-card number")
+    phase("16a. one rank, NCCL, mesh (1, 1), at full size")
+    with launch.Group(1, "nccl" if cuda else "gloo", device=device) as group:
+        for case in ("round", "batch", "forward", "optimize"):
+            failed += report16(group, "16a", case, (1, 1), "float32", cfg, device, repeats, total)
+    phase("16b. four ranks on the one card, gloo: meshes (1, 4), (2, 2), (4, 1)")
+    with launch.Group(4, "gloo", device=device) as group:
+        for case, shape, dtype_name in CASES16:
+            failed += report16(group, "16b", case, shape, dtype_name, cfg, device, repeats,
+                               total)
+    phase("16c. the multichip tutorial on four ranks of the card, float32")
+    t0 = time.perf_counter()
+    dtype = torch.float32 if cuda else torch.float64
+    out = multichip.main(device=device, dtype=dtype)
+    bad = expected.check("multichip", out, dtype, capped=not cuda)
+    print(f"16c multichip: wall {time.perf_counter() - t0:.3f} s (the spawn of its ranks "
+          f"included); held to the JAX figures and its claims: {'ok' if not bad else bad}")
+    failed += bad
+    if cuda and not all(total.values()):
+        failed.append(f"a kernel of the path was not launched: {total}")
+    print(f"16, launches summed over the ranks: {total}; the phase "
+          f"{time.perf_counter() - start:.1f} s")
+    if failed:
+        raise AssertionError("phase 16: " + "; ".join(failed))
+    return total
+
+
 PHASES = {"3": "check_kernels", "3b": "check_tt_kernels", "4": "main_path",
           "5": "nonbatch_pass", "6": "eval_path", "7": "train_path", "8": "train_design_path",
           "9": "baseline_path", "10": "cross_path", "11": "elementwise_path",
           "12": "config4_path", "13": "config5_path", "14": "missing_modules_path",
-          "15": "tutorials_path"}
+          "15": "tutorials_path", "16": "parallel_path"}
 
 
 def main():
@@ -4044,9 +4469,10 @@ def main():
     config5 = config5_path()
     missing = missing_modules_path()
     tutorials = tutorials_path()
+    parallel = parallel_path(smi=smi)
     launches.update({k: evals[k] + trains[k] + designs[k] for k in evals})
     launches = {k: n + sum(p.get(k, 0) for p in (baselines, crosses, elementwise, config4,
-                                                         config5, missing, tutorials))
+                                                         config5, missing, tutorials, parallel))
                 for k, n in launches.items()}
 
     import torch

@@ -11,6 +11,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch.distributed as dist
 
 import tntorch_tpu as jtn
 import tntorch_tpu_torch as tn
@@ -130,8 +131,18 @@ def test_dof_and_errors_match_jax():
     assert tn.dof(frozen) == jtn.dof(jtn.Tensor([jnp.asarray(c) for c in cores])) == 0
     with pytest.raises(ValueError, match="no parameters to optimize"):
         tn.optimize([frozen], lambda t: t.norm(), verbose=False)
-    with pytest.raises(tn.parallel.ParallelNotPorted, match="queue 1 item 12"):
-        tn.optimize([t], lambda t: t.norm(), mesh=object())
+    # mesh= runs (ROADMAP queue 1 item 12's ported part): on a one-rank
+    # process group it gives the history without a mesh
+    # (tests/test_torch_parallel.py holds it to JAX on 4 ranks)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = tn.parallel.make_mesh((1, 1), device="cpu")
+        runs = [tn.optimize([tn.Tensor([torch.from_numpy(c) for c in cores], requires_grad=True)],
+                            lambda t: torch.mean((t[X].full() - torch.from_numpy(y)) ** 2),
+                            tol=None, max_iter=2, verbose=False, mesh=m) for m in (None, mesh)]
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose(runs[1], runs[0], rtol=LOSS_TOL)
     with pytest.raises(ValueError, match="only train tn.Tensor inputs"):
         tn.optimize([torch.ones(3, requires_grad=True)], lambda x: x.sum(), verbose=False)
     # optimize writes the trained cores into the Tensor, not into shared storage
@@ -171,8 +182,12 @@ def test_rand_and_randn(fn, mean, var):
 
 
 def test_parallel_ports_only_tt_batch_forward():
+    # every name of tntorch_tpu.parallel now resolves in the port, none a stub
     assert tn.parallel.tt_batch_forward is te.tt_batch_forward
-    for name in ("make_mesh", "shard_array", "tt_forward_sharded"):
-        with pytest.raises(tn.parallel.ParallelNotPorted, match="queue 1 item 12"):
-            getattr(tn.parallel, name)
+    names = [n for n in dir(jtn.parallel) if not n.startswith("_")
+             and not isinstance(getattr(jtn.parallel, n), type(jtn))]
+    assert "make_mesh" in names and set(names) <= set(tn.parallel.__all__)
+    for name in names:
+        obj = getattr(tn.parallel, name)
+        assert callable(obj) and not isinstance(obj, tn.parallel.ParallelNotPorted), name
     assert not hasattr(tn.parallel, "__wrapped__")

@@ -48,12 +48,11 @@ def test_tutorial_matches_jax(name):
 
 
 def test_every_jax_tutorial_has_a_port():
-    # multichip.py needs tntorch_tpu.parallel, which the port does not have
-    # (ROADMAP queue 1 item 12)
+    # multichip.py too, since the port has parallel/
     jax_names = {f[:-3] for f in os.listdir(os.path.join(ROOT, "examples")) if f.endswith(".py")}
     ported = {f[:-3] for f in os.listdir(os.path.join(ROOT, "tntorch_tpu_torch", "examples"))
               if f.endswith(".py") and f not in ("__init__.py", "expected.py")}
-    assert ported == jax_names - {"multichip"} == set(NAMES)
+    assert ported == jax_names == set(NAMES)
     assert set(expected.RULES) == set(expected.JAX) == set(NAMES)
     assert set(expected.CPU_CAPS) == set(NAMES[8:])
 
@@ -225,6 +224,19 @@ def _figures(name, floats, calls, v):
     if name == "exponential_machines":
         L = calls["optimize"][0]
         return {"final_mse": float(L[-1]), "iters": len(L), "train_r2": 1 - f[0] / f[1]}
+    if name == "multichip":
+        def spec(x):  # the mesh axis of each dimension, or None
+            s = list(x.sharding.spec)
+            return s + [None] * (x.ndim - len(s))
+
+        return {"devices": v["n"], "mesh_shape": list(v["shape"]), "dot": f[0], "norm": f[1],
+                "batch_spec": spec(v["tbs"].cores[0]), "forward_shape": list(v["yv"].shape),
+                "forward_spec": spec(v["yv"]), "round_ranks": ints(v["t_r"].ranks_tt),
+                "round_rel_err": f[2],
+                "batch_round_local_shapes": [list(c.sharding.shard_shape(c.shape))
+                                             for c in v["brounded"][:2]],
+                "iters": len(v["hist"]), "loss_first": float(v["hist"][0]),
+                "loss_last": float(v["hist"][-1])}
     raise KeyError(name)
 
 

@@ -1,10 +1,11 @@
 """The port's training tutorials (tntorch_tpu_torch/examples/, the last
-four of ``examples.NAMES``) on the CPU in float64, under
+five of ``examples.NAMES``) on the CPU in float64, under
 ``expected.CPU_CAPS``'s iteration caps: their figures that depend on no
-draw (degrees of freedom, the LARS surrogate, the sparse TT-SVD's ranks)
-against the JAX tutorials', and their claims and fitted figures against
-the capped thresholds of ``expected.check``. The card runs them uncapped
-(chip_smoke.py phase 15).
+draw (degrees of freedom, the LARS surrogate, the sparse TT-SVD's ranks,
+the multichip tutorial's ranks, shapes and placements) against the JAX
+tutorials', and their claims and fitted figures against the capped
+thresholds of ``expected.check``. The multichip tutorial spawns its 8
+gloo ranks. The card runs them uncapped (chip_smoke.py phases 15 and 16).
 """
 
 import importlib

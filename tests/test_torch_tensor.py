@@ -444,10 +444,13 @@ def test_policy_pins_full_float32_matmuls():
 
 def test_package_never_imports_jax():
     # nor the JAX package, not even its modules without JAX (maxvol.py); the
-    # tutorials (tntorch_tpu_torch/examples/) included, nor optax
+    # tutorials (tntorch_tpu_torch/examples/) and the parallel layer's
+    # modules (loaded on use) included, nor optax
     code = ("import importlib, sys, tntorch_tpu_torch, tntorch_tpu_torch.examples as ex; "
             "[importlib.import_module(f'tntorch_tpu_torch.examples.{n}') "
             "for n in ex.NAMES + ('expected',)]; "
+            "[importlib.import_module(f'tntorch_tpu_torch.parallel.{n}') "
+            "for n in ('launch', 'mesh', 'algorithms')]; "
             "bad = [m for m in sys.modules if m in ('jax', 'optax', 'tntorch_tpu') "
             "or m.startswith(('jax.', 'jaxlib', 'optax.', 'tntorch_tpu.'))]; "
             "assert not bad, bad")

@@ -7,6 +7,14 @@ meaning (the loss history is fetched, and convergence checked, once per
 block of steps). The losses, step count and stopping rule are the JAX
 package's. A loss built on ``t[X]`` evaluates through `ops.tt_eval.TTEval`,
 so on the card every step runs the evaluation kernel forward and backward.
+
+With ``mesh=`` (a ``DeviceMesh``, `parallel`) the trainable cores and
+factors become replicated DTensors, as the JAX package replicates them. A
+loss over data sharded across the mesh (`parallel.shard_array`) then
+evaluates on each rank's rows and reduces to the global loss through
+DTensor; each rank's gradient is the part of its rows (``Partial``), which
+one all-reduce per parameter sums before the step. The loss code is the
+one written for one device; every rank keeps the same history.
 """
 
 from __future__ import annotations
@@ -17,7 +25,6 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from tntorch_tpu_torch.parallel import ParallelNotPorted
 from tntorch_tpu_torch.tensor import Tensor
 
 
@@ -25,19 +32,19 @@ def _leaf(x):
     return x.detach().clone().requires_grad_(True)
 
 
-def _get_params(tensors) -> list:
+def _get_params(tensors, leaf=_leaf) -> list:
     """The trainable leaves: the cores and the Tucker factors outside
     ``frozen_Us`` of every `Tensor` flagged ``requires_grad`` (batch
     tensors included: an elementwise optimizer and a per-sample-separable
     loss fit every sample independently). They are replaced by fresh leaves
-    first, so that training never writes into storage the caller or a clone
-    shares; frozen factors stay as they are."""
+    (``leaf(x)``) first, so that training never writes into storage the
+    caller or a clone shares; frozen factors stay as they are."""
     params = []
     for i, t in enumerate(tensors):
         if isinstance(t, Tensor):
             if t.requires_grad:
-                t.cores = [_leaf(c) for c in t.cores]
-                t.Us = [U if U is None or m in t.frozen_Us else _leaf(U)
+                t.cores = [leaf(c) for c in t.cores]
+                t.Us = [U if U is None or m in t.frozen_Us else leaf(U)
                         for m, U in enumerate(t.Us)]
                 params.extend(t.cores)
                 params.extend(U for m, U in enumerate(t.Us)
@@ -77,14 +84,23 @@ def optimize(
         (PyTorch runs eagerly)
     :param block_iters: run this many steps between reads of the loss back
         to the host; convergence is then checked once per block
-    :param mesh: not ported (ROADMAP queue 1 item 12): raises
+    :param mesh: a ``DeviceMesh`` for data-parallel training (called by
+        every rank of it): the trainable cores and factors are replicated
+        over the mesh from rank 0 (`parallel.replicate_pytree`), and after
+        each backward every gradient that DTensor left partial (the loss
+        consumed data sharded over the mesh, `parallel.shard_array`) is
+        summed over the mesh by one all-reduce before the step
     """
-    if mesh is not None:
-        raise ParallelNotPorted("optimize(mesh=...)")
     if not isinstance(tensors, (list, tuple)):
         tensors = [tensors]
     tensors = list(tensors)
-    params = _get_params(tensors)
+    if mesh is None:
+        params = _get_params(tensors)
+    else:
+        from tntorch_tpu_torch.parallel.algorithms import replicate_pytree
+
+        params = _get_params(tensors, lambda x: _leaf(replicate_pytree(x, mesh)))
+        verbose = verbose and torch.distributed.get_rank() == 0
     if len(params) == 0:
         raise ValueError(
             "There are no parameters to optimize. Did you forget a requires_grad=True somewhere?"
@@ -98,8 +114,11 @@ def optimize(
         opt.zero_grad(set_to_none=True)
         loss = loss_function(*tensors)
         parts = list(loss) if isinstance(loss, (tuple, list)) else [loss]
-        total = sum(parts)
+        total = sum(parts[1:], parts[0])  # no 0 + loss: it would settle a partial DTensor loss
         total.backward()
+        if mesh is not None:
+            parts = _settle(params, parts)
+            total = sum(parts[1:], parts[0])
         opt.step()
         return total.detach(), [p.detach() for p in parts]
 
@@ -152,6 +171,19 @@ def optimize(
         print(" <- converged (tol={})".format(tol) if converged
               else " <- max_iter was reached: {}".format(max_iter))
     return losses_hist
+
+
+def _settle(params, parts):
+    """A step on a mesh: each gradient that holds the part of each rank's
+    samples (a DTensor with a ``Partial`` placement) summed over the mesh,
+    one all-reduce per parameter; and the loss parts, gathered: the same
+    plain values on every rank."""
+    from tntorch_tpu_torch.parallel.mesh import _reduce_partial, gather
+
+    for p in params:
+        if p.grad is not None:
+            p.grad = _reduce_partial(p.grad)
+    return [gather(p.detach()) for p in parts]
 
 
 def _print_status(it, max_iter, loss_parts, losses_hist, start):

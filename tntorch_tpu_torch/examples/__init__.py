@@ -1,6 +1,5 @@
 """The tutorials of the port: one module for each script of the JAX
-package's ``examples/`` (but ``multichip.py``, which needs `parallel`),
-each printing the same lines from the same data.
+package's ``examples/``, each printing the same lines from the same data.
 
     python -m tntorch_tpu_torch.examples.<name>                 # on the card, float32
     TN_DEVICE=cpu python -m tntorch_tpu_torch.examples.<name>   # on the CPU, float64
@@ -28,10 +27,11 @@ import torch
 
 from tntorch_tpu_torch import utils
 
-# In the order of their port: the analytic ones first, then those that train
+# In the order of their port: the analytic ones first, then those that
+# train; multichip, last, runs on several ranks (`parallel.launch`)
 NAMES = ("decompositions", "arithmetics_and_formats", "sobol_indices", "logic_and_automata",
          "vector_fields", "anova_active_subspaces", "cross_approximation", "batch_ensembles",
-         "completion", "pce", "classification", "exponential_machines")
+         "completion", "pce", "classification", "exponential_machines", "multichip")
 
 
 def resolve(device=None, dtype=None):

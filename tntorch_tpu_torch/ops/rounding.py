@@ -173,6 +173,10 @@ def _edge_rank(rmax, k, width):
     return min(rk, width)
 
 
+def _identity(x):
+    return x
+
+
 def _edge_basis(A, r, edge_solver):
     """Top-r eigenbasis of the Hermitian PSD A (..., n, n)."""
     if edge_solver == "rand" and r < A.shape[-1]:
@@ -462,7 +466,7 @@ def round_tucker_eps_batch(cores, us, rmax=None, dims=None, algorithm: str = "sv
 
 
 @policy_precision
-def round_tt_gram_batched(cores, rmax, edge_solver: str = "eigh"):
+def round_tt_gram_batched(cores, rmax, edge_solver: str = "eigh", reduce=None):
     """Fixed-rank Gram rounding of a batch of TTs (cores (B, Rl, I, Rr)).
 
     Real cores run the right-Gram chain through `gram_edge`, except an edge
@@ -474,8 +478,18 @@ def round_tt_gram_batched(cores, rmax, edge_solver: str = "eigh"):
     `wgram(C, Y^T Y)` and each output core is `proj2(Y_prev, C, X)`, so the
     pushed core never exists. On CUDA tensors those are the hand-written
     kernels; on the CPU their plain versions. Complex cores take the einsum
-    push sweep (the JAX package's own branch)."""
+    push sweep (the JAX package's own branch).
+
+    ``reduce``, where given, maps every Gram matrix to its sum over the
+    slices of the modes that other processes hold (an all-reduce: the
+    mode-sharded sweep of `parallel.round_tt_gram_sharded`). It is applied
+    to each right Gram and each left Gram, the only contractions over the
+    mode index, before the edge's factorization; everything else is local
+    to a mode index. Without it the sweep is the single-device one."""
     from tntorch_tpu_torch.ops.gram_kernels import gram_edge, proj2, wgram
+
+    if reduce is None:
+        reduce = _identity
 
     cores = [c.contiguous() for c in cores]
     N = len(cores)
@@ -491,12 +505,12 @@ def round_tt_gram_batched(cores, rmax, edge_solver: str = "eigh"):
             # package leaves to XLA's einsum too (gram_edge_supported refuses
             # Rr % 128 != 0; tntorch_tpu/ops/rounding.py:790-795)
             Cm = C.reshape(B, C.shape[1], C.shape[2])
-            G[k - 1] = (Cm * G[k]) @ Cm.mT
+            G[k - 1] = reduce((Cm * G[k]) @ Cm.mT)
         elif real:
-            G[k - 1] = gram_edge(C, G[k])
+            G[k - 1] = reduce(gram_edge(C, G[k]))
         else:
             T = torch.einsum("zaib,zbc->zaic", C, G[k])
-            G[k - 1] = torch.einsum("zaic,zdic->zad", T, C.conj())
+            G[k - 1] = reduce(torch.einsum("zaic,zdic->zad", T, C.conj()))
 
     if real and N >= 3:
         out = list(cores)
@@ -504,9 +518,9 @@ def round_tt_gram_batched(cores, rmax, edge_solver: str = "eigh"):
         for k in range(1, N):
             C = cores[k - 1]  # the original core: pushes are deferred
             if Yp is None:
-                Lk = torch.einsum("zaib,zaid->zbd", C, C)
+                Lk = reduce(torch.einsum("zaib,zaid->zbd", C, C))
             else:
-                Lk = wgram(C, (Yp.mT @ Yp).contiguous())
+                Lk = reduce(wgram(C, (Yp.mT @ Yp).contiguous()))
             X, Y = _factorize(G[k], Lk, _edge_rank(rmax, k, C.shape[-1]), edge_solver)
             if Yp is None:
                 out[k - 1] = torch.einsum("zaib,zbc->zaic", C, X)
@@ -521,7 +535,7 @@ def round_tt_gram_batched(cores, rmax, edge_solver: str = "eigh"):
 
     for k in range(1, N):
         C = cores[k - 1]
-        Lk = torch.einsum("zaib,zaid->zbd", C.conj(), C)
+        Lk = reduce(torch.einsum("zaib,zaid->zbd", C.conj(), C))
         r = _edge_rank(rmax, k, C.shape[-1])
         X, Y = _factorize(G[k], Lk, r, edge_solver)
         cores[k - 1] = torch.einsum("zaib,zbc->zaic", C, X)

@@ -71,6 +71,7 @@ from __future__ import annotations
 
 import bisect
 import ctypes
+import sys
 
 import numpy as np
 import torch
@@ -508,6 +509,13 @@ def _as_coords(X, cores):
     return X.to(device)
 
 
+def _distributed(*xs) -> bool:
+    """Whether any of ``xs`` is a DTensor (none can be before
+    ``torch.distributed.tensor`` is imported, which `parallel` does on use)."""
+    module = sys.modules.get("torch.distributed.tensor")
+    return module is not None and any(isinstance(x, module.DTensor) for x in xs)
+
+
 def tt_eval(cores, X, use_kernel=None, use_pallas=None, checked=False):
     """Evaluate a TT (list of cores (R_k, I_k, R_{k+1})) at the B integer
     coordinate rows of X (B, N); returns (B,) values, column 0 of the last
@@ -520,10 +528,18 @@ def tt_eval(cores, X, use_kernel=None, use_pallas=None, checked=False):
     ``use_kernel=False`` takes that chain for any input; ``use_pallas``,
     the JAX package's name for it, is an alias. ``checked=True`` says that
     X's coordinates are known to be in range (`CheckedTTEval`: on the card
-    no flag is read back). Differentiable with respect to the cores."""
+    no flag is read back). Differentiable with respect to the cores.
+
+    Where X or the cores are DTensors (X sharded over its rows, the cores
+    replicated: `parallel`), each rank evaluates its rows this way and the
+    values come back as a DTensor (`parallel.mesh.dtensor_tt_eval`)."""
     if use_kernel is None:
         use_kernel = use_pallas
     cores = list(cores)
+    if _distributed(X, *cores):
+        from tntorch_tpu_torch.parallel.mesh import dtensor_tt_eval
+
+        return dtensor_tt_eval(cores, X, use_kernel, checked)
     X = _as_coords(X, cores)
     if use_kernel is False or cores[0].is_complex():
         return tt_eval_plain(cores, X)

@@ -1,27 +1,52 @@
-"""Counterpart of ``tntorch_tpu.parallel``, for what one card needs.
+"""Counterpart of ``tntorch_tpu.parallel``: meshes, dp/tp placements and
+the sharded algorithms, on ``torch.distributed``.
 
-Only ``tt_batch_forward`` (TT evaluation at a batch of coordinate rows, on
-the card's ``tt_eval`` kernels) is ported. The meshes, dp/tp sharding and
-sharded algorithms are not ported this round (ROADMAP.md, queue 1 item 12):
-every other name raises `ParallelNotPorted`.
+The JAX package is single-controller (one process, a mesh of its devices,
+global sharded arrays); the port runs one process per rank (SPMD): a mesh
+is a ``DeviceMesh``, a sharding a list of DTensor placements, and the
+sharded functions compute on local shards with explicit collectives
+(`mesh`, `algorithms`). `launch` starts several ranks from one command
+(on the CPU with gloo, as the tests do; on the card); ``torchrun`` does as
+well. ``optimize(..., mesh=)`` trains over dp-sharded data.
+
+``cross``, ``als_completion`` and the learners with ``mesh=`` are not
+ported yet (ROADMAP.md, queue 1 item 12): they raise `ParallelNotPorted`.
+
+The names load on first use, so that importing the package does not
+import ``torch.distributed.tensor``.
 """
+
+import importlib
 
 from tntorch_tpu_torch.ops.tt_eval import tt_batch_forward
 
 
 class ParallelNotPorted(NotImplementedError):
-    """A name of ``tntorch_tpu.parallel`` (or a ``mesh=`` argument) that the
-    port does not have (ROADMAP.md, queue 1 item 12)."""
+    """A ``mesh=`` argument that the port does not take yet (ROADMAP.md,
+    queue 1 item 12)."""
 
     def __init__(self, what: str):
-        super().__init__(f"{what} is not ported: the port runs on one card "
+        super().__init__(f"{what} is not ported: its sharded form waits "
                          "(ROADMAP.md, queue 1 item 12)")
 
 
+_NAMES = {
+    "mesh": ("make_mesh", "placements", "place", "gather", "rank_specs", "shard_batch",
+             "shard_ranks", "replicate", "sharded_dot", "sharded_norm", "tt_forward_sharded",
+             "tt_forward_shard_map"),
+    "algorithms": ("round_tt_gram_sharded", "round_tt_batch_sharded", "shard_array",
+                   "replicate_pytree"),
+    "launch": ("Group", "RankError", "run", "counting_collectives"),
+}
+_WHERE = {name: module for module, names in _NAMES.items() for name in names}
+
+
 def __getattr__(name):
-    if name.startswith("__"):
-        raise AttributeError(name)
-    raise ParallelNotPorted(f"tn.parallel.{name}")
+    if name in _NAMES:
+        return importlib.import_module(f"{__name__}.{name}")
+    if name in _WHERE:
+        return getattr(importlib.import_module(f"{__name__}.{_WHERE[name]}"), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-__all__ = ["ParallelNotPorted", "tt_batch_forward"]
+__all__ = ["ParallelNotPorted", "tt_batch_forward", *_WHERE]

@@ -99,7 +99,15 @@ def _absorb(core, U):
 
 def _block_diag(c1, c2, spatial: bool):
     """Block-diagonal core over both rank axes, and over the middle axis too
-    when ``spatial`` (two Tucker cores); the left operand's dtype."""
+    when ``spatial`` (two Tucker cores); the left operand's dtype. Cores
+    placed alike over a mesh (DTensors, `parallel`), replicated or sharded
+    over their batch, are joined shard by shard on each rank."""
+    if hasattr(c1, "device_mesh"):
+        from tntorch_tpu_torch.parallel.mesh import on_shards
+
+        joined = on_shards(lambda a, b: _block_diag(a, b, spatial), c1, c2)
+        if joined is not None:
+            return joined
     b = c1.shape[:-3]
     R1l, S1, R1r = c1.shape[-3:]
     R2l, S2, R2r = c2.shape[-3:]
@@ -741,7 +749,7 @@ class Tensor:
         t = self.decompress_tucker_factors()
         c0 = t.cores[0]
         bshape = (c0.shape[0],) if self.batch else ()
-        factor = torch.ones(bshape + (1, int(self.ranks_tt[0])), dtype=c0.dtype, device=c0.device)
+        factor = c0.new_ones(bshape + (1, int(self.ranks_tt[0])))
         last = t.dim() - 1
         for n, core in enumerate(t.cores):
             if core.ndim == self._m:  # a CP factor: a diagonal core
@@ -761,6 +769,15 @@ class Tensor:
         return self.full()
 
     def numpy(self) -> np.ndarray:
+        """The dense NumPy array (of cores placed over a mesh, `parallel`:
+        the whole tensor, on every rank, from the gathered cores)."""
+        if any(hasattr(c, "device_mesh") for c in self.cores):
+            from tntorch_tpu_torch.parallel.mesh import gather
+
+            t = self.clone()
+            t.cores = [gather(c) for c in t.cores]
+            t.Us = [None if U is None else gather(U) for U in t.Us]
+            return t.numpy()
         return self.full().detach().cpu().numpy()
 
     def to(self, device):
