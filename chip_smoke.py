@@ -232,7 +232,33 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    of the card, held by ``examples.expected.check``. The walls are of ranks
    sharing one card, their collectives through host memory: not
    multi-card numbers. ``--only 16`` runs it alone;
-   ``parallel_path("cpu", small sizes)`` rehearses it on the CPU.
+   ``parallel_path("cpu", small sizes)`` rehearses it on the CPU;
+17. the last ``mesh=`` paths and the checkpoints, on four gloo ranks sharing
+   the card (mesh (4, 1)), each case against the single-process port on the
+   card at the size of the phase it borrows from (``SIZES17``): (17a)
+   ``cross(mesh=)``, fiber-parallel over dp=4, on BASELINE config 3 (float64
+   and float32) and phase 10c's fixed-rank 256^5 cross at ranks 100
+   (float32): the rank schedule, sample count and every rank's index sets
+   equal to the single process's, the approximations within ``CROSS17_TOL``,
+   val_eps within its limit; the batched minimize of phase 11b's separable
+   function as B=8 rank-2 TTs over dp=4: minima and argmins equal, the dense
+   optima within ``MIN_OPT_TOL``; (17b) ``als_completion(mesh=)`` on config 4
+   (phase 12a's), float64, within ``ALS17_TOL``; (17c) phase 12c's
+   ``TTRegressor`` at 2^16 samples as a plain TT (its samples over dp; the
+   tt_eval kernels forward and backward) and as an 8-member ensemble (its
+   members over dp), and the 4-member ``TTClassifier`` ensemble on the Swiss
+   roll: predictions within rtol ``PRED17_RTOL`` and atol ``PRED17_ATOL``;
+   (17d) phase 14b's 1 GiB ensemble by ``save_orbax_sharded``
+   batch-sharded over dp (8 TTs a rank), ``load_orbax_sharded`` onto the
+   mesh (shards and placements bitwise), then ``round_tt_batch_sharded`` of
+   the restored shards (2/2/2 Gram launches a rank) bitwise equal to that
+   of the shards placed before saving; in the single process
+   ``save_orbax``/``load_orbax`` and ``.npz`` of the ensemble and the
+   sharded checkpoint loaded without a mesh, each bitwise, with their
+   walls. Per case and rank: its launches of each kernel, its collectives
+   (count and largest), its walls beside the single process's; every kernel
+   call it made held to the plain version. ``--only 17`` runs it alone;
+   ``mesh_paths_path("cpu", small sizes)`` rehearses it on the CPU.
 
 The data of phases 6 to 8 comes without a device and lands on the card by
 the package's default. The second-to-last line is one JSON object with
@@ -2296,12 +2322,12 @@ def _tensor(cores, dtype, device, **kw):
     return tn.Tensor([torch.from_numpy(c).to(device=device, dtype=dtype) for c in cores], **kw)
 
 
-def _als_problem():
-    """12a's problem: the shape, the ground truth's and x0's cores, the
-    sampled coordinates, and the generator that drew them."""
+def _als_problem(A=ALS4):
+    """12a's problem (or another size ``A``): the shape, the ground truth's
+    and x0's cores, the sampled coordinates, and the generator that drew
+    them."""
     import numpy as np
 
-    A = ALS4
     rng = np.random.default_rng(1)
     shape = [A["I"]] * A["N"]
     gt_cores, x0_cores = _cores(rng, shape, A["R"]), _cores(rng, shape, A["R"])
@@ -2480,12 +2506,13 @@ def _spiral_data():
     return X[idx], y[idx], int(len(X) * 0.75)
 
 
-def _smooth_data():
-    """A smooth function of 4 features on [-1, 1]^4, 2^16 samples."""
+def _smooth_data(P=LEARN["regressor_P"]):
+    """A smooth function of 4 features on [-1, 1]^4, 2^16 (or ``P``)
+    samples."""
     import numpy as np
 
     rng = np.random.default_rng(2)
-    X = rng.uniform(-1, 1, (LEARN["regressor_P"], LEARN["regressor_N"]))
+    X = rng.uniform(-1, 1, (P, LEARN["regressor_N"]))
     return X, np.sin(2 * X[:, 0]) * np.cos(X[:, 1]) + X[:, 2] * X[:, 3] ** 2
 
 
@@ -4431,11 +4458,484 @@ def parallel_path(device="cuda", cfg=SIZES16, repeats=3, smi=None):
     return total
 
 
+# Phase 17: the last mesh= paths and the checkpoints, on four gloo ranks
+# sharing the card through parallel.launch (as 16b), each case against the
+# single-process port on the card, at the size of the phase it borrows
+# from:
+# - 'cross3' (float64 and float32): BASELINE config 3, phase 10a's 10-D sum
+#   of sines on 32^10 (eps 1e-6, seed 0), fiber-parallel over dp=4;
+# - 'fixed' (float32): phase 10c's fixed-rank cross of 1/sum(x) on 256^5
+#   at ranks 100 (2 iterations), whose 2.56M-point fibers are where fiber
+#   parallelism is real;
+# - 'minimize' (float64): phase 11b's separable 5-D function on 32^5 as a
+#   batch of B=8 rank-2 TTs, other shifts per sample, the batch over dp=4;
+# - 'als' (float64): BASELINE config 4's ALS, phase 12a's (32^4 rank 3,
+#   20,000 samples, 5 sweeps), its slice solves over dp=4;
+# - 'regressor', 'ensemble', 'classifier' (float64): phase 12c's
+#   TTRegressor at 2^16 samples as a plain TT (the tt_eval kernels forward
+#   and backward each step; its samples over dp) and as an 8-member DCT
+#   ensemble (its members over dp), and the 4-member TTClassifier ensemble
+#   on the Swiss roll, steps[...] steps each;
+# - 'checkpoint' (float32): phase 14b's B=32 ensemble (1 GiB) batch-sharded
+#   over dp=4 (8 TTs a rank): save_orbax_sharded, load_orbax_sharded onto
+#   the mesh, then round_tt_batch_sharded of the restored shards (phase
+#   16b's batch case); the single process saves and loads the same ensemble
+#   by save_orbax/load_orbax, by .npz, and loads the sharded checkpoint
+#   without a mesh.
+SIZES17 = dict(cross3=CROSS3, fixed=CROSS_FIXED, separable=dict(N=5, I=32, B=8), als=ALS4,
+               learn=dict(P=LEARN["regressor_P"], nticks=64, clf_nticks=128, ranks_tt=10,
+                          ranks_tucker=8, clf_tucker=6, members=8, clf_members=4),
+               steps=dict(regressor=40, ensemble=40, classifier=60), round=BENCH)
+CASES17 = (("cross3", "float64"), ("cross3", "float32"), ("fixed", "float32"),
+           ("minimize", "float64"), ("als", "float64"), ("regressor", "float64"),
+           ("ensemble", "float64"), ("classifier", "float64"), ("checkpoint", "float32"))
+# Tolerances of phase 17, each with its reason:
+# - the crosses against the single process on the card: each rank evaluates
+#   the function on its chunk of a step's fibers, and every rank then runs
+#   the same QR, maxvol and solves on the gathered values, which are the
+#   single process's bitwise (an elementwise function of the same inputs):
+#   the rank schedule, the sample count and every rank's index sets equal,
+#   the approximations within 1e-12 (float64) and 1e-5 (float32, CROSS_F32_TOL)
+#   relative in norm (`_f64_dist`), and config 3's val_eps below 1e-6;
+# - the batched minimize: the same per-sample crosses as the single
+#   process, minima and argmins equal, and within MIN_OPT_TOL of the dense
+#   optimum;
+# - ALS: each rank solves its slices with the single process's operations,
+#   so only the gathered slices' layout differs: 1e-10 relative (the float64
+#   reconstructions);
+# - the learners: the predictions within rtol 1e-6 and atol 1e-9 of the
+#   single process (the JAX package's own limit, tests/test_parallel.py:
+#   294-321): the loss is summed over the ranks in another order;
+# - the checkpoints: bitwise (the same bytes written and read), and the
+#   restored shards' rounding bitwise equal to that of the shards placed
+#   before saving.
+ALS17_TOL = 1e-10
+CROSS17_TOL = {"float64": 1e-12, "float32": CROSS_F32_TOL}
+PRED17_RTOL, PRED17_ATOL = 1e-6, 1e-9
+
+
+def _separable17(cfg, device):
+    """11b's separable function sum_n (x_n - s_n)^2 on [-1, 1]^N (I points a
+    mode) as a batch of B rank-2 TTs, the shifts s drawn per sample; and
+    each sample's dense minimum."""
+    import numpy as np
+    import torch
+
+    import tntorch_tpu_torch as tn
+
+    B, N, I = cfg["B"], cfg["N"], cfg["I"]
+    grid = np.linspace(-1, 1, I)
+    g = (grid[None, None, :] - np.random.default_rng(17).uniform(-0.9, 0.9, (B, N))[..., None]) ** 2
+    one, zero = np.ones((B, I)), np.zeros((B, I))
+    cores = [np.stack([g[:, 0], one], axis=-1)[:, None]]  # (B, 1, I, 2): [g_0, 1]
+    for n in range(1, N - 1):  # [[1, 0], [g_n, 1]]
+        cores.append(np.stack([np.stack([one, zero], -1), np.stack([g[:, n], one], -1)], 1))
+    cores.append(np.stack([one, g[:, -1]], axis=1)[..., None])  # (B, 2, I, 1): [1; g_last]
+    t = tn.Tensor([torch.from_numpy(c).to(device) for c in cores], batch=True)
+    return t, g.min(-1).sum(-1)
+
+
+def _case17(case, dtype_name, cfg, device, mesh=None):
+    """One case of phase 17 on ``device``: the data, placed first where the
+    case places any, and the call, the sharded entry point over ``mesh`` or
+    without a mesh the single process. The call returns the host results
+    that `_check17` compares."""
+    import numpy as np
+    import torch
+
+    import tntorch_tpu_torch as tn
+
+    dtype = getattr(torch, dtype_name)
+    kw = {} if mesh is None else dict(mesh=mesh)
+
+    def sets(info):
+        return {k: [np.asarray(x.cpu() if hasattr(x, "cpu") else x) for x in info[k]]
+                for k in ("lsets", "rsets", "left_locals")}
+
+    if case in ("cross3", "fixed"):
+        c = cfg[case]
+        f = _sines if case == "cross3" else _hilbert
+
+        def call():
+            t, info, _ = _cross(c, f, dtype, device=None if device == "cuda" else device, **kw)
+            return dict(cores=[x.double().cpu() for x in t.cores], Rs=[int(r) for r in info["Rs"]],
+                        nsamples=info["nsamples"], val_eps=info["val_eps"],
+                        iters=len(info["val_epss"]), sets=sets(info))
+        return call
+    if case == "minimize":
+        t, dense = _separable17(cfg["separable"], device)
+
+        def call():
+            m = tn.minimum(t, seed=0, **kw)
+            return dict(min=m.cpu().numpy(), argmin=tn.argmin(t, seed=0, **kw), dense=dense)
+        return call
+    if case == "als":
+        A = cfg["als"]
+        shape, gt_cores, x0_cores, X, _ = _als_problem(A)
+        gt = _tensor(gt_cores, dtype, device)
+        y = gt[X].full()
+
+        def call():
+            with _default_dtype(dtype_name):
+                t, eps = tn.als_completion(X, y, ranks_tt=A["R"], shape=shape,
+                                           x0=_tensor(x0_cores, dtype, device), niter=A["niter"],
+                                           verbose=False, _return_eps=True, **kw)
+            return dict(full=t.full().cpu(), eps=eps)
+        return call
+    L, steps = cfg["learn"], cfg["steps"][case]
+    common = dict(key=0, device=device, max_iter=steps - 1, tol=0.0, **kw)
+    adam2 = dict(optimizer=lambda ps: torch.optim.Adam(ps, lr=1e-2))
+    if case == "regressor":
+        X, y = _smooth_data(L["P"])
+        make = lambda: tn.TTRegressor(nticks=L["nticks"], ranks_tt=L["ranks_tt"],  # noqa: E731
+                                      ranks_tucker=None, **adam2, **common)
+        Xt = X[::64]
+    elif case == "ensemble":
+        X, y = _smooth_data(L["P"])
+        make = lambda: tn.TTRegressor(nticks=L["nticks"], ranks_tt=L["ranks_tt"],  # noqa: E731
+                                      ranks_tucker=L["ranks_tucker"], n_estimators=L["members"],
+                                      **adam2, **common)
+        Xt = X[::64]
+    else:
+        Xs, ys, ntrain = _spiral_data()
+        X, y, Xt = Xs[:ntrain], ys[:ntrain], Xs[ntrain:]
+        make = lambda: tn.TTClassifier(nticks=L["clf_nticks"], ranks_tt=L["ranks_tt"],  # noqa: E731
+                                       ranks_tucker=L["clf_tucker"], n_estimators=L["clf_members"],
+                                       **common)
+
+    def call():
+        with _default_dtype(dtype_name):
+            lrn = make().fit(X, y)
+            pred = lrn.predict_proba(Xt) if case == "classifier" else lrn.predict(Xt)
+        return dict(losses=lrn.losses_, pred=pred.cpu().numpy())
+    return call
+
+
+def _checkpoint17(cfg, device, mesh, path):
+    """17d on a rank: the ensemble batch-sharded over dp (rank 0's copy),
+    save_orbax_sharded to ``path`` and load_orbax_sharded onto the mesh
+    (walls), the restored shards against the placed ones, and
+    round_tt_batch_sharded of the restored shards (recorded: launches and
+    collectives counted by the caller) and of the placed ones. Returns the
+    call to record and what to print."""
+    import torch
+    import torch.distributed as dist
+
+    import tntorch_tpu_torch as tn
+    from tntorch_tpu_torch import parallel as par
+
+    cores = bench_cores(cfg["round"])
+    placed = par.shard_batch(tn.Tensor([torch.from_numpy(c).to(device) for c in cores],
+                                       batch=True), mesh)
+    del cores
+    dist.barrier()
+    t0 = time.perf_counter()
+    tn.save_orbax_sharded(placed, path)
+    _sync(device)
+    save = time.perf_counter() - t0
+    dist.barrier()
+    t0 = time.perf_counter()
+    back = tn.load_orbax_sharded(path, mesh=mesh)
+    _sync(device)
+    load = time.perf_counter() - t0
+    same = all(list(a.placements) == list(b.placements) and torch.equal(a.to_local(), b.to_local())
+               for a, b in zip(back.cores, placed.cores)) and back.batch
+    rmax = cfg["round"]["rmax"]
+    ref = par.round_tt_batch_sharded(placed.cores, rmax, mesh)
+
+    def call():
+        out = par.round_tt_batch_sharded(back.cores, rmax, mesh)
+        return dict(equal=all(torch.equal(a.to_local(), b.to_local()) for a, b in zip(out, ref)),
+                    restored=same, save=save, load=load,
+                    MiB=sum(c.to_local().numel() * 4 for c in placed.cores) / 2 ** 20)
+    return call
+
+
+def rank17(case, dtype_name, cfg, repeats, device, path):
+    """One case of phase 17 on this rank of the running process group: its
+    data and mesh (dp over every rank), one recorded call (each kernel's
+    launches, every collective with its size, the Gram and tt_eval calls),
+    then ``repeats`` timed calls, each after a barrier, then the recorded
+    kernel calls held to their plain versions. Returns the counts, the
+    walls, what the rank printed and its results."""
+    import io
+
+    import torch.distributed as dist
+
+    from tntorch_tpu_torch import parallel as par
+    from tntorch_tpu_torch.ops import gram_kernels as gk
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    rank, log = dist.get_rank(), io.StringIO()
+    with contextlib.redirect_stdout(log):
+        mesh = par.make_mesh((dist.get_world_size(), 1), device=device)
+        t0 = time.perf_counter()
+        if case == "checkpoint":
+            call = _checkpoint17(cfg, device, mesh, path)
+        else:
+            call = _case17(case, dtype_name, cfg, device, mesh)
+        _sync(device)
+        setup = time.perf_counter() - t0
+        gram_calls, tt_calls = [], []
+        dist.barrier()
+        gk.reset_launches()
+        te.reset_launches()
+        with par.counting_collectives() as calls, recording_gram(gram_calls), \
+                recording_tt_eval(tt_calls):
+            t0 = time.perf_counter()
+            out = call()
+            _sync(device)
+            first = time.perf_counter() - t0
+        launches = {**{k.__name__: k.launches for k in gk.KERNELS},
+                    **{k.__name__.replace("_kernel", ""): k.launches for k in te.KERNELS}}
+        walls = []
+        for _ in range(repeats if case != "checkpoint" else 0):
+            dist.barrier()
+            t0 = time.perf_counter()
+            call()
+            _sync(device)
+            walls.append(time.perf_counter() - t0)
+        if gram_calls:
+            hold_gram_calls(f"17 {case} rank {rank}", gram_calls)
+        if tt_calls:
+            hold_tt_eval_calls(f"17 {case} rank {rank}", tt_calls, [case] * len(tt_calls))
+    if rank:  # rank 0's approximation stands for all: their index sets are compared
+        out.pop("cores", None)
+    return dict(rank=rank, launches=launches, collectives=calls, setup=setup, first=first,
+                walls=walls, log=log.getvalue(), out=out)
+
+
+def _expected17(case, cfg, out, world):
+    """A rank's launches of each kernel (None: some tt_eval launches) and
+    its collectives (name, count, largest size; a size of None is not
+    checked) in one call of a case, from what the call reports (``out``:
+    a cross's ranks and iterations)."""
+    none = {"gram_edge": 0, "wgram": 0, "proj2": 0, "tt_eval": 0, "tt_eval_backward": 0}
+    if case in ("cross3", "fixed"):
+        c = cfg[case]
+        N, I, iters = c["N"], c["I"], out["iters"]
+        # one validation evaluation per input and per iteration; every step's
+        # fibers (a multiple of I points) divide over the ranks
+        P = max(out["Rs"][n] * I * out["Rs"][n + 1] for n in range(N))
+        return {**none, "tt_eval": N + iters}, [("all_gather", (2 * N - 1) * iters, P)]
+    if case == "minimize":
+        B, N = cfg["separable"]["B"], cfg["separable"]["N"]
+        return None, [("all_gather", 4, B * N)]  # minimum's and argmin's
+    if case == "als":
+        A = cfg["als"]
+        N, I, R = A["N"], A["I"], A["R"]
+        return none, [("all_gather", (2 * N - 2) * A["niter"], -(-I // world) * world * R * R),
+                      ("all_reduce", A["niter"], 1), ("broadcast", N, I * R * R)]
+    if case == "checkpoint":  # the rounding of the restored shards
+        return {**none, "gram_edge": 2, "wgram": 2, "proj2": 2}, []
+    # the rows' two broadcasts and the 4 parameters' replication, then one
+    # all-reduce a gradient and one of the loss a step
+    steps = cfg["steps"][case]
+    calls = [("all_reduce", 5 * steps, None), ("broadcast", 6, None)]
+    if case == "regressor":  # a step's forward and backward; then predict's forward
+        return {**none, "tt_eval": steps + 1, "tt_eval_backward": steps}, calls
+    return none, calls
+
+
+def _calls_match(kinds, want):
+    """Whether the collectives ``kinds`` ((name, count, largest), by name)
+    are ``want``'s, where a largest size of None matches any."""
+    want = sorted(want, key=lambda c: c[0])
+    return len(kinds) == len(want) and all(
+        k[:2] == w[:2] and (w[2] is None or k[2] == w[2]) for k, w in zip(kinds, want))
+
+
+def _check17(case, dtype_name, cfg, outs, single):
+    """The failures of a case's results on the ranks (``outs``) against the
+    single process's ``single``; prints each distance."""
+    import numpy as np
+
+    failed, got = [], outs[0]["out"]
+    if case in ("cross3", "fixed"):
+        tol = CROSS17_TOL[dtype_name]
+        same = all(o["out"]["Rs"] == single["Rs"] and o["out"]["nsamples"] == single["nsamples"]
+                   for o in outs)
+        sets = all(all(np.array_equal(a, b) for a, b in zip(o["out"]["sets"][k], single["sets"][k]))
+                   and len(o["out"]["sets"][k]) == len(single["sets"][k])
+                   for o in outs for k in single["sets"])
+        err = _f64_dist(got["cores"], single["cores"])
+        eps_tol = cfg[case]["eps"] if case == "cross3" else CROSS_FIXED_TOL
+        print(f"  ranks {got['Rs']}, {got['nsamples']} f-evals, {got['iters']} iterations, "
+              f"val_eps {got['val_eps']:.3e} (tol {eps_tol}); the single process: ranks "
+              f"{single['Rs']}, {single['nsamples']} f-evals, val_eps {single['val_eps']:.3e}; "
+              f"rank schedule and samples equal on every rank: {same}; every rank's lsets, rsets "
+              f"and left_locals equal to the single process's: {sets}; approximation vs the "
+              f"single process: rel {err:.3e} (tol {tol})")
+        if not (same and sets and err <= tol and got["val_eps"] <= eps_tol):
+            failed.append(f"{case} {dtype_name}: schedule {same}, sets {sets}, rel {err:.3e}, "
+                          f"val_eps {got['val_eps']:.3e}")
+    elif case == "minimize":
+        equal = all(np.array_equal(o["out"]["min"], single["min"])
+                    and o["out"]["argmin"] == single["argmin"] for o in outs)
+        opt = float(np.abs(got["min"] - got["dense"]).max())
+        print(f"  minima {got['min'].tolist()}; equal with their argmins to the single process's "
+              f"on every rank: {equal}; vs the dense optima: max |diff| {opt:.3e} "
+              f"(tol {MIN_OPT_TOL})")
+        if not (equal and opt <= MIN_OPT_TOL):
+            failed.append(f"minimize: equal {equal}, off the optimum by {opt:.3e}")
+    elif case == "als":
+        err = max(rel(o["out"]["full"], single["full"]) for o in outs)
+        print(f"  training eps {got['eps']:.6e} (single process {single['eps']:.6e}); dense "
+              f"reconstruction vs the single process: rel {err:.3e} (tol {ALS17_TOL}), the "
+              "worst rank")
+        if not err <= ALS17_TOL:
+            failed.append(f"als: rel {err:.3e}")
+    elif case == "checkpoint":
+        ok = all(o["out"]["restored"] and o["out"]["equal"] for o in outs)
+        print("  per rank: " + "; ".join(
+            f"rank {o['rank']} save_orbax_sharded {o['out']['save'] * 1e3:.1f} ms, "
+            f"load_orbax_sharded {o['out']['load'] * 1e3:.1f} ms ({o['out']['MiB']:.0f} MiB)"
+            for o in outs)
+              + f"; restored shards and placements equal, and their rounding bitwise equal to "
+              f"the placed shards': {ok}")
+        if not ok:
+            failed.append("checkpoint: the restored shards or their rounding differ")
+    else:
+        pred = np.abs(got["pred"] - single["pred"])
+        ok = all(np.allclose(o["out"]["pred"], single["pred"], rtol=PRED17_RTOL,
+                             atol=PRED17_ATOL) for o in outs)
+        loss = float(np.max(np.abs(np.array(got["losses"]) - single["losses"])
+                            / np.abs(single["losses"])))
+        print(f"  {len(got['losses'])} steps, loss {got['losses'][0]:.6g} -> "
+              f"{got['losses'][-1]:.6g}; losses vs the single process: max rel {loss:.3e}; "
+              f"predictions: max |diff| {float(pred.max()):.3e} (rtol {PRED17_RTOL}, atol "
+              f"{PRED17_ATOL}) on every rank: {ok}")
+        if not (ok and got["losses"][-1] < got["losses"][0]):
+            failed.append(f"{case}: predictions off the single process's, or the loss did not "
+                          "fall")
+    return failed
+
+
+def report17(group, case, dtype_name, cfg, device, repeats, total, path):
+    """One case of phase 17 on every rank of ``group`` against the single
+    process; adds its launches to ``total`` and returns its failures."""
+    import torch
+
+    outs = group.run(rank17, case, dtype_name, cfg, repeats, device, path)
+    print(f"17 {case} {dtype_name}, dp={len(outs)}:")
+    failed = []
+    for o in outs:
+        kinds = _collectives(o["collectives"])
+        want_launches, want_calls = _expected17(case, cfg, o["out"], len(outs))
+        wall = (f"first {o['first'] * 1e3:.1f} ms"
+                + (", then " + ", ".join(f"{w * 1e3:.1f}" for w in o["walls"]) + " ms"
+                   if o["walls"] else ""))
+        print(f"  rank {o['rank']}: launches {o['launches']}, collectives {kinds or 'none'} (name, "
+              f"count, largest in elements); setup {o['setup']:.3f} s; {wall}")
+        for line in o["log"].splitlines():
+            print(f"    {line}")
+        if torch.device(device).type == "cuda":
+            if want_launches is not None and o["launches"] != want_launches:
+                failed.append(f"{case} rank {o['rank']}: launches {o['launches']}, expected "
+                              f"{want_launches}")
+            if want_launches is None and not o["launches"]["tt_eval"]:
+                failed.append(f"{case} rank {o['rank']}: no tt_eval launch")
+        if not _calls_match(kinds, want_calls):
+            failed.append(f"{case} rank {o['rank']}: collectives {kinds}, expected "
+                          f"{want_calls}")
+        for name, n in o["launches"].items():
+            total[name] = total.get(name, 0) + n
+    if case == "checkpoint":
+        return failed + _check17(case, dtype_name, cfg, outs, None)
+    call = _case17(case, dtype_name, cfg, device)
+    single = call()
+    _sync(device)
+    walls = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        call()
+        _sync(device)
+        walls.append(time.perf_counter() - t0)
+    slowest = [max(o["walls"][i] for o in outs) * 1e3 for i in range(repeats)]
+    print(f"  wall (slowest rank; ranks sharing one card, not a multi-card number): "
+          f"{', '.join(f'{w:.1f}' for w in slowest)} ms; the single process on the card: "
+          f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms")
+    return failed + _check17(case, dtype_name, cfg, outs, single)
+
+
+def _whole_checkpoints17(cfg, device, path):
+    """17d in the single process: the ensemble by save_orbax/load_orbax and
+    by save/load (.npz), walls and bitwise equality, and the ranks'
+    sharded checkpoint at ``path`` loaded without a mesh, bitwise."""
+    import tempfile
+
+    import torch
+
+    import tntorch_tpu_torch as tn
+
+    t = tn.Tensor([torch.from_numpy(c).to(device) for c in bench_cores(cfg["round"])],
+                  batch=True)
+    failed, walls = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, save, load, where in (
+                ("save_orbax/load_orbax", tn.save_orbax, tn.load_orbax, "orbax"),
+                ("save/load (.npz)", tn.save, tn.load, "t.npz"),
+                ("load_orbax_sharded without a mesh", None, tn.load_orbax_sharded, None)):
+            target = os.path.join(tmp, where) if where else path
+            _sync(device)
+            t0 = time.perf_counter()
+            if save is not None:
+                save(t, target)
+            t1 = time.perf_counter()
+            back = load(target, device=device)
+            _sync(device)
+            t2 = time.perf_counter()
+            same = back.batch and all(a.device == b.device and torch.equal(a, b)
+                                      for a, b in zip(back.cores, t.cores))
+            walls[name] = ((t1 - t0) if save else None, t2 - t1)
+            print(f"17 checkpoint, the single process: {name}: "
+                  + (f"save {(t1 - t0) * 1e3:.1f} ms, " if save else "")
+                  + f"load {(t2 - t1) * 1e3:.1f} ms, loaded bitwise equal: {same}")
+            if not same:
+                failed.append(f"checkpoint {name}: the loaded ensemble differs")
+            del back
+    return failed
+
+
+def mesh_paths_path(device="cuda", cfg=SIZES17, repeats=1, smi=None):
+    """Phase 17; returns each kernel's launches in it, summed over the
+    ranks. On the CPU (``device="cpu"``, a rehearsal at the small sizes
+    ``cfg`` gives) no launches are counted."""
+    import tempfile
+
+    import torch
+
+    from tntorch_tpu_torch.parallel import launch
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()  # the ranks share the card with this process
+        smi = smi or subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    start, failed, total = time.perf_counter(), [], {}
+    print(f"17: on {smi or device}; every wall below is of ranks sharing this one card, their "
+          "gloo collectives through host memory: not a multi-card number")
+    with tempfile.TemporaryDirectory() as tmp, launch.Group(4, "gloo", device=device) as group:
+        path = os.path.join(tmp, "sharded")
+        for case, dtype_name in CASES17:
+            phase(f"17 {case} {dtype_name} on four ranks of the card, gloo, mesh (4, 1)")
+            failed += report17(group, case, dtype_name, cfg, device, repeats, total, path)
+        failed += _whole_checkpoints17(cfg, device, path)
+    if cuda and not all(total.values()):
+        failed.append(f"a kernel of the path was not launched: {total}")
+    print(f"17, launches summed over the ranks: {total}; the phase "
+          f"{time.perf_counter() - start:.1f} s")
+    if failed:
+        raise AssertionError("phase 17: " + "; ".join(failed))
+    return total
+
+
 PHASES = {"3": "check_kernels", "3b": "check_tt_kernels", "4": "main_path",
           "5": "nonbatch_pass", "6": "eval_path", "7": "train_path", "8": "train_design_path",
           "9": "baseline_path", "10": "cross_path", "11": "elementwise_path",
           "12": "config4_path", "13": "config5_path", "14": "missing_modules_path",
-          "15": "tutorials_path", "16": "parallel_path"}
+          "15": "tutorials_path", "16": "parallel_path", "17": "mesh_paths_path"}
 
 
 def main():
@@ -4470,9 +4970,11 @@ def main():
     missing = missing_modules_path()
     tutorials = tutorials_path()
     parallel = parallel_path(smi=smi)
+    mesh_paths = mesh_paths_path(smi=smi)
     launches.update({k: evals[k] + trains[k] + designs[k] for k in evals})
     launches = {k: n + sum(p.get(k, 0) for p in (baselines, crosses, elementwise, config4,
-                                                         config5, missing, tutorials, parallel))
+                                                         config5, missing, tutorials, parallel,
+                                                         mesh_paths))
                 for k, n in launches.items()}
 
     import torch

@@ -15,6 +15,7 @@ are computed once per module.
 """
 
 import importlib
+import logging
 
 import numpy as np
 import pytest
@@ -22,7 +23,6 @@ import torch
 
 import tntorch_tpu as jtn
 import tntorch_tpu_torch as tn
-from tntorch_tpu_torch.parallel import ParallelNotPorted
 
 HOST = importlib.import_module("tntorch_tpu_torch.cross_host")
 TOL = 1e-10
@@ -92,7 +92,7 @@ def test_host_sweep_matches_jax(case, jax_runs):
     assert np.linalg.norm(got - want) <= TOL * np.linalg.norm(want)
 
 
-def test_host_sweep_transfers_and_other_paths():
+def test_host_sweep_transfers_and_other_paths(caplog):
     # one read down and one copy up, the cores viewed in one buffer
     a = tn.Tensor([torch.randn(1, 4, 2), torch.randn(2, 5, 1)])
     b = tn.Tensor([torch.randn(1, 4, 3), torch.randn(3, 5, 1)])
@@ -103,12 +103,18 @@ def test_host_sweep_transfers_and_other_paths():
     assert len({c.untyped_storage().data_ptr() for c in up}) == 1
     assert all(torch.equal(u, torch.from_numpy(c)) for u, c in zip(up, down[0] + down[1]))
     # the minimizing mode has no host sweep (the JAX package drops the
-    # request there), and mesh= is not ported
+    # request there); mesh= logs the JAX package's warning and is dropped
+    # before the sweep reads it (on ranks: tests/test_torch_parallel_paths.py)
     with pytest.raises(NotImplementedError, match="fuse='host'"):
         tn.cross(function=_sines, domain=AXES[:3], fuse="host", _minimize=True, device="cpu",
                  verbose=False)
-    with pytest.raises(ParallelNotPorted):
-        tn.cross(function=_sines, domain=AXES[:3], fuse="host", mesh="mesh", device="cpu")
+    kw = dict(function=_sines, domain=AXES[:3], fuse="host", device="cpu", verbose=False, seed=0)
+    with caplog.at_level(logging.WARNING, logger="tntorch_tpu_torch"):
+        got = tn.cross(mesh="mesh", **kw)
+    assert [r.getMessage() for r in caplog.records] == [
+        "cross(mesh=...) with a host-locked function on a backend without host callbacks: "
+        "the sweep runs on the host (NumPy); the fiber sharding request is dropped."]
+    assert np.array_equal(got.numpy(), tn.cross(**kw).numpy())
     # a NaN names its point, as the eager sweep's message does
     with pytest.raises(ValueError, match="Invalid return value for function"):
         tn.cross(function=lambda *x: np.where(x[0] > 1.0, x[0], np.nan), domain=AXES[:3],

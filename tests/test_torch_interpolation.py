@@ -26,6 +26,7 @@ import torch
 
 import tntorch_tpu as jtn
 import tntorch_tpu_torch as tn
+import torch_parallel_ranks as ranks
 
 INTERP = importlib.import_module("tntorch_tpu_torch.interpolation")
 JINTERP = importlib.import_module("tntorch_tpu.interpolation")
@@ -94,8 +95,13 @@ def test_als_completion_recovers_a_low_rank_tensor_with_restarts():
     assert np.abs(t.numpy() - 1).max() <= 1e-6
     with pytest.raises(ValueError, match="every tensor slice"):
         tn.als_completion(X[:3], y[:3], ranks_tt=1, shape=[6, 6, 6], verbose=False, device="cpu")
-    with pytest.raises(tn.parallel.ParallelNotPorted):
-        tn.als_completion(X, y, ranks_tt=1, verbose=False, device="cpu", mesh="mesh")
+    # mesh= passes through the restarts; on one rank it changes no value (on
+    # four: tests/test_torch_parallel_paths.py)
+    kw = dict(ranks_tt=2, shape=[6, 6, 6], verbose=False, restarts=2, device="cpu")
+    want = tn.als_completion(X, y, generator=torch.Generator().manual_seed(4), **kw)
+    with ranks.solo_mesh() as mesh:
+        got = tn.als_completion(X, y, generator=torch.Generator().manual_seed(4), mesh=mesh, **kw)
+    assert np.array_equal(got.numpy(), want.numpy())
 
 
 def _unique_samples(seed, shape, P):

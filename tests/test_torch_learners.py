@@ -21,6 +21,7 @@ import torch
 
 import tntorch_tpu as jtn
 import tntorch_tpu_torch as tn
+import torch_parallel_ranks as ranks
 from tntorch_tpu.models.learners import _batch_gather as jax_batch_gather
 from tntorch_tpu_torch.models.learners import _batch_gather
 
@@ -136,8 +137,16 @@ def test_learners_own_draws_and_errors():
         tn.TTClassifier(device="cpu").predict_proba(X)
     with pytest.raises(ValueError, match="2 classes"):
         tn.TTClassifier(device="cpu").fit(X, np.zeros(len(X)))
-    with pytest.raises(tn.parallel.ParallelNotPorted):
-        tn.TTRegressor(mesh="mesh")
+    # mesh= on one rank changes no value (on four:
+    # tests/test_torch_parallel_paths.py); a mesh without 'dp' is refused, as
+    # in the JAX package
+    with ranks.solo_mesh() as mesh:
+        on_mesh = tn.TTRegressor(nticks=8, ranks_tt=2, ranks_tucker=2, max_iter=5, key=5,
+                                 device="cpu", mesh=mesh).fit(X, y)
+        with pytest.raises(ValueError, match="'dp' axis"):
+            tn.TTRegressor(mesh=tn.parallel.make_mesh((1,), ("tp",), device="cpu"))
+    assert on_mesh.losses_ == fits[0].losses_
+    assert np.array_equal(on_mesh.predict(X).numpy(), fits[0].predict(X).numpy())
     assert tn.models.TTRegressor is tn.TTRegressor
     # the operators of models/matrix.py are ported (tests/test_torch_matrix.py)
     assert tn.models.TTMatrix is tn.models.matrix.TTMatrix is tn.TTMatrix

@@ -3,7 +3,15 @@ against the JAX package's (tntorch_tpu/serialization.py): one ``.npz``
 layout, so each package loads the other's files. Both directions are
 checked, the loaded arrays bitwise equal to the saved ones: TT, Tucker,
 CP, a batch, ``idxs``, ``frozen_Us``, ``TTMatrix`` and ``CPMatrix``.
+
+The orbax checkpoints are directories of torch.distributed.checkpoint in
+the port, and of orbax in the JAX package: each package's round trip gives
+the same inputs back bitwise, the sharded pair's sidecars agree, and
+neither loads the other's directory. Placed tensors on 4 ranks:
+tests/test_torch_parallel_paths.py.
 """
+
+import json
 
 import jax.numpy as jnp
 import numpy as np
@@ -118,3 +126,41 @@ def test_bfloat16_is_refused_and_loads_land_on_the_card(tmp_path):
     else:  # no card here: the default device is the card, and moving there raises
         with pytest.raises((AssertionError, RuntimeError)):
             tn.load(tmp_path / "f32.npz")
+
+
+@pytest.mark.parametrize("case", ["tucker_frozen", "batch", "batch_tucker", "idxs"])
+def test_orbax_round_trips_match_jax(case, tmp_path):
+    t, jt = _pair(case)
+    jtn.save_orbax(jt, tmp_path / "jax")
+    jback = jtn.load_orbax(tmp_path / "jax")
+    tn.save_orbax(t, tmp_path / "port")
+    back = tn.load_orbax(tmp_path / "port", device="cpu")
+    for got in (jback, back):
+        _same(got, jt)
+        _same(got, t)
+    assert all(c.device.type == "cpu" for c in back.cores)
+    with pytest.raises(ValueError, match="neither package loads the other's"):
+        tn.load_orbax(tmp_path / "jax", device="cpu")
+    with pytest.raises(Exception):  # orbax finds no checkpoint of its own there
+        jtn.load_orbax(tmp_path / "port")
+
+
+def test_orbax_sharded_without_a_mesh_matches_jax(tmp_path):
+    t, jt = _pair("batch_tucker")
+    jtn.save_orbax_sharded(jt, tmp_path / "jax")
+    tn.save_orbax_sharded(t, tmp_path / "port")
+    with open(tmp_path / "jax.specs.json") as a, open(tmp_path / "port.specs.json") as b:
+        sidecar = json.load(b)
+        assert sidecar == json.load(a)
+    assert sidecar["core_specs"] == [None, None]  # plain tensors: not placed
+    _same(tn.load_orbax_sharded(tmp_path / "port", device="cpu"), t)
+    _same(jtn.load_orbax_sharded(tmp_path / "jax"), jt)
+    with pytest.raises(ValueError, match="neither package loads the other's"):
+        tn.load_orbax_sharded(tmp_path / "jax", device="cpu")
+    with pytest.raises(ValueError, match="no save_orbax payload"):
+        tn.load_orbax(tmp_path / "port", device="cpu")
+    if not torch.cuda.is_available():  # the default device is the card: moving there raises
+        tn.save_orbax(t, tmp_path / "whole")
+        for load, where in ((tn.load_orbax_sharded, "port"), (tn.load_orbax, "whole")):
+            with pytest.raises((AssertionError, RuntimeError)):
+                load(tmp_path / where)

@@ -20,6 +20,7 @@ import tntorch_tpu as jtn
 # imported on first use otherwise, and dir(jtn) must not depend on the tests before
 import tntorch_tpu.cross_host  # noqa: F401
 import tntorch_tpu_torch as tn
+import torch_parallel_ranks as ranks
 from tntorch_tpu_torch import interop
 from tntorch_tpu_torch.ops import rounding as tr
 
@@ -287,8 +288,8 @@ def test_functional_round_tt_leaves_input():
     assert r.ranks_tt.tolist() == [1, 3, 4, 3, 1]
 
 
-# The JAX package's public API that the slices have ported; every other
-# public name of ``dir(tntorch_tpu)`` is a stub in the port
+# The JAX package's public API that the slices have ported: every public
+# name of ``dir(tntorch_tpu)``
 PORTED = {
     "Tensor", "asarray", "autodiff", "create", "cross", "default_dtype", "dist", "dof", "dot",
     "get_policy", "init_interfaces", "matmul_precision", "maxvol", "mean", "meshgrid",
@@ -327,6 +328,9 @@ PORTED = {
     "cp_multiply",
     # serialization and the host sweep (tests/test_torch_{serialization,cross_host}.py)
     "serialization", "save", "load", "save_matrix", "load_matrix", "cross_host",
+    # the checkpoints on torch.distributed.checkpoint (tests/test_torch_serialization.py,
+    # tests/test_torch_parallel_paths.py)
+    "save_orbax", "load_orbax", "save_orbax_sharded", "load_orbax_sharded",
 }
 
 
@@ -344,24 +348,25 @@ def _jax_api():
 def test_entry_points_outside_the_slice_raise(tmp_path):
     a, _ = _pair(20, 0)
     api = set(_jax_api())
-    assert PORTED <= api
+    # every name is ported: none is left to raise
+    assert PORTED == api
     for name in sorted(api):
         assert hasattr(tn, name), name
-        obj = getattr(tn, name)
-        item = vars(obj).get("roadmap_item")
-        assert (item is None) == (name in PORTED), name
-        if item is None:
-            continue
-        with pytest.raises(NotImplementedError, match=rf"ROADMAP.md, {item}\)"):
-            obj.anything() if isinstance(obj, types.ModuleType) else obj(a)
     for name in (n for n in dir(jtn.Tensor) if not n.startswith("_")):
         assert hasattr(tn.Tensor, name), name
 
+    # what raised here until the mesh= paths and the checkpoints were ported
+    # now runs; their positive tests are in tests/test_torch_parallel_paths.py
+    # (4 ranks) and tests/test_torch_serialization.py. On one rank the mesh
+    # changes no value.
     domain = [np.arange(4.0)] * 3
-    for call in (lambda: tn.cross(domain=domain, device="cpu", mesh="mesh"),
-                 lambda: tn.cross(domain=domain, device="cpu", mesh="mesh", fuse="host")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    kw = dict(function=lambda *x: sum(x), domain=domain, device="cpu", verbose=False, seed=0)
+    with ranks.solo_mesh() as mesh:
+        for extra in ({}, dict(fuse="host")):
+            got = tn.cross(mesh=mesh, **kw, **extra).numpy()
+            assert np.array_equal(got, tn.cross(**kw, **extra).numpy())
+    tn.save_orbax(a, tmp_path / "orbax")
+    assert np.array_equal(tn.load_orbax(tmp_path / "orbax", device="cpu").numpy(), a.numpy())
 
     def setitem():
         a[0, 0, 0, 0] = 1.0

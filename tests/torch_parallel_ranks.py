@@ -4,6 +4,8 @@ importable by the spawned ranks, which import neither JAX nor the JAX
 package. Each takes NumPy inputs and a mesh shape and returns NumPy
 results (gathered: the same on every rank) with what the rank saw."""
 
+import contextlib
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -13,9 +15,9 @@ from tntorch_tpu_torch import parallel as par
 from tntorch_tpu_torch.ops import rounding as tr
 
 
-def _mesh(shape):
+def _mesh(shape, names=("dp", "tp")):
     torch.set_num_threads(1)  # four ranks share the cores with the other test workers
-    return par.make_mesh(shape, ("dp", "tp"), device="cpu")
+    return par.make_mesh(shape, names, device="cpu")
 
 
 def _t(arrays):
@@ -24,6 +26,18 @@ def _t(arrays):
 
 def _np(x):
     return par.gather(x).numpy()
+
+
+@contextlib.contextmanager
+def solo_mesh(names=("dp", "tp")):
+    """For the block, a process group of this one process (gloo, an
+    in-memory store) and its mesh of one rank; the group is destroyed
+    after. The ``mesh=`` paths run there as on one rank of many."""
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield par.make_mesh((1,) * len(names), names, device="cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 def mesh_layout(shape, dcn_shape):
@@ -131,3 +145,130 @@ def sleep(seconds):
     import time
 
     time.sleep(seconds)
+
+
+# The rank side of tests/test_torch_parallel_paths.py: the mesh= paths of
+# cross, als_completion and the learners, and the orbax checkpoints
+
+
+def _float64():
+    torch.set_default_dtype(torch.float64)  # meshgrid and the learners cast to it
+
+
+def hilbert(*xs):
+    return 1 / sum(xs)
+
+
+def cross(shape, axes, kw):
+    """cross(mesh=) of 1/sum(x) on ``axes``: the result's dense form, the
+    run's info (index sets as NumPy) and the collectives."""
+    _float64()
+    mesh = _mesh(shape, ("dp",))
+    with par.counting_collectives() as calls:
+        t, info = tn.cross(function=hilbert, domain=axes, device="cpu", verbose=False,
+                           return_info=True, mesh=mesh, **kw)
+    sets = {k: [np.asarray(x) for x in info[k]] for k in ("lsets", "rsets", "left_locals")}
+    return (t.numpy(), [int(r) for r in info["Rs"]], info["nsamples"], sets,
+            info.get("sample_values"), calls)
+
+
+def minimize(shape, cores, kw):
+    """minimum and argmin of a batch TT with mesh=, with the collectives of
+    the minimum and the warnings logged."""
+    import logging
+
+    _float64()
+    mesh = _mesh(shape, ("dp",))
+    t = tn.Tensor(_t(cores), batch=True)
+    logged = []
+    handler = logging.Handler()
+    handler.emit = lambda record: logged.append(record.getMessage())
+    tn.utils.logger.addHandler(handler)
+    try:
+        with par.counting_collectives() as calls:
+            m = tn.minimum(t, mesh=mesh, **kw)
+        a = tn.argmin(t, mesh=mesh, **kw)
+    finally:
+        tn.utils.logger.removeHandler(handler)
+    return m.numpy(), a, calls, logged
+
+
+def host_cross(axes):
+    """cross(fuse="host", mesh=): the warnings logged and the dense result."""
+    import logging
+
+    _float64()
+    mesh = _mesh((dist.get_world_size(),), ("dp",))
+    logged = []
+    handler = logging.Handler()
+    handler.emit = lambda record: logged.append(record.getMessage())
+    tn.utils.logger.addHandler(handler)
+    try:
+        t = tn.cross(function=hilbert, domain=axes, device="cpu", verbose=False, fuse="host",
+                     mesh=mesh, seed=0)
+    finally:
+        tn.utils.logger.removeHandler(handler)
+    return t.numpy(), logged
+
+
+def als(shape, X, y, x0, R, I, niter):
+    """als_completion(mesh=) from x0's cores: the dense result, the
+    training eps and the collectives."""
+    _float64()
+    mesh = _mesh(shape)
+    with par.counting_collectives() as calls:
+        t, eps = tn.als_completion(X, torch.from_numpy(y), ranks_tt=R, shape=[I] * X.shape[1],
+                                   x0=tn.Tensor(_t(x0)), niter=niter, verbose=False, mesh=mesh,
+                                   _return_eps=True)
+    return t.numpy(), eps, calls
+
+
+def learner(shape, cls, kw, X, y, carried, rows, Xt):
+    """A learner's fit with mesh= from a carried initial tensor (cores,
+    factors, frozen modes, batch) and bootstrap rows: the losses, the
+    predictions at Xt and the collectives."""
+    _float64()
+    mesh = _mesh(shape)
+    lrn = getattr(tn, cls)(key=3, device="cpu", mesh=mesh, **kw)
+    cores, Us, frozen, batch = carried
+
+    def make(_):
+        t = tn.Tensor(_t(cores), Us=_t(Us), batch=batch, requires_grad=True)
+        t.frozen_Us = set(frozen)
+        return t
+
+    lrn._make_tensor = make
+    if rows is not None:
+        lrn._member_rows = lambda P: torch.from_numpy(rows)
+    with par.counting_collectives() as calls:
+        lrn.fit(X, y)
+    pred = lrn.predict_proba(Xt) if cls == "TTClassifier" else lrn.predict(Xt)
+    return lrn.losses_, pred.numpy(), calls, [c.is_leaf for c in lrn.tensor_.cores]
+
+
+def orbax(shape, cores, Us, path):
+    """save_orbax_sharded of a batch TT sharded over dp (shard_batch), then
+    load_orbax_sharded onto the mesh (each rank's shards and placements)
+    and without a mesh (the whole)."""
+    mesh = _mesh(shape)
+    t = tn.Tensor(_t(cores), Us=None if Us is None else _t(Us), batch=True)
+    t.frozen_Us = {1}
+    placed = par.shard_batch(t, mesh)
+    tn.save_orbax_sharded(placed, path)
+    back = tn.load_orbax_sharded(path, mesh=mesh)
+    flat = tn.load_orbax_sharded(path, device="cpu")
+    return ([list(c.placements) for c in back.cores],
+            [c.to_local().numpy() for c in back.cores], [_np(c) for c in back.cores],
+            [None if U is None else _np(U) for U in back.Us],
+            [c.numpy() for c in flat.cores], back.frozen_Us, back.batch,
+            [c.to_local().numpy() for c in placed.cores])
+
+
+def learner_without_dp():
+    """The error of a learner given a mesh without a 'dp' axis."""
+    mesh = _mesh((dist.get_world_size(),), ("tp",))
+    try:
+        tn.TTRegressor(mesh=mesh, device="cpu")
+    except ValueError as e:
+        return str(e)
+    return None

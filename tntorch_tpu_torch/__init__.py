@@ -37,16 +37,15 @@ and Sobol indices: ``anova_decomposition``, ``sobol``, ``mean_dimension``,
 ``active_subspace``, ``dgsm``), and build operators from it (``TTMatrix``,
 ``CPMatrix``, ``tt_multiply``, ``cp_multiply``), assign into it
 (``t[key] = value``), and save and load it (``save``, ``load``,
-``save_matrix``, ``load_matrix``, in the JAX package's ``.npz`` layout),
-and shard it over several ranks (`parallel`: meshes, dp/tp placements, the
-sharded dot, forwards and Gram roundings on ``torch.distributed``, and
-``optimize(..., mesh=)``; `parallel.launch` starts the ranks).
-Data without a device lands on the CUDA card (`utils.default_device`). The
-package imports torch, numpy and scipy, never jax. The JAX package's orbax
-checkpoints (``save_orbax``, ``load_orbax`` and their sharded forms) exist
-here as functions that raise ``NotImplementedError`` naming their ROADMAP
-item, and the ``mesh=`` arguments of ``cross``, ``als_completion`` and the
-learners raise `parallel.ParallelNotPorted`.
+``save_matrix``, ``load_matrix``, in the JAX package's ``.npz`` layout;
+``save_orbax``, ``load_orbax`` and their sharded forms as
+``torch.distributed.checkpoint`` directories), and shard it over several
+ranks (`parallel`: meshes, dp/tp placements, the sharded dot, forwards and
+Gram roundings on ``torch.distributed``, and the ``mesh=`` of
+``optimize``, ``cross``, ``als_completion`` and the learners;
+`parallel.launch` starts the ranks). Data without a device lands on the
+CUDA card (`utils.default_device`). The package imports torch, numpy and
+scipy, never jax.
 """
 
 from tntorch_tpu_torch import (

@@ -16,7 +16,8 @@ card). Two differences from the JAX package: the sketch's Gaussian draw
 (`_sketch_omega`) comes from a CPU generator, as the JAX key cannot be
 replayed; and on the card ``index_add_`` on floating values sums in an
 order that varies from call to call, so the sketched path is not bitwise
-reproducible there. ``mesh=`` raises `parallel.ParallelNotPorted`.
+reproducible there. ``als_completion(mesh=)`` shards each mode's slice
+solves over a mesh of ranks (`parallel`).
 """
 
 from __future__ import annotations
@@ -28,7 +29,6 @@ import numpy as np
 import torch
 
 from tntorch_tpu_torch.ops.rounding import _sym
-from tntorch_tpu_torch.parallel import ParallelNotPorted
 from tntorch_tpu_torch.tensor import Tensor
 from tntorch_tpu_torch.utils import asarray, default_dtype, logger, policy_precision, to_numpy
 
@@ -93,16 +93,22 @@ def als_completion(X, y, ranks_tt, shape=None, ws=None, x0=None, niter=10, verbo
     no ``x0``, up to that many starts are tried and the fit with the lowest
     training residual is returned, stopping once it is below
     ``restart_tol``. ``y`` is cast to `default_dtype`, as in the JAX
-    package, and lands on ``device`` unless it is a torch tensor. ``mesh`` is not
-    ported (ROADMAP.md, queue 1 item 12) and raises."""
-    if mesh is not None:
-        raise ParallelNotPorted("als_completion(mesh=...)")
+    package, and lands on ``device`` unless it is a torch tensor.
+
+    ``mesh`` (a ``DeviceMesh``, `parallel`; every rank calls with the same
+    arguments) shards each mode's slice solves over the mesh's first axis:
+    the slices, padded with empty ones to a multiple of the axis size, are
+    split by `parallel.mesh.local_rows`, each rank solves its own, and one
+    all-gather (`parallel.mesh.gather_rows`) puts the core together on
+    every rank. The interface chains stay replicated; the sweep's residual
+    is summed over the axis by one all-reduce at its one read. x0's cores
+    are rank 0's (one broadcast each)."""
     if restarts > 1 and x0 is None:
         best, best_eps = None, float("inf")
         for _ in range(int(restarts)):
             cand, eps = als_completion(X, y, ranks_tt, shape=shape, ws=ws, niter=niter,
-                                       verbose=verbose, _return_eps=True, device=device,
-                                       generator=generator)
+                                       verbose=verbose, mesh=mesh, _return_eps=True,
+                                       device=device, generator=generator)
             # NaN residuals (diverged solves, niter=0) still return a tensor
             if best is None or eps < best_eps:
                 best, best_eps = cand, eps
@@ -138,6 +144,23 @@ def als_completion(X, y, ranks_tt, shape=None, ws=None, x0=None, niter=10, verbo
         x0.cores = [c.to(device=y.device, dtype=y.dtype) for c in x0.cores]
     # The orthogonalizers write x0.cores in place: `cores` stays x0's list
     cores = x0.cores
+    segments = [_mode_segments(X, mu, x0.shape[mu], ws, y.device, y.dtype) for mu in range(N)]
+    if mesh is not None:
+        from tntorch_tpu_torch.parallel.mesh import (
+            _all_reduce, _broadcast, _size, gather_rows, local_rows)
+
+        axis = mesh.mesh_dim_names[0]
+        shards = _size(mesh, axis)
+        group = mesh.get_group(axis) if shards > 1 else None
+        for n, c in enumerate(cores):
+            cores[n] = _broadcast(c.detach().contiguous().clone(), mesh)
+
+        def shard(seg):
+            # empty slices (zero weight) pad the mode to a multiple of the axis size
+            pad = (-seg.shape[0]) % shards
+            return local_rows(torch.nn.functional.pad(seg, (0, 0, 0, pad)), mesh, axis)
+
+        segments = [(shard(si), shard(sw)) for si, sw in segments]
     Xd = torch.from_numpy(X).to(y.device)
 
     lefts = [torch.ones((1, P, cores[n].shape[0]), dtype=y.dtype, device=y.device)
@@ -147,12 +170,13 @@ def als_completion(X, y, ranks_tt, shape=None, ws=None, x0=None, niter=10, verbo
     for dim in range(N - 2, -1, -1):
         rights[dim] = torch.einsum("ijk,kjl->ijl", cores[dim + 1][:, Xd[:, dim + 1], :],
                                    rights[dim + 1])
-    segments = [_mode_segments(X, mu, x0.shape[mu], ws, y.device, y.dtype) for mu in range(N)]
 
     def optimize_core(mu, direction):
         # Columns ordered (r_left, r_right): the solution reshapes into the core
         seg_idx, seg_w = segments[mu]
         slices, sse = _als_solve_mode(lefts[mu][0], rights[mu][:, :, 0].T, y, seg_idx, seg_w)
+        if mesh is not None:
+            slices = gather_rows(slices, mesh, axis, seg_idx.shape[0] * shards)
         cores[mu] = slices[:x0.shape[mu]].permute(1, 0, 2)
         if direction == "right":
             x0.left_orthogonalize(mu)
@@ -169,6 +193,8 @@ def als_completion(X, y, ranks_tt, shape=None, ws=None, x0=None, niter=10, verbo
             optimize_core(mu, "right")
         for mu in range(N - 1, 0, -1):
             sse = optimize_core(mu, "left")
+        if mesh is not None and group is not None:
+            sse = _all_reduce(sse.reshape(1).clone(), group)[0]
         eps = float(torch.sqrt(sse)) / normy  # the sweep's one read
         if verbose:
             print("iter: {: <{}}".format(swp, len("{}".format(niter)) + 1), end="")

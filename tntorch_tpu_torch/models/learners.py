@@ -15,8 +15,19 @@ batch tensor evaluated by `_batch_gather`.
 generators (one for the initial tensor, one for the bootstrap rows), so the
 card and the CPU start from the same numbers; a generator is drawn from in
 turn. Neither gives the JAX package's numbers. ``device=`` places the model
-and the data (default: `default_device`). ``mesh=`` raises
-`parallel.ParallelNotPorted`.
+and the data (default: `default_device`).
+
+``mesh=`` (a ``DeviceMesh`` with a 'dp' axis, `parallel`; every rank fits
+with the same arguments) trains data-parallel, as the JAX package does:
+`optimize` replicates the model from rank 0, and the training rows (a
+single model's samples, an ensemble's members with their rows) shard over
+'dp' by `parallel.shard_array` where its size divides them. Each rank then
+evaluates its rows on its replica (an ensemble: its members' slice of the
+batch cores, at its members' rows) and the loss is the sum of every rank's
+terms over the global count, so each gradient is a partial sum that
+`optimize` all-reduces. Where 'dp' does not divide them, every rank
+computes the whole loss. After the fit each rank holds the whole model as
+plain tensors.
 """
 
 from __future__ import annotations
@@ -27,7 +38,7 @@ import numpy as np
 import torch
 
 from tntorch_tpu_torch.interpolation import features2indices, get_bounding_box
-from tntorch_tpu_torch.parallel import ParallelNotPorted
+from tntorch_tpu_torch.tensor import Tensor
 from tntorch_tpu_torch.utils import default_device, default_dtype, to_numpy
 
 
@@ -88,8 +99,10 @@ class _TTLearner:
         key: Union[int, torch.Generator, None] = None,
         device=None,
     ):
-        if mesh is not None:
-            raise ParallelNotPorted("learners with mesh=")
+        if mesh is not None and "dp" not in mesh.mesh_dim_names:
+            raise ValueError(
+                "Learner mesh must have a 'dp' axis to shard samples/members over "
+                f"(got axes {mesh.mesh_dim_names}); build it with tn.parallel.make_mesh()")
         self.nticks = int(nticks)
         self.ranks_tt = ranks_tt
         self.ranks_tucker = ranks_tucker
@@ -170,11 +183,71 @@ class _TTLearner:
         array (the compressed indexing reads its keys on the host)."""
         return idx if self.tensor_._all_modes(idx) else idx.cpu().numpy()
 
+    def _shard(self, *arrs):
+        """The training arrays with their leading axis (samples for a single
+        model, members for an ensemble) sharded over the mesh's 'dp' axis
+        by `parallel.shard_array` (rank 0's copies), where its size divides
+        them, as the JAX package shards them; else as they are."""
+        if self.mesh is None:
+            return arrs
+        from tntorch_tpu_torch.parallel.algorithms import shard_array
+        from tntorch_tpu_torch.parallel.mesh import _size
+
+        k = _size(self.mesh, "dp")
+        if k == 1 or arrs[0].shape[0] % k:
+            return arrs
+        return tuple(shard_array(a, self.mesh) for a in arrs)
+
+    def _on_rank(self, t, *data):
+        """The model and the training arrays as this rank computes on them:
+        without a mesh, as they are; with one, the replicated cores and
+        factors as plain tensors, whose gradients are this rank's partial
+        sums over 'dp' where the arrays are sharded (an ensemble cut to this
+        rank's members), and the arrays' local rows."""
+        if self.mesh is None:
+            return (t, *data)
+        from torch.distributed.tensor import Partial, Replicate
+
+        from tntorch_tpu_torch.parallel.mesh import local_rows
+
+        mesh = self.mesh
+        sharded = hasattr(data[0], "to_local")
+        grads = [Partial() if sharded and name == "dp" else Replicate()
+                 for name in mesh.mesh_dim_names]
+
+        def local(x):
+            if x is None:
+                return None
+            x = x.to_local(grad_placements=grads) if hasattr(x, "to_local") else x
+            return local_rows(x, mesh, "dp") if sharded and t.batch else x
+
+        model = Tensor([local(c) for c in t.cores], Us=[local(U) for U in t.Us], batch=t.batch)
+        return (model, *(x.to_local() if hasattr(x, "to_local") else x for x in data))
+
+    @staticmethod
+    def _mean(terms, like):
+        """The mean of the loss terms of every rank's rows: ``terms`` are
+        this rank's, shaped as its rows of ``like``. Where ``like`` is
+        sharded, each rank's terms over the global count, summed over the
+        ranks (a partial sum that `optimize` reduces)."""
+        if not hasattr(like, "to_local"):
+            return terms.mean()
+        from tntorch_tpu_torch.parallel.mesh import _wrap
+
+        return _wrap(terms / like.numel(), like.device_mesh, list(like.placements),
+                     like.shape).sum()
+
     def _optimize(self, loss):
         from tntorch_tpu_torch.autodiff import optimize
 
         self.losses_ = optimize(self.tensor_, loss, optimizer=self.optimizer, tol=self.tol,
-                                max_iter=self.max_iter, verbose=self.verbose)
+                                max_iter=self.max_iter, verbose=self.verbose, mesh=self.mesh)
+        if self.mesh is not None:
+            # every rank keeps the whole model, as plain tensors
+            t = self.tensor_
+            t.cores = [c.to_local().detach().requires_grad_(True) for c in t.cores]
+            t.Us = [U.to_local().detach().requires_grad_(True) if hasattr(U, "to_local") else U
+                    for U in t.Us]
         return self
 
 
@@ -203,15 +276,18 @@ class TTRegressor(_TTLearner):
 
         if self.n_estimators > 1:
             sel = self._member_rows(len(y))
-            IDX, Y = idx[sel], yt[sel]
+            IDX, Y = self._shard(idx[sel], yt[sel])
 
             def loss(t):
-                return torch.mean((_batch_gather(t, IDX) - Y) ** 2)
+                m, IDXl, Yl = self._on_rank(t, IDX, Y)
+                return self._mean((_batch_gather(m, IDXl) - Yl) ** 2, Y)
         else:
-            key = self._key(idx)
+            idx, yt = self._shard(idx, yt)
+            key = self._key(idx.to_local() if hasattr(idx, "to_local") else idx)
 
             def loss(t):
-                return torch.mean((t[key].full() - yt) ** 2)
+                m, yl = self._on_rank(t, yt)
+                return self._mean((m[key].full() - yl) ** 2, yt)
 
         return self._optimize(loss)
 
@@ -257,18 +333,21 @@ class TTClassifier(_TTLearner):
 
         if self.n_estimators > 1:
             sel = self._member_rows(len(y))
-            IDX, Y = idx[sel], yt[sel]
+            IDX, Y = self._shard(idx[sel], yt[sel])
 
             def loss(t):
-                logp = torch.log_softmax(_batch_gather(t, IDX), dim=-1)  # (B, P, C)
-                return -torch.mean(torch.gather(logp, 2, Y[..., None]))
+                m, IDXl, Yl = self._on_rank(t, IDX, Y)
+                logp = torch.log_softmax(_batch_gather(m, IDXl), dim=-1)  # (B, P, C)
+                return self._mean(-torch.gather(logp, 2, Yl[..., None])[..., 0], Y)
         else:
-            key = self._key(idx)
+            idx, yt = self._shard(idx, yt)
+            key = self._key(idx.to_local() if hasattr(idx, "to_local") else idx)
 
             def loss(t):
+                m, yl = self._on_rank(t, yt)
                 # a (P, N) key leaves the class mode free: (P, C) logits
-                logp = torch.log_softmax(t[key].full(), dim=-1)
-                return -torch.mean(torch.gather(logp, 1, yt[:, None]))
+                logp = torch.log_softmax(m[key].full(), dim=-1)
+                return self._mean(-torch.gather(logp, 1, yl[:, None])[:, 0], yt)
 
         return self._optimize(loss)
 

@@ -7,10 +7,10 @@ is a ``DeviceMesh``, a sharding a list of DTensor placements, and the
 sharded functions compute on local shards with explicit collectives
 (`mesh`, `algorithms`). `launch` starts several ranks from one command
 (on the CPU with gloo, as the tests do; on the card); ``torchrun`` does as
-well. ``optimize(..., mesh=)`` trains over dp-sharded data.
-
-``cross``, ``als_completion`` and the learners with ``mesh=`` are not
-ported yet (ROADMAP.md, queue 1 item 12): they raise `ParallelNotPorted`.
+well. ``optimize(..., mesh=)`` trains over dp-sharded data; ``cross``,
+``als_completion`` and the learners take ``mesh=`` too (their rows shard
+by `local_rows` and come back by `gather_rows`), and the ``*_orbax*``
+checkpoints of `serialization` write and read placed tensors.
 
 The names load on first use, so that importing the package does not
 import ``torch.distributed.tensor``.
@@ -20,20 +20,10 @@ import importlib
 
 from tntorch_tpu_torch.ops.tt_eval import tt_batch_forward
 
-
-class ParallelNotPorted(NotImplementedError):
-    """A ``mesh=`` argument that the port does not take yet (ROADMAP.md,
-    queue 1 item 12)."""
-
-    def __init__(self, what: str):
-        super().__init__(f"{what} is not ported: its sharded form waits "
-                         "(ROADMAP.md, queue 1 item 12)")
-
-
 _NAMES = {
-    "mesh": ("make_mesh", "placements", "place", "gather", "rank_specs", "shard_batch",
-             "shard_ranks", "replicate", "sharded_dot", "sharded_norm", "tt_forward_sharded",
-             "tt_forward_shard_map"),
+    "mesh": ("make_mesh", "placements", "place", "gather", "local_rows", "gather_rows",
+             "rank_specs", "shard_batch", "shard_ranks", "replicate", "sharded_dot",
+             "sharded_norm", "tt_forward_sharded", "tt_forward_shard_map"),
     "algorithms": ("round_tt_gram_sharded", "round_tt_batch_sharded", "shard_array",
                    "replicate_pytree"),
     "launch": ("Group", "RankError", "run", "counting_collectives"),
@@ -49,4 +39,4 @@ def __getattr__(name):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-__all__ = ["ParallelNotPorted", "tt_batch_forward", *_WHERE]
+__all__ = ["tt_batch_forward", *_WHERE]

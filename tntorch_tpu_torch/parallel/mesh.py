@@ -272,6 +272,28 @@ def replicate(t, mesh: DeviceMesh):
     return _placed(t, [_put(c, mesh, where) for c in t.cores], _replicated(t.Us, mesh))
 
 
+def local_rows(x, mesh: DeviceMesh, axis: str = "dp"):
+    """This rank's chunk of ``x``'s rows (``torch.chunk``'s, by its
+    coordinate along mesh axis ``axis``): the rows it computes on where the
+    JAX package places ``x`` with ``PartitionSpec(axis)``. No collective."""
+    k = _size(mesh, axis)
+    if k == 1:
+        return x
+    c = mesh.get_coordinate()[mesh.mesh_dim_names.index(axis)]
+    start, stop = _chunk(x.shape[0], k, c)
+    return x[start:stop]
+
+
+def gather_rows(local, mesh: DeviceMesh, axis: str, n: int) -> torch.Tensor:
+    """The ``n`` rows whose chunks (`local_rows`) the ranks along mesh axis
+    ``axis`` hold, on every rank: one all-gather over that axis (`_gather`,
+    uneven chunks padded). Not differentiable."""
+    if _size(mesh, axis) == 1:
+        return local
+    local = local.detach()
+    return _gather(_wrap(local, mesh, _on(mesh, axis, 0), (n,) + tuple(local.shape[1:])))
+
+
 def _gather(x, keep=()):
     """The local tensor of ``x`` with every shard gathered, by one
     all-gather per sharded mesh dimension, except those of the mesh
@@ -446,6 +468,6 @@ def tt_forward_shard_map(cores, X, mesh: DeviceMesh, dp_axis: str = "dp", tp_axi
     return _wrap(v[:, 0], mesh, rows, (Xd.shape[0],))
 
 
-__all__ = ["make_mesh", "placements", "place", "gather", "rank_specs", "shard_batch",
-           "shard_ranks", "replicate", "sharded_dot", "sharded_norm", "tt_batch_forward",
-           "tt_forward_sharded", "tt_forward_shard_map"]
+__all__ = ["make_mesh", "placements", "place", "gather", "local_rows", "gather_rows",
+           "rank_specs", "shard_batch", "shard_ranks", "replicate", "sharded_dot",
+           "sharded_norm", "tt_batch_forward", "tt_forward_sharded", "tt_forward_shard_map"]

@@ -10,19 +10,30 @@ the card once; loading lands on the card unless ``device=`` says
 otherwise, like the package's other entry points. A dtype that NumPy
 lacks (bfloat16) raises ``TypeError`` rather than being stored as another.
 
-The orbax checkpoints of the JAX package (``save_orbax``, ``load_orbax``
-and their sharded forms) are JAX-only and not ported: they raise
-``NotImplementedError``.
+The JAX package's orbax checkpoints (``save_orbax``, ``load_orbax`` and
+their sharded forms) are directories of ``torch.distributed.checkpoint``
+(DCP) here: PyTorch has no orbax. They keep orbax's payload layout
+(``cores``, ``Us`` and ``idxs`` keyed by mode; ``save_orbax``'s ``meta``
+with ``n_cores``, ``batch`` and ``frozen_Us_mask``) and the sharded pair's
+``<path>.specs.json`` sidecar in the JAX package's schema, but neither
+package loads the other's directory: a load of one without DCP's
+``.metadata`` raises ``ValueError``. Under an initialized process group
+(`parallel`) every rank calls them with the same arguments, and DCP
+writes each tensor once: a placed tensor's shards each from the rank that
+holds them.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from tntorch_tpu_torch.tensor import Tensor, _not_ported_stub
+from tntorch_tpu_torch.tensor import Tensor
 from tntorch_tpu_torch.utils import default_device
 
 
@@ -133,7 +144,179 @@ def load_matrix(path, device=None):
     return m
 
 
-# JAX-only (orbax): each raises NotImplementedError citing its ROADMAP item
-globals().update({name: _not_ported_stub(name, "queue 1 item 11")
-                  for name in ("save_orbax", "load_orbax", "save_orbax_sharded",
-                               "load_orbax_sharded")})
+def _dcp(op, state, path):
+    """``torch.distributed.checkpoint.save`` or ``load`` (``op``) of the flat
+    or nested ``state`` at the directory ``path``: collective under an
+    initialized process group, a single process's otherwise."""
+    import torch.distributed.checkpoint as dcp
+
+    alone = not (dist.is_available() and dist.is_initialized())
+    with warnings.catch_warnings():  # DCP warns of a single process, which is asked for here
+        warnings.filterwarnings("ignore", "torch.distributed is disabled", UserWarning)
+        getattr(dcp, op)(state, checkpoint_id=path, no_dist=alone)
+
+
+def _stored(path) -> dict:
+    """The tensors a DCP directory holds, by flat key ("cores.0"), as their
+    storage metadata; ``ValueError`` where ``path`` is not such a
+    directory (an orbax checkpoint of the JAX package, or none)."""
+    from torch.distributed.checkpoint import FileSystemReader
+
+    if not os.path.isfile(os.path.join(path, ".metadata")):
+        raise ValueError(f"{path} is not a torch.distributed.checkpoint directory: the JAX "
+                         "package's orbax checkpoints and this package's DCP checkpoints are "
+                         "other formats, and neither package loads the other's")
+    return FileSystemReader(path).read_metadata().state_dict_metadata
+
+
+def _whole(x):
+    """``x`` detached, a placed tensor gathered (`parallel.gather`)."""
+    if hasattr(x, "to_local"):
+        from tntorch_tpu_torch.parallel.mesh import gather
+
+        x = gather(x)
+    return x.detach()
+
+
+def _tensor(cores, Us, idxs, batch, frozen) -> Tensor:
+    """The `Tensor` of loaded cores and factors (lists by mode) and idxs (by
+    position, a batch's leading one included), with ``frozen`` factors."""
+    idxs = [idxs.get(str(n)) for n in range(len(cores) + (1 if batch else 0))]
+    t = Tensor(cores, Us=Us, idxs=idxs if any(i is not None for i in idxs) else None,
+               batch=batch)
+    t.frozen_Us = set(frozen)
+    return t
+
+
+def save_orbax(t: Tensor, path):
+    """Write ``t`` (placed tensors gathered first) to the DCP directory
+    ``path`` in orbax's payload layout (module docstring)."""
+    payload = {
+        "cores": {str(n): _whole(c) for n, c in enumerate(t.cores)},
+        "Us": {str(n): _whole(U) for n, U in enumerate(t.Us) if U is not None},
+        "idxs": {str(n): torch.as_tensor(np.asarray(i)) for n, i in enumerate(t.idxs or [])
+                 if i is not None},
+        "meta": {"n_cores": torch.tensor(t.dim()), "batch": torch.tensor(int(t.batch)),
+                 "frozen_Us_mask": torch.tensor([int(m in t.frozen_Us) for m in range(t.dim())],
+                                                dtype=torch.int64)},
+    }
+    _dcp("save", payload, os.path.abspath(str(path)))
+
+
+def _load_flat(path, stored, keys, device):
+    """The tensors ``keys`` of the DCP directory ``path`` (``stored``: its
+    metadata) as plain tensors on ``device``."""
+    state = {k: torch.empty(stored[k].size, dtype=stored[k].properties.dtype, device=device)
+             for k in keys}
+    _dcp("load", state, path)
+    return state
+
+
+def _by_mode(state, prefix) -> dict:
+    """The entries ``prefix.<mode>`` of a flat state, by mode."""
+    return {k[len(prefix) + 1:]: v for k, v in state.items() if k.startswith(prefix + ".")}
+
+
+def load_orbax(path, device=None) -> Tensor:
+    """A `Tensor` stored by `save_orbax`, on ``device`` (default: the
+    card)."""
+    path = os.path.abspath(str(path))
+    stored = _stored(path)
+    if "meta.n_cores" not in stored:
+        raise ValueError(f"{path} holds no save_orbax payload (no meta.n_cores)")
+    device = device or default_device()
+    state = _load_flat(path, stored, list(stored), device)
+    N, batch = int(state["meta.n_cores"]), bool(int(state["meta.batch"]))
+    cores, Us = _by_mode(state, "cores"), _by_mode(state, "Us")
+    idxs = {k: v.cpu().numpy() for k, v in _by_mode(state, "idxs").items()}
+    mask = state["meta.frozen_Us_mask"].tolist()
+    return _tensor([cores[str(n)] for n in range(N)], [Us.get(str(n)) for n in range(N)], idxs,
+                   batch, [m for m, bit in enumerate(mask) if bit])
+
+
+def _spec_to_json(x):
+    """The JAX package's JSON form of a placed tensor's ``PartitionSpec``:
+    per dimension None, the mesh axis that shards it, or a list of several;
+    None for a tensor that is not placed."""
+    if not hasattr(x, "placements"):
+        return None
+    names = x.device_mesh.mesh_dim_names
+    axes = [[] for _ in range(x.ndim)]
+    for d, p in enumerate(x.placements):
+        if p.is_partial():
+            raise ValueError("a partial DTensor is not a placed tensor")
+        if p.is_shard():
+            axes[p.dim].append(names[d])
+    return [None if not a else a[0] if len(a) == 1 else a for a in axes]
+
+
+def save_orbax_sharded(t: Tensor, path):
+    """Write ``t`` to the DCP directory ``path`` keeping its placements:
+    each rank writes the shards of its placed cores and factors (DCP's
+    DTensor support), and rank 0 writes the ``<path>.specs.json`` sidecar in
+    the JAX package's schema (each leaf's spec, ``n_cores``, ``batch``,
+    ``frozen_Us``, ``idxs``), so that `load_orbax_sharded` can place them
+    again."""
+    payload = {"cores": {str(n): c.detach() for n, c in enumerate(t.cores)},
+               "Us": {str(n): U.detach() for n, U in enumerate(t.Us) if U is not None}}
+    meta = {
+        "n_cores": t.dim(),
+        "batch": bool(t.batch),
+        "frozen_Us": sorted(int(m) for m in t.frozen_Us),
+        "core_specs": [_spec_to_json(c) for c in t.cores],
+        "U_specs": {str(n): _spec_to_json(U) for n, U in enumerate(t.Us) if U is not None},
+        "idxs": {str(n): np.asarray(i).tolist() for n, i in enumerate(t.idxs or [])
+                 if i is not None},
+        "version": 1,
+    }
+    path = os.path.abspath(str(path))
+    if not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0:
+        # before DCP's save, which ends with every rank in step: no rank
+        # returns before the sidecar is written
+        with open(path + ".specs.json", "w") as fh:
+            json.dump(meta, fh)
+    _dcp("save", payload, path)
+
+
+def load_orbax_sharded(path, mesh=None, device=None) -> Tensor:
+    """A `Tensor` stored by `save_orbax_sharded`. With ``mesh``, each core
+    and factor comes back as a DTensor placed as the sidecar records (an
+    axis it names must be one of the mesh's), each rank reading only its
+    own shards; without, as plain tensors on ``device`` (default: the
+    card)."""
+    path = os.path.abspath(str(path))
+    stored = _stored(path)
+    with open(path + ".specs.json") as fh:
+        meta = json.load(fh)
+    N = int(meta["n_cores"])
+    specs = {f"cores.{n}": s for n, s in enumerate(meta["core_specs"])}
+    specs.update({f"Us.{k}": s for k, s in meta["U_specs"].items()})
+    if mesh is None:
+        state = _load_flat(path, stored, list(specs), device or default_device())
+    else:
+        state = {k: _placed_template(stored[k], s, mesh) for k, s in specs.items()}
+        _dcp("load", state, path)
+    cores, Us = _by_mode(state, "cores"), _by_mode(state, "Us")
+    idxs = {k: np.asarray(v) for k, v in (meta.get("idxs") or {}).items()}
+    return _tensor([cores[str(n)] for n in range(N)], [Us.get(str(n)) for n in range(N)], idxs,
+                   bool(meta["batch"]), meta.get("frozen_Us", ()))
+
+
+def _placed_template(stored, spec, mesh):
+    """An empty DTensor of a stored tensor's shape and dtype, placed on
+    ``mesh`` as the JAX-schema ``spec`` says (None: replicated): DCP loads
+    each rank's shards into it."""
+    from tntorch_tpu_torch.parallel.mesh import _chunk, _wrap, placements
+
+    if any(isinstance(a, list) for a in spec or ()):
+        raise ValueError(f"spec {spec}: a dimension sharded over several mesh axes is not "
+                         "supported")
+    size = tuple(stored.size)
+    where = placements(spec or (), mesh.mesh_dim_names)
+    local, coord = list(size), mesh.get_coordinate()
+    for d, p in enumerate(where):
+        if p.is_shard():
+            start, stop = _chunk(size[p.dim], mesh.size(d), coord[d])
+            local[p.dim] = stop - start
+    return _wrap(torch.empty(local, dtype=stored.properties.dtype, device=mesh.device_type),
+                 mesh, where, size)

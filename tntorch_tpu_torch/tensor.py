@@ -44,20 +44,6 @@ import torch
 from tntorch_tpu_torch.utils import asarray, logger, policy_precision, to_numpy, trace_annotation
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, {item})")
-
-
-def _not_ported_stub(name: str, item: str):
-    """A function ``name`` that raises `_not_ported` for ``tn.name``."""
-    def stub(*args, **kwargs):
-        raise _not_ported(f"tn.{name}", item)
-
-    stub.__name__ = stub.__qualname__ = name
-    stub.roadmap_item = item
-    return stub
-
-
 def _full_rank_tt(data: torch.Tensor, batch: bool = False) -> list:
     """Exact (uncompressed) TT of a dense tensor, (B, ...) when ``batch``:
     identity cores on the short side, the data on the long side."""
