@@ -91,16 +91,19 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    ending in a synchronize, as benchmarks/bench_cross.py defines it);
    (10c) the fixed-rank throughput shape (N=5, I=256, ranks_tt=100,
    max_iter=2, float32; its maxvol calls work on 25600 x 100, past the LU
-   tournament's block): f-evals/s, the swaps and LU reads per maxvol call,
-   val_eps and the held-out error within ``CROSS_FIXED_TOL``, a float64
-   run held to the port's on the CPU (iterations, sample count, held-out
-   error within ``CROSS_FIXED_F64_TOL``), ``maxvol_device`` alone on a
-   25600 x 100 orthonormal matrix (float64: the CPU's rows, and C within
-   1e-12 of a solve; float32: converged, C within 1e-4 of the float64
-   solve at its rows), f-evals/s with ``maxvol._BLOCK`` guarded swaps per
-   host check and with 1, in turns, and a torch.profiler split of one
-   iteration by the sweep's spans (fibers, QR, LU, swaps, solves,
-   validation) with the device's idle share. In 10a-10c the ``tt_eval``
+   tournament's block): f-evals/s, val_eps and the held-out error within
+   ``CROSS_FIXED_TOL``, then a counted run (`counted_maxvol`): the maxvol
+   calls, the launches of their kernels and the host syncs inside them
+   (none), a float64 run held to the port's on the CPU (iterations,
+   sample count, held-out error within ``CROSS_FIXED_F64_TOL``),
+   ``maxvol_device`` alone on a 25600 x 100 orthonormal matrix (float64:
+   the CPU's rows, and C within 1e-12 of a solve; float32: converged, C
+   within 1e-4 of the float64 solve at its rows), both maxvol kernels
+   against their plain versions there (`hold_maxvol_kernels`), and a
+   torch.profiler split of one iteration by the sweep's spans (fibers, QR,
+   LU, swaps, solves, validation) with the device's idle share. Phases 10,
+   11b and 17 pass ``fuse=False``: they hold the eager sweep (phase 18 the
+   fused one). In 10a-10c the ``tt_eval``
    kernel, on both its routes, is held to its plain version (``KERNEL_TOL``)
    at every shape the crosses give it: the inputs at the validation set,
    the approximation at the validation set and at the held-out points;
@@ -120,7 +123,9 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    path, ``minimum``/``argmin``/``maximum``/``argmax`` of config 1's
    ``tn.randn`` and ``minimum`` of config 3's sines against the port on
    the CPU, the warm times at 32^5 and 32^10, and the host syncs of one
-   iteration (CUDA's sync debug mode: one outside ``maxvol_device``);
+   iteration (CUDA's sync debug mode: one outside ``maxvol_device``, none
+   inside); the family of 11a and 11c's cross run the card's default,
+   the fused sweep;
    (11c) ``cross_forward`` of x**2 on a 32^4 rank-5 TT with autograd: the
    forward against the cross's result, the gradient of ``normsq`` against
    the same replay on the CPU, the warm forward + backward time. The
@@ -258,7 +263,32 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    walls. Per case and rank: its launches of each kernel, its collectives
    (count and largest), its walls beside the single process's; every kernel
    call it made held to the plain version. ``--only 17`` runs it alone;
-   ``mesh_paths_path("cpu", small sizes)`` rehearses it on the CPU.
+   ``mesh_paths_path("cpu", small sizes)`` rehearses it on the CPU;
+18. the fused cross tier (``cross(fuse="auto")`` on the card: speculative
+   chunks of 6, then 4, iterations with one read each, on the maxvol
+   kernels ``lu_rows`` and ``maxvol_swaps``), each run against the same
+   call with ``fuse=False`` in turns (``SIZES18``): (18a) BASELINE config 3
+   and (18b) the 5-D Hilbert cross of phase 10, float64 and float32, held
+   to val_eps below eps and the held-out limits of 10a-10b; (18c) 10c's
+   fixed-rank 256^5 cross at ranks 100 (its 25600 x 100 Q on the
+   grid-synchronised swap kernel), float64 and float32, within
+   ``CROSS_FIXED_F64_TOL`` and ``CROSS_FIXED_TOL``; each float64 fused run
+   with the eager run's ranks, samples and iterations; (18d) 11b's
+   minimizing cross of the separable function on 32^5, within
+   ``MIN_OPT_TOL`` of the dense optimum, fused and eager equal; (18e)
+   ``tn.exp`` on config 1's size, float32, within ``FAMILY_TOL``. Per run:
+   ``fused``, walls in turns, f-evals/s; the launches of ``tt_eval``,
+   ``lu_rows`` and ``maxvol_swaps`` on that path; (18f) a counted run of
+   each (`count_reads18`, CUDA's sync debug mode, the grids already on the
+   card): one host read per chunk, none inside ``maxvol_device``; profiles
+   of the fused config-3 and 256^5 runs (idle share); (18g) both maxvol
+   kernels against their plain versions at the largest and at a resident
+   Q of the phase, timed in turns beside their bounds and, for ``lu_rows``,
+   ``torch.lu_unpack``'s permutation matrix; then every recorded Q shape
+   (up to four of each dtype and route) held to the plain versions (rows
+   equal, C within ``MAXVOL_TOL``). ``--only 18`` runs it alone;
+   ``fused_path("cpu", small sizes)`` rehearses it on the CPU with
+   ``fuse=True`` (no counts, profiles or kernels there).
 
 The data of phases 6 to 8 comes without a device and lands on the card by
 the package's default. The second-to-last line is one JSON object with
@@ -1516,10 +1546,12 @@ def _axes(cfg):
     return [np.linspace(cfg["lo"], cfg["hi"], cfg["I"])] * cfg["N"]
 
 
-def _cross(cfg, f, dtype, device=None, **kw):
+def _cross(cfg, f, dtype, device=None, fuse=False, **kw):
     """``tn.cross`` of ``f`` on ``cfg``'s grid in ``dtype`` (torch's default
     dtype is what meshgrid casts the grid to), with the keywords ``kw``; its
-    result, info and wall time in seconds, ending in a synchronize."""
+    result, info and wall time in seconds, ending in a synchronize. The
+    eager sweep unless ``fuse`` says otherwise (phase 18 runs the fused
+    one)."""
     import torch
 
     import tntorch_tpu_torch as tn
@@ -1532,7 +1564,7 @@ def _cross(cfg, f, dtype, device=None, **kw):
             torch.cuda.synchronize()
         t0 = time.perf_counter()
         t, info = tn.cross(function=f, domain=_axes(cfg), device=device, verbose=False,
-                           return_info=True, suppress_warnings=True, **args, **kw)
+                           return_info=True, suppress_warnings=True, fuse=fuse, **args, **kw)
         if device is None:
             torch.cuda.synchronize()
         return t, info, time.perf_counter() - t0
@@ -1698,44 +1730,110 @@ def hold_maxvol():
         raise AssertionError("10c maxvol_device: " + "; ".join(failed))
 
 
-def cross_fixed():
-    """Phase 10c: the fixed-rank throughput shape in float32 (f-evals/s,
-    swaps and LU reads per maxvol call, val_eps and the held-out error
-    within CROSS_FIXED_TOL, the tt_eval kernel against its plain version at
-    the run's shapes), a float64 run against the port's on the CPU,
-    `maxvol_device` alone at the shape, f-evals/s with the maxvol's block
-    of guarded swaps at its size and at 1 in turns, and a profile of one
-    iteration by span."""
+def counted_maxvol(run):
+    """``run()`` with every `maxvol_device` call of the cross module counted
+    and, under CUDA's sync debug mode, the host syncs inside those calls and
+    outside them; returns (run's result, {calls, syncs inside, syncs
+    outside, lu_rows and maxvol_swaps launches}, the places outside that
+    synchronized)."""
+    import importlib
+    import warnings
+
+    import torch
+
+    from tntorch_tpu_torch.ops import maxvol_kernels as mk
+
+    cr = importlib.import_module("tntorch_tpu_torch.cross")
+    maxvol_device = cr.maxvol_device
+    counts = {"calls": 0, "inside": 0}
+
+    def counted(*args, **kwargs):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = maxvol_device(*args, **kwargs)
+        counts["inside"] += sum("synchroniz" in str(w.message) for w in caught)
+        counts["calls"] += 1
+        return out
+
+    lu0, sw0 = mk.lu_rows.launches, mk.maxvol_swaps.launches
+    torch.cuda.synchronize()
+    cr.maxvol_device = counted
+    torch.cuda.set_sync_debug_mode(1)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        cr.maxvol_device = maxvol_device
+    where = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+             if "synchroniz" in str(w.message)]
+    counts.update(outside=len(where), lu_rows=mk.lu_rows.launches - lu0,
+                  maxvol_swaps=mk.maxvol_swaps.launches - sw0)
+    return out, counts, where
+
+
+def hold_maxvol_kernels(name, cases):
+    """Each (tag, Q, max_iters) of ``cases`` (Q on the card, as a sweep gave
+    it to `maxvol_device`) through both maxvol kernels against their plain
+    versions on the same inputs: ``lu_rows`` on Q's LU pivots (every row of
+    the permutation equal), then ``maxvol_swaps`` from those rows (rows
+    equal, C within MAXVOL_TOL). The caller has read its launch counts.
+    Returns the largest C difference per dtype."""
     import importlib
 
-    import numpy as np
+    import torch
+
+    from tntorch_tpu_torch.ops import maxvol_kernels as mk
+
+    mv = importlib.import_module("tntorch_tpu_torch.maxvol")
+    failed, parts, worst = [], [], {}
+    for tag, Q, iters in cases:
+        n, r = Q.shape
+        dname = str(Q.dtype)[6:]
+        piv = mv._lu_pivots(Q)[None]
+        rows = mk.lu_rows(piv, n, n)
+        same_rows = torch.equal(rows.cpu(), mk.lu_rows_plain(piv, n, n).cpu())
+        idx = rows[0, :r].contiguous()
+        C = torch.linalg.solve_ex(Q[idx].T, Q.T)[0].T.contiguous()
+        want_C, want_idx = mk.maxvol_swaps_plain(C.clone(), idx.clone(), 1.05, iters)
+        got_C, got_idx = mk.maxvol_swaps(C.clone(), idx.clone(), 1.05, iters)
+        torch.cuda.synchronize()
+        err = float((got_C - want_C).abs().max())
+        worst[dname] = max(worst.get(dname, 0.0), err)
+        same_idx = torch.equal(got_idx, want_idx)
+        parts.append(f"{tag} {dname} {n}x{r} ({mk._swap_route(n, r, Q.element_size())}): "
+                     f"LU rows {'equal' if same_rows else 'DIFFER'}, swap rows "
+                     f"{'equal' if same_idx else 'DIFFER'}, C {err:.1e}")
+        if not (same_rows and same_idx and err <= MAXVOL_TOL[dname]):
+            failed.append(f"{tag} {dname} {n}x{r}")
+    print(f"{name}, maxvol kernels vs plain (C tol {MAXVOL_TOL}): " + "; ".join(parts))
+    if failed:
+        raise AssertionError(f"{name}: a maxvol kernel disagrees with its plain version: "
+                             + "; ".join(failed))
+    return worst
+
+
+def cross_fixed():
+    """Phase 10c: the fixed-rank throughput shape on the eager sweep in
+    float32 (f-evals/s, val_eps and the held-out error within
+    CROSS_FIXED_TOL, the tt_eval kernel against its plain version at the
+    run's shapes), then a counted run: maxvol calls, their kernels'
+    launches and the host syncs inside them (none) and outside (one an
+    iteration); a float64 run against the port's on the CPU,
+    `maxvol_device` alone at the shape, both maxvol kernels against their
+    plain versions there, and a profile of one iteration by span."""
     import torch
 
     from tntorch_tpu_torch.ops import tt_eval as te
 
-    mv = importlib.import_module("tntorch_tpu_torch.maxvol")
     cfg = CROSS_FIXED
-    k = mv._BLOCK
-    counts = {"swaps": 0, "lu": 0}
-    swap, lu_rows = mv._swap, mv._lu_rows
-
-    def counted_swap(*args):
-        counts["swaps"] += 1
-        return swap(*args)
-
-    def counted_lu(*args):
-        counts["lu"] += 1
-        return lu_rows(*args)
-
     te.reset_launches()
     _cross(cfg, _hilbert, torch.float32)  # warm-up
     launches = te.tt_eval_kernel.launches
-    mv._swap, mv._lu_rows = counted_swap, counted_lu
-    try:
-        t, info, sec = _cross(cfg, _hilbert, torch.float32)
-    finally:
-        mv._swap, mv._lu_rows = swap, lu_rows
+    t, info, sec = _cross(cfg, _hilbert, torch.float32)
     per_call = te.tt_eval_kernel.launches - launches
+    _, counts, where = counted_maxvol(lambda: _cross(cfg, _hilbert, torch.float32))
     X = _held_out(cfg, HELD_OUT)
     X_val = _held_out(cfg, VAL_SIZE)
     ax = torch.tensor(_axes(cfg)[0], device="cuda")
@@ -1746,15 +1844,19 @@ def cross_fixed():
           f"({iters} iterations of at most {cfg['max_iter']}), val_eps {info['val_eps']:.3e}, "
           f"held-out rel err at {HELD_OUT} points {err:.3e} (tol {CROSS_FIXED_TOL} for both), "
           f"{sec * 1e3:.1f} ms, {info['nsamples'] / sec:.4g} f-evals/s; tt_eval launches "
-          f"{per_call}; maxvol: "
-          f"{counts['swaps'] / steps:.1f} guarded swaps and {counts['lu'] / steps:.1f} LU pivot "
-          f"reads per call ({steps} calls), block {k}")
+          f"{per_call}; a counted run: {counts['calls']} maxvol calls ({steps} expected), "
+          f"lu_rows {counts['lu_rows']} and maxvol_swaps {counts['maxvol_swaps']} launches, "
+          f"{counts['inside']} host syncs inside maxvol_device (target 0), {counts['outside']} "
+          f"outside (the grid's upload and one read an iteration: {where})")
     if t.device.type != "cuda" or per_call != cfg["N"] + iters:
         raise AssertionError(f"10c: the fixed-rank cross left the card or launched tt_eval "
                              f"{per_call} times")
     if not info["val_eps"] <= CROSS_FIXED_TOL or not err <= CROSS_FIXED_TOL:
         raise AssertionError(f"10c: val_eps {info['val_eps']:.3e} or held-out error {err:.3e} "
                              f"above {CROSS_FIXED_TOL}")
+    if counts["inside"] or counts["calls"] != steps or not counts["lu_rows"] \
+            or counts["maxvol_swaps"] != steps:
+        raise AssertionError(f"10c: maxvol counts {counts}")
     # float64: one iteration reaches eps; the card's run against the CPU's
     t64, info64, sec64 = _cross(cfg, _hilbert, torch.float64)
     err64 = rel(t64[X].full(), 1 / ax.double()[X].sum(1))
@@ -1773,20 +1875,10 @@ def cross_fixed():
                          ("approximation", t.cores, X_val), ("approximation", t.cores, X),
                          ("approximation", t64.cores, X_val)])
     hold_maxvol()
-    te.reset_launches()
-    rates = {k: [], 1: []}
-    for turn in range(6):
-        for block in ((k, 1) if turn % 2 == 0 else (1, k)):
-            mv._BLOCK = block
-            try:
-                _, info, sec = _cross(cfg, _hilbert, torch.float32)
-            finally:
-                mv._BLOCK = k
-            rates[block].append(info["nsamples"] / sec)
-    launches += te.tt_eval_kernel.launches
-    print("10c f-evals/s by guarded swaps per host check, 6 turns each: "
-          + ", ".join(f"{b}: {[round(r) for r in v]} (median {np.median(v):.4g})"
-                      for b, v in rates.items()))
+    n, r = cfg["I"] * cfg["ranks_tt"], cfg["ranks_tt"]
+    Q = torch.linalg.qr(torch.randn(n, r, dtype=torch.float64, device="cuda",
+                                    generator=torch.Generator("cuda").manual_seed(13)))[0]
+    hold_maxvol_kernels("10c", [("Q", Q, 100), ("Q", Q.float(), 100)])
     return launches + cross_profile("10c", dict(cfg, max_iter=1), _hilbert)
 
 
@@ -2036,13 +2128,13 @@ def minimize_checks(device="cuda"):
     try:
         failed, cases = [], []
         tensors, f, dense_min, grid = _separable_problem(device)
-        tn.minimum(function=f, tensors=tensors, seed=0)  # warm-up
+        tn.minimum(function=f, tensors=tensors, seed=0, fuse=False)  # warm-up
         _sync(device)
         t0 = time.perf_counter()
-        m = tn.minimum(function=f, tensors=tensors, seed=0)
+        m = tn.minimum(function=f, tensors=tensors, seed=0, fuse=False)
         _sync(device)
         sec5 = time.perf_counter() - t0
-        am = tn.argmin(function=f, tensors=tensors, seed=0)
+        am = tn.argmin(function=f, tensors=tensors, seed=0, fuse=False)
         _, info = tn.cross(function=f, tensors=tensors, rmax=10, max_iter=10, verbose=False,
                            seed=0, return_info=True, record_samples=True, _minimize=True)
         found = [float(f(*[grid[c] for c in a])) for a in (am, info["argmin"])]
@@ -2058,7 +2150,7 @@ def minimize_checks(device="cuda"):
 
         w = _config1(0, torch.float64, device)
         x = w.full()
-        got = {name: getattr(tn, name)(w, seed=0)
+        got = {name: getattr(tn, name)(w, seed=0, fuse=False)
                for name in ("minimum", "argmin", "maximum", "argmax")}
         cpu = {name: getattr(tn, name)(w.clone().to("cpu"), seed=0) for name in got}
         print(f"11b, config 1 randn 32^4 rank 5: minimum {got['minimum']:.15g} at "
@@ -2074,7 +2166,7 @@ def minimize_checks(device="cuda"):
         cases.append(("config 1 randn", w.cores, _held_out(
             dict(N=CONFIG1["N"], I=CONFIG1["I"]), VAL_SIZE, device)))
 
-        sines = dict(function=_sines, domain=_axes(CROSS3), seed=CROSS3["seed"])
+        sines = dict(function=_sines, domain=_axes(CROSS3), seed=CROSS3["seed"], fuse=False)
         tn.minimum(**sines, device=device)  # warm-up
         _sync(device)
         t0 = time.perf_counter()
@@ -2096,11 +2188,11 @@ def minimize_checks(device="cuda"):
 
 def host_reads(tensors, f):
     """11b: the host's synchronizing operations per iteration of the
-    minimizing cross on 32^5, by CUDA's sync debug mode: two runs one
-    iteration apart, both past the last rank increase (rmax 10 from rank 1
-    by kickrank 3: iteration 4), so the difference is one iteration's. The
-    target: one outside maxvol_device; inside it, the LU pivots' read, the
-    pivots' copy back and one check per block of guarded swaps."""
+    minimizing cross's eager sweep on 32^5, by CUDA's sync debug mode: two
+    runs one iteration apart, both past the last rank increase (rmax 10
+    from rank 1 by kickrank 3: iteration 4), so the difference is one
+    iteration's. The target: one outside maxvol_device, none inside it (its
+    LU rows and swap loop are kernels)."""
     import importlib
     import warnings
 
@@ -2128,24 +2220,18 @@ def host_reads(tensors, f):
             inside.update(syncs=0, calls=0)
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
-                tn.minimum(function=f, tensors=tensors, seed=0, max_iter=max_iter)
+                tn.minimum(function=f, tensors=tensors, seed=0, max_iter=max_iter, fuse=False)
             outside = sum("synchroniz" in str(w.message) for w in caught)
             runs.append((outside, inside["syncs"], inside["calls"]))
     finally:
         torch.cuda.set_sync_debug_mode(0)
         cr.maxvol_device = maxvol_device
     outside, syncs, calls = (b - a for a, b in zip(*runs))
-    print(f"11b, host syncs in one iteration of the minimizing cross on 32^5 (runs of 6 and 7 "
-          f"iterations: {runs}): {outside} outside maxvol_device (target 1), {calls} maxvol "
-          f"calls with {syncs} syncs ({syncs / max(calls, 1):.2f} per call: the LU pivots' "
-          f"read, their copy back, one check per block of {_maxvol_block()} guarded swaps)")
-    return [] if outside == 1 else [f"{outside} host syncs per iteration outside maxvol"]
-
-
-def _maxvol_block():
-    import importlib
-
-    return importlib.import_module("tntorch_tpu_torch.maxvol")._BLOCK
+    print(f"11b, host syncs in one iteration of the minimizing cross's eager sweep on 32^5 "
+          f"(runs of 6 and 7 iterations: {runs}): {outside} outside maxvol_device (target 1), "
+          f"{calls} maxvol calls with {syncs} syncs (target 0)")
+    return [] if (outside, syncs) == (1, 0) else [
+        f"{outside} host syncs per iteration outside maxvol, {syncs} inside"]
 
 
 def forward_checks(device="cuda"):
@@ -4566,8 +4652,9 @@ def _case17(case, dtype_name, cfg, device, mesh=None):
         t, dense = _separable17(cfg["separable"], device)
 
         def call():
-            m = tn.minimum(t, seed=0, **kw)
-            return dict(min=m.cpu().numpy(), argmin=tn.argmin(t, seed=0, **kw), dense=dense)
+            m = tn.minimum(t, seed=0, fuse=False, **kw)
+            return dict(min=m.cpu().numpy(), argmin=tn.argmin(t, seed=0, fuse=False, **kw),
+                        dense=dense)
         return call
     if case == "als":
         A = cfg["als"]
@@ -4931,11 +5018,385 @@ def mesh_paths_path(device="cuda", cfg=SIZES17, repeats=1, smi=None):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the fused cross tier (cross(fuse="auto") on the card: chunks of
+# 6, then 4, iterations with one read each) on the maxvol kernels, each run
+# against the same call on the eager sweep (fuse=False), in turns:
+# - BASELINE config 3 (10a's 10-D sines on 32^10, eps 1e-6), float64 and
+#   float32; 10b's 5-D Hilbert tensor on 32^5; 10c's fixed-rank 256^5 cross
+#   at ranks 100 (2 iterations: one chunk), float32 and float64, whose
+#   25600 x 100 Q take the grid-synchronised swap kernel;
+# - 11b's minimizing cross of the separable 5-D function on 32^5;
+# - tn.exp on config 1's size (11a's input 1.5 + u), float32.
+# The grids' axes are on the card before each call, so every host sync
+# that CUDA's sync debug mode sees in a counted run is the sweep's own.
+# Tolerances of phase 18: the crosses' existing ones (10a-10c: the
+# reported validation error below eps, the held-out error within
+# CROSS_F32_TOL in float32 and eps in float64, 10c's CROSS_FIXED_TOL and
+# CROSS_FIXED_F64_TOL); the minimizing cross within MIN_OPT_TOL of the
+# dense optimum; tn.exp within FAMILY_TOL of the dense exp; the maxvol
+# kernels against their plain versions: rows equal, C within MAXVOL_TOL
+# (the update rounds as the plain version's, so equal rows leave only the
+# argmax reduction's order, which the total order makes exact: 0 in a
+# float64 rehearsal of the same arithmetic).
+SIZES18 = dict(cross3=CROSS3, hilbert=HILBERT5, fixed=CROSS_FIXED, separable=SEPARABLE,
+               exp=CONFIG1, turns=2)
+
+
+def _chunks(iters):
+    """The reads of a fused run that kept ``iters`` iterations: chunks of
+    6, then 4 (cross._CHUNK_DEPTH_FIRST, _CHUNK_DEPTH_NEXT)."""
+    return 1 + max(0, -(-(iters - 6) // 4))
+
+
+def _axes_on(cfg, dtype, device):
+    """``cfg``'s grid axes as tensors on ``device``."""
+    import torch
+
+    return [torch.tensor(a, dtype=dtype, device=device) for a in _axes(cfg)]
+
+
+def _fused_call(cfg, f, dtype, device, fuse, axes=None):
+    """The cross of phase 18 on ``cfg``'s grid in ``dtype``, its axes put
+    on ``device`` first (or ``axes``, already there): its result, info and
+    wall (s), ending in a synchronize."""
+    import torch
+
+    import tntorch_tpu_torch as tn
+
+    args = {k: cfg[k] for k in ("eps", "seed", "ranks_tt", "max_iter") if k in cfg}
+    axes = _axes_on(cfg, dtype, device) if axes is None else axes
+    prev = torch.get_default_dtype()
+    torch.set_default_dtype(dtype)
+    try:
+        _sync(device)
+        t0 = time.perf_counter()
+        t, info = tn.cross(function=f, domain=axes, verbose=False, return_info=True,
+                           suppress_warnings=True, fuse=fuse, **args)
+        _sync(device)
+        return t, info, time.perf_counter() - t0
+    finally:
+        torch.set_default_dtype(prev)
+
+
+def recording_maxvol(qs):
+    """A context in which every `maxvol_device` call of the cross module
+    keeps a copy of its Q in ``qs`` by (n, r, dtype, max_iters), the first
+    call of each shape."""
+    import importlib
+
+    cr = importlib.import_module("tntorch_tpu_torch.cross")
+
+    @contextlib.contextmanager
+    def ctx():
+        maxvol_device = cr.maxvol_device
+
+        def spy(Q, tol=1.05, max_iters=100):
+            key = (tuple(Q.shape), str(Q.dtype)[6:], max_iters)
+            qs.setdefault(key, Q.detach().clone())
+            return maxvol_device(Q, tol, max_iters)
+
+        cr.maxvol_device = spy
+        try:
+            yield
+        finally:
+            cr.maxvol_device = maxvol_device
+
+    return ctx()
+
+
+def _turns18(call, turns):
+    """``call(fuse)`` for fuse "auto" (the card; True on the CPU) and False
+    in turns (fused, eager, eager, fused, ...): each one's walls and the
+    last result of each."""
+    walls, last = {"fused": [], "eager": []}, {}
+    for k in range(turns):
+        for name in (("fused", "eager") if k % 2 == 0 else ("eager", "fused")):
+            out = call(name)
+            walls[name].append(out[-1])
+            last[name] = out
+    return walls, last
+
+
+def fused_cross_checks(name, cfg, f, exact, dtypes, tols, device, turns, failed):
+    """18a-c: one configuration's crosses, fused against eager in turns, in
+    each of ``dtypes``: val_eps within ``tols[dtype][0]``, the held-out
+    error against ``exact`` within ``tols[dtype][1]``, float64 ranks,
+    samples and iterations equal to the eager run's, and ``fused`` set.
+    Returns the reads to count (tag, cfg, f, dtype) and nothing else."""
+    import torch
+
+    fuse = "auto" if torch.device(device).type == "cuda" else True
+    X = _held_out(cfg, HELD_OUT, device)
+    want = exact(torch.tensor(_axes(cfg)[0], device=device), X)
+    for dtype in dtypes:
+        dname = str(dtype)[6:]
+        walls, last = _turns18(
+            lambda which: _fused_call(cfg, f, dtype, device, fuse if which == "fused" else False),
+            turns)
+        (t, info, _), (te_, einfo, _) = last["fused"], last["eager"]
+        err = rel(t[X].full().double(), want)
+        Rs, eRs = [int(r) for r in info["Rs"]], [int(r) for r in einfo["Rs"]]
+        its = len(info["val_epss"])
+        rate = {k: last[k][1]["nsamples"] / last[k][2] for k in last}
+        print(f"18 {name}, {dname}: fused {info['fused']}, {its} iterations in {_chunks(its)} "
+              f"chunk(s), ranks {Rs}, {info['nsamples']} f-evals, val_eps {info['val_eps']:.3e}, "
+              f"held-out rel err {err:.3e}; eager: {len(einfo['val_epss'])} iterations, ranks "
+              f"{eRs}; walls in turns (ms) fused {[round(w * 1e3, 1) for w in walls['fused']]}, "
+              f"eager {[round(w * 1e3, 1) for w in walls['eager']]}; second calls' f-evals/s "
+              f"fused {rate['fused']:.4g}, eager {rate['eager']:.4g}")
+        eps_tol, held_tol = tols[dname]
+        if not info["fused"] or einfo["fused"]:
+            failed.append(f"18 {name} {dname}: fused {info['fused']}, eager {einfo['fused']}")
+        if not info["val_eps"] <= eps_tol or not err <= held_tol:
+            failed.append(f"18 {name} {dname}: val_eps {info['val_eps']:.3e}, held-out {err:.3e}")
+        if dtype == torch.float64 and (Rs, info["nsamples"], its) != (
+                eRs, einfo["nsamples"], len(einfo["val_epss"])):
+            failed.append(f"18 {name} float64: the fused run's schedule differs from the eager "
+                          "run's")
+    return [(name, cfg, f, dtypes[-1])]
+
+
+def fused_minimize_checks(device, cfg, turns, failed):
+    """18d: the minimizing cross of 11b's separable function, fused and
+    eager in turns: both within MIN_OPT_TOL of the dense optimum, with
+    equal minima and argmins."""
+    import torch
+
+    import tntorch_tpu_torch as tn
+
+    prev = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)  # meshgrid's dtype
+    try:
+        shifts = SEPARABLE["shifts"][:cfg["N"]]
+        grid = torch.linspace(-1, 1, cfg["I"], dtype=torch.float64)
+        tensors = tn.meshgrid([grid] * cfg["N"], device=device)
+
+        def f(*xs):
+            return sum((x - s) ** 2 for x, s in zip(xs, shifts))
+
+        dense = float(sum(((grid - s) ** 2).min() for s in shifts))
+        fuse = "auto" if torch.device(device).type == "cuda" else True
+
+        def call(which):
+            _sync(device)
+            t0 = time.perf_counter()
+            _, info = tn.cross(function=f, tensors=tensors, rmax=10, max_iter=10, verbose=False,
+                               seed=0, return_info=True, _minimize=True,
+                               fuse=fuse if which == "fused" else False)
+            _sync(device)
+            return info, time.perf_counter() - t0
+
+        walls, last = _turns18(call, turns)
+        info, einfo = last["fused"][0], last["eager"][0]
+        at = float(f(*[grid[c] for c in info["argmin"]]))
+        print(f"18 minimize, separable {cfg['N']}-D on {cfg['I']}^{cfg['N']}: fused "
+              f"{info['fused']}, minimum {info['min']:.15g} at {info['argmin']} (f there "
+              f"{at:.15g}); "
+              f"eager {einfo['min']:.15g} at {einfo['argmin']}; dense {dense:.15g}; walls in turns "
+              f"(ms) fused {[round(w * 1e3, 1) for w in walls['fused']]}, eager "
+              f"{[round(w * 1e3, 1) for w in walls['eager']]}")
+        if not info["fused"] or not all(abs(v - dense) <= MIN_OPT_TOL
+                                        for v in (info["min"], at, einfo["min"])):
+            failed.append("18 minimize: the optimum was missed or the run was not fused")
+        if (info["min"], info["argmin"]) != (einfo["min"], einfo["argmin"]):
+            failed.append("18 minimize: the fused and eager minima differ")
+        return tensors, f
+    finally:
+        torch.set_default_dtype(prev)
+
+
+def fused_exp_checks(device, cfg, turns, failed):
+    """18e: ``tn.exp`` of 11a's input 1.5 + u on config 1's size, float32,
+    fused (its default on the card) against ``fuse=False`` in turns, each
+    within FAMILY_TOL of the dense exp."""
+    import torch
+
+    import tntorch_tpu_torch as tn
+
+    pos = 1.5 + _unit_tt(0, torch.float32, device)
+    want = torch.exp(pos.full())
+    fuse = "auto" if torch.device(device).type == "cuda" else True
+
+    def call(which):
+        _sync(device)
+        t0 = time.perf_counter()
+        out, info = tn.exp(pos, seed=0, return_info=True, fuse=fuse if which == "fused" else False)
+        _sync(device)
+        return out, info, time.perf_counter() - t0
+
+    walls, last = _turns18(call, turns)
+    for which in ("fused", "eager"):
+        out, info, sec = last[which]
+        err = rel(out.full(), want)
+        print(f"18 tn.exp, {which}: fused {info['fused']}, {len(info['val_epss'])} iterations, "
+              f"ranks {[int(r) for r in info['Rs']]}, {info['nsamples']} f-evals, rel err vs dense "
+              f"{err:.2e} (tol {FAMILY_TOL}); walls in turns (ms) "
+              f"{[round(w * 1e3, 1) for w in walls[which]]}, {info['nsamples'] / sec:.4g} "
+              "f-evals/s (second call)")
+        if not err <= FAMILY_TOL or info["fused"] != (which == "fused"):
+            failed.append(f"18 tn.exp {which}: rel err {err:.3e}, fused {info['fused']}")
+    return pos
+
+
+def count_reads18(device, counted, failed):
+    """18f: each counted run (tag, run returning an info) under CUDA's sync
+    debug mode: host syncs outside maxvol_device equal to the chunks the
+    run read (one each), none inside it."""
+    parts = []
+    for tag, run in counted:
+        info, counts, where = counted_maxvol(run)
+        chunks = _chunks(len(info["val_epss"]))
+        parts.append(f"{tag}: {len(info['val_epss'])} iterations, {chunks} chunk(s), "
+                     f"{counts['outside']} host reads ({where}), {counts['calls']} maxvol calls "
+                     f"with {counts['inside']} syncs, lu_rows {counts['lu_rows']}, maxvol_swaps "
+                     f"{counts['maxvol_swaps']} launches")
+        if counts["outside"] != chunks or counts["inside"] or not counts["maxvol_swaps"]:
+            failed.append(f"18 reads, {tag}: {counts}, {chunks} chunk(s)")
+    print("18, host reads per fused run (one per chunk): " + "; ".join(parts))
+
+
+def time_maxvol_kernels(qs):
+    """18g: both maxvol kernels against their plain versions, timed in
+    turns by CUDA events at the largest Q of the phase (the 256^5 cross's
+    25600 x 100, float32) and at its most common resident one; bounds by
+    bytes and operations. Returns the kernels' entries of the result line."""
+    import importlib
+
+    import torch
+
+    from tntorch_tpu_torch.ops import maxvol_kernels as mk
+
+    mv = importlib.import_module("tntorch_tpu_torch.maxvol")
+    big = max((k for k in qs if k[1] == "float32"), key=lambda k: k[0][0] * k[0][1])
+    small = max((k for k in qs if mk._swap_route(*k[0], 4 if k[1] == "float32" else 8)
+                 == "resident"), key=lambda k: k[0][0] * k[0][1])
+    report = {}
+    for tag, key in (("largest", big), ("resident", small)):
+        Q, iters = qs[key], key[2]
+        (n, r), item = Q.shape, Q.element_size()
+        piv = mv._lu_pivots(Q)[None]
+        idx = mk.lu_rows(piv, n, r)[0].contiguous()
+        C = torch.linalg.solve_ex(Q[idx].T, Q.T)[0].T.contiguous()
+        # the iterations this input needs: the while loop's, one check each
+        eye, Cs, ids, its = torch.eye(r, dtype=C.dtype, device=C.device), C.clone(), idx, 0
+        while its < iters and bool(Cs.abs().max() > 1.05):
+            Cs, ids = mk._swap(Cs, ids, 1.05, eye)
+            its += 1
+        work = C.clone()
+        copy_ms = cuda_time(lambda: work.copy_(C))
+        turns = in_turns({
+            "kernel": lambda: mk.maxvol_swaps(work.copy_(C), idx.clone(), 1.05, iters),
+            "plain": lambda: mk.maxvol_swaps_plain(C, idx, 1.05, iters)})
+        ms = sorted(turns["kernel"])[0] - copy_ms
+        plain_ms = sorted(turns["plain"])[0]
+        got_C = mk.maxvol_swaps(C.clone(), idx.clone(), 1.05, iters)[0]
+        err = float((got_C - mk.maxvol_swaps_plain(C, idx, 1.05, iters)[0]).abs().max())
+        bound, by = bound_ms(its * 3 * n * r, 2 * n * r * item + 2 * r * 8,
+                             PEAK_FP32 if item == 4 else PEAK_FP64)
+        per_iter = its * 3 * n * r * item / HBM * 1e3
+        lu_turns = in_turns({"kernel": lambda: mk.lu_rows(piv, n, r),
+                             "plain": lambda: mk.lu_rows_plain(piv, n, r)})
+        with mv._cusolver(Q.device):
+            LU = torch.linalg.lu_factor_ex(Q)[0]
+        lib_ms = cuda_time(lambda: torch.lu_unpack(LU, piv[0], unpack_data=False))
+        lu_bound, lu_by = bound_ms(0, r * 4 + r * 8)
+        print(f"18 maxvol kernels at the {tag} Q ({n} x {r}, {key[1]}, "
+              f"{mk._swap_route(n, r, item)}; {its} swaps of at most {iters}): maxvol_swaps "
+              f"{ms:.4f} ms (turns {[round(t, 4) for t in turns['kernel']]}, less the copy's "
+              f"{copy_ms:.4f}) against plain {plain_ms:.4f} ms, bound {bound:.5f} ms ({by}; "
+              f"C's round trip per swap, {its} x 3 n r x {item} B: {per_iter:.5f} ms), C vs plain "
+              f"{err:.1e}; lu_rows {sorted(lu_turns['kernel'])[0]:.4f} ms against plain "
+              f"{sorted(lu_turns['plain'])[0]:.4f} ms, bound {lu_bound:.6f} ms ({lu_by}), "
+              f"torch.lu_unpack's permutation matrix {lib_ms:.4f} ms")
+        if tag == "largest":
+            report["maxvol_swaps"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                          bound_ms=bound, bound_by=by, library_ms=None)
+            report["lu_rows"] = dict(max_abs_err=0.0, ms=sorted(lu_turns["kernel"])[0],
+                                     plain_ms=sorted(lu_turns["plain"])[0], bound_ms=lu_bound,
+                                     bound_by=lu_by, library_ms=lib_ms)
+    return report
+
+
+def fused_path(device="cuda", cfg=SIZES18):
+    """Phase 18; returns each kernel's launches in it and the maxvol
+    kernels' entries of the result line (none on the CPU, which rehearses
+    the phase on the plain versions with ``fuse=True``)."""
+    import torch
+
+    import tntorch_tpu_torch as tn
+    from tntorch_tpu_torch.ops import maxvol_kernels as mk
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    cuda = torch.device(device).type == "cuda"
+    start = time.perf_counter()
+    tn.set_policy("highest")
+    phase("18. the fused cross tier: cross(fuse='auto') against fuse=False in turns, on the "
+          "maxvol kernels")
+    failed, counted, qs = [], [], {}
+    te.reset_launches()
+    mk.reset_launches()
+    exact3 = lambda ax, X: torch.sin(ax[X]).sum(1)  # noqa: E731
+    hilbert = lambda ax, X: 1 / ax[X].sum(1)  # noqa: E731
+    f64, f32 = torch.float64, torch.float32
+    eps_tols = {"float64": (cfg["cross3"]["eps"], cfg["cross3"]["eps"]),
+                "float32": (cfg["cross3"]["eps"], CROSS_F32_TOL)}
+    fixed_tols = {"float64": (CROSS_FIXED_F64_TOL, CROSS_FIXED_F64_TOL),
+                  "float32": (CROSS_FIXED_TOL, CROSS_FIXED_TOL)}
+    with recording_maxvol(qs):
+        counted += fused_cross_checks("config 3", cfg["cross3"], _sines, exact3, (f64, f32),
+                                      eps_tols, device, cfg["turns"], failed)
+        counted += fused_cross_checks("5-D Hilbert", cfg["hilbert"], _hilbert, hilbert, (f64, f32),
+                                      eps_tols, device, cfg["turns"], failed)
+        counted += fused_cross_checks("fixed rank", cfg["fixed"], _hilbert, hilbert, (f64, f32),
+                                      fixed_tols, device, cfg["turns"], failed)
+        tensors, fsep = fused_minimize_checks(device, cfg["separable"], cfg["turns"], failed)
+        pos = fused_exp_checks(device, cfg["exp"], cfg["turns"], failed)
+    _sync(device)
+    launches = {"tt_eval": te.tt_eval_kernel.launches, "lu_rows": mk.lu_rows.launches,
+                "maxvol_swaps": mk.maxvol_swaps.launches}
+    print(f"18, launches on the main path: {launches}")
+    if cuda and not all(launches.values()):
+        failed.append(f"a kernel of the fused path was not launched: {launches}")
+    report = {}
+    if cuda:
+        # the axes go up before each counted run: its syncs are the sweep's
+        runs = [(f"{tag} {str(dtype)[6:]}",
+                 lambda c=c, f=f, dtype=dtype, axes=_axes_on(c, dtype, device):
+                 _fused_call(c, f, dtype, device, "auto", axes)[1])
+                for tag, c, f, dtype in counted]
+        runs.append(("minimize", lambda: tn.cross(function=fsep, tensors=tensors, rmax=10,
+                                                  max_iter=10, verbose=False, seed=0,
+                                                  return_info=True, _minimize=True)[1]))
+        runs.append(("tn.exp", lambda: tn.exp(pos, seed=0, return_info=True)[1]))
+        count_reads18(device, runs, failed)
+        for tag, c, f in (("config 3", cfg["cross3"], _sines),
+                          ("fixed rank", cfg["fixed"], _hilbert)):
+            profile_cross(f"18 {tag}, float32, fused",
+                          lambda c=c, f=f: _fused_call(c, f, f32, device, "auto")[1:])
+        report = time_maxvol_kernels(qs)
+    # every recorded shape's first Q (up to 4 of each dtype and route)
+    picked, seen = [], {}
+    for (shape, dname, iters), Q in sorted(qs.items(), key=lambda kv: -kv[0][0][0] * kv[0][0][1]):
+        route = (dname, iters, shape[0] * shape[1] * Q.element_size() > 200 * 1024)
+        if seen.get(route, 0) < 4:
+            seen[route] = seen.get(route, 0) + 1
+            picked.append((f"Q max_iters {iters}", Q, iters))
+    if cuda:
+        hold_maxvol_kernels("18", picked)
+    print(f"18, {len(qs)} distinct maxvol shapes recorded, {len(picked)} held; the phase "
+          f"{time.perf_counter() - start:.1f} s")
+    if failed:
+        raise AssertionError("phase 18: " + "; ".join(failed))
+    return launches, report
+
+
 PHASES = {"3": "check_kernels", "3b": "check_tt_kernels", "4": "main_path",
           "5": "nonbatch_pass", "6": "eval_path", "7": "train_path", "8": "train_design_path",
           "9": "baseline_path", "10": "cross_path", "11": "elementwise_path",
           "12": "config4_path", "13": "config5_path", "14": "missing_modules_path",
-          "15": "tutorials_path", "16": "parallel_path", "17": "mesh_paths_path"}
+          "15": "tutorials_path", "16": "parallel_path", "17": "mesh_paths_path",
+          "18": "fused_path"}
 
 
 def main():
@@ -4971,10 +5432,13 @@ def main():
     tutorials = tutorials_path()
     parallel = parallel_path(smi=smi)
     mesh_paths = mesh_paths_path(smi=smi)
+    fused, maxvol_report = fused_path()
+    report.update(maxvol_report)
     launches.update({k: evals[k] + trains[k] + designs[k] for k in evals})
+    launches.update(lu_rows=0, maxvol_swaps=0)
     launches = {k: n + sum(p.get(k, 0) for p in (baselines, crosses, elementwise, config4,
                                                          config5, missing, tutorials, parallel,
-                                                         mesh_paths))
+                                                         mesh_paths, fused))
                 for k, n in launches.items()}
 
     import torch
@@ -4985,8 +5449,11 @@ def main():
         "proj2": "tntorch_tpu/ops/pallas_gram.py:254",
         "tt_eval": "tntorch_tpu/ops/pallas_tt.py:89",
         "tt_eval_backward": "no TPU kernel: XLA's gradient of tntorch_tpu/parallel/mesh.py:150",
+        "lu_rows": "no TPU kernel: jax.lax.linalg.lu's permutation, tntorch_tpu/maxvol.py:185",
+        "maxvol_swaps": "no TPU kernel: the lax.while_loop of tntorch_tpu/maxvol.py:242",
     }
-    sources = {"tt_eval": "tt_eval.cu", "tt_eval_backward": "tt_eval.cu"}
+    sources = {"tt_eval": "tt_eval.cu", "tt_eval_backward": "tt_eval.cu",
+               "lu_rows": "maxvol_device.cu", "maxvol_swaps": "maxvol_device.cu"}
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"tntorch_tpu_torch/csrc/{sources.get(name, 'gram_kernels.cu')}",

@@ -213,7 +213,7 @@ def test_build_needs_nvcc_and_keys_the_library_on_the_source(monkeypatch):
 
     import torch.utils.cpp_extension as cpp
 
-    assert sorted(_build.SOURCES) == ["gram_kernels", "tt_eval"]
+    assert sorted(_build.SOURCES) == ["gram_kernels", "maxvol_device", "tt_eval"]
     for name, source in _build.SOURCES.items():  # one library per source
         digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
         assert _build.library_path(name).name == f"{name}_{digest}.so"

@@ -164,3 +164,133 @@ def test_stack_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want.full()), rtol=0, atol=TOL)
     with pytest.raises(ValueError):
         tn.stack([got])
+
+
+# ---------------------------------------------------------------------------
+# The device maxvol's two kernels (ops/maxvol_kernels.py), by their plain
+# versions here; on the card, by the cuda-marked test below
+# ---------------------------------------------------------------------------
+
+MK = importlib.import_module("tntorch_tpu_torch.ops.maxvol_kernels")
+
+
+@pytest.mark.parametrize("shape", DEVICE, ids=list(DEVICE))
+def test_plain_lu_rows_match_jax_permutation(shape):
+    # LAPACK's successive swaps composed into rows are jax.lax.linalg.lu's
+    # permutation, whole, and the tournament's pivots are JAX's
+    import jax
+
+    n, r = DEVICE[shape]
+    A = _matrix(min(n, 5000), r, seed=8)
+    piv = torch.linalg.lu_factor_ex(torch.from_numpy(A))[1]
+    perm = np.asarray(jax.lax.linalg.lu(jnp.asarray(A))[2])
+    full = MK.lu_rows(piv[None], A.shape[0], A.shape[0])
+    assert full.dtype == torch.int64 and full.shape == (1, A.shape[0])
+    np.testing.assert_array_equal(full[0].numpy(), perm)
+    np.testing.assert_array_equal(MK.lu_rows_plain(piv[None], A.shape[0], r)[0].numpy(), perm[:r])
+    Q = np.linalg.qr(_matrix(n, r, seed=4))[0]
+    np.testing.assert_array_equal(TM._device_lu_pivots(torch.from_numpy(Q)).numpy(),
+                                  np.asarray(JM._device_lu_pivots(jnp.asarray(Q))))
+
+
+def test_plain_lu_rows_of_a_batch():
+    rng = np.random.default_rng(9)
+    A = rng.standard_normal((5, 30, 4))
+    piv = torch.linalg.lu_factor_ex(torch.from_numpy(A))[1]
+    rows = MK.lu_rows(piv, 30, 4)
+    for b in range(5):
+        want = MK.lu_rows(torch.linalg.lu_factor_ex(torch.from_numpy(A[b]))[1][None], 30, 4)
+        assert torch.equal(rows[b], want[0])
+
+
+@pytest.mark.parametrize("shape", DEVICE, ids=list(DEVICE))
+def test_plain_swap_loop_matches_jax_while_loop(shape):
+    # From the LU start, the plain swap loop gives the JAX package's rows,
+    # and C within 1e-12, the 40000 x 64 tournament case included
+    n, r = DEVICE[shape]
+    A = _matrix(n, r, seed=4)
+    Q = torch.from_numpy(np.linalg.qr(A)[0] if n > 1000 else A)
+    idx = TM._device_lu_pivots(Q)
+    C = torch.linalg.solve(Q[idx].T, Q.T).T.contiguous()
+    for max_iters in (100, 3):
+        got = MK.maxvol_swaps_plain(C, idx, 1.05, max_iters)
+        assert torch.equal(idx, TM._device_lu_pivots(Q))  # the inputs are not written
+        _rows_and_C(got[::-1], JM.maxvol_device(jnp.asarray(Q.numpy()), 1.05, max_iters))
+        # the wrapper takes the plain version on the CPU
+        wrapped = MK.maxvol_swaps(C, idx, 1.05, max_iters)
+        assert torch.equal(wrapped[0], got[0]) and torch.equal(wrapped[1], got[1])
+
+
+def test_swap_routes_and_grid_plan():
+    # config 3's and the tutorials' Q, (R I) x R at I = 32, stay resident up
+    # to R ~ 20 in float64; phase 10c's 25600 x 100 takes the grid kernel
+    assert MK._swap_route(64, 2, 8) == MK._swap_route(32 * 20, 20, 8) == "resident"
+    assert MK._swap_route(32 * 24, 24, 4) == "resident"
+    assert MK._swap_route(25600, 100, 4) == MK._swap_route(25600, 100, 8) == "grid"
+    for n, r, wave in ((25600, 100, 1056), (2000, 7, 132), (130, 400, 264), (5, 1, 8)):
+        blocks = MK._grid_blocks(n, r, wave)
+        per = -(-n // blocks)
+        assert 1 <= blocks <= min(wave, n)
+        assert (blocks - 1) * per < n <= blocks * per  # every block owns rows
+    assert MK._grid_blocks(25600, 100, 1056) == 625
+
+
+def test_kernel_wrappers_check_their_inputs():
+    with pytest.raises(ValueError):
+        MK.lu_rows(torch.ones(2, 3, dtype=torch.int32), 2, 1)  # more pivots than rows
+    with pytest.raises(ValueError):
+        MK.maxvol_swaps(torch.zeros(5, 2), torch.zeros(3, dtype=torch.int64), 1.05, 10)
+    C = torch.zeros(5, 2)
+    with pytest.raises(ValueError):
+        MK.maxvol_swaps(C, torch.zeros(2, dtype=torch.int64, device="meta"), 1.05, 10)
+
+
+@pytest.mark.cuda
+def test_maxvol_kernels_match_plain_versions_on_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import warnings
+
+    # resident shapes, one at the resident limit, and grid ones (f32, f64)
+    shapes = [(64, 2), (96, 3), (640, 20), (300, 20), (2000, 7), (25600, 100)]
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-4)):
+        for n, r in shapes:
+            Q = torch.linalg.qr(torch.from_numpy(_matrix(n, r, seed=n)))[0].to(dtype).cuda()
+            piv = TM._lu_pivots(Q)
+            before = MK.lu_rows.launches
+            rows = MK.lu_rows(piv[None], n, n)
+            assert MK.lu_rows.launches == before + 1
+            assert torch.equal(rows.cpu(), MK.lu_rows_plain(piv[None], n, n).cpu())
+            idx = rows[0, :r].contiguous()
+            C = torch.linalg.solve(Q[idx].T, Q.T).T.contiguous()
+            want_C, want_idx = MK.maxvol_swaps_plain(C.clone(), idx.clone(), 1.05, 100)
+            before = MK.maxvol_swaps.launches
+            got_C, got_idx = MK.maxvol_swaps(C.clone(), idx.clone(), 1.05, 100)
+            torch.cuda.synchronize()
+            assert MK.maxvol_swaps.launches == before + 1
+            assert torch.equal(got_idx, want_idx), (n, r, dtype)
+            assert float((got_C - want_C).abs().max()) <= tol, (n, r, dtype)
+    # ties go to the lowest row-major index, and a NaN ends the loop
+    C = torch.zeros((40, 3), dtype=torch.float64, device="cuda")
+    C[9, 0] = C[3, 1] = C[7, 2] = -5.0
+    idx = torch.arange(3, device="cuda")
+    got = MK.maxvol_swaps(C.clone(), idx.clone(), 1.05, 1)[1]
+    assert got.tolist() == [0, 3, 2]
+    assert torch.equal(got, MK.maxvol_swaps_plain(C.clone(), idx.clone(), 1.05, 1)[1])
+    C = torch.full((40, 3), 2.0, dtype=torch.float64, device="cuda")
+    C[5, 1] = float("nan")
+    got = MK.maxvol_swaps(C.clone(), idx.clone(), 1.05, 10)
+    assert torch.equal(got[1], idx) and torch.isnan(got[0][5, 1])
+    # maxvol_device reads nothing back from the card
+    Q = torch.linalg.qr(torch.from_numpy(_matrix(40000, 64, seed=4)))[0].cuda()
+    TM.maxvol_device(Q)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode(1)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            rows, C = TM.maxvol_device(Q)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert not [w for w in caught if "synchroniz" in str(w.message)]
+    _rows_and_C((rows, C), TM.maxvol_device(Q.cpu()))

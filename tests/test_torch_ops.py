@@ -17,6 +17,11 @@ float64 on the CPU.
   modes and a batch.
 
 The inputs map into every op's domain: values in [0.15, 0.85].
+
+Every cross here takes both packages' default ``fuse="auto"``, which on the
+CPU is the eager sweep in each; the fused sweep that "auto" runs on the
+card is held to the JAX package's fused chunks in test_torch_cross_fused.py
+(and ``tn.exp`` on the card by chip_smoke.py's phase 18).
 """
 
 import numpy as np

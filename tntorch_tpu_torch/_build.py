@@ -29,6 +29,7 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_D = ctypes.c_double
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _PI = ctypes.POINTER(ctypes.c_int)
 
@@ -48,6 +49,11 @@ SIGNATURES = {
         "tnt_tt_eval_grouped": [_I, _P, _I, _I, _I, _P, _P, _L, _P, _P, _P, _P, _P, _I, _P, _P],
         "tnt_tt_eval_slice_grad": [_I, _I, _I, _I, _P, _P, _P, _P, _L, _I, _P, _P, _P, _P, _I,
                                    _P, _L, _L, _L, _P, _P],
+    },
+    "maxvol_device": {
+        "tnt_lu_rows": [_P, _I, _I, _I, _I, _P, _P, _P],
+        "tnt_maxvol_grid_occupancy": [_I, _I],
+        "tnt_maxvol_swaps": [_I, _I, _P, _P, _I, _I, _D, _I, _I, _P, _P, _P, _P],
     },
 }
 

@@ -12,14 +12,16 @@ find a good submatrix", 2010; rectangular maxvol: Mikhalev & Oseledets,
   (``init_rows=``) is read from a copy: the caller's array is never written.
 - the device path, `maxvol_device` and `rect_maxvol_device`, in torch on the
   input's device: the pivots that cross approximation uses. The initial rows
-  are the pivots of a partially pivoted LU (``torch.linalg.lu_factor``,
-  with the JAX package's tournament over blocks for tall matrices, so the
-  same rows win), then the swap loop runs eagerly in blocks of `_BLOCK`
-  guarded iterations between host checks of ``max|C| > tol``. A guarded
-  iteration after convergence changes nothing, so the result is the JAX
-  package's ``lax.while_loop``'s, with one host read per block instead of
-  one per iteration. The host also reads the LU's pivots (LAPACK's
-  successive swaps) once per LU stage, to compose them into rows.
+  are the pivots of a partially pivoted LU (``torch.linalg.lu_factor_ex``
+  under cuSOLVER, with the JAX package's tournament over blocks for tall
+  matrices, so the same rows win); `ops.maxvol_kernels.lu_rows` composes
+  LAPACK's successive swaps into rows, where the JAX package's LU returns a
+  permutation, and the tournament keeps its first r real rows by a stable
+  device argsort. Then `ops.maxvol_kernels.maxvol_swaps` runs the guarded
+  swap loop, the JAX package's ``lax.while_loop``. On the card both are
+  hand-written kernels and `maxvol_device` reads nothing back from the
+  card; on the CPU their plain versions run (the swap loop in blocks of
+  `_BLOCK` guarded iterations between host checks of ``max|C| > tol``).
 """
 
 from __future__ import annotations
@@ -31,10 +33,11 @@ import numpy as np
 import scipy.linalg
 import torch
 
+from tntorch_tpu_torch.ops.maxvol_kernels import lu_rows, maxvol_swaps
 from tntorch_tpu_torch.utils import asarray, policy_precision, trace_annotation
 
-# Guarded swap iterations between two host checks of max|C| > tol in
-# `maxvol_device`: each check is one read back from the card
+# Guarded swap iterations between two host checks of max|C| > tol in the
+# plain swap loop (`maxvol_swaps` on CPU tensors)
 _BLOCK = 4
 
 
@@ -182,20 +185,13 @@ def _cusolver(device):
         torch.backends.cuda.preferred_linalg_library(prev)
 
 
-def _lu_rows(mats) -> np.ndarray:
-    """The row order of a partially pivoted LU of each (n x r) matrix in
-    ``mats``, as NumPy (len(mats), n): the first r entries of a row are its
-    pivots. One LU per matrix, and one read of all their LAPACK-style
-    pivots back from the device."""
-    n, r = mats[0].shape
-    with _cusolver(mats[0].device):
-        piv = torch.stack([torch.linalg.lu_factor_ex(A)[1] for A in mats])
-    piv = piv.cpu().numpy() - 1  # successive row swaps
-    order = np.tile(np.arange(n), (len(mats), 1))
-    for b in range(len(mats)):
-        for i, p in enumerate(piv[b]):
-            order[b, i], order[b, p] = order[b, p], order[b, i]
-    return order
+def _lu_pivots(mats: torch.Tensor) -> torch.Tensor:
+    """LAPACK's pivots (int32, 1-based successive swaps) of a partially
+    pivoted LU of each (n x r) matrix of ``mats`` (n x r, or a batch), with
+    no check of the factorization's info (a check reads back from the
+    card)."""
+    with _cusolver(mats.device):
+        return torch.linalg.lu_factor_ex(mats)[1]
 
 
 def _device_lu_pivots(A: torch.Tensor) -> torch.Tensor:
@@ -204,46 +200,28 @@ def _device_lu_pivots(A: torch.Tensor) -> torch.Tensor:
     Above ``chunk`` rows, tournament pivoting (CALU, Grigori-Demmel-Xiang)
     as the JAX package does it: LU each block of ``chunk`` rows (the last
     padded with zero rows, which never win first), then LU the blocks'
-    winners, and keep the first r winners that are real rows."""
+    winners, and keep the first r winners that are real rows (a stable
+    argsort of ``row >= n``)."""
     n, r = A.shape
     chunk = max(r, (1 << 20) // max(r, 1))
     if n <= chunk:
-        return torch.from_numpy(_lu_rows([A])[0, :r]).to(A.device)
+        return lu_rows(_lu_pivots(A)[None], n, r)[0]
     m = -(-n // chunk)
     Ap = torch.cat([A, A.new_zeros(m * chunk - n, r)])
-    rows = _lu_rows(Ap.reshape(m, chunk, r))[:, :r]
-    cand = (rows + (np.arange(m) * chunk)[:, None]).reshape(-1)
-    piv = cand[_lu_rows([Ap[torch.from_numpy(cand).to(A.device)]])[0]]
-    piv = piv[np.argsort(piv >= n, kind="stable")]
-    return torch.from_numpy(piv[:r]).to(A.device)
-
-
-def _swap(C: torch.Tensor, idx: torch.Tensor, tol: float, eye: torch.Tensor):
-    """One guarded maxvol iteration: where max|C| > tol, swap the row of the
-    largest |C[i, j]| into pivot slot j and update C by rank 1; elsewhere
-    return C and idx as they are. The JAX package's loop body, op by op
-    (``eye``, the r x r identity, gives row i minus 1 at j). Every index
-    stays a one-element tensor: a 0-d tensor index would be read back to the
-    host."""
-    r = C.shape[1]
-    flat = C.abs().argmax().reshape(1)
-    i, j = flat // r, flat % r
-    piv = C.reshape(-1).gather(0, flat)
-    ok = piv.abs() > tol
-    row = C.index_select(0, i)[0] - eye.index_select(0, j)[0]
-    col = C.index_select(1, j)[:, 0]
-    C = torch.where(ok, C - torch.outer(col / piv, row), C)
-    idx = torch.where(ok, idx.scatter(0, j, i), idx)
-    return C, idx
+    rows = lu_rows(_lu_pivots(Ap.reshape(m, chunk, r)), chunk, r)
+    cand = (rows + torch.arange(m, device=A.device)[:, None] * chunk).reshape(-1)
+    piv = cand[lu_rows(_lu_pivots(Ap[cand])[None], m * r, m * r)[0]]
+    piv = piv[torch.argsort((piv >= n).to(torch.int32), stable=True)]
+    return piv[:r].contiguous()
 
 
 @policy_precision
 def maxvol_device(A, tol: float = 1.05, max_iters: int = 100):
     """Maxvol on A's device: LU pivots, then at most ``max_iters`` swaps.
     Returns (row indices [r] int64, C = A @ inv(A[rows]) [n x r]) on that
-    device. The host reads the LU pivots (twice above the tournament's
-    block) and, after every `_BLOCK` iterations, whether ``max|C| > tol``
-    still holds."""
+    device. On the card it reads nothing back: the pivots' rows
+    (`lu_rows`) and the swap loop (`maxvol_swaps`) are kernels, and the LU
+    and the solve skip their info checks."""
     A = asarray(A)
     n, r = A.shape
     if n <= r:
@@ -251,29 +229,21 @@ def maxvol_device(A, tol: float = 1.05, max_iters: int = 100):
                 torch.eye(n, dtype=A.dtype, device=A.device))
     with trace_annotation("tn.maxvol:lu"):
         idx = _device_lu_pivots(A)
-    with trace_annotation("tn.maxvol:solve"):
+    with trace_annotation("tn.maxvol:solve"), _cusolver(A.device):
         # as jnp.linalg.solve(S.T, A.T).T, without solve's check (a host sync)
         C = torch.linalg.solve_ex(A[idx].T, A.T)[0].T.contiguous()
     with trace_annotation("tn.maxvol:swaps"):
-        eye = torch.eye(r, dtype=C.dtype, device=C.device)
-        done = 0
-        while done < max_iters:
-            block = min(_BLOCK, max_iters - done)
-            for _ in range(block):
-                C, idx = _swap(C, idx, tol, eye)
-            done += block
-            if not bool(C.abs().max() > tol):
-                break
+        C, idx = maxvol_swaps(C, idx, tol, max_iters, _BLOCK)
     return idx, C
 
 
 @policy_precision
 def rect_maxvol_device(A, tol: float = 1.0, maxK: int = None, minK: int = None,
                        start_maxvol_iters: int = 10, identity_submatrix: bool = True):
-    """Rectangular maxvol on A's device: `maxvol_device`'s pivots, then rows
-    added as in `rect_maxvol`, with C held at ``maxK`` columns as the JAX
-    package holds it. Returns (row indices [K], C [n x K]); the host reads
-    the stopping test once per added row."""
+    """Rectangular maxvol on A's device: `maxvol_device`'s pivots (no read
+    back), then rows added as in `rect_maxvol`, with C held at ``maxK``
+    columns as the JAX package holds it. Returns (row indices [K], C
+    [n x K]); the host reads the stopping test once per added row."""
     A = asarray(A)
     n, r = A.shape
     if n <= r:

@@ -2,14 +2,15 @@
 
 Counterpart of ``tntorch_tpu/ops/__init__.py``. Every nonlinear operation
 is a TT-cross approximation (`tn.cross`) over its input tensor(s), on
-their device; the unary ones pass their keywords on to it
-(``tn.exp(t, seed=0, eps=1e-8)``). ``cumsum`` is exact: a cumulative sum of
-each core (or Tucker factor) along its mode. ``tn`` is resolved at call
-time: `cross` imports this package's submodules, so it cannot be imported
-here.
+their device: on the card its default ``fuse="auto"`` runs the fused
+sweep, on the CPU the eager one. The unary ones pass their keywords on
+to it (``tn.exp(t, seed=0, eps=1e-8, fuse=False)``). ``cumsum`` is exact:
+a cumulative sum of each core (or Tucker factor) along its mode. ``tn``
+is resolved at call time: `cross` imports this package's submodules, so
+it cannot be imported here.
 
 The submodules hold the kernels' wrappers and the sweeps that call them:
-`tt_eval`, `gram_kernels`, `rounding`, `decomposition`.
+`tt_eval`, `gram_kernels`, `maxvol_kernels`, `rounding`, `decomposition`.
 """
 
 from __future__ import annotations
