@@ -271,7 +271,7 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    and (18b) the 5-D Hilbert cross of phase 10, float64 and float32, held
    to val_eps below eps and the held-out limits of 10a-10b; (18c) 10c's
    fixed-rank 256^5 cross at ranks 100 (its 25600 x 100 Q on the
-   grid-synchronised swap kernel), float64 and float32, within
+   resident grid of the swap kernel), float64 and float32, within
    ``CROSS_FIXED_F64_TOL`` and ``CROSS_FIXED_TOL``; each float64 fused run
    with the eager run's ranks, samples and iterations; (18d) 11b's
    minimizing cross of the separable function on 32^5, within
@@ -281,14 +281,27 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    ``lu_rows`` and ``maxvol_swaps`` on that path; (18f) a counted run of
    each (`count_reads18`, CUDA's sync debug mode, the grids already on the
    card): one host read per chunk, none inside ``maxvol_device``; profiles
-   of the fused config-3 and 256^5 runs (idle share); (18g) both maxvol
-   kernels against their plain versions at the largest and at a resident
-   Q of the phase, timed in turns beside their bounds and, for ``lu_rows``,
-   ``torch.lu_unpack``'s permutation matrix; then every recorded Q shape
-   (up to four of each dtype and route) held to the plain versions (rows
-   equal, C within ``MAXVOL_TOL``). ``--only 18`` runs it alone;
-   ``fused_path("cpu", small sizes)`` rehearses it on the CPU with
-   ``fuse=True`` (no counts, profiles or kernels there).
+   of the fused config-3 and 256^5 runs (idle share, the maxvol kernels'
+   share of the device time: `profile18`); (18g) each route of
+   ``maxvol_swaps`` at a shape of its own (the cluster at the phase's
+   1024 x 46 Q and on 16 CTAs, the resident grid at the 25600 x 100 Qs in
+   float32 and float64, the streamed grid past the resident grid's last
+   shape) and ``lu_rows`` (its Qs' first r rows and whole permutations,
+   the tournament's last LU), timed in turns with their plain versions
+   (the call by CUDA events, the kernel by torch.profiler, time per swap)
+   beside their bounds and ``torch.lu_unpack``'s permutation matrix; every
+   route held bitwise to the plain version at the last shape of each route
+   and the first of the next, forced on small shapes, and on ties and a
+   NaN (`hold_swap_routes`); then every recorded Q shape (up to four of
+   each dtype and route) held to the plain versions (rows equal, C within
+   ``MAXVOL_TOL``). ``--only 18`` runs it alone; ``fused_path("cpu", small
+   sizes)`` rehearses it on the CPU with ``fuse=True`` (no counts,
+   profiles or kernels there). Two sub-phases run only when named:
+   ``--only 18x`` times the cluster route against the resident grid in
+   turns up to 16 CTAs' shared memory (`swap_crossover`, what sets
+   ``_CLUSTER_MAX_BYTES``); ``--only 18p`` runs 18f's profiles and the
+   swap kernel at the sweep's shapes, for comparing two trees
+   (`maxvol_profiles`).
 
 The data of phases 6 to 8 comes without a device and lands on the card by
 the package's default. The second-to-last line is one JSON object with
@@ -528,15 +541,16 @@ def device_ms(fn, name, calls=20):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    times = sorted(e.time_range.elapsed_us() / 1e3 for e in prof.events()
-                   if e.device_type == DeviceType.CUDA and name in e.name)
-    if not times:
-        raise AssertionError(f"the profiler saw no launch of {name}")
-    return times[len(times) // 2], len(times)
+    for _ in range(3):  # a session now and then returns no device events: take another
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        times = sorted(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                       if e.device_type == DeviceType.CUDA and name in e.name)
+        if times:
+            return times[len(times) // 2], len(times)
+    raise AssertionError(f"the profiler saw no launch of {name}")
 
 
 def smi_while(fn, launches=400):
@@ -1802,7 +1816,8 @@ def hold_maxvol_kernels(name, cases):
         err = float((got_C - want_C).abs().max())
         worst[dname] = max(worst.get(dname, 0.0), err)
         same_idx = torch.equal(got_idx, want_idx)
-        parts.append(f"{tag} {dname} {n}x{r} ({mk._swap_route(n, r, Q.element_size())}): "
+        route = "/".join(map(str, swap_route(n, r, Q.element_size())))
+        parts.append(f"{tag} {dname} {n}x{r} ({route}): "
                      f"LU rows {'equal' if same_rows else 'DIFFER'}, swap rows "
                      f"{'equal' if same_idx else 'DIFFER'}, C {err:.1e}")
         if not (same_rows and same_idx and err <= MAXVOL_TOL[dname]):
@@ -1921,6 +1936,13 @@ def profile_cross(name, run):
     for span, (n, host, d) in sorted(spans.items(), key=lambda x: -x[1][1]):
         print(f"  {span:22s} x{n:<4d} host {host:9.2f}  device {d:9.2f}")
     tt = sum(e.self_device_time_total for e in kernels if "tt_eval" in e.key) / 1e3
+    # the maxvol kernels launch through ctypes, outside any torch op, so
+    # the profiler gives their time to no span: it is read by kernel name
+    mv = {k: (sum(e.self_device_time_total for e in kernels if k in e.key) / 1e3,
+              sum(e.count for e in kernels if k in e.key)) for k in ("lu_rows", "swaps_")}
+    print(f"  maxvol kernels: lu_rows device {mv['lu_rows'][0]:.3f} ms x{mv['lu_rows'][1]}, "
+          f"maxvol_swaps device {mv['swaps_'][0]:.3f} ms x{mv['swaps_'][1]}: "
+          f"{(mv['lu_rows'][0] + mv['swaps_'][0]) / max(busy, 1e-9):.4f} of the device's busy time")
     print(f"  tt_eval kernels: device {tt:.3f} ms; top kernels:")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3:8.2f} ms x{e.count:<5d} {e.key[:80]}")
@@ -5025,7 +5047,7 @@ def mesh_paths_path(device="cuda", cfg=SIZES17, repeats=1, smi=None):
 # - BASELINE config 3 (10a's 10-D sines on 32^10, eps 1e-6), float64 and
 #   float32; 10b's 5-D Hilbert tensor on 32^5; 10c's fixed-rank 256^5 cross
 #   at ranks 100 (2 iterations: one chunk), float32 and float64, whose
-#   25600 x 100 Q take the grid-synchronised swap kernel;
+#   25600 x 100 Q take the resident grid of the swap kernel;
 # - 11b's minimizing cross of the separable 5-D function on 32^5;
 # - tn.exp on config 1's size (11a's input 1.5 + u), float32.
 # The grids' axes are on the card before each call, so every host sync
@@ -5256,11 +5278,67 @@ def count_reads18(device, counted, failed):
     print("18, host reads per fused run (one per chunk): " + "; ".join(parts))
 
 
-def time_maxvol_kernels(qs):
-    """18g: both maxvol kernels against their plain versions, timed in
-    turns by CUDA events at the largest Q of the phase (the 256^5 cross's
-    25600 x 100, float32) and at its most common resident one; bounds by
-    bytes and operations. Returns the kernels' entries of the result line."""
+def _sms():
+    import torch
+
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def swap_route(n, r, item, plan=None):
+    """The swap kernel's (route, CTAs) for C (n x r): ``plan`` if forced,
+    else ``_swap_plan``'s on this card (a package without ``_swap_plan``,
+    as 18p may be given, picks its own)."""
+    from tntorch_tpu_torch.ops import maxvol_kernels as mk
+
+    if plan:
+        return tuple(plan)
+    return mk._swap_plan(n, r, item, _sms()) if hasattr(mk, "_swap_plan") else ("its own", "its")
+
+
+@contextlib.contextmanager
+def forced_plan(plan):
+    """``maxvol_swaps`` on the (route, CTAs) ``plan`` while the block runs,
+    by replacing ``_swap_plan``, which the wrapper looks up at each call
+    (None: the planned route)."""
+    from tntorch_tpu_torch.ops import maxvol_kernels as mk
+
+    planned = getattr(mk, "_swap_plan", None)
+    if plan:
+        mk._swap_plan = lambda *shape: tuple(plan)
+    try:
+        yield
+    finally:
+        if plan:
+            mk._swap_plan = planned
+
+
+def last_n(route, r, item):
+    """The most rows of r columns that ``_swap_plan`` sends to ``route``
+    on this card (the routes follow each other as n grows)."""
+    lo, hi = 1, 1 << 24
+    order = ("cluster", "resident", "streamed")
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if order.index(swap_route(mid, r, item)[0]) <= order.index(route):
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def swap_input(n, r, dtype, seed=0):
+    """An orthonormal Q (n x r) on the card, as the sweep gives maxvol one
+    (QR of a seeded normal matrix with columns of unequal scale)."""
+    import numpy as np
+    import torch
+
+    A = np.random.default_rng(seed).standard_normal((n, r)) * np.geomspace(1, 1e3, r)
+    return torch.linalg.qr(torch.from_numpy(A).cuda())[0].to(dtype).contiguous()
+
+
+def swap_start(Q):
+    """Q's LU pivots (1 x r), their rows and C = Q inv(Q[rows]), as
+    `maxvol_device` starts the swap loop."""
     import importlib
 
     import torch
@@ -5268,54 +5346,282 @@ def time_maxvol_kernels(qs):
     from tntorch_tpu_torch.ops import maxvol_kernels as mk
 
     mv = importlib.import_module("tntorch_tpu_torch.maxvol")
-    big = max((k for k in qs if k[1] == "float32"), key=lambda k: k[0][0] * k[0][1])
-    small = max((k for k in qs if mk._swap_route(*k[0], 4 if k[1] == "float32" else 8)
-                 == "resident"), key=lambda k: k[0][0] * k[0][1])
-    report = {}
-    for tag, key in (("largest", big), ("resident", small)):
-        Q, iters = qs[key], key[2]
-        (n, r), item = Q.shape, Q.element_size()
-        piv = mv._lu_pivots(Q)[None]
-        idx = mk.lu_rows(piv, n, r)[0].contiguous()
-        C = torch.linalg.solve_ex(Q[idx].T, Q.T)[0].T.contiguous()
-        # the iterations this input needs: the while loop's, one check each
-        eye, Cs, ids, its = torch.eye(r, dtype=C.dtype, device=C.device), C.clone(), idx, 0
-        while its < iters and bool(Cs.abs().max() > 1.05):
-            Cs, ids = mk._swap(Cs, ids, 1.05, eye)
-            its += 1
-        work = C.clone()
+    piv = mv._lu_pivots(Q)[None]
+    idx = mk.lu_rows(piv, Q.shape[0], Q.shape[1])[0].contiguous()
+    return piv, idx, torch.linalg.solve_ex(Q[idx].T, Q.T)[0].T.contiguous()
+
+
+def kernel_ms(fn, name, calls=10):
+    """`device_ms` of the kernels named ``name``, or None where the profiler
+    saw none of their launches (a session now and then records no device
+    events): the kernel's own time is a figure beside the call's, not a
+    check."""
+    try:
+        return device_ms(fn, name, calls)[0]
+    except AssertionError:
+        return None
+
+
+def _ms(t):
+    return "not measured" if t is None else f"{t:.4f} ms"
+
+
+def time_swaps(tag, Q, iters, plan=None):
+    """``maxvol_swaps`` on Q's C (the route ``plan`` forces, else the
+    planned one) in turns with its plain version by CUDA events (the call,
+    less the copy of C it starts from), and the kernel's device time
+    (torch.profiler); held to the plain version (rows equal, C's max
+    difference); its bound by bytes (C read and written once) and
+    operations (3 n r a swap). Returns the numbers."""
+    import torch
+
+    from tntorch_tpu_torch.ops import maxvol_kernels as mk
+
+    (n, r), item = Q.shape, Q.element_size()
+    piv, idx, C = swap_start(Q)
+    its = swaps_needed(C, idx, iters)
+    work = C.clone()
+    run = lambda: mk.maxvol_swaps(work.copy_(C), idx.clone(), 1.05, iters)  # noqa: E731
+    with forced_plan(plan):
         copy_ms = cuda_time(lambda: work.copy_(C))
-        turns = in_turns({
-            "kernel": lambda: mk.maxvol_swaps(work.copy_(C), idx.clone(), 1.05, iters),
-            "plain": lambda: mk.maxvol_swaps_plain(C, idx, 1.05, iters)})
-        ms = sorted(turns["kernel"])[0] - copy_ms
-        plain_ms = sorted(turns["plain"])[0]
-        got_C = mk.maxvol_swaps(C.clone(), idx.clone(), 1.05, iters)[0]
-        err = float((got_C - mk.maxvol_swaps_plain(C, idx, 1.05, iters)[0]).abs().max())
-        bound, by = bound_ms(its * 3 * n * r, 2 * n * r * item + 2 * r * 8,
-                             PEAK_FP32 if item == 4 else PEAK_FP64)
-        per_iter = its * 3 * n * r * item / HBM * 1e3
-        lu_turns = in_turns({"kernel": lambda: mk.lu_rows(piv, n, r),
-                             "plain": lambda: mk.lu_rows_plain(piv, n, r)})
-        with mv._cusolver(Q.device):
-            LU = torch.linalg.lu_factor_ex(Q)[0]
-        lib_ms = cuda_time(lambda: torch.lu_unpack(LU, piv[0], unpack_data=False))
-        lu_bound, lu_by = bound_ms(0, r * 4 + r * 8)
-        print(f"18 maxvol kernels at the {tag} Q ({n} x {r}, {key[1]}, "
-              f"{mk._swap_route(n, r, item)}; {its} swaps of at most {iters}): maxvol_swaps "
-              f"{ms:.4f} ms (turns {[round(t, 4) for t in turns['kernel']]}, less the copy's "
-              f"{copy_ms:.4f}) against plain {plain_ms:.4f} ms, bound {bound:.5f} ms ({by}; "
-              f"C's round trip per swap, {its} x 3 n r x {item} B: {per_iter:.5f} ms), C vs plain "
-              f"{err:.1e}; lu_rows {sorted(lu_turns['kernel'])[0]:.4f} ms against plain "
-              f"{sorted(lu_turns['plain'])[0]:.4f} ms, bound {lu_bound:.6f} ms ({lu_by}), "
-              f"torch.lu_unpack's permutation matrix {lib_ms:.4f} ms")
-        if tag == "largest":
-            report["maxvol_swaps"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                          bound_ms=bound, bound_by=by, library_ms=None)
-            report["lu_rows"] = dict(max_abs_err=0.0, ms=sorted(lu_turns["kernel"])[0],
-                                     plain_ms=sorted(lu_turns["plain"])[0], bound_ms=lu_bound,
-                                     bound_by=lu_by, library_ms=lib_ms)
-    return report
+        turns = in_turns({"kernel": run,
+                          "plain": lambda: mk.maxvol_swaps_plain(C, idx, 1.05, iters)})
+        ms, plain_ms = sorted(turns["kernel"])[0] - copy_ms, sorted(turns["plain"])[0]
+        dev = kernel_ms(run, "swaps_")
+        got_C, got_idx = mk.maxvol_swaps(C.clone(), idx.clone(), 1.05, iters)
+    want_C, want_idx = mk.maxvol_swaps_plain(C, idx, 1.05, iters)
+    err, same = float((got_C - want_C).abs().max()), torch.equal(got_idx, want_idx)
+    bound, by = bound_ms(its * 3 * n * r, 2 * n * r * item + 2 * r * 8,
+                         PEAK_FP32 if item == 4 else PEAK_FP64)
+    route = swap_route(n, r, item, plan)
+    print(f"18g maxvol_swaps, {tag} ({n} x {r}, {str(Q.dtype)[6:]}, {route[0]} on {route[1]} "
+          f"CTAs; {its} swaps of at most {iters}): call {ms:.4f} ms (turns "
+          f"{[round(t, 4) for t in turns['kernel']]}, less the copy's {copy_ms:.4f}), kernel "
+          f"{_ms(dev)} of device time"
+          f"{'' if dev is None else f' ({dev / max(its, 1) * 1e3:.2f} us a swap)'}, plain "
+          f"{plain_ms:.4f} ms, bound {bound:.5f} ms ({by}); rows "
+          f"{'equal' if same else 'DIFFER'}, C max difference {err:.1e}")
+    return dict(ms=ms, kernel_ms=dev, plain_ms=plain_ms, bound_ms=bound, bound_by=by, its=its,
+                max_abs_err=err, same=same)
+
+
+def time_lu_rows(tag, piv, n, k):
+    """``lu_rows`` on LAPACK pivots ``piv`` (1 x npiv) for k of n rows in
+    turns with its plain version (CUDA events), its kernel's device time
+    (torch.profiler), and ``torch.lu_unpack``'s permutation matrix (the
+    one-call yardstick), held to the plain version."""
+    import torch
+
+    from tntorch_tpu_torch.ops import maxvol_kernels as mk
+
+    npiv = piv.shape[1]
+    turns = in_turns({"kernel": lambda: mk.lu_rows(piv, n, k),
+                      "plain": lambda: mk.lu_rows_plain(piv, n, k)})
+    ms, plain_ms = sorted(turns["kernel"])[0], sorted(turns["plain"])[0]
+    dev = kernel_ms(lambda: mk.lu_rows(piv, n, k), "lu_rows")
+    same = torch.equal(mk.lu_rows(piv, n, k).cpu(), mk.lu_rows_plain(piv, n, k).cpu())
+    LU = torch.zeros((n, npiv), dtype=torch.float32, device=piv.device)
+    lib_ms = cuda_time(lambda: torch.lu_unpack(LU, piv[0], unpack_data=False))
+    bound, by = bound_ms(0, npiv * 4 + k * 8)
+    print(f"18g lu_rows, {tag} ({npiv} pivots, {k} of {n} rows): call {ms:.4f} ms, kernel "
+          f"{_ms(dev)} of device time, plain {plain_ms:.4f} ms, bound {bound:.6f} ms ({by}), "
+          f"torch.lu_unpack's permutation matrix {lib_ms:.4f} ms; rows "
+          f"{'equal' if same else 'DIFFER'}")
+    return dict(ms=ms, kernel_ms=dev, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms, same=same)
+
+
+def hold_swap_routes(failed):
+    """18g: every route of ``maxvol_swaps``, planned or forced, held to the
+    plain version bitwise (rows equal, C's max difference 0), with
+    ``lu_rows`` at every Q's full permutation (k = n) and its first r rows:
+    at the last shape of each route and the first of the next (float32 and
+    float64, r = 100), each route forced on small shapes (with CTAs left
+    without rows), and ties and a NaN on every route."""
+    import torch
+
+    from tntorch_tpu_torch.ops import maxvol_kernels as mk
+
+    sms, cases = _sms(), []
+    for dtype in (torch.float32, torch.float64):
+        item = torch.finfo(dtype).bits // 8
+        for route in ("cluster", "resident"):
+            edge = last_n(route, 100, item)
+            cases += [(dtype, edge, 100, None), (dtype, edge + 1, 100, None)]
+    cases += [(torch.float64, 64, 2, ("cluster", 1)), (torch.float32, 17, 5, ("cluster", 16)),
+              (torch.float32, 1024, 46, None), (torch.float64, 640, 20, None),
+              (torch.float64, 300, 20, ("resident", min(sms, 300))),
+              (torch.float32, last_n("cluster", 100, 4), 100, ("resident", sms)),
+              (torch.float32, 2000, 7, ("streamed", sms)),
+              (torch.float64, 25600, 100, ("streamed", sms))]
+    parts, worst = [], 0.0
+    for dtype, n, r, plan in cases:
+        Q = swap_input(n, r, dtype, seed=n)
+        piv, idx, C = swap_start(Q)
+        rows = torch.equal(mk.lu_rows(piv, n, n).cpu(), mk.lu_rows_plain(piv, n, n).cpu()) and \
+            torch.equal(idx.cpu(), mk.lu_rows_plain(piv, n, r)[0].cpu())
+        want_C, want_idx = mk.maxvol_swaps_plain(C.clone(), idx.clone(), 1.05, 100)
+        with forced_plan(plan):
+            got_C, got_idx = mk.maxvol_swaps(C.clone(), idx.clone(), 1.05, 100)
+        err = float((got_C - want_C).abs().max())
+        worst = max(worst, err)
+        route = swap_route(n, r, Q.element_size(), plan)
+        parts.append(f"{str(dtype)[6:]} {n}x{r} {route[0]}/{route[1]}{' forced' if plan else ''}"
+                     f": {err:.1e}")
+        if not (rows and torch.equal(got_idx, want_idx) and err == 0):
+            failed.append(f"18g maxvol kernels at {n} x {r} {dtype} on {route}")
+    # ties go to the lowest row-major index, a NaN ends the loop, on every route
+    for plan in (("cluster", 1), ("cluster", 3), ("resident", 40), ("streamed", 40)):
+        for dtype in (torch.float32, torch.float64):
+            C = torch.zeros((40, 3), dtype=dtype, device="cuda")
+            C[9, 0] = C[3, 1] = C[7, 2] = -5.0
+            idx = torch.arange(3, device="cuda")
+            want = mk.maxvol_swaps_plain(C.clone(), idx.clone(), 1.05, 1)
+            with forced_plan(plan):
+                got = mk.maxvol_swaps(C.clone(), idx.clone(), 1.05, 1)
+            C = torch.full((40, 3), 2.0, dtype=dtype, device="cuda")
+            C[5, 1], C[30, 2] = float("nan"), float("inf")
+            with forced_plan(plan):
+                nan = mk.maxvol_swaps(C.clone(), idx.clone(), 1.05, 10)
+            if not (got[1].tolist() == [0, 3, 2] and torch.equal(got[1], want[1])
+                    and torch.equal(got[0], want[0]) and torch.equal(nan[1], idx)
+                    and torch.equal(nan[0].isnan(), C.isnan())):
+                failed.append(f"18g ties or NaN on {plan}, {dtype}")
+    torch.cuda.synchronize()
+    print(f"18g, maxvol_swaps on every route against the plain version (C max difference; "
+          f"ties and a NaN on 4 plans, 2 dtypes): " + "; ".join(parts))
+    return worst
+
+
+def swaps_needed(C, idx, iters):
+    """The swaps the guarded loop makes on C (at most ``iters``) before
+    max|C| <= 1.05, by the plain iteration."""
+    import torch
+
+    from tntorch_tpu_torch.ops import maxvol_kernels as mk
+
+    eye, its = torch.eye(C.shape[1], dtype=C.dtype, device=C.device), 0
+    while its < iters and bool(C.abs().max() > 1.05):
+        C, idx = mk._swap(C, idx, 1.05, eye)
+        its += 1
+    return its
+
+
+def swap_crossover():
+    """18x, off by default (``--only 18x``): the cluster route on 16 CTAs
+    against the resident grid (one CTA per SM), forced on the same C and
+    timed in turns by the kernels' device time (torch.profiler), float32
+    and float64 at r = 100: from an eighth of what 16 CTAs hold to all of
+    it, and at ``_CLUSTER_MAX_BYTES`` and a quarter past it, each with its
+    swaps and the time a swap. Where the grid wins sets
+    ``_CLUSTER_MAX_BYTES``."""
+    import torch
+
+    from tntorch_tpu_torch.ops import maxvol_kernels as mk
+
+    phase("18x. the swap kernel's cluster route against its resident grid, in turns")
+    sms = _sms()
+    for dtype in (torch.float32, torch.float64):
+        item = torch.finfo(dtype).bits // 8
+        edge = 16 * mk._cta_rows(100, item, 32)  # 16 CTAs full
+        limit = mk._CLUSTER_MAX_BYTES // (100 * item)
+        for n in sorted({edge // 8, edge // 4, limit, limit * 5 // 4, edge // 2, edge}):
+            Q = swap_input(n, 100, dtype, seed=n)
+            _, idx, C = swap_start(Q)
+            its, work = swaps_needed(C, idx, 100), C.clone()
+            plans = {"cluster": ("cluster", 16), "resident": ("resident", min(sms, n))}
+            ms = {k: [] for k in plans}
+            for k in list(plans) + list(plans)[::-1]:
+                with forced_plan(plans[k]):
+                    ms[k].append(kernel_ms(lambda: mk.maxvol_swaps(
+                        work.copy_(C), idx.clone(), 1.05, 100), "swaps_", calls=5))
+            best = {k: min((t for t in v if t is not None), default=None) for k, v in ms.items()}
+            per = {k: "not measured" if t is None else f"{t / max(its, 1) * 1e3:.2f} us"
+                   for k, t in best.items()}
+            ahead = "not measured" if None in best.values() else min(best, key=best.get)
+            print(f"18x {str(dtype)[6:]} {n} x 100 ({n * 100 * item / 2**20:.2f} MiB, {its} "
+                  f"swaps): cluster 16 CTAs {list(map(_ms, ms['cluster']))}, resident "
+                  f"{plans['resident'][1]} {list(map(_ms, ms['resident']))}; a swap: cluster "
+                  f"{per['cluster']}, resident {per['resident']}; ahead: {ahead}")
+
+
+# 18p's Qs (n, r, dtype): config 3's and the tutorials' small ones, the 5-D
+# Hilbert cross's, 11a's 1024 x 46, the 256^5 cross's 25600 x 100
+SHAPES18P = ((128, 4, "float32"), (32, 4, "float64"), (224, 7, "float64"), (320, 10, "float64"),
+             (512, 16, "float64"), (1024, 46, "float32"), (25600, 100, "float32"))
+
+
+def maxvol_profiles():
+    """18p, off by default (``--only 18p``): 18f's profiles (`profile18`:
+    the maxvol kernels' device time and share of the busy time) and the
+    swap kernel at the sweep's Q shapes (`time_swaps`). To compare two
+    trees on one card, copy this file into the other's checkout (for the
+    parent, ``git archive`` unpacked into a directory .gitignore lists) and
+    run ``--only 18p`` there and here in turns, other, this, this, other,
+    one process each: each measures the package beside its file."""
+    import torch
+
+    phase("18p. the maxvol kernels in 18's profiles and at the sweep's Q shapes")
+    profile18()
+    for n, r, dtype in SHAPES18P:
+        time_swaps("compared", swap_input(n, r, getattr(torch, dtype), seed=n), 100)
+
+
+def time_maxvol_kernels(qs, failed):
+    """18g: each route of ``maxvol_swaps`` timed at a shape of its own, in
+    turns with its plain version: the cluster at the phase's most common
+    one-CTA Q (1024 x 46) and at its last shape (16 CTAs), the resident
+    grid at the 256^5 cross's 25600 x 100 Q (float32 and float64), the
+    streamed grid just past the resident grid's last shape; ``lu_rows`` at
+    the 25600 x 100 and 1024 x 46 Qs' pivots and at the tournament's k = n;
+    then every route held bitwise (`hold_swap_routes`). Returns the
+    kernels' entries of the result line (at the float32 25600 x 100 Q)."""
+    import torch
+
+    f32 = lambda k: k[1] == "float32"  # noqa: E731
+    big = max((k for k in qs if f32(k)), key=lambda k: k[0][0] * k[0][1])
+    big64 = max((k for k in qs if not f32(k)), key=lambda k: k[0][0] * k[0][1])
+    # C, a row and a 1024-row tile in 200 KB: one CTA's shared memory
+    one_cta = max((k for k in qs if f32(k) and (k[0][0] * k[0][1] + k[0][1] + 1024) * 4
+                   <= 200 * 1024), key=lambda k: k[0][0] * k[0][1])
+    swaps = {}
+    for tag, key in (("the sweep's largest Q", big), ("the sweep's float64 largest Q", big64),
+                     ("the sweep's largest one-CTA Q", one_cta)):
+        swaps[tag] = time_swaps(tag, qs[key], key[2])
+    for tag, route in (("16 CTAs", "cluster"), ("past the resident grid", "resident")):
+        n = last_n(route, 100, 4) + (route == "resident")
+        swaps[tag] = time_swaps(tag, swap_input(n, 100, torch.float32, seed=1), 100)
+    lus = {}
+    for tag, key in (("the largest Q", big), ("the one-CTA Q", one_cta)):
+        piv = swap_start(qs[key])[0]
+        lus[tag] = time_lu_rows(tag, piv, *qs[key].shape)
+        lus[tag + ", whole"] = time_lu_rows(tag + ", whole", piv, qs[key].shape[0],
+                                            qs[key].shape[0])
+    n, r = big[0]
+    m = -(-n // max(r, (1 << 20) // r))  # the tournament's blocks: its last LU is m r x r
+    piv = swap_start(swap_input(m * r, r, torch.float32, seed=2))[0]
+    lus["tournament"] = time_lu_rows("the tournament's last LU", piv, m * r, m * r)
+    if not all(v["same"] for v in list(swaps.values()) + list(lus.values())) or \
+            any(v["max_abs_err"] for v in swaps.values()):
+        failed.append("18g: a maxvol kernel differs from its plain version")
+    worst = hold_swap_routes(failed)
+    keys = ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by")
+    sw, lu = swaps["the sweep's largest Q"], lus["the largest Q"]
+    return {"maxvol_swaps": {"max_abs_err": max(worst, sw["max_abs_err"]), "library_ms": None,
+                             **{k: sw[k] for k in keys}},
+            "lu_rows": {"max_abs_err": 0.0, "library_ms": lu["library_ms"],
+                        **{k: lu[k] for k in keys}}}
+
+
+def profile18(cfg=SIZES18):
+    """18f's profiles: the fused config-3 and 256^5 crosses in float32 on
+    the card (`profile_cross`: spans, idle share, the maxvol kernels'
+    share of the device time)."""
+    import torch
+
+    for tag, c, f in (("config 3", cfg["cross3"], _sines), ("fixed rank", cfg["fixed"], _hilbert)):
+        profile_cross(f"18 {tag}, float32, fused",
+                      lambda c=c, f=f: _fused_call(c, f, torch.float32, "cuda", "auto")[1:])
 
 
 def fused_path(device="cuda", cfg=SIZES18):
@@ -5370,15 +5676,12 @@ def fused_path(device="cuda", cfg=SIZES18):
                                                   return_info=True, _minimize=True)[1]))
         runs.append(("tn.exp", lambda: tn.exp(pos, seed=0, return_info=True)[1]))
         count_reads18(device, runs, failed)
-        for tag, c, f in (("config 3", cfg["cross3"], _sines),
-                          ("fixed rank", cfg["fixed"], _hilbert)):
-            profile_cross(f"18 {tag}, float32, fused",
-                          lambda c=c, f=f: _fused_call(c, f, f32, device, "auto")[1:])
-        report = time_maxvol_kernels(qs)
+        profile18(cfg)
+        report = time_maxvol_kernels(qs, failed)
     # every recorded shape's first Q (up to 4 of each dtype and route)
     picked, seen = [], {}
     for (shape, dname, iters), Q in sorted(qs.items(), key=lambda kv: -kv[0][0][0] * kv[0][0][1]):
-        route = (dname, iters, shape[0] * shape[1] * Q.element_size() > 200 * 1024)
+        route = (dname, iters, mk._swap_plan(*shape, Q.element_size())[0])
         if seen.get(route, 0) < 4:
             seen[route] = seen.get(route, 0) + 1
             picked.append((f"Q max_iters {iters}", Q, iters))
@@ -5396,7 +5699,7 @@ PHASES = {"3": "check_kernels", "3b": "check_tt_kernels", "4": "main_path",
           "9": "baseline_path", "10": "cross_path", "11": "elementwise_path",
           "12": "config4_path", "13": "config5_path", "14": "missing_modules_path",
           "15": "tutorials_path", "16": "parallel_path", "17": "mesh_paths_path",
-          "18": "fused_path"}
+          "18": "fused_path", "18x": "swap_crossover", "18p": "maxvol_profiles"}
 
 
 def main():

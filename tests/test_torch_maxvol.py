@@ -222,17 +222,107 @@ def test_plain_swap_loop_matches_jax_while_loop(shape):
 
 
 def test_swap_routes_and_grid_plan():
-    # config 3's and the tutorials' Q, (R I) x R at I = 32, stay resident up
-    # to R ~ 20 in float64; phase 10c's 25600 x 100 takes the grid kernel
-    assert MK._swap_route(64, 2, 8) == MK._swap_route(32 * 20, 20, 8) == "resident"
-    assert MK._swap_route(32 * 24, 24, 4) == "resident"
-    assert MK._swap_route(25600, 100, 4) == MK._swap_route(25600, 100, 8) == "grid"
-    for n, r, wave in ((25600, 100, 1056), (2000, 7, 132), (130, 400, 264), (5, 1, 8)):
-        blocks = MK._grid_blocks(n, r, wave)
-        per = -(-n // blocks)
-        assert 1 <= blocks <= min(wave, n)
-        assert (blocks - 1) * per < n <= blocks * per  # every block owns rows
-    assert MK._grid_blocks(25600, 100, 1056) == 625
+    # config 3's and the tutorials' Q, (R I) x R at I = 32, take the
+    # cluster; phase 10c's 25600 x 100 the resident grid, one CTA per SM
+    assert MK._swap_plan(64, 2, 8) == MK._swap_plan(96, 3, 4) == ("cluster", 1)
+    assert MK._swap_plan(1024, 46, 4) == ("cluster", 12)  # one CTA per 4096 entries
+    assert MK._swap_plan(25600, 100, 4) == MK._swap_plan(25600, 100, 8) == ("resident", 132)
+    assert MK._swap_plan(25600, 100, 4, sms=114) == ("resident", 114)
+    for item in (4, 8):
+        # a cluster CTA's rows at r = 100 (its inbox: 2 row copies per CTA),
+        # a grid CTA's (the pivot row)
+        crows, grows = MK._cta_rows(100, item, 32), MK._cta_rows(100, item, 1)
+        for rows, extra in ((crows, 32), (grows, 1)):
+            assert MK._cta_bytes(rows, 100, item, extra) <= MK._SMEM_BYTES \
+                < MK._cta_bytes(rows + 1, 100, item, extra)
+        last = min(MK._MAX_CLUSTER * crows, MK._CLUSTER_MAX_BYTES // (100 * item))
+        assert MK._swap_plan(last, 100, item)[0] == "cluster"
+        assert MK._swap_plan(last + 1, 100, item)[0] == "resident"
+        # the resident grid holds ~29 MB on 132 SMs, then C streams
+        assert MK._swap_plan(132 * grows, 100, item) == ("resident", 132)
+        assert MK._swap_plan(132 * grows + 1, 100, item) == ("streamed", 132)
+        assert 29e6 < 132 * grows * 100 * item < 31e6
+    assert MK._swap_plan(2048, 100, 4) == ("cluster", 16)
+    assert MK._swap_plan(4096, 100, 4)[0] == "resident"  # 1.6 MB: past the timed crossover
+
+
+PLANS = [(64, 2, 8), (17, 5, 4), (300, 20, 4), (1024, 46, 4), (1024, 52, 4), (2000, 7, 4),
+         (9200, 100, 4), (4577, 100, 8), (25600, 100, 8), (40000, 64, 4), (75901, 100, 4),
+         (133, 1, 4), (5, 1, 8), (1, 1, 4)]
+
+
+@pytest.mark.parametrize("shape", PLANS, ids=["x".join(map(str, p)) for p in PLANS])
+def test_swap_plan_gives_every_cta_rows(shape):
+    n, r, item = shape
+    route, ctas = MK._swap_plan(n, r, item)
+    per = -(-n // ctas)
+    assert 1 <= ctas <= min(n, MK._MAX_CLUSTER if route == "cluster" else MK._SMS)
+    assert (ctas - 1) * per < n <= ctas * per  # every CTA owns rows
+    extra = 2 * ctas if route == "cluster" else 1
+    assert (route == "streamed") == (MK._cta_bytes(per, r, item, extra) > MK._SMEM_BYTES)
+    if route == "cluster":  # at least a CTA per _CLUSTER_ENTRIES entries, up to 16
+        assert ctas >= MK._even(n, min(n, MK._MAX_CLUSTER, -(-n * r // MK._CLUSTER_ENTRIES)))
+
+
+def _traced_rows(p, n, k):
+    """lu_rows_kernel's composition (csrc/maxvol_device.cu) in NumPy: each
+    of the first min(npiv, k) positions traced back through the swaps
+    (0-based targets ``p``; one out of range is no swap), last to first;
+    beyond npiv the identity, then each position a swap touched, traced
+    the same way. No n-entry permutation is built."""
+    npiv = len(p)
+    o = np.where((p >= 0) & (p < n), p, np.arange(npiv))
+
+    def trace(x):
+        for t in range(npiv - 1, -1, -1):
+            x = o[t] if x == t else (t if x == o[t] else x)
+        return x
+
+    rows = np.arange(k)
+    rows[:min(npiv, k)] = [trace(x) for x in range(min(npiv, k))]
+    for x in o:
+        if npiv <= x < k:
+            rows[x] = trace(x)
+    return rows
+
+
+def _pivots(kind, n, npiv, rng):
+    s = np.arange(npiv)
+    if kind == "lapack":  # o_s >= s, as getrf gives them
+        return rng.integers(s, n)
+    if kind == "no_swaps":
+        return s.copy()
+    if kind == "repeated_targets":
+        return np.where(rng.random(npiv) < 0.5, n - 1, rng.integers(s, n))
+    if kind == "some_equal":
+        return np.where(rng.random(npiv) < 0.3, s, rng.integers(s, n))
+    return rng.integers(0, n, npiv)  # "any": targets below s too
+
+
+TRACED = [(kind, n, npiv, k) for kind in ("lapack", "no_swaps", "repeated_targets", "some_equal",
+                                          "any")
+          for n, npiv, k in ((50, 10, 10), (300, 100, 300), (64, 64, 64), (40, 12, 5),
+                             (1000, 30, 200))]
+
+
+@pytest.mark.parametrize("case", TRACED, ids=["-".join(map(str, c)) for c in TRACED])
+def test_traced_lu_rows_match_the_plain_composition(case):
+    kind, n, npiv, k = case
+    rng = np.random.default_rng(n * 7 + npiv + k)
+    for _ in range(3):
+        p = _pivots(kind, n, npiv, rng)
+        want = MK.lu_rows_plain(torch.from_numpy(p + 1).to(torch.int32)[None], n, k)[0]
+        np.testing.assert_array_equal(_traced_rows(p, n, k), want.numpy())
+
+
+def test_traced_lu_rows_of_real_pivots_and_the_tournament():
+    # getrf's pivots of a tall block (k = r = npiv), and the tournament's
+    # last LU, m r x r with k = n = m r > npiv (maxvol.py:_device_lu_pivots)
+    rng = np.random.default_rng(10)
+    for n, r, k in ((400, 20, 20), (300, 100, 300), (96, 32, 96)):
+        piv = torch.linalg.lu_factor_ex(torch.from_numpy(rng.standard_normal((n, r))))[1]
+        want = MK.lu_rows_plain(piv[None], n, k)[0].numpy()
+        np.testing.assert_array_equal(_traced_rows(piv.numpy().astype(np.int64) - 1, n, k), want)
 
 
 def test_kernel_wrappers_check_their_inputs():
@@ -246,15 +336,32 @@ def test_kernel_wrappers_check_their_inputs():
 
 
 @pytest.mark.cuda
-def test_maxvol_kernels_match_plain_versions_on_cuda():
+def test_maxvol_kernels_match_plain_versions_on_cuda(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     import warnings
 
-    # resident shapes, one at the resident limit, and grid ones (f32, f64)
-    shapes = [(64, 2), (96, 3), (640, 20), (300, 20), (2000, 7), (25600, 100)]
-    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-4)):
-        for n, r in shapes:
+    def swaps(plan, *args):
+        # MK.maxvol_swaps on the (route, CTAs) ``plan`` forces, or on its own
+        with monkeypatch.context() as m:
+            if plan:
+                m.setattr(MK, "_swap_plan", lambda *shape: plan)
+            return MK.maxvol_swaps(*args)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # planned shapes: one-CTA and multi-CTA clusters, the resident grid;
+    # then each route's last shape at r = 100 and the next route's first
+    cases = [(n, r, None) for n, r in ((64, 2), (96, 3), (640, 20), (300, 20), (2000, 7),
+                                       (25600, 100))]
+    for item in (4, 8):
+        crows, grows = MK._cta_rows(100, item, 32), MK._cta_rows(100, item, 1)
+        for last in (min(16 * crows, MK._CLUSTER_MAX_BYTES // (100 * item)), sms * grows):
+            cases += [(last, 100, None), (last + 1, 100, None)]
+    # each route forced, with CTAs left without rows
+    cases += [(64, 2, ("cluster", 1)), (17, 5, ("cluster", 16)), (300, 20, ("resident", sms)),
+              (2000, 7, ("streamed", sms)), (9200, 100, ("resident", sms))]
+    for dtype in (torch.float64, torch.float32):
+        for n, r, plan in cases:
             Q = torch.linalg.qr(torch.from_numpy(_matrix(n, r, seed=n)))[0].to(dtype).cuda()
             piv = TM._lu_pivots(Q)
             before = MK.lu_rows.launches
@@ -265,22 +372,23 @@ def test_maxvol_kernels_match_plain_versions_on_cuda():
             C = torch.linalg.solve(Q[idx].T, Q.T).T.contiguous()
             want_C, want_idx = MK.maxvol_swaps_plain(C.clone(), idx.clone(), 1.05, 100)
             before = MK.maxvol_swaps.launches
-            got_C, got_idx = MK.maxvol_swaps(C.clone(), idx.clone(), 1.05, 100)
+            got_C, got_idx = swaps(plan, C.clone(), idx.clone(), 1.05, 100)
             torch.cuda.synchronize()
             assert MK.maxvol_swaps.launches == before + 1
-            assert torch.equal(got_idx, want_idx), (n, r, dtype)
-            assert float((got_C - want_C).abs().max()) <= tol, (n, r, dtype)
-    # ties go to the lowest row-major index, and a NaN ends the loop
-    C = torch.zeros((40, 3), dtype=torch.float64, device="cuda")
-    C[9, 0] = C[3, 1] = C[7, 2] = -5.0
-    idx = torch.arange(3, device="cuda")
-    got = MK.maxvol_swaps(C.clone(), idx.clone(), 1.05, 1)[1]
-    assert got.tolist() == [0, 3, 2]
-    assert torch.equal(got, MK.maxvol_swaps_plain(C.clone(), idx.clone(), 1.05, 1)[1])
-    C = torch.full((40, 3), 2.0, dtype=torch.float64, device="cuda")
-    C[5, 1] = float("nan")
-    got = MK.maxvol_swaps(C.clone(), idx.clone(), 1.05, 10)
-    assert torch.equal(got[1], idx) and torch.isnan(got[0][5, 1])
+            assert torch.equal(got_idx, want_idx), (n, r, dtype, plan)
+            assert torch.equal(got_C, want_C), (n, r, dtype, plan)  # bitwise
+    # ties go to the lowest row-major index, and a NaN ends the loop, on every route
+    for plan in (None, ("cluster", 3), ("resident", 40), ("streamed", 40)):
+        C = torch.zeros((40, 3), dtype=torch.float64, device="cuda")
+        C[9, 0] = C[3, 1] = C[7, 2] = -5.0
+        idx = torch.arange(3, device="cuda")
+        got = swaps(plan, C.clone(), idx.clone(), 1.05, 1)[1]
+        assert got.tolist() == [0, 3, 2]
+        assert torch.equal(got, MK.maxvol_swaps_plain(C.clone(), idx.clone(), 1.05, 1)[1])
+        C = torch.full((40, 3), 2.0, dtype=torch.float64, device="cuda")
+        C[5, 1], C[30, 2] = float("nan"), float("inf")
+        got = swaps(plan, C.clone(), idx.clone(), 1.05, 10)
+        assert torch.equal(got[1], idx) and torch.isnan(got[0][5, 1])
     # maxvol_device reads nothing back from the card
     Q = torch.linalg.qr(torch.from_numpy(_matrix(40000, 64, seed=4)))[0].cuda()
     TM.maxvol_device(Q)

@@ -51,9 +51,8 @@ SIGNATURES = {
                                    _P, _L, _L, _L, _P, _P],
     },
     "maxvol_device": {
-        "tnt_lu_rows": [_P, _I, _I, _I, _I, _P, _P, _P],
-        "tnt_maxvol_grid_occupancy": [_I, _I],
-        "tnt_maxvol_swaps": [_I, _I, _P, _P, _I, _I, _D, _I, _I, _P, _P, _P, _P],
+        "tnt_lu_rows": [_P, _I, _I, _I, _I, _P, _P],
+        "tnt_maxvol_swaps": [_I, _I, _P, _P, _I, _I, _D, _I, _I, _P, _P, _P],
     },
 }
 

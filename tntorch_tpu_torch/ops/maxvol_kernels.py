@@ -8,35 +8,40 @@ from the card:
 
 - ``lu_rows`` <- the permutation output of ``jax.lax.linalg.lu`` in
   ``_device_lu_pivots`` (maxvol.py:185-216): the first k rows of each
-  block's row permutation, composed from the LAPACK pivots (r successive
-  swaps, int32, 1-based) that ``torch.linalg.lu_factor_ex`` returns;
+  block's row permutation, composed from the LAPACK pivots (npiv successive
+  swaps, int32, 1-based) that ``torch.linalg.lu_factor_ex`` returns. One
+  CTA per permutation traces each output position back through the swaps;
+  beyond npiv only the positions the swaps touched are traced. No scratch.
 - ``maxvol_swaps`` <- the ``lax.while_loop`` of ``_maxvol_device_body``
   (maxvol.py:242-263): while ``it < max_iters`` and ``max|C| > tol``, the
   row of the largest |C[i, j]| swapped into pivot slot j and C updated by
-  rank 1, in one launch. It has two kernels, chosen by a pure function of
-  the shape and dtype, `_swap_route`: one CTA with C resident in shared
-  memory, or a grid-synchronised cooperative launch over row ranges of C
-  in device memory (csrc/maxvol_device.cu says how each works).
+  rank 1, in one launch. `_swap_plan`, a pure function of the shape, the
+  item size and the card's SMs, picks one of three routes: a thread block
+  cluster of 1-16 CTAs with C in their shared memory (to 1 MiB), a
+  cooperative grid of one CTA per SM with C in their shared memory (to ~29
+  MB on 132 SMs), or the same grid with C streamed through L2 beyond that
+  (csrc/maxvol_device.cu says how each works).
 
-What bounds them on an H100: ``lu_rows`` is a few microseconds of launch;
-``maxvol_swaps`` reads and writes C once per iteration (2 n r itemsize
-bytes), where the plain version launches ~10 small kernels per iteration
+What bounds them on an H100: ``lu_rows`` is launch latency (npiv^2
+compare-selects spread over a block; the call's host work, a few tens of
+microseconds, outweighs its kernel); ``maxvol_swaps`` is the swaps times
+one exchange across the CTAs that hold C and one pass over a CTA's share
+of C, where the plain version launches ~10 small kernels per iteration
 and reads a flag back every ``block`` iterations.
 
 Each wrapper takes the plain version for tensors on the CPU, and only
 there. For CUDA tensors it checks device, dtype, shape and contiguity,
-launches its kernel on the current stream and raises on any failure: it
-never falls back. Complex C takes the plain swap loop on every device, by
-dtype (the kernels are written for float32 and float64), as the port
-routes complex input elsewhere. Each wrapper counts its launches in a
-plain integer attribute (``lu_rows.launches``), which only a launch of the
-kernel raises.
+launches its kernel on the current stream and raises on any failure,
+a refused cluster or cooperative launch included: it never falls back.
+Complex C takes the plain swap loop on every device, by dtype (the kernels
+are written for float32 and float64), as the port routes complex input
+elsewhere. Each wrapper counts its launches in a plain integer attribute
+(``lu_rows.launches``), which only a launch of the kernel raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
@@ -44,13 +49,24 @@ import torch
 from tntorch_tpu_torch.ops.gram_kernels import _on_cpu, _ptr
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
-# The resident swap kernel's shared memory: C (n x r), row i (r) and a tile
-# of column-j quotients (csrc/maxvol_device.cu: kTile), at most what a block
-# may use less a margin for its static reductions
-_TILE = 1024
-_RESIDENT_BYTES = 200 * 1024
-# Entries of C per block of the grid-synchronised kernel, at least
-_GRID_ENTRIES = 4096
+_ROUTES = {"cluster": 0, "resident": 1, "streamed": 2}
+# Dynamic shared memory a swap CTA may take (csrc/maxvol_device.cu:
+# swap_smem): the H100's 227 KB a block less 2 KB for the static part (the
+# reductions, the cluster's inbox of candidates)
+_SMEM_BYTES = 225 * 1024
+# CTAs of a cluster: at most 16, the non-portable size Hopper allows
+_MAX_CLUSTER = 16
+# Entries of C a cluster CTA takes at least, while the cluster can grow
+_CLUSTER_ENTRIES = 4096
+# The largest C (bytes) on the cluster route; beyond it the grid routes.
+# Timed in turns on an H100 (`python3 chip_smoke.py --only 18x`, r = 100,
+# two runs): the cluster is ahead up to 1.00 MiB in float32 and 1.25 MiB in
+# float64, the resident grid from 1.25 and 1.54 MiB on, so the limit sits
+# at the last size where both dtypes favour the cluster, below what 16 CTAs
+# could hold
+_CLUSTER_MAX_BYTES = 1 << 20
+# SMs of the card the plan is made for when none is given (H100 SXM)
+_SMS = 132
 
 
 def lu_rows_plain(piv: torch.Tensor, n: int, k: int) -> torch.Tensor:
@@ -107,11 +123,37 @@ def maxvol_swaps_plain(C: torch.Tensor, idx: torch.Tensor, tol: float, max_iters
 # Wrappers
 # ---------------------------------------------------------------------------
 
-def _swap_route(n: int, r: int, itemsize: int) -> str:
-    """Which swap kernel takes C (n x r) of this item size: "resident" when
-    C, row i and a tile of quotients fit one block's shared memory, else
-    "grid"."""
-    return "resident" if (n * r + r + _TILE) * itemsize <= _RESIDENT_BYTES else "grid"
+def _cta_bytes(rows: int, r: int, itemsize: int, extra: int) -> int:
+    """Dynamic shared memory of a swap CTA holding ``rows`` rows of C (r
+    columns) at an odd row stride, and ``extra`` rows of r + 1 more: the
+    2 x CTAs row copies of a cluster's inbox, the pivot row on a grid."""
+    return (rows * (r | 1) + extra * (r + 1)) * itemsize
+
+
+def _cta_rows(r: int, itemsize: int, extra: int) -> int:
+    """The most rows of C a swap CTA holds in shared memory."""
+    return max(0, (_SMEM_BYTES // itemsize - extra * (r + 1)) // (r | 1))
+
+
+def _even(n: int, ctas: int) -> int:
+    """``ctas`` CTAs, fewer if ceil(n / ctas) rows each leaves some empty."""
+    return -(-n // -(-n // ctas))
+
+
+def _swap_plan(n: int, r: int, itemsize: int, sms: int = _SMS) -> tuple:
+    """The swap kernel's route and CTAs for C (n x r) of this item size on
+    a card of ``sms`` SMs: ("cluster", 1-16) while C fits the shared memory
+    of 16 CTAs and is at most _CLUSTER_MAX_BYTES, one CTA per
+    _CLUSTER_ENTRIES entries (at least as many as C needs); else
+    ("resident", blocks) while C fits the shared memory of one CTA per SM;
+    else ("streamed", blocks). Every CTA owns ceil(n / CTAs) rows, the last
+    what is left."""
+    cluster = lambda k: -(-n // k) <= _cta_rows(r, itemsize, 2 * k)  # noqa: E731
+    if n * r * itemsize <= _CLUSTER_MAX_BYTES and cluster(min(n, _MAX_CLUSTER)):
+        least = next(k for k in range(1, _MAX_CLUSTER + 1) if cluster(k))
+        return "cluster", _even(n, min(n, _MAX_CLUSTER, max(least, -(-n * r // _CLUSTER_ENTRIES))))
+    blocks = _even(n, min(n, sms))
+    return ("resident" if -(-n // blocks) <= _cta_rows(r, itemsize, 1) else "streamed"), blocks
 
 
 def _launch(fn, *args):
@@ -121,26 +163,6 @@ def _launch(fn, *args):
     err = getattr(library("maxvol_device"), fn)(*args, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA error {err}")
-
-
-@functools.lru_cache(maxsize=None)
-def _grid_wave(code: int, r: int, device_index: int) -> int:
-    """Blocks of the grid-synchronised kernel that the card holds at once
-    (occupancy x SMs): the most a cooperative launch may take."""
-    from tntorch_tpu_torch._build import library
-
-    per_sm = library("maxvol_device").tnt_maxvol_grid_occupancy(code, r)
-    if per_sm <= 0:
-        raise RuntimeError(f"tnt_maxvol_grid_occupancy: CUDA error {-per_sm}" if per_sm else
-                           "tnt_maxvol_grid_occupancy: the kernel fits no SM")
-    return per_sm * torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
-def _grid_blocks(n: int, r: int, wave: int) -> int:
-    """Blocks of a grid launch on C (n x r): one per _GRID_ENTRIES entries,
-    at most a wave and at most n, each owning ceil(n / blocks) rows."""
-    blocks = max(1, min(wave, n, -(-n * r // _GRID_ENTRIES)))
-    return -(-n // -(-n // blocks))  # no block left without rows
 
 
 def lu_rows(piv: torch.Tensor, n: int, k: int) -> torch.Tensor:
@@ -157,9 +179,7 @@ def lu_rows(piv: torch.Tensor, n: int, k: int) -> torch.Tensor:
     with torch.cuda.device(piv.device):
         rows = torch.empty((batch, k), dtype=torch.int64, device=piv.device)
         if batch and k:
-            scratch = torch.empty((batch, n), dtype=torch.int32, device=piv.device)
-            _launch("tnt_lu_rows", _ptr(piv), batch, piv.shape[1], n, k, _ptr(scratch),
-                    _ptr(rows))
+            _launch("tnt_lu_rows", _ptr(piv), batch, piv.shape[1], n, k, _ptr(rows))
             lu_rows.launches += 1
     return rows
 
@@ -170,9 +190,10 @@ def maxvol_swaps(C: torch.Tensor, idx: torch.Tensor, tol: float, max_iters: int,
     (r, int64): while fewer than ``max_iters`` iterations ran and ``max|C|
     > tol``, swap the row of the largest |C[i, j]| into slot j and update C
     by rank 1. Returns (C, idx). On the card one launch of the kernel
-    `_swap_route` picks, which updates C and idx in place and reads nothing
-    back; on the CPU, and for complex C, `maxvol_swaps_plain` (``block``:
-    its guarded iterations per host check)."""
+    `_swap_plan` picks, which updates C and idx in place and reads nothing
+    back; on the CPU, and for
+    complex C, `maxvol_swaps_plain` (``block``: its guarded iterations per
+    host check)."""
     n, r = C.shape
     if tuple(idx.shape) != (r,):
         raise ValueError(f"maxvol_swaps: idx of shape {tuple(idx.shape)} for {r} columns")
@@ -184,18 +205,15 @@ def maxvol_swaps(C: torch.Tensor, idx: torch.Tensor, tol: float, max_iters: int,
         raise ValueError("maxvol_swaps: C and an int64 idx must be contiguous")
     if n == 0 or r == 0 or max_iters <= 0:
         return C, idx
-    code = _DTYPES[C.dtype]
     with torch.cuda.device(C.device):
-        if _swap_route(n, r, C.element_size()) == "resident":
-            _launch("tnt_maxvol_swaps", code, 0, _ptr(C), _ptr(idx), n, r, float(tol),
-                    int(max_iters), 0, _ptr(None), _ptr(None), _ptr(None))
-        else:
-            blocks = _grid_blocks(n, r, _grid_wave(code, r, C.device.index))
-            cand_v = torch.empty(2 * blocks, dtype=C.dtype, device=C.device)
-            cand_i = torch.empty(2 * blocks, dtype=torch.int64, device=C.device)
-            cand_rows = torch.empty((2 * blocks, r), dtype=C.dtype, device=C.device)
-            _launch("tnt_maxvol_swaps", code, 1, _ptr(C), _ptr(idx), n, r, float(tol),
-                    int(max_iters), blocks, _ptr(cand_v), _ptr(cand_i), _ptr(cand_rows))
+        sms = torch.cuda.get_device_properties(C.device).multi_processor_count
+        route, ctas = _swap_plan(n, r, C.element_size(), sms)
+        scratch = [None] * 2
+        if route != "cluster":  # the grid's candidates and their row copies
+            scratch = [torch.empty((2 * ctas, 2), dtype=torch.int64, device=C.device),
+                       torch.empty((2 * ctas, r + 1), dtype=C.dtype, device=C.device)]
+        _launch("tnt_maxvol_swaps", _DTYPES[C.dtype], _ROUTES[route], _ptr(C), _ptr(idx), n, r,
+                float(tol), int(max_iters), ctas, *map(_ptr, scratch))
     maxvol_swaps.launches += 1
     return C, idx
 
