@@ -24,7 +24,18 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    timed in turns at the design shape and at B/I = 8..256 (their
    crossovers), the grouped ones must give bitwise the same values on two
    calls, and the per-sample backward's device time at the training shape
-   is read by the profiler beside its call's time.
+   is read by the profiler beside its call's time. The per-sample kernels
+   (one lane group per sample, `_per_sample_plan`) are also held at
+   PER_SAMPLE's shapes (cp[X] at 2^20 points, training, OPT4, config 3's
+   held-out points, ranks 129, one and two modes), f32 and f64, within
+   KERNEL_TOL of their plain versions, the forward bitwise equal on two
+   calls and an out-of-range coordinate raising IndexError at every shape;
+   every plan they can be forced into is held at PLAN_SHAPES (``--only
+   3s``); and their device and call times are read beside their bounds
+   (``--only 3t``, which runs on the parent commit's tree too; at the
+   training shape also each wrapper's host time per call). Off by default,
+   ``--only 3x`` times each choice of the per-sample plan forced both ways
+   (`plan_choices`).
    ``gram_edge``, ``wgram`` and ``proj2`` are each held on both of their
    kernels (the resident one: G or W, or the projectors, in shared memory;
    and the two-stage kernel, which also serves the shapes beyond the
@@ -806,6 +817,7 @@ def check_tt_kernels():
             # shape, so a tile meets many runs)
             got = {p: tt_path(p == "grouped", lambda: te.tt_eval_kernel(cores, X)) for p in paths}
             again = tt_path(True, lambda: te.tt_eval_kernel(cores, X))
+            again_ps = tt_path(False, lambda: te.tt_eval_kernel(cores, X))
             grads = {p: tt_bwd_path(p == "grouped", lambda: te.tt_eval_backward_kernel(cores, X, g))
                      for p in paths}
             grads_again = tt_bwd_path(True, lambda: te.tt_eval_backward_kernel(cores, X, g))
@@ -815,6 +827,10 @@ def check_tt_kernels():
             torch.cuda.synchronize()
             if not torch.equal(got["grouped"], again):
                 raise AssertionError(f"grouped tt_eval {dname} {tag}: two calls differ")
+            if not torch.equal(got["per-sample"], again_ps):
+                raise AssertionError(f"per-sample tt_eval {dname} {tag}: two calls differ")
+            tt_path(False, lambda: tt_bwd_path(False, lambda: hold_out_of_range(
+                f"per-sample {dname} {tag}", cores, X, g)))
             if not all(torch.equal(a, b) for a, b in zip(grads["grouped"], grads_again)):
                 raise AssertionError(f"grouped tt_eval_backward {dname} {tag}: two calls differ")
             errs = {}
@@ -836,7 +852,8 @@ def check_tt_kernels():
             line = (f"{tag:8s} {dname} ranks {ranks} I={I} B={B}{' negative X' if negative else ''}"
                     f" (takes {chosen}, backward {chosen_bwd}): tt_eval rel grouped "
                     f"{errs['tt_eval/grouped'][1]:.3e} (bitwise equal on two calls), per-sample "
-                    f"{errs['tt_eval/per-sample'][1]:.3e}; backward rel grouped "
+                    f"{errs['tt_eval/per-sample'][1]:.3e} (bitwise equal on two calls, out of "
+                    "range raises); backward rel grouped "
                     f"{errs['tt_eval_backward/grouped'][1]:.3e} (bitwise equal on two calls), "
                     f"per-sample {errs['tt_eval_backward/per-sample'][1]:.3e}")
             if tag == "design" and dtype == torch.float32:
@@ -889,6 +906,12 @@ def check_tt_kernels():
                          f"launches, profiler); bound {bound:.4f} ms ({by})")
             if line:
                 print(line, flush=True)
+    times = check_per_sample()
+    for name, key in (("tt_eval", "fwd"), ("tt_eval_backward", "bwd")):
+        report[name]["per_sample"] = {
+            f"{tag} {dname}": {"ms": t[f"{key}_dev"], "call_ms": t[f"{key}_call"],
+                               "bound_ms": t[f"{key}_bound"], "bound_by": t[f"{key}_by"]}
+            for tag, by_dtype in times.items() for dname, t in by_dtype.items()}
     tt_crossover()
     tt_bwd_crossover()
     return report
@@ -941,6 +964,393 @@ def tt_bwd_crossover():
                        f"{min(turns[False]):.4f}")
         print(f"backward crossover, ranks {ranks} I={I}, ms per call (best of two turns): "
               + "; ".join(row), flush=True)
+
+
+# Phase 3b's per-sample shapes, (tag, ranks, I, B): cp[X] at phase 13's
+# size (P13), the training step (phase 7), OPT4 (phase 12's
+# bench_optimize shape), config 3's held-out points (phase 10), ranks 129
+# (more than one interface column a lane), and one and two modes
+PER_SAMPLE = [
+    ("P13", [1, 5, 5, 5, 1], 32, 1 << 20),
+    ("training", [1, 16, 16, 1], 256, 8192),
+    ("OPT4", [1, 8, 8, 1], 64, 20000),
+    ("config3", [1] + [4] * 9 + [1], 32, 10 ** 5),
+    ("ranks129", [1, 129, 129, 1], 64, 4096),
+    ("N1", [3, 4], 50, 3000),
+    ("N2", [1, 16, 1], 128, 5000),
+]
+# Small shapes on which every plan the wrapper may be forced into is held:
+# each lane width from the ranks' own to 32, the cores staged or not, the
+# gradients privatized or not; (ranks, I, B, negative coordinates)
+PLAN_SHAPES = [
+    ([1, 5, 5, 5, 1], 32, 3000, False),
+    ([2, 5, 3, 7, 3], 37, 1000, True),
+    ([3, 4], 50, 777, True),
+    ([1, 16, 1], 64, 1000, False),
+    ([1] + [4] * 9 + [1], 32, 1000, True),  # N = 10
+    ([1, 40, 40, 1], 16, 500, False),  # 2 columns a lane (backward)
+    ([1, 100, 100, 1], 8, 300, False),  # 4 columns a lane (backward)
+    ([1, 129, 129, 1], 8, 300, False),  # the interface in shared memory
+    ([2, 300, 300, 2], 4, 100, True),
+]
+
+
+@contextlib.contextmanager
+def forced_tt_plan(**force):
+    """The per-sample kernels on `_per_sample_plan`'s plan with ``force``
+    (W, staged, private, shared) imposed, inside the block."""
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    plan = te._per_sample_plan
+    te._per_sample_plan = lambda ranks, dims, B, itemsize: plan(ranks, dims, B, itemsize, **force)
+    try:
+        yield
+    finally:
+        te._per_sample_plan = plan
+
+
+def _rel_all(got, want):
+    """max |got - want| over max |want|, across lists of tensors."""
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    return err / max(max(float(b.abs().max()) for b in want), 1e-300)
+
+
+def hold_out_of_range(tag, cores, X, g):
+    """An out-of-range coordinate raises IndexError through the flag, in
+    both kernels; with ``checked=True`` (no flag read) the forward writes
+    NaN for that sample alone and the backward leaves it out."""
+    import torch
+
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    bad = X.clone()
+    bad[0, -1] = cores[-1].shape[1]
+    for fn in (lambda: te.tt_eval_kernel(cores, bad),
+               lambda: te.tt_eval_backward_kernel(cores, bad, g)):
+        try:
+            fn()
+        except IndexError:
+            continue
+        raise AssertionError(f"{tag}: an out-of-range coordinate did not raise")
+    got = te.tt_eval_kernel(cores, bad, True)
+    want = te.tt_eval_plain(cores, X)
+    if not (bool(torch.isnan(got[0])) and torch.isfinite(got[1:]).all()
+            and (len(X) == 1 or _rel_all([got[1:]], [want[1:]]) <= KERNEL_TOL[str(g.dtype)[6:]])):
+        raise AssertionError(f"{tag}: the out-of-range sample is not NaN alone")
+    g0 = g.clone()
+    g0[0] = 0
+    rel = _rel_all(te.tt_eval_backward_kernel(cores, bad, g, True),
+                   te.tt_eval_backward_plain(cores, X, g0))
+    if not rel <= KERNEL_TOL[str(g.dtype)[6:]]:
+        raise AssertionError(f"{tag}: the out-of-range sample reached the gradient ({rel:.2e})")
+
+
+def hold_per_sample_plans():
+    """3s: both per-sample kernels against their plain versions on
+    PLAN_SHAPES under every plan the wrapper can be forced into (f32 and
+    f64, int64 and int32 coordinates), the forward bitwise equal on two
+    calls, out-of-range coordinates raising; prints the count of plans held
+    and the largest error per dtype."""
+    import torch
+
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    start, held, worst = time.perf_counter(), 0, {}
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype)[6:]
+        for ranks, I, B, negative in PLAN_SHAPES:
+            cores, X, g = tt_problem(ranks, I, B, dtype, seed=11, negative=negative)
+            dims = [I] * (len(ranks) - 1)
+            want = te.tt_eval_plain(cores, X)
+            want_grads = te.tt_eval_backward_plain(cores, X, g)
+            need = te._per_sample_plan(tuple(ranks), tuple(dims), B, dtype.itemsize).W
+            for W in (1, 2, 4, 8, 16, 32):
+                # each choice both ways; private None: the plan's own choice per core
+                for staged, private in ((False, False), (True, True), (False, None),
+                                        (True, None)):
+                    if W < need:
+                        continue
+                    forced = te._per_sample_plan(tuple(ranks), tuple(dims), B, dtype.itemsize,
+                                                 W, staged, private)
+                    if not (forced.fwd_warps and forced.bwd_warps):
+                        continue  # the forced plan does not fit a block: not a plan the card takes
+                    tag = (f"{dname} ranks {ranks} I={I} B={B} W={W} staged={staged} "
+                           f"private={private}")
+                    with forced_tt_plan(W=W, staged=staged, private=private):
+                        Xs = X.int() if W == need and staged else X
+                        got = te.tt_eval_kernel(cores, Xs)
+                        again = te.tt_eval_kernel(cores, Xs)
+                        grads = te.tt_eval_backward_kernel(cores, Xs, g)
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, again):
+                            raise AssertionError(f"3s {tag}: two forward calls differ")
+                        for name, a, b in (("tt_eval", [got], [want]),
+                                           ("tt_eval_backward", grads, want_grads)):
+                            rel = _rel_all(a, b)
+                            worst[dname] = max(worst.get(dname, 0.0), rel)
+                            if not (all(bool(torch.isfinite(t).all()) for t in a)
+                                    and rel <= KERNEL_TOL[dname]):
+                                raise AssertionError(f"3s {name} {tag}: rel {rel:.3e}")
+                        held += 1
+            hold_out_of_range(f"3s {dname} ranks {ranks}", cores, X, g)
+    print(f"3s per-sample plans: {held} forced plans held on {len(PLAN_SHAPES)} shapes x 2 "
+          f"dtypes; largest rel error {worst} (tol {KERNEL_TOL}); "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+
+
+def host_us(fn, blocks=9, calls=200):
+    """The host's time (us) per call of ``fn``: ``blocks`` blocks of
+    ``calls`` calls enqueued back to back (for kernels shorter than the
+    calls' host work, so the queue does not fill), each block's time per
+    call; returns their least and their median."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(blocks):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    times.sort()
+    return times[0], times[len(times) // 2]
+
+
+def time_host():
+    """3h: each per-sample wrapper's host time per call at the training
+    shape, f32 and f64 (checked=True: no flag read; `host_us`). It uses
+    only what the parent commit's ops/tt_eval.py has too, so the same
+    function times both trees in turns."""
+    import torch
+
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    for dtype in (torch.float32, torch.float64):
+        cores, X, g = tt_problem([1, 16, 16, 1], 256, 8192, dtype, seed=12)
+        fwd = tt_path(False, lambda: host_us(lambda: te.tt_eval_kernel(cores, X, True)))
+        bwd = tt_bwd_path(False, lambda: host_us(
+            lambda: te.tt_eval_backward_kernel(cores, X, g, True)))
+        print(f"3h training {str(dtype)[6:]}: host per call, least / median of 9 blocks of 200: "
+              f"tt_eval {fwd[0]:.1f} / {fwd[1]:.1f} us, tt_eval_backward {bwd[0]:.1f} / "
+              f"{bwd[1]:.1f} us", flush=True)
+
+
+def _per_sample_times(cores, X, g, host=False):
+    """The per-sample kernels' device times (profiler, median of 20) and
+    whole calls (CUDA events, checked=True: no flag read), forced per sample;
+    in ms; with ``host``, each wrapper's host time per call (us)."""
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    def fwd():
+        return te.tt_eval_kernel(cores, X, True)
+
+    def bwd():
+        return te.tt_eval_backward_kernel(cores, X, g, True)
+
+    def times():
+        t = dict(fwd_dev=device_ms(fwd, "tt_eval_kernel")[0], fwd_call=cuda_time(fwd),
+                 bwd_dev=device_ms(bwd, "tt_eval_backward_kernel")[0], bwd_call=cuda_time(bwd))
+        if host:
+            t.update(fwd_host_us=host_us(fwd), bwd_host_us=host_us(bwd))
+        return t
+
+    return tt_path(False, lambda: tt_bwd_path(False, times))
+
+
+def time_per_sample():
+    """3t: the per-sample kernels at PER_SAMPLE's shapes, f32 and f64:
+    device time and call time beside the bound. It uses only what the
+    parent commit's ops/tt_eval.py has too, so the same function times both
+    trees (run it there and here in turns). Returns {shape: {dtype:
+    times}}."""
+    import torch
+
+    out = {}
+    for tag, ranks, I, B in PER_SAMPLE:
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype)[6:]
+            cores, X, g = tt_problem(ranks, I, B, dtype, seed=12)
+            t = _per_sample_times(cores, X, g, host=tag == "training")
+            fwd_flops, bwd_flops = tt_work(cores, X)
+            peak = PEAK_FP32 if dtype == torch.float32 else PEAK_FP64
+            t["fwd_bound"], t["fwd_by"] = bound_ms(
+                fwd_flops, nbytes(*cores, X) + B * dtype.itemsize, peak)
+            t["bwd_bound"], t["bwd_by"] = bound_ms(
+                bwd_flops, nbytes(*cores, X, g, *cores), peak)
+            out.setdefault(tag, {})[dname] = t
+            print(f"3t {tag:8s} {dname} ranks {max(ranks)} N={len(ranks) - 1} I={I} B={B}: "
+                  f"tt_eval kernel {t['fwd_dev']:.4f} ms (call {t['fwd_call']:.4f}), bound "
+                  f"{t['fwd_bound']:.5f} ({t['fwd_by']}); backward kernel {t['bwd_dev']:.4f} ms "
+                  f"(call {t['bwd_call']:.4f}), bound {t['bwd_bound']:.5f} ({t['bwd_by']})"
+                  + (f"; host per call, least and median: {t['fwd_host_us'][0]:.1f}, "
+                     f"{t['fwd_host_us'][1]:.1f} / {t['bwd_host_us'][0]:.1f}, "
+                     f"{t['bwd_host_us'][1]:.1f} us" if "fwd_host_us" in t else ""), flush=True)
+    return out
+
+
+# 3x's choices of `_per_sample_plan`, each forced both ways at the shapes
+# that set it: (choice, tag, ranks, I, B, kernel, the forced plans)
+PLAN_CHOICES = [
+    ("staging", "P13", [1, 5, 5, 5, 1], 32, 1 << 20, "fwd", ({"staged": True}, {"staged": False})),
+    ("staging", "config3", [1] + [4] * 9 + [1], 32, 10 ** 5, "fwd",
+     ({"staged": True}, {"staged": False})),
+    ("staging", "OPT4", [1, 8, 8, 1], 64, 20000, "fwd", ({"staged": True}, {"staged": False})),
+    ("staging", "N2", [1, 16, 1], 128, 5000, "fwd", ({"staged": True}, {"staged": False})),
+    ("privatizing", "P13", [1, 5, 5, 5, 1], 32, 1 << 20, "bwd",
+     ({"private": True}, {"private": False})),
+    ("privatizing", "P13 B=4096", [1, 5, 5, 5, 1], 32, 4096, "bwd",
+     ({"private": True}, {"private": False})),
+    ("privatizing", "OPT4", [1, 8, 8, 1], 64, 20000, "bwd",
+     ({"private": True}, {"private": False})),
+    ("privatizing", "config3", [1] + [4] * 9 + [1], 32, 10 ** 5, "bwd",
+     ({"private": True}, {"private": False})),
+    ("the forward's shared-memory interface", "ranks 64", [1, 64, 64, 1], 64, 4096, "fwd",
+     ({},)),
+    ("the forward's shared-memory interface", "ranks 100", [1, 100, 100, 1], 64, 4096, "fwd",
+     ({},)),
+    ("the shared-memory interface", "ranks 100", [1, 100, 100, 1], 64, 4096, "bwd",
+     ({}, {"shared": True})),
+    ("the lane width", "P13", [1, 5, 5, 5, 1], 32, 1 << 20, "fwd",
+     ({}, {"W": 16}, {"W": 32})),
+]
+
+
+def plan_choices():
+    """3x, off by default (``--only 3x``): each choice of the per-sample
+    plan forced both ways at the shapes that set it, in turns (each plan,
+    then the same in reverse), float32, device time by profiler: staging
+    (`_STAGE_MIN`), privatizing (`_PRIV_MIN`), the backward's shared-memory
+    interface against its register template, and the lane width; and the
+    forward at ranks 64 and 100, where it keeps its interface in shared
+    memory."""
+    import torch
+
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    for choice, tag, ranks, I, B, which, plans in PLAN_CHOICES:
+        cores, X, g = tt_problem(ranks, I, B, torch.float32, seed=12)
+        dims = [I] * (len(ranks) - 1)
+        own = te._per_sample_plan(tuple(ranks), tuple(dims), B, 4)
+        times = [[] for _ in plans]
+        for i in list(range(len(plans))) + list(range(len(plans)))[::-1]:
+            with forced_tt_plan(**plans[i]):
+                if which == "fwd":
+                    ms = tt_path(False, lambda: device_ms(
+                        lambda: te.tt_eval_kernel(cores, X, True), "tt_eval_kernel"))[0]
+                else:
+                    ms = tt_bwd_path(False, lambda: device_ms(
+                        lambda: te.tt_eval_backward_kernel(cores, X, g, True),
+                        "tt_eval_backward_kernel"))[0]
+            times[i].append(ms)
+        print(f"3x {choice}, {tag} {which} (the plan: W={own.W} cols={own.fwd_cols}/"
+              f"{own.bwd_cols} staged="
+              f"{own.staged} private={''.join('1' if p else '0' for p in own.private)}): "
+              + "; ".join(f"{p or 'as planned'} {min(t):.4f} ms" for p, t in zip(plans, times)),
+              flush=True)
+
+
+def check_per_sample():
+    """3b's per-sample shapes (PER_SAMPLE), f32 and f64, on the wrapper's
+    own plan: both kernels within KERNEL_TOL of their plain versions, the
+    forward bitwise equal on two calls, an out-of-range coordinate raising;
+    then the forced plans (3s) and the times (3t)."""
+    import torch
+
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    for tag, ranks, I, B in PER_SAMPLE:
+        parts = []
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype)[6:]
+            cores, X, g = tt_problem(ranks, I, B, dtype, seed=12)
+            dims = [I] * (len(ranks) - 1)
+            plan = te._per_sample_plan(tuple(ranks), tuple(dims), B, dtype.itemsize)
+            got, again, grads = tt_path(False, lambda: tt_bwd_path(False, lambda: (
+                te.tt_eval_kernel(cores, X), te.tt_eval_kernel(cores, X),
+                te.tt_eval_backward_kernel(cores, X, g))))
+            want = plain_values(cores, X)
+            want_grads = te.tt_eval_backward_plain(cores, X, g)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"per-sample tt_eval {dname} {tag}: two calls differ")
+            rels = [_rel_all([got], [want]), _rel_all(grads, want_grads)]
+            if not (all(bool(torch.isfinite(t).all()) for t in [got, *grads])
+                    and max(rels) <= KERNEL_TOL[dname]):
+                raise AssertionError(f"per-sample {dname} {tag} disagrees with its plain "
+                                     f"versions: rel {rels}")
+            tt_path(False, lambda: tt_bwd_path(False, lambda: hold_out_of_range(
+                f"per-sample {dname} {tag}", cores, X, g)))
+            parts.append(f"{dname} rel {rels[0]:.2e}/{rels[1]:.2e} (W={plan.W} cols="
+                         f"{plan.fwd_cols}/{plan.bwd_cols} staged={plan.staged} private="
+                         f"{''.join('1' if p else '0' for p in plan.private)})")
+        print(f"per-sample {tag:8s} ranks {max(ranks)} N={len(ranks) - 1} I={I} B={B}: "
+              + "; ".join(parts) + "; forward bitwise equal on two calls, out of range raises",
+              flush=True)
+    hold_per_sample_edges()
+    hold_per_sample_plans()
+    return time_per_sample()
+
+
+def hold_per_sample_edges():
+    """3b's edge cases of the per-sample kernels, f32 and f64: (1) a shape
+    whose forward fits a block but whose backward's left interfaces do not
+    (f64: N=120 at rank 250): the forward within KERNEL_TOL of its plain
+    version and bitwise on two calls, the backward refused with ValueError
+    (in f32 it fits and is held too); (2) an infinite core entry in the last
+    column of a middle mode whose rank is not a multiple of the lane width
+    (ranks 5, W=8), with gradients privatized (B=4096) and not (B=256): the
+    kernels' infinite and NaN entries where the plain versions have them,
+    the finite ones within KERNEL_TOL."""
+    import torch
+
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    parts = []
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype)[6:]
+        cores, X, g = tt_problem([1] + [250] * 119 + [1], 2, 64, dtype, seed=13)
+        got, again = tt_path(False, lambda: (te.tt_eval_kernel(cores, X),
+                                             te.tt_eval_kernel(cores, X)))
+        want = te.tt_eval_plain(cores, X)
+        torch.cuda.synchronize()
+        rel = _rel_all([got], [want])
+        if not (torch.equal(got, again) and rel <= KERNEL_TOL[dname]):
+            raise AssertionError(f"3b N=120 rank 250 {dname}: forward rel {rel:.2e}")
+        try:
+            grads = tt_bwd_path(False, lambda: te.tt_eval_backward_kernel(cores, X, g))
+        except ValueError:
+            if dtype == torch.float32:
+                raise
+            parts.append(f"N=120 rank 250 {dname}: forward rel {rel:.1e}, backward refused")
+        else:
+            if dtype == torch.float64:
+                raise AssertionError("3b N=120 rank 250 float64: the backward should not fit")
+            brel = _rel_all(grads, te.tt_eval_backward_plain(cores, X, g))
+            if not brel <= KERNEL_TOL[dname]:
+                raise AssertionError(f"3b N=120 rank 250 {dname}: backward rel {brel:.2e}")
+            parts.append(f"N=120 rank 250 {dname}: forward rel {rel:.1e}, backward {brel:.1e}")
+        del cores
+        for B in (256, 4096):
+            cores, X, g = tt_problem([1, 5, 5, 5, 1], 4, B, dtype, seed=14)
+            cores[1][2, 1, 4] = float("inf")
+            got, grads = tt_path(False, lambda: tt_bwd_path(False, lambda: (
+                te.tt_eval_kernel(cores, X), te.tt_eval_backward_kernel(cores, X, g))))
+            want, want_grads = te.tt_eval_plain(cores, X), te.tt_eval_backward_plain(cores, X, g)
+            for a, b in zip([got, *grads], [want, *want_grads]):
+                finite, inf = torch.isfinite(b), torch.isinf(b)
+                if not (torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(a[inf], b[inf])
+                        and (not finite.any()
+                             or _rel_all([a[finite]], [b[finite]]) <= KERNEL_TOL[dname])):
+                    raise AssertionError(f"3b an infinite entry, {dname} B={B}: the kernels' "
+                                         "non-finite entries differ from the plain versions'")
+            plan = te._per_sample_plan((1, 5, 5, 5, 1), (4,) * 4, B, dtype.itemsize)
+            parts.append(f"inf {dname} B={B} (private "
+                         f"{''.join('1' if p else '0' for p in plan.private)}): "
+                         f"{int(sum(int((~torch.isfinite(d)).sum()) for d in grads))} "
+                         "non-finite gradient entries, as the plain version")
+    print("3b per-sample edges: " + "; ".join(parts), flush=True)
 
 
 def bench_cores(cfg=BENCH):
@@ -5694,7 +6104,8 @@ def fused_path(device="cuda", cfg=SIZES18):
     return launches, report
 
 
-PHASES = {"3": "check_kernels", "3b": "check_tt_kernels", "4": "main_path",
+PHASES = {"3": "check_kernels", "3b": "check_tt_kernels", "3s": "hold_per_sample_plans",
+          "3t": "time_per_sample", "3h": "time_host", "3x": "plan_choices", "4": "main_path",
           "5": "nonbatch_pass", "6": "eval_path", "7": "train_path", "8": "train_design_path",
           "9": "baseline_path", "10": "cross_path", "11": "elementwise_path",
           "12": "config4_path", "13": "config5_path", "14": "missing_modules_path",

@@ -46,24 +46,48 @@
 // sample lands in the sort, so the grouped path is bitwise reproducible run
 // to run.
 //
-// tt_eval_kernel (per sample) serves every other shape: N <= 2, few
-// samples per slice (the training shape, B/I = 32), and shapes whose tile
-// would not fit shared memory. One warp owns one sample and gathers its own
-// R x R slice of every core through L2 (at the design shape 16 KB per
-// sample per middle mode, ~34 GB in all: L2 traffic, not FMAs, sets its
-// time). The TPU kernel had no gather, so it selected the slice with a
-// one-hot lane mask and folded it back with a fold matrix; here the warp's
-// lanes form G groups of W lanes (W the smallest power of two >= the
-// slice's column count, at most 32): a group's lanes run over the columns s,
-// so they read neighbouring addresses of one row, and the groups split the
-// rows r; warp shuffles sum the groups. The running interface stays in
-// shared memory (two buffers of max rank per warp), as the TPU kept it in
-// VMEM. Only column 0 of the last mode is computed. Any B (grid-stride over
-// samples), any ranks including R_0 and R_N > 1, any I, float32 and float64,
-// int32 and int64 coordinates; negative coordinates wrap as in NumPy, and an
+// tt_eval_kernel (per sample) serves every other shape: N <= 2, few samples
+// per slice (the training step's B/I = 32, cp[X], completion, the cross
+// validations), and shapes whose tile would not fit shared memory. The TPU
+// kernel had no gather: it selected each slice with a one-hot lane mask and
+// folded it back with a fold matrix. Here each sample has a lane group of W
+// lanes, W the smallest power of two >= the widest interface the chain
+// carries (max of R_0..R_{N-1}), at most 32, so a warp holds 32 / W samples
+// (8 at ranks 3-4, 2 at rank 16). Lane s keeps column s of the running
+// interface in a register, and a mode is
+//   v'[s] = sum_r shfl(v, r) C_k[r, x, s],
+// the group's lanes reading neighbouring columns of row r, no load waiting on
+// another, no shared-memory round trip and no __syncwarp per mode. Ranks
+// beyond 32 keep the interface in shared memory, one warp a sample, in the
+// same kernel family: there it measured faster on this card than 2 or 4
+// columns a lane in registers (PERF.md). A warp loads its samples'
+// coordinates W modes at a time, lane w of a group mode kw + w of its sample
+// (neighbouring lanes on neighbouring addresses), wraps and checks them, and
+// hands the group each mode's by shuffle. Where the interface is in
+// registers, all the cores fit the held budget (ops/tt_eval.py: _HELD_BYTES;
+// 7.6 KB at cp[X]'s N=4 I=32 ranks 5 in float32) and _STAGE_MIN samples or
+// more share each staged element (a block first waits for its copy), a block
+// copies them into shared memory with cp.async and reads slices there;
+// elsewhere (training's 256 KB middle core) through L1 (__ldg). The grid is
+// persistent, one wave, grid-stride over the warps' groups of samples. What
+// bounds it on this card: the least time is X's bytes (B x N coordinates, 8
+// bytes each in int64, against 4 bytes of output per sample: ~10 us of device
+// memory at B = 2^20, N = 4), but at small ranks each warp's instructions set
+// it, a mode's setup (~50) before its R_k shuffle-FMA rows, so its time
+// follows the warps, not the lanes (PERF.md); at large ranks the L2 gathers
+// of each sample's R x R slices (16 KB a sample and middle mode at R = 64),
+// which the grouped kernel, not this one, removes. The last mode, only column
+// 0, is a row a lane and a butterfly where the core is read from device
+// memory, and the row loop where it is staged (its reads are then
+// broadcasts). The plan (W, columns, staging, warps, shared memory) is
+// ops/tt_eval.py: _per_sample_plan, which the wrapper passes in. Any B, any
+// ranks including R_0 and R_N > 1, any I, float32 and float64, int32 and
+// int64 coordinates; negative coordinates wrap as in NumPy, and an
 // out-of-range one sets *flag (the caller raises IndexError), writes NaN and
-// touches no memory out of bounds. (The grouped kernel takes coordinates
-// that the wrapper has already wrapped and checked.)
+// reads no memory out of bounds. Only column 0 of the last mode is computed;
+// each value is summed in a fixed order, so the forward is bitwise
+// reproducible. (The grouped kernel takes coordinates that the wrapper has
+// already wrapped and checked.)
 //
 // The grouped backward (tnt_tt_eval_slice_grad, for N >= 3 and at least 64
 // samples per slice of every middle mode, the shapes where its ~1 ms of
@@ -91,25 +115,42 @@
 // (700 W) against ~36 ms per sample (PERF.md).
 //
 // The per-sample backward (tt_eval_backward_kernel, every other shape: the
-// training step's B/I = 32 among them) gives each sample a warp that
-// recomputes its left interfaces L_0..L_{N-1} into shared memory, then
-// sweeps right to left: at mode k it adds the outer product g_b L_k
-// Rt_{k+1} into dC_k's slice with atomicAdd (rows contiguous, so each
-// warp's atomics are coalesced) and, from the same loads of C_k's slice,
-// computes Rt_k = C_k[:, x, :] Rt_{k+1}. The atomics set its time where many
-// samples share a slice (8.7e9 of them at the design shape), and their
-// order changes from run to run: it is not bitwise reproducible (float32
-// agrees with the plain version to ~1e-6 of its largest entry, float64 to
-// ~1e-15).
+// training step's B/I = 32 among them) takes the forward's lane groups and
+// coordinate windows, and keeps its right interface in registers up to rank
+// 128 (2 or 4 columns a lane above 32, a template parameter: there it
+// measured faster than in shared memory, PERF.md). A sample checks its
+// coordinates, recomputes its left interfaces L_0..L_{N-1} into the group's
+// slice of shared memory (kept in registers, as a stack shifted each mode,
+// they measured slower on the card: PERF.md), then sweeps right to left with
+// Rt in registers: at mode k lane s adds g_b L_k[r] Rt_{k+1}[s] into
+// dC_k[r, x, s], L_k[r] a shared-memory broadcast, and the same loads of
+// C_k's slice give Rt_k, each row summed across the group by a butterfly.
+// What bounded the one-warp-a-sample kernel it replaces was global atomics:
+// at cp[X]'s shape every slice of 25 entries is shared by 32768 samples, and
+// they serialize in L2. So a core whose gradient fits the held budget
+// (_HELD_BYTES: cp[X]'s 800-entry cores, OPT4's 8 x 64 x 8 core in float64)
+// and has at least _PRIV_MIN samples a slice is privatized: the block sums
+// into its own copy in shared memory with shared-memory atomics (a
+// compare-and-swap loop on this card, which has no shared float add) and adds
+// the copy's nonzero entries once to dC. The other cores (training's 16 x 256
+// x 16, at 32 samples a slice) take global atomics without a return value
+// (RED). What bounds it now: the instructions of each row (an atomic, a load,
+// a butterfly of log2 W shuffles) and the shared atomics' retries where
+// samples of a block share a slice. The order of the atomics changes from run
+// to run, so it is not bitwise reproducible (float32 agrees with the plain
+// version to ~1e-6 of its largest entry, float64 to ~1e-15).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <vector>
+
 namespace {
 
 constexpr int MAX_MODES = 128;  // ops/tt_eval.py: MAX_MODES
-constexpr int WARPS = 8;        // warps per block when shared memory allows
+constexpr int WARPS = 8;        // per-sample warps per block, fewer where buffers need it (_WARPS)
 constexpr unsigned FULL = 0xffffffffu;
 
 template <typename T>
@@ -118,19 +159,29 @@ struct TT {
   T* grad[MAX_MODES];  // backward only
   int rank[MAX_MODES + 1];
   int dim[MAX_MODES];
+  int at[MAX_MODES];   // core k's place in the block's shared copy (elements), -1 if not held
   int N;
-  int maxr;   // max of rank[0..N]
-  int lsize;  // rank[0] + ... + rank[N-1]: the backward's left interfaces
+  int maxr;            // max of rank[0..N-1]: the widest interface a sample carries
+  int lsize;           // rank[0] + ... + rank[N-1]: one sample's left interfaces
+  int held;            // elements of the shared copy, rounded up to 4
 };
 
-// The warp's lanes as G groups of W lanes for a slice ncols wide.
-struct Lanes {
-  int W, G, w, g;
-};
-
-__device__ __forceinline__ Lanes lanes_for(int ncols, int lane) {
-  const int W = ncols >= 32 ? 32 : 1 << (32 - __clz(ncols - 1));
-  return {W, 32 / W, lane & (W - 1), lane / W};
+// The per-sample kernels' shared memory (ops/tt_eval.py: _per_sample_smem):
+// the held copy (staged cores, or privatized gradients, each rounded up to 4
+// elements), then `warps` per-warp buffers of `per_warp` elements.
+__host__ __device__ constexpr int64_t round4(int64_t n) { return (n + 3) & ~(int64_t)3; }
+__host__ __device__ constexpr size_t per_sample_smem(int64_t held, int warps, int64_t per_warp,
+                                                     size_t itemsize) {
+  return (size_t)(held + warps * per_warp) * itemsize;
+}
+// Elements of one warp's buffers (ops/tt_eval.py: _warp_elems): with the
+// interface in shared memory (cols 0, one sample a warp) two interfaces and,
+// backward, the left ones; else, backward, the left interfaces of each of
+// the warp's 32 / W samples.
+__host__ __device__ constexpr int64_t warp_elems(bool backward, int W, int cols, int maxr,
+                                                 int lsize) {
+  return cols == 0 ? (backward ? lsize : 0) + 2 * (int64_t)maxr
+                   : (backward ? (int64_t)(32 / W) * lsize : 0);
 }
 
 template <typename T>
@@ -138,143 +189,445 @@ __device__ __forceinline__ T nan_of() {
   return sizeof(T) == 4 ? (T)nanf("") : (T)nan("");
 }
 
-// Coordinate of mode k wrapped into [0, I), or -1 when out of range.
-template <typename Idx>
-__device__ __forceinline__ int64_t coord(const Idx* xb, int k, int I) {
-  int64_t x = (int64_t)xb[k];
-  if (x < -(int64_t)I || x >= (int64_t)I) return -1;
-  return x < 0 ? x + I : x;
+// A lane group's coordinates. Lane w of the group holds the wrapped
+// coordinate of mode kw + w of the group's sample (-1 when out of range),
+// loaded W modes at a time: the warp's lanes read neighbouring addresses of
+// their samples' rows of X. at(k) hands the group mode k's by shuffle; the
+// window moves with k (forwards or backwards), the same for every lane.
+template <typename T>
+struct Coords {
+  const TT<T>& tt;
+  const void* X;
+  int64_t row;  // b * N
+  bool wide, live;
+  int w, W, kw, xw;
+
+  __device__ __forceinline__ int at(int k) {
+    if (k < kw || k >= kw + W) {
+      kw = k & ~(W - 1);
+      const int m = kw + w;
+      xw = 0;
+      if (live && m < tt.N) {
+        const int64_t x = wide ? __ldg((const long long*)X + row + m)
+                               : (int64_t)__ldg((const int*)X + row + m);
+        const int I = tt.dim[m];
+        xw = x < -(int64_t)I || x >= I ? -1 : (int)(x < 0 ? x + I : x);
+      }
+    }
+    return __shfl_sync(FULL, xw, k - kw, W);
+  }
+};
+
+// A load of element o of a slice: from shared memory (SH) or through L1.
+template <typename T, bool SH>
+__device__ __forceinline__ T load(const T* p, int64_t o) {
+  if constexpr (SH) return p[o];
+  else return __ldg(p + o);
 }
 
-// vout[s] = sum_r vin[r] C[r*rs + s] for r < nrows, s < ncols: one warp.
+// Mode k's slice at coordinate x: of the core, of the block's shared copy
+// (the staged core, or the privatized gradient) and of the gradient.
 template <typename T>
-__device__ __forceinline__ void vecmat(const T* vin, T* vout,
-                                       const T* __restrict__ C, int64_t rs,
-                                       int nrows, int ncols, int lane) {
-  const Lanes ln = lanes_for(ncols, lane);
-  for (int s0 = 0; s0 < ncols; s0 += ln.W) {
-    const int s = s0 + ln.w;
-    T acc = 0;
-    if (s < ncols) {
+struct Slice {
+  const T* C;
+  T* sh;
+  T* dC;
+  int64_t rs;  // stride of r
+  int Rl, Rr;
+  bool held;
+  __device__ __forceinline__ Slice(const TT<T>& tt, T* copy, int k, int x) {
+    Rl = tt.rank[k];
+    Rr = tt.rank[k + 1];
+    rs = (int64_t)tt.dim[k] * Rr;
+    const int64_t o = (int64_t)x * Rr;
+    C = tt.core[k] + o;
+    sh = copy + tt.at[k] + o;
+    dC = tt.grad[k] ? tt.grad[k] + o : nullptr;
+    held = tt.at[k] >= 0;
+  }
+};
+
+// One mode of a lane group's chain, the interface in registers:
+//   out[s] = sum_{r < Rl} in[r] C[r rs + s]  for s < Rr,
+// lane w holding entries w + W j (j < CPL) of in and out. in[r] comes from
+// lane r % W by shuffle; neighbouring lanes read neighbouring columns of row
+// r, and no load waits on another. A lane past Rr reads column Rr - 1 and
+// computes a value that no one reads, so the loop has no branch. Each
+// out[s] sums r in increasing order. C in shared memory when SH.
+template <typename T, int W, int CPL, bool SH>
+__device__ __forceinline__ void step(const T (&in)[CPL], T (&out)[CPL], const T* C, int64_t rs,
+                                     int Rl, int Rr, int w) {
+  int col[CPL];
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) {
+    out[j] = T(0);
+    col[j] = min(w + j * W, Rr - 1);
+  }
+#pragma unroll
+  for (int jr = 0; jr < CPL; ++jr) {
+    const T* p = C + (int64_t)jr * W * rs;
+#pragma unroll 4  // fully unrolled, the hoisted loads take twice the registers
+    for (int src = 0; src < W; ++src, p += rs) {
+      if (jr * W + src >= Rl) break;  // the same for every lane
+      const T a = __shfl_sync(FULL, in[jr], src, W);
+#pragma unroll
+      for (int jc = 0; jc < CPL; ++jc)
+        if (jc == 0 || jc * W < Rr) out[jc] = fma(a, load<T, SH>(p, col[jc]), out[jc]);
+    }
+  }
+}
+
+// The last mode, only column 0, read from device memory: sum_r in[r]
+// C[r rs]. Lane w takes rows w + W j, then the group sums by a butterfly;
+// every lane ends with it. (From shared memory the row loop of `step` is
+// faster: its reads are broadcasts and its shuffles do not wait on each
+// other; PERF.md.)
+template <typename T, int W, int CPL>
+__device__ __forceinline__ T last_step(const T (&in)[CPL], const T* __restrict__ C, int64_t rs,
+                                       int Rl, int w) {
+  T part = T(0);
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) {
+    const int r = w + j * W;
+    if (j == 0 || j * W < Rl) {
+      const T c = __ldg(C + (int64_t)min(r, Rl - 1) * rs);
+      if (r < Rl) part = fma(in[j], c, part);
+    }
+  }
+#pragma unroll
+  for (int off = W >> 1; off > 0; off >>= 1) part += __shfl_xor_sync(FULL, part, off, W);
+  return part;
+}
+
+// The same with the interface in shared memory, one warp a sample (ranks
+// beyond the register template): lane s computes columns s, s + 32, ...
+template <typename T>
+__device__ __forceinline__ void step_shared(const T* in, T* out, const T* __restrict__ C,
+                                            int64_t rs, int Rl, int Rr, int lane) {
+  for (int s = lane; s < Rr; s += 32) {
+    T acc = T(0);
 #pragma unroll 4
-      for (int r = ln.g; r < nrows; r += ln.G) acc += vin[r] * __ldg(C + r * rs + s);
-    }
-    for (int off = ln.W; off < 32; off <<= 1) acc += __shfl_xor_sync(FULL, acc, off);
-    if (ln.g == 0 && s < ncols) vout[s] = acc;
+    for (int r = 0; r < Rl; ++r) acc = fma(in[r], __ldg(C + r * rs + s), acc);
+    out[s] = acc;
   }
   __syncwarp();
 }
 
-// dC[r*rs + s] += g L[r] rt[s] for r < nrows, s < ncols and, when `next`,
-// rn[r] = sum_s C[r*rs + s] rt[s]: one warp.
+// last_step with the interface in shared memory: the warp's lanes take
+// rows lane, lane + 32, ..., then sum by a butterfly.
 template <typename T>
-__device__ __forceinline__ void outer_matvec(const T* L, T g, const T* rt, T* rn,
-                                             const T* __restrict__ C, T* dC,
-                                             int64_t rs, int nrows, int ncols,
-                                             bool next, int lane) {
-  const Lanes ln = lanes_for(ncols, lane);
-  for (int r0 = 0; r0 < nrows; r0 += ln.G) {
-    const int r = r0 + ln.g;
-    T acc = 0;
-    if (r < nrows) {
-      const T gl = g * L[r];
-      for (int s = ln.w; s < ncols; s += ln.W) {
-        const T t = rt[s];
-        atomicAdd(dC + r * rs + s, gl * t);
-        if (next) acc += __ldg(C + r * rs + s) * t;
-      }
-    }
-    if (next) {
-      for (int off = 1; off < ln.W; off <<= 1) acc += __shfl_xor_sync(FULL, acc, off);
-      if (ln.w == 0 && r < nrows) rn[r] = acc;
-    }
-  }
-  __syncwarp();
+__device__ __forceinline__ T last_shared(const T* in, const T* __restrict__ C, int64_t rs, int Rl,
+                                         int lane) {
+  T part = T(0);
+  for (int r = lane; r < Rl; r += 32) part = fma(in[r], __ldg(C + r * rs), part);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(FULL, part, off);
+  return part;
 }
 
-template <typename T, typename Idx>
-__global__ void __launch_bounds__(WARPS * 32)
-    tt_eval_kernel(const __grid_constant__ TT<T> tt, const Idx* __restrict__ X,
-                   int64_t B, T* __restrict__ out, int* flag) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wpb = blockDim.x >> 5;
-  T* const va = reinterpret_cast<T*>(smem_raw) + (int64_t)warp * 2 * tt.maxr;
-  T* const vb = va + tt.maxr;
-  for (int64_t b = (int64_t)blockIdx.x * wpb + warp; b < B; b += (int64_t)gridDim.x * wpb) {
-    const Idx* xb = X + b * tt.N;
-    T* v = va;
-    T* w = vb;
-    for (int r = lane; r < tt.rank[0]; r += 32) v[r] = T(1);
-    __syncwarp();
-    bool ok = true;
-    for (int k = 0; k < tt.N; ++k) {
-      const int64_t x = coord(xb, k, tt.dim[k]);  // the same for every lane
-      if (x < 0) {
-        ok = false;
-        break;
+// One mode of the backward's right sweep for a lane group, the right
+// interface rt in registers (lane w: entries w + W j; zero past ncols):
+//   dst[r rs + s] += g L[r] rt[s]  for r < Rl, s < ncols   (when `active`)
+//   rn[r] = sum_s C[r rs + s] rt[s]                         (when `next`)
+// L[r] from `left` (a broadcast from shared memory).
+// Lane s adds each dst entry by a predicated atomic, into the block's
+// shared copy (PRIV) or the gradient itself; the same loads of C give rn,
+// each row summed across the group by a butterfly and kept by lane r % W.
+// A lane past ncols reads column ncols - 1 and leaves it out of its part
+// (its zero times an infinite entry would put a NaN in the row's sum).
+template <typename T, int W, int CPL, bool PRIV, typename Left>
+__device__ __forceinline__ void right_step(const Left& left, T g, const T (&rt)[CPL],
+                                           T (&rn)[CPL], const T* __restrict__ C, T* dst,
+                                           int64_t rs, int Rl, int ncols, bool next, bool active,
+                                           int w) {
+  int col[CPL];
+  bool in[CPL];
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) {
+    rn[j] = T(0);
+    col[j] = min(w + j * W, ncols - 1);
+    in[j] = w + j * W < ncols;
+  }
+#pragma unroll
+  for (int jr = 0; jr < CPL; ++jr) {
+#pragma unroll(W < 8 ? W : 8)
+    for (int src = 0; src < W; ++src) {
+      if (jr * W + src >= Rl) break;  // the same for every lane
+      const T a = g * left(jr, src);
+      const int64_t o = (int64_t)(jr * W + src) * rs;
+      T part = T(0);
+#pragma unroll
+      for (int jc = 0; jc < CPL; ++jc) {
+        if (jc > 0 && jc * W >= ncols) break;  // the same for every lane; slot 0 always is
+        if (active && in[jc]) atomicAdd(dst + o + col[jc], a * rt[jc]);
+        const T c = __ldg(C + o + col[jc]);
+        part = in[jc] ? fma(c, rt[jc], part) : part;
       }
-      const int Rr = tt.rank[k + 1];
-      vecmat(v, w, tt.core[k] + x * Rr, (int64_t)tt.dim[k] * Rr, tt.rank[k],
-             k == tt.N - 1 ? 1 : Rr, lane);
-      T* t = v;
-      v = w;
-      w = t;
+      if (next) {
+#pragma unroll
+        for (int off = W >> 1; off > 0; off >>= 1) part += __shfl_xor_sync(FULL, part, off, W);
+        rn[jr] = w == src ? part : rn[jr];
+      }
     }
-    if (lane == 0) {
-      out[b] = ok ? v[0] : nan_of<T>();
+  }
+}
+
+template <typename T, int W>
+struct SharedLeft {  // L[r] of a left interface in shared memory
+  const T* L;
+  __device__ __forceinline__ T operator()(int jr, int src) const { return L[jr * W + src]; }
+};
+
+// The backward's last mode, only column 0 (Rt_N = e_0), into the gradient
+// in device memory: dC[r rs] += g L[r] and rn[r] = C[r rs], which is
+// Rt_{N-1}; lane w takes rows w + W j, with no shuffle. (Into a privatized
+// copy, right_step's one row at a time is faster: the rows' shared atomics
+// then meet fewer others; PERF.md.)
+template <typename T, int W, int CPL>
+__device__ __forceinline__ void right_last(const T* L, T g, T (&rn)[CPL], const T* __restrict__ C,
+                                           T* dC, int64_t rs, int Rl, bool next, bool active,
+                                           int w) {
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) {
+    const int r = w + j * W, rc = min(r, Rl - 1);
+    rn[j] = T(0);
+    if (j == 0 || j * W < Rl) {
+      if (active && r < Rl) atomicAdd(dC + rc * rs, g * L[rc]);
+      if (next && r < Rl) rn[j] = __ldg(C + rc * rs);
+    }
+  }
+}
+
+// Mode k of the right sweep, into the slice's shared copy where it is held,
+// else into the gradient; the last mode by right_last in the instances
+// whose last core is not held (LAST)
+template <typename T, int W, int CPL, bool LAST>
+__device__ __forceinline__ void right_mode(const T* L, T g, const T (&rt)[CPL], T (&rn)[CPL],
+                                           const Slice<T>& sl, bool last, bool next, bool active,
+                                           int w) {
+  const SharedLeft<T, W> left{L};
+  const int ncols = last ? 1 : sl.Rr;
+  if (LAST && last)
+    right_last<T, W, CPL>(L, g, rn, sl.C, sl.dC, sl.rs, sl.Rl, next, active, w);
+  else if (sl.held)
+    right_step<T, W, CPL, true>(left, g, rt, rn, sl.C, sl.sh, sl.rs, sl.Rl, ncols, next, active,
+                                w);
+  else
+    right_step<T, W, CPL, false>(left, g, rt, rn, sl.C, sl.dC, sl.rs, sl.Rl, ncols, next, active,
+                                 w);
+}
+
+template <typename T>
+__device__ __forceinline__ void cp_async_elem(T* dst, const T* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src), "n"(sizeof(T)));
+}
+
+// The value of the TT at each row of X: a lane group of W lanes per sample,
+// 32 / W samples a warp, grid-stride over the warps' groups of samples.
+// CPL = 1: the interface in registers, a column a lane; CPL = 0: in shared
+// memory, one warp a sample. STAGED (CPL = 1 only): the block first copies
+// every core into shared memory (cp.async) and reads the slices there;
+// else through L1, the last mode by last_step.
+template <typename T, int W, int CPL, bool STAGED>
+__global__ void __launch_bounds__(WARPS * 32)
+    tt_eval_kernel(const __grid_constant__ TT<T> tt, const void* __restrict__ X, int wide,
+                   int64_t B, T* __restrict__ out, int* flag) {
+  static_assert(CPL == 0 || CPL == 1, "the forward keeps at most a column a lane");
+  static_assert(!STAGED || CPL == 1, "staged cores go with the interface in registers");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const held = reinterpret_cast<T*>(smem_raw);
+  constexpr int G = 32 / W;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const int w = lane & (W - 1), N = tt.N;
+  if constexpr (STAGED) {
+    for (int k = 0; k < N; ++k) {
+      const int64_t n = (int64_t)tt.rank[k] * tt.dim[k] * tt.rank[k + 1];
+      for (int64_t e = threadIdx.x; e < n; e += blockDim.x)
+        cp_async_elem(held + tt.at[k] + e, tt.core[k] + e);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();
+  }
+  T* const va = held + tt.held + (int64_t)warp * 2 * tt.maxr;  // CPL == 0
+  T* const vb = va + tt.maxr;
+  const int64_t units = (B + G - 1) / G;
+  for (int64_t u = (int64_t)blockIdx.x * warps + warp; u < units;
+       u += (int64_t)gridDim.x * warps) {
+    const int64_t b = u * G + lane / W;
+    Coords<T> cx{tt, X, b * N, wide != 0, b < B, w, W, -W, 0};
+    bool ok = true;
+    T value;
+    if constexpr (CPL > 0) {
+      T v[CPL], nv[CPL];
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) v[j] = T(1);  // ones(R_0); lanes past R_0 are never read
+      for (int k = 0; k < N; ++k) {
+        const int x = cx.at(k);  // the same for the group's lanes
+        ok = ok && x >= 0;
+        const Slice<T> sl(tt, held, k, max(x, 0));
+        if (!STAGED && k == N - 1) {
+          v[0] = last_step<T, W, CPL>(v, sl.C, sl.rs, sl.Rl, w);
+          break;
+        }
+        const int Rr = k == N - 1 ? 1 : sl.Rr;
+        if constexpr (STAGED) step<T, W, CPL, true>(v, nv, sl.sh, sl.rs, sl.Rl, Rr, w);
+        else step<T, W, CPL, false>(v, nv, sl.C, sl.rs, sl.Rl, Rr, w);
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) v[j] = nv[j];
+      }
+      value = v[0];
+    } else {
+      T* v = va;
+      T* nv = vb;
+      for (int r = lane; r < tt.rank[0]; r += 32) v[r] = T(1);
+      __syncwarp();
+      for (int k = 0; k < N; ++k) {
+        const int x = cx.at(k);
+        ok = ok && x >= 0;
+        const Slice<T> sl(tt, held, k, max(x, 0));
+        if (k == N - 1) {
+          value = last_shared(v, sl.C, sl.rs, sl.Rl, lane);
+          break;
+        }
+        step_shared(v, nv, sl.C, sl.rs, sl.Rl, sl.Rr, lane);
+        T* t = v;
+        v = nv;
+        nv = t;
+      }
+      __syncwarp();  // every lane has read v before the next sample writes
+    }
+    if (b < B && w == 0) {
+      out[b] = ok ? value : nan_of<T>();
       if (!ok) atomicOr(flag, 1);
     }
-    __syncwarp();
   }
 }
 
-template <typename T, typename Idx>
+// The cores' gradient of sum_b g_b value_b, with the lane groups of the
+// forward. A sample first checks all its coordinates (one with any out of
+// range sets *flag and adds nothing), sweeps left to right for L_0..L_{N-1},
+// kept in the group's slice of shared memory, then right to left
+// (right_step) with Rt in registers. A core with tt.at[k] >= 0 sums into
+// the block's shared copy, zeroed first and added once to the gradient at
+// the end; the others take global atomics. LAST: the last core is not
+// held, and its mode takes right_last. CPL = 0: every interface in shared
+// memory, one warp a sample.
+template <typename T, int W, int CPL, bool LAST>
 __global__ void __launch_bounds__(WARPS * 32)
-    tt_eval_backward_kernel(const __grid_constant__ TT<T> tt,
-                            const Idx* __restrict__ X, const T* __restrict__ g,
-                            int64_t B, int* flag) {
+    tt_eval_backward_kernel(const __grid_constant__ TT<T> tt, const void* __restrict__ X,
+                            int wide, const T* __restrict__ g, int64_t B, int* flag) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wpb = blockDim.x >> 5;
-  T* const Lb = reinterpret_cast<T*>(smem_raw) +
-                (int64_t)warp * (tt.lsize + 2 * tt.maxr);  // L_k at sum_{j<k} rank[j]
-  T* const ra = Lb + tt.lsize;
-  T* const rb = ra + tt.maxr;
-  const int N = tt.N;
-  for (int64_t b = (int64_t)blockIdx.x * wpb + warp; b < B; b += (int64_t)gridDim.x * wpb) {
-    const Idx* xb = X + b * N;
-    bool ok = true;
-    for (int k = 0; k < N; ++k) ok = ok && coord(xb, k, tt.dim[k]) >= 0;
-    if (!ok) {  // the same for every lane
-      if (lane == 0) atomicOr(flag, 1);
-      continue;
+  T* const held = reinterpret_cast<T*>(smem_raw);
+  constexpr int G = 32 / W;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const int w = lane & (W - 1), N = tt.N;
+  for (int e = threadIdx.x; e < tt.held; e += blockDim.x) held[e] = T(0);
+  __syncthreads();
+  T* const wbuf = held + tt.held + (int64_t)warp * warp_elems(true, W, CPL, tt.maxr, tt.lsize);
+  const int64_t units = (B + G - 1) / G;
+  for (int64_t u = (int64_t)blockIdx.x * warps + warp; u < units;
+       u += (int64_t)gridDim.x * warps) {
+    const int64_t b = u * G + lane / W;
+    const bool live = b < B;
+    Coords<T> cx{tt, X, b * N, wide != 0, live, w, W, -W, 0};
+    bool ok = live;
+    for (int k = 0; k < N; ++k) ok = (cx.at(k) >= 0) && ok;
+    if (live && !ok && w == 0) atomicOr(flag, 1);
+    const T gb = live ? g[b] : T(0);
+    if constexpr (CPL > 0) {
+      T v[CPL], nv[CPL], rt[CPL], rn[CPL];
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) {
+        v[j] = T(1);
+        rt[j] = w + j * W == 0 ? T(1) : T(0);  // Rt_N = e_0: only column 0 of the last mode
+      }
+      T* const Lg = wbuf + (int64_t)(lane / W) * tt.lsize;  // L_k at rank[0] + .. + rank[k-1]
+#pragma unroll
+      for (int j = 0; j < CPL; ++j)
+        if (w + j * W < tt.rank[0]) Lg[w + j * W] = v[j];
+      int off = 0;
+      for (int k = 0; k + 1 < N; ++k) {
+        const Slice<T> sl(tt, held, k, max(cx.at(k), 0));
+        step<T, W, CPL, false>(v, nv, sl.C, sl.rs, sl.Rl, sl.Rr, w);
+        off += sl.Rl;
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) {
+          v[j] = nv[j];
+          if (w + j * W < sl.Rr) Lg[off + w + j * W] = v[j];
+        }
+      }
+      __syncwarp();
+      for (int k = N - 1; k >= 0; --k) {
+        const Slice<T> sl(tt, held, k, max(cx.at(k), 0));
+        right_mode<T, W, CPL, LAST>(Lg + off, gb, rt, rn, sl, k == N - 1, k > 0, ok, w);
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) rt[j] = rn[j];
+        if (k > 0) off -= tt.rank[k - 1];
+      }
+      __syncwarp();  // the group's reads of Lg are done before the next sample writes
+    } else {
+      T* const Lb = wbuf;  // L_k at rank[0] + .. + rank[k-1]
+      T* ra = Lb + tt.lsize;
+      T* rb = ra + tt.maxr;
+      for (int r = lane; r < tt.rank[0]; r += 32) Lb[r] = T(1);
+      __syncwarp();
+      int off = 0;
+      for (int k = 0; k + 1 < N; ++k) {
+        const Slice<T> sl(tt, held, k, max(cx.at(k), 0));
+        step_shared(Lb + off, Lb + off + sl.Rl, sl.C, sl.rs, sl.Rl, sl.Rr, lane);
+        off += sl.Rl;
+      }
+      if (lane == 0) ra[0] = T(1);  // Rt_N = e_0: only column 0 of the last mode
+      __syncwarp();
+      for (int k = N - 1; k >= 0; --k) {
+        const Slice<T> sl(tt, held, k, max(cx.at(k), 0));
+        if (LAST && k == N - 1) {  // as right_last: a row a lane
+          for (int r = lane; r < sl.Rl; r += 32) {
+            if (ok) atomicAdd(sl.dC + r * sl.rs, gb * Lb[off + r]);
+            rb[r] = __ldg(sl.C + r * sl.rs);
+          }
+          __syncwarp();
+          T* t = ra;
+          ra = rb;
+          rb = t;
+          if (k > 0) off -= tt.rank[k - 1];
+          continue;
+        }
+        const int ncols = k == N - 1 ? 1 : sl.Rr;
+        for (int r = 0; r < sl.Rl; ++r) {
+          const T a = gb * Lb[off + r];
+          T part = T(0);
+          for (int s = lane; s < ncols; s += 32) {
+            const T t = ra[s];
+            const int64_t o = r * sl.rs + s;
+            if (ok) {
+              if (sl.held) atomicAdd(sl.sh + o, a * t);
+              else atomicAdd(sl.dC + o, a * t);
+            }
+            part = fma(__ldg(sl.C + o), t, part);
+          }
+          if (k > 0) {
+            for (int d = 16; d > 0; d >>= 1) part += __shfl_xor_sync(FULL, part, d);
+            if (lane == 0) rb[r] = part;
+          }
+        }
+        __syncwarp();
+        T* t = ra;
+        ra = rb;
+        rb = t;
+        if (k > 0) off -= tt.rank[k - 1];
+      }
     }
-    for (int r = lane; r < tt.rank[0]; r += 32) Lb[r] = T(1);
-    __syncwarp();
-    int off = 0;
-    for (int k = 0; k < N - 1; ++k) {
-      const int Rr = tt.rank[k + 1];
-      vecmat(Lb + off, Lb + off + tt.rank[k], tt.core[k] + coord(xb, k, tt.dim[k]) * Rr,
-             (int64_t)tt.dim[k] * Rr, tt.rank[k], Rr, lane);
-      off += tt.rank[k];
-    }
-    const T gb = g[b];
-    T* rt = ra;
-    T* rn = rb;
-    if (lane == 0) rt[0] = T(1);  // Rt_N = e_0: only column 0 of the last mode
-    __syncwarp();
-    int ncols = 1;
-    for (int k = N - 1; k >= 0; --k) {
-      const int Rr = tt.rank[k + 1];
-      const int64_t at = coord(xb, k, tt.dim[k]) * Rr;
-      outer_matvec(Lb + off, gb, rt, rn, tt.core[k] + at, tt.grad[k] + at,
-                   (int64_t)tt.dim[k] * Rr, tt.rank[k], ncols, k > 0, lane);
-      T* t = rt;
-      rt = rn;
-      rn = t;
-      ncols = tt.rank[k];
-      if (k > 0) off -= tt.rank[k - 1];
+  }
+  __syncthreads();
+  for (int k = 0; k < N; ++k) {  // the block's sums, once into each privatized gradient
+    if (tt.at[k] < 0) continue;
+    const int64_t n = (int64_t)tt.rank[k] * tt.dim[k] * tt.rank[k + 1];
+    for (int64_t e = threadIdx.x; e < n; e += blockDim.x) {
+      const T v = held[tt.at[k] + e];
+      if (v != T(0)) atomicAdd(tt.grad[k] + e, v);
     }
   }
 }
@@ -700,47 +1053,140 @@ int slice_grad(int I, int rows, int cols, const int64_t* bounds, const int* keys
 
 template <typename T>
 TT<T> make_tt(int N, const void* const* cores, void* const* grads, const int* ranks,
-              const int* dims) {
+              const int* dims, const int* held) {
   TT<T> tt;
   tt.N = N;
   tt.maxr = 0;
   tt.lsize = 0;
-  for (int k = 0; k <= N; ++k) {
-    tt.rank[k] = ranks[k];
-    tt.maxr = ranks[k] > tt.maxr ? ranks[k] : tt.maxr;
-  }
+  tt.held = 0;
+  for (int k = 0; k <= N; ++k) tt.rank[k] = ranks[k];
   for (int k = 0; k < N; ++k) {
     tt.core[k] = (const T*)cores[k];
     tt.grad[k] = grads ? (T*)grads[k] : nullptr;
     tt.dim[k] = dims[k];
+    tt.maxr = ranks[k] > tt.maxr ? ranks[k] : tt.maxr;
     tt.lsize += ranks[k];
+    tt.at[k] = -1;
+    if (held && held[k]) {
+      tt.at[k] = tt.held;
+      tt.held += (int)round4((int64_t)ranks[k] * dims[k] * ranks[k + 1]);
+    }
   }
   return tt;
 }
 
-// Launch `kernel` with one warp per sample in flight: WARPS warps a block
-// (fewer when a warp's shared memory, `per_warp` bytes, needs it) and a grid
-// of at most 16 blocks per SM, striding over the samples.
+// Whether W lanes a sample and `cols` interface columns a lane (0: the
+// interface in shared memory, W = 32) carry ranks up to maxr; the forward
+// keeps at most one column a lane.
+bool plan_ok(int maxr, int W, int cols, int warps, bool backward) {
+  if (W < 1 || W > 32 || (W & (W - 1)) || warps < 1 || warps > WARPS) return false;
+  if (cols == 0) return W == 32;
+  if (cols != 1 && (!backward || (cols != 2 && cols != 4))) return false;
+  return (cols == 1 || W == 32) && (int64_t)W * cols >= maxr;
+}
+
+// The kernel instance of W lanes and `cols` columns a lane (plan_ok holds):
+// W = 1..32 at one column -> 0..5, W = 32 at 2 and 4 columns -> 6, 7, and
+// the interface in shared memory -> 8
+int instance(int W, int cols) {
+  return cols == 1 ? __builtin_ctz(W) : cols == 0 ? 8 : 5 + __builtin_ctz(cols);
+}
+
+// The blocks of `kernel` that the card holds at once, at `warps` warps and
+// `smem` bytes a block: asked of the runtime once per kernel, shape and
+// device and kept, since the queries cost more host time than a launch
+struct Wave {
+  const void* kernel;
+  int warps, device;
+  size_t smem;
+  int64_t blocks;
+};
+
+template <typename K>
+cudaError_t wave(K kernel, int warps, size_t smem, int64_t* blocks) {
+  static std::mutex mutex;
+  static std::vector<Wave> waves;
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  const std::lock_guard<std::mutex> lock(mutex);
+  for (const Wave& w : waves) {
+    if (w.kernel == (const void*)kernel && w.warps == warps && w.smem == smem &&
+        w.device == device) {
+      *blocks = w.blocks;
+      return cudaSuccess;
+    }
+  }
+  int sms = 0, per_sm = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, warps * 32, smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *blocks = (int64_t)sms * per_sm;
+  waves.push_back({(const void*)kernel, warps, device, smem, *blocks});
+  return cudaSuccess;
+}
+
+// Launch `kernel` on a persistent grid: `warps` warps a block, as many
+// blocks as fit the card at once (fewer when the samples need fewer), each
+// striding over the warps' groups of 32 / W samples.
 template <typename K, typename... Args>
-int launch(K kernel, size_t per_warp, int64_t B, cudaStream_t stream, Args... args) {
-  const size_t max_smem = 227 * 1024;
-  if (per_warp > max_smem) return (int)cudaErrorInvalidValue;
-  if (B == 0) return 0;
-  int wpb = WARPS;
-  while (wpb > 1 && wpb * per_warp > max_smem) wpb >>= 1;
-  const size_t smem = wpb * per_warp;
+int launch(K kernel, int warps, size_t smem, int64_t units, cudaStream_t stream, Args... args) {
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSuccess;
   if (smem > 48 * 1024)
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  int device = 0, sms = 0;
-  if (e == cudaSuccess) e = cudaGetDevice(&device);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  int64_t cap = 0;
+  if (e == cudaSuccess) e = wave(kernel, warps, smem, &cap);
   if (e != cudaSuccess) return (int)e;
-  const int64_t need = (B + wpb - 1) / wpb;
-  const int64_t cap = (int64_t)sms * 16;
+  const int64_t need = (units + warps - 1) / warps;
   const unsigned blocks = (unsigned)(need < cap ? need : cap);
-  kernel<<<blocks, wpb * 32, smem, stream>>>(args...);
+  kernel<<<blocks, warps * 32, smem, stream>>>(args...);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int tt_eval_launch(int itype, int N, const void* const* cores, const int* ranks, const int* dims,
+                   const void* X, int64_t B, void* out, int* flag, int W, int cols, int staged,
+                   int warps, cudaStream_t s) {
+  if (staged && cols != 1) return (int)cudaErrorInvalidValue;
+  std::vector<int> held(N, staged ? 1 : 0);
+  const TT<T> tt = make_tt<T>(N, cores, nullptr, ranks, dims, held.data());
+  if (!plan_ok(tt.maxr, W, cols, warps, false)) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      per_sample_smem(tt.held, warps, warp_elems(false, W, cols, tt.maxr, tt.lsize), sizeof(T));
+  using K = void (*)(TT<T>, const void*, int, int64_t, T*, int*);
+#define TNT_FWD(W) \
+  { tt_eval_kernel<T, W, 1, false>, tt_eval_kernel<T, W, 1, true> }
+  const K kernels[][2] = {TNT_FWD(1), TNT_FWD(2),  TNT_FWD(4),
+                          TNT_FWD(8), TNT_FWD(16), TNT_FWD(32)};
+#undef TNT_FWD
+  const K kernel =
+      cols == 0 ? tt_eval_kernel<T, 32, 0, false> : kernels[instance(W, 1)][staged != 0];
+  return launch(kernel, warps, smem, (B + 32 / W - 1) / (32 / W), s, tt, X, (int)(itype == 1),
+                (int64_t)B, (T*)out, flag);
+}
+
+template <typename T>
+int tt_eval_backward_launch(int itype, int N, const void* const* cores, void* const* grads,
+                            const int* ranks, const int* dims, const void* X, const void* g,
+                            int64_t B, int* flag, int W, int cols, const int* priv, int warps,
+                            cudaStream_t s) {
+  const TT<T> tt = make_tt<T>(N, cores, grads, ranks, dims, priv);
+  if (!plan_ok(tt.maxr, W, cols, warps, true)) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      per_sample_smem(tt.held, warps, warp_elems(true, W, cols, tt.maxr, tt.lsize), sizeof(T));
+  using K = void (*)(TT<T>, const void*, int, const T*, int64_t, int*);
+#define TNT_BWD(W, CPL) \
+  { tt_eval_backward_kernel<T, W, CPL, false>, tt_eval_backward_kernel<T, W, CPL, true> }
+  const K kernels[][2] = {TNT_BWD(1, 1),  TNT_BWD(2, 1),  TNT_BWD(4, 1),
+                          TNT_BWD(8, 1),  TNT_BWD(16, 1), TNT_BWD(32, 1),
+                          TNT_BWD(32, 2), TNT_BWD(32, 4), TNT_BWD(32, 0)};
+#undef TNT_BWD
+  return launch(kernels[instance(W, cols)][tt.at[N - 1] < 0], warps, smem,
+                (B + 32 / W - 1) / (32 / W), s, tt, X, (int)(itype == 1), (const T*)g, (int64_t)B,
+                flag);
 }
 
 }  // namespace
@@ -750,30 +1196,24 @@ int launch(K kernel, size_t per_warp, int64_t B, cudaStream_t stream, Args... ar
 // pointers to contiguous (ranks[k], dims[k], ranks[k+1]) cores, N <=
 // MAX_MODES; X is (B, N) row-major; *flag (zeroed by the caller) is set when
 // a coordinate is out of range. Each returns the cudaError_t of its launch
-// (0 on success) and neither synchronises nor allocates.
+// (0 on success) and neither synchronises nor allocates. The per-sample
+// entries take the plan of ops/tt_eval.py: _per_sample_plan: W lanes a
+// sample, `cols` interface columns a lane (0: in shared memory; the
+// forward keeps 1 or 0), `warps` a block; forward, `staged` cores; backward, per core, whether its
+// gradient is privatized (priv, N ints).
 extern "C" {
 
 int tnt_tt_eval(int dtype, int itype, int N, const void* const* cores, const int* ranks,
-                const int* dims, const void* X, long long B, void* out, int* flag,
-                void* stream) {
+                const int* dims, const void* X, long long B, void* out, int* flag, int W,
+                int cols, int staged, int warps, void* stream) {
   if (N < 1 || N > MAX_MODES) return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) {
-    const TT<float> tt = make_tt<float>(N, cores, nullptr, ranks, dims);
-    const size_t per = 2 * (size_t)tt.maxr * sizeof(float);
-    if (itype == 0)
-      return launch(tt_eval_kernel<float, int32_t>, per, B, s, tt, (const int32_t*)X,
-                    (int64_t)B, (float*)out, flag);
-    return launch(tt_eval_kernel<float, int64_t>, per, B, s, tt, (const int64_t*)X,
-                  (int64_t)B, (float*)out, flag);
-  }
-  const TT<double> tt = make_tt<double>(N, cores, nullptr, ranks, dims);
-  const size_t per = 2 * (size_t)tt.maxr * sizeof(double);
-  if (itype == 0)
-    return launch(tt_eval_kernel<double, int32_t>, per, B, s, tt, (const int32_t*)X,
-                  (int64_t)B, (double*)out, flag);
-  return launch(tt_eval_kernel<double, int64_t>, per, B, s, tt, (const int64_t*)X,
-                (int64_t)B, (double*)out, flag);
+  if (dtype == 0)
+    return tt_eval_launch<float>(itype, N, cores, ranks, dims, X, B, out, flag, W, cols, staged,
+                                 warps, s);
+  return tt_eval_launch<double>(itype, N, cores, ranks, dims, X, B, out, flag, W, cols, staged,
+                                warps, s);
 }
 
 // One middle mode k of the grouped forward (see tt_eval_grouped_kernel):
@@ -842,26 +1282,16 @@ int tnt_tt_eval_slice_grad(int dtype, int I, int rows, int cols, const void* bou
 
 int tnt_tt_eval_backward(int dtype, int itype, int N, const void* const* cores,
                          void* const* grads, const int* ranks, const int* dims,
-                         const void* X, const void* g, long long B, int* flag,
-                         void* stream) {
+                         const void* X, const void* g, long long B, int* flag, int W, int cols,
+                         const int* priv, int warps, void* stream) {
   if (N < 1 || N > MAX_MODES) return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) {
-    const TT<float> tt = make_tt<float>(N, cores, grads, ranks, dims);
-    const size_t per = ((size_t)tt.lsize + 2 * (size_t)tt.maxr) * sizeof(float);
-    if (itype == 0)
-      return launch(tt_eval_backward_kernel<float, int32_t>, per, B, s, tt,
-                    (const int32_t*)X, (const float*)g, (int64_t)B, flag);
-    return launch(tt_eval_backward_kernel<float, int64_t>, per, B, s, tt,
-                  (const int64_t*)X, (const float*)g, (int64_t)B, flag);
-  }
-  const TT<double> tt = make_tt<double>(N, cores, grads, ranks, dims);
-  const size_t per = ((size_t)tt.lsize + 2 * (size_t)tt.maxr) * sizeof(double);
-  if (itype == 0)
-    return launch(tt_eval_backward_kernel<double, int32_t>, per, B, s, tt,
-                  (const int32_t*)X, (const double*)g, (int64_t)B, flag);
-  return launch(tt_eval_backward_kernel<double, int64_t>, per, B, s, tt,
-                (const int64_t*)X, (const double*)g, (int64_t)B, flag);
+  if (dtype == 0)
+    return tt_eval_backward_launch<float>(itype, N, cores, grads, ranks, dims, X, g, B, flag, W,
+                                          cols, priv, warps, s);
+  return tt_eval_backward_launch<double>(itype, N, cores, grads, ranks, dims, X, g, B, flag, W,
+                                         cols, priv, warps, s);
 }
 
 }  // extern "C"

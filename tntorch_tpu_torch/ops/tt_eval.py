@@ -23,8 +23,19 @@ dispatcher ``tt_eval``) and of ``tntorch_tpu/parallel/mesh.py``'s
     through device memory between modes. Mode 0 is a lookup in ``C_0.sum(0)`` and
     the last mode a dot in the last launch's epilogue. Bitwise
     reproducible: each value is summed in a fixed order whatever the sort.
-  - *per sample* (every other shape, the training step's among them): one
-    warp per sample gathers its own slices, in one launch.
+  - *per sample* (every other shape: the training step's, ``cp[X]``,
+    completion, the cross validations): ``tt_eval_kernel`` in one launch, as
+    the pure `_per_sample_plan` lays it out. Each sample has a lane group of
+    W lanes sized to its ranks (8 samples a warp at ranks 3-4, 2 at rank
+    16); up to rank 32 a lane keeps its column of the running interface in
+    a register and each mode is a chain of shuffle-FMAs over coalesced
+    loads of the slice's rows; above, one warp a sample keeps it in shared
+    memory. Coordinates are loaded W modes at a time by neighbouring lanes
+    and handed out by shuffle; cores that fit ``_HELD_BYTES`` are staged in
+    shared memory once a block where ``_STAGE_MIN`` samples or more share
+    each staged element; the grid is persistent. Bounded by each mode's
+    instructions (its setup, then a shuffle-FMA a row) at small ranks, by
+    the L2 gathers of R x R slices at large ones. Bitwise reproducible.
 - ``tt_eval_backward_kernel``: the cores' gradient of ``sum_b g_b
   value_b``, ``dC_k[:, i, :] = sum_{b: x_bk = i} g_b L_k[b] (outer)
   Rt_{k+1}[b]``. It has no Pallas counterpart (JAX differentiates
@@ -42,11 +53,16 @@ dispatcher ``tt_eval``) and of ``tntorch_tpu/parallel/mesh.py``'s
     atomics, every entry summed in a fixed order: bitwise reproducible.
     Bounded by the interface launches and the FP32 FMAs of the middle
     reductions.
-  - *per sample* (every other shape, the training step's among them): one
-    warp per sample recomputes its interfaces and ``atomicAdd``s its outer
-    products into the slices, in one launch. The atomics bound it where
-    many samples share a slice, and their order varies: not bitwise
-    reproducible.
+  - *per sample* (every other shape, the training step's among them): the
+    forward's lane groups (with up to 4 interface columns a lane in
+    registers, to rank 128) recompute each sample's left interfaces into
+    shared memory, then sweep right to left, adding each outer product into
+    the gradient by atomics. A core whose gradient fits ``_HELD_BYTES`` and
+    has at least ``_PRIV_MIN`` samples per slice is privatized: each block
+    sums into a copy in shared memory and adds it once to the gradient, so
+    samples that share a slice no longer serialize on global atomics. Each
+    row's instructions and the atomics left bound it, and the atomics'
+    order varies: not bitwise reproducible.
 
 `TTEval` joins the two as a ``torch.autograd.Function`` that saves only the
 cores and X: the backward recomputes the interfaces. What bounds the kernels
@@ -71,7 +87,9 @@ from __future__ import annotations
 
 import bisect
 import ctypes
+import functools
 import sys
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -90,8 +108,9 @@ _GROUP_TILE, _GROUP_COLS, _GROUP_PAD = 128, 64, 4
 # a call when every middle mode has at least _GROUP_MIN samples per slice
 # (B >= G * I_k) and the slices the per-sample kernel would gather come to at
 # least _GROUP_MIN_BYTES, against which the grouped call's fixed cost (sorts
-# and bookkeeping, ~0.3-0.5 ms) is small
-_GROUP_MIN, _GROUP_MIN_BYTES = 64, 1 << 30
+# and bookkeeping, ~0.3-0.5 ms) is small (at R = 64 the per-sample kernel is
+# ahead through 64 samples per slice, the grouped one from 128)
+_GROUP_MIN, _GROUP_MIN_BYTES = 128, 1 << 30
 # The grouped backward's reduction (csrc/tt_eval.cu: slice_grad_kernel)
 # takes P sorted positions a block, 1 to 8 steps of _SLICE_TILE (SMAXP =
 # 1024 at most). From the crossover of whole calls on the card (PERF.md):
@@ -104,6 +123,17 @@ _BWD_MIN, _BWD_MIN_BYTES = 64, 1 << 30
 # The plain backward scatters its outer products in slices of at most this
 # many elements, so that large batches stay within device memory
 _CHUNK = 1 << 26
+# The per-sample kernels (csrc/tt_eval.cu: WARPS, the register template's
+# columns a lane): warps a block at most; the bytes of cores a block stages
+# (forward) or of gradients it privatizes (backward) in shared memory. From
+# the card (PERF.md): staging pays from _STAGE_MIN samples per staged element
+# (each block first waits for its copy, so a block needs many samples), a
+# privatized gradient from _PRIV_MIN samples per slice (B >= _PRIV_MIN *
+# I_k; below, zeroing and adding the block's copy costs more than the global
+# atomics it saves)
+_WARPS, _COLS = 8, (1, 2, 4)
+_HELD_BYTES = 48 * 1024
+_STAGE_MIN, _PRIV_MIN = 64, 256
 
 
 # ---------------------------------------------------------------------------
@@ -154,7 +184,7 @@ def tt_eval_backward_plain(cores, X, g):
 # Wrappers
 # ---------------------------------------------------------------------------
 
-def _check(name, cores, X, backward):
+def _check(name, cores, X):
     """Validate the operands of a launch; returns (dtype code, index code,
     ranks, mode sizes)."""
     dtype = cores[0].dtype
@@ -177,11 +207,7 @@ def _check(name, cores, X, backward):
             raise ValueError(f"{name}: cores must be contiguous")
         dims.append(c.shape[1])
         ranks.append(c.shape[2])
-    per_warp = (2 * max(ranks) + (sum(ranks[:-1]) if backward else 0)) * cores[0].element_size()
-    if per_warp > _SMEM:
-        raise ValueError(f"{name}: one sample's interfaces ({per_warp} bytes) exceed "
-                         f"a block's shared memory ({_SMEM} bytes)")
-    return _DTYPES[dtype], _ITYPES[X.dtype], ranks, dims
+    return _DTYPES[dtype], _ITYPES[X.dtype], tuple(ranks), tuple(dims)
 
 
 def _launch(fn, *args):
@@ -197,10 +223,114 @@ def _array(ctype, values):
     return (ctype * len(values))(*values)
 
 
+@functools.lru_cache(maxsize=512)
+def _ints(values):
+    """A tuple of ints as a ctypes array, made once and kept: the kernels
+    only read it."""
+    return _array(ctypes.c_int, values)
+
+
 def _raise_if_flagged(flag, name):
     if int(flag.item()):
         raise IndexError(f"{name}: a coordinate is out of range for its mode "
                          "(mode k takes -I_k .. I_k - 1)")
+
+
+class Plan(NamedTuple):
+    """How the per-sample kernels run a chain (`_per_sample_plan`)."""
+
+    W: int            # lanes a sample: 32 // W samples a warp
+    fwd_cols: int     # interface columns a lane keeps in registers, forward: 1; 0: in shared memory
+    bwd_cols: int     # the same, backward: 1, 2 or 4; 0: in shared memory
+    staged: bool      # forward: every core staged in shared memory
+    private: tuple    # backward: per core, its gradient summed in shared memory first
+    fwd_warps: int    # warps a block (0: one warp's buffers exceed a block) and its shared
+    fwd_smem: int     # memory (bytes), forward
+    bwd_warps: int    # the same, backward
+    bwd_smem: int
+
+
+def _round4(n):
+    return -(-n // 4) * 4
+
+
+def _warp_elems(backward, W, cols, maxr, lsize):
+    """Elements of one warp's shared buffers (csrc/tt_eval.cu: warp_elems):
+    with the interface in shared memory (cols 0) two interfaces and,
+    backward, the left ones; else, backward, the left interfaces of the
+    warp's 32 / W samples."""
+    if cols == 0:
+        return (lsize if backward else 0) + 2 * maxr
+    return (32 // W) * lsize if backward else 0
+
+
+def _per_sample_smem(held, per_warp, itemsize):
+    """Warps a block and its shared memory (csrc/tt_eval.cu:
+    per_sample_smem): the held copy, then one buffer a warp; _WARPS warps,
+    halved until they fit, or (0, 0) when one does not."""
+    warps = _WARPS
+    while warps > 1 and (held + warps * per_warp) * itemsize > _SMEM:
+        warps //= 2
+    smem = (held + warps * per_warp) * itemsize
+    return (warps, smem) if smem <= _SMEM else (0, 0)
+
+
+@functools.lru_cache(maxsize=256)  # a launch's host time: ~7 us a call on the card's host
+def _per_sample_plan(ranks, dims, B, itemsize, W=None, staged=None, private=None, shared=False):
+    """The plan of the per-sample kernels for a chain of ranks R_0..R_N and
+    mode sizes I_k (tuples) at B samples, pure. W: the smallest power of two
+    >= the widest interface the chain carries (max of R_0..R_{N-1}; R_N is
+    never carried, only column 0 of the last mode is), at most 32. Columns a
+    lane: the backward keeps ceil(max / W) rounded up to 1, 2 or 4, else 0
+    (the interface in shared memory, one warp a sample: from rank 129); the
+    forward 1, else 0 (from rank 33: its shared-memory interface measured
+    faster on the card than 2 and 4 columns a lane). staged (forward, 1
+    column a lane only): all the cores fit _HELD_BYTES and there are at
+    least _STAGE_MIN samples per staged element. private: each core in mode
+    order with at least _PRIV_MIN samples per slice whose gradient still
+    fits _HELD_BYTES with those before it. The keyword arguments force a
+    choice (a wider W, staging or privatizing on or off, ``shared=True``:
+    the interface in shared memory), as the tests and chip_smoke.py do. A
+    kernel whose buffers do not fit a block gets 0 warps (`_plan_for`
+    raises when it is launched); raises ValueError where W cannot carry the
+    ranks."""
+    N = len(dims)
+    maxr = max(ranks[:-1])
+    need = 32 if shared else min(32, 1 << (maxr - 1).bit_length())
+    W = need if W is None else W
+    if W not in (1, 2, 4, 8, 16, 32) or W < need:
+        raise ValueError(f"per-sample tt_eval: {W} lanes do not carry rank {maxr}")
+    bwd_cols = 0 if shared else next((c for c in _COLS if c * W >= maxr), 0)
+    fwd_cols = int(bwd_cols == 1)
+    sizes = [_round4(ranks[k] * dims[k] * ranks[k + 1]) for k in range(N)]
+    held = _HELD_BYTES // itemsize
+    if staged is None:
+        staged = sum(sizes) <= held and B >= _STAGE_MIN * sum(sizes)
+    staged = bool(staged) and fwd_cols == 1
+    if private is None or isinstance(private, bool):
+        chosen, used = [], 0
+        for size, I in zip(sizes, dims):
+            chosen.append(private is True or (private is None and used + size <= held
+                                              and B >= _PRIV_MIN * I))
+            used += size * chosen[-1]
+        private = tuple(chosen)
+    lsize = sum(ranks[:-1])
+    fwd = _per_sample_smem(sum(sizes) * staged, _warp_elems(False, W, fwd_cols, maxr, lsize),
+                           itemsize)
+    bwd = _per_sample_smem(sum(s for s, p in zip(sizes, private) if p),
+                           _warp_elems(True, W, bwd_cols, maxr, lsize), itemsize)
+    return Plan(W, fwd_cols, bwd_cols, staged, private, *fwd, *bwd)
+
+
+def _plan_for(name, ranks, dims, B, itemsize, backward):
+    """`_per_sample_plan` for the kernel about to launch (the backward's
+    when ``backward``); raises ValueError where that kernel's buffers do not
+    fit a block, whatever the other's."""
+    plan = _per_sample_plan(ranks, dims, B, itemsize)
+    if not (plan.bwd_warps if backward else plan.fwd_warps):
+        raise ValueError(f"{name}: ranks {list(ranks)} at mode sizes {list(dims)} exceed a "
+                         f"block's shared memory ({_SMEM} bytes)")
+    return plan
 
 
 def _grouped_smem(Rl, itemsize):
@@ -383,7 +513,7 @@ def tt_eval_kernel(cores, X, checked=False):
     cores = list(cores)
     if _on_cpu(*cores, X):
         return tt_eval_plain(cores, X)
-    dcode, icode, ranks, dims = _check("tt_eval", cores, X, backward=False)
+    dcode, icode, ranks, dims = _check("tt_eval", cores, X)
     B, N = X.shape
     out = torch.empty(B, dtype=cores[0].dtype, device=X.device)
     if B == 0:
@@ -393,12 +523,13 @@ def tt_eval_kernel(cores, X, checked=False):
             flag = _tt_eval_grouped(dcode, cores, X, ranks, out)
             tt_eval_kernel.grouped += 1
         else:
+            plan = _plan_for("tt_eval", ranks, dims, B, cores[0].element_size(), False)
             flag = torch.zeros(1, dtype=torch.int32, device=X.device)
             _launch("tnt_tt_eval", dcode, icode, N,
                     _array(ctypes.c_void_p, [c.data_ptr() for c in cores]),
-                    _array(ctypes.c_int, ranks), _array(ctypes.c_int, dims),
-                    ctypes.c_void_p(X.data_ptr()), B, ctypes.c_void_p(out.data_ptr()),
-                    ctypes.c_void_p(flag.data_ptr()))
+                    _ints(ranks), _ints(dims), ctypes.c_void_p(X.data_ptr()), B,
+                    ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(flag.data_ptr()), plan.W,
+                    plan.fwd_cols, plan.staged, plan.fwd_warps)
     tt_eval_kernel.launches += 1
     if not checked:
         _raise_if_flagged(flag, "tt_eval")
@@ -414,7 +545,7 @@ def tt_eval_backward_kernel(cores, X, g, checked=False):
     cores = list(cores)
     if _on_cpu(*cores, X, g):
         return tt_eval_backward_plain(cores, X, g)
-    dcode, icode, ranks, dims = _check("tt_eval_backward", cores, X, backward=True)
+    dcode, icode, ranks, dims = _check("tt_eval_backward", cores, X)
     B, N = X.shape
     if g.dtype != cores[0].dtype or tuple(g.shape) != (B,) or not g.is_contiguous():
         raise ValueError(f"tt_eval_backward: g must be a contiguous ({B},) {cores[0].dtype} array")
@@ -425,6 +556,7 @@ def tt_eval_backward_kernel(cores, X, g, checked=False):
             grads, flag = _tt_eval_backward_grouped(dcode, cores, X, g, ranks, not checked)
             tt_eval_backward_kernel.grouped += 1
         else:
+            plan = _plan_for("tt_eval_backward", ranks, dims, B, cores[0].element_size(), True)
             flat = torch.zeros(sum(c.numel() for c in cores), dtype=g.dtype, device=g.device)
             grads = [d.view(c.shape)
                      for d, c in zip(torch.split(flat, [c.numel() for c in cores]), cores)]
@@ -432,9 +564,9 @@ def tt_eval_backward_kernel(cores, X, g, checked=False):
             _launch("tnt_tt_eval_backward", dcode, icode, N,
                     _array(ctypes.c_void_p, [c.data_ptr() for c in cores]),
                     _array(ctypes.c_void_p, [d.data_ptr() for d in grads]),
-                    _array(ctypes.c_int, ranks), _array(ctypes.c_int, dims),
-                    ctypes.c_void_p(X.data_ptr()), ctypes.c_void_p(g.data_ptr()), B,
-                    ctypes.c_void_p(flag.data_ptr()))
+                    _ints(ranks), _ints(dims), ctypes.c_void_p(X.data_ptr()),
+                    ctypes.c_void_p(g.data_ptr()), B, ctypes.c_void_p(flag.data_ptr()), plan.W,
+                    plan.bwd_cols, _ints(plan.private), plan.bwd_warps)
     tt_eval_backward_kernel.launches += 1
     if not checked:
         _raise_if_flagged(flag, "tt_eval_backward")
