@@ -256,9 +256,14 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    and float32) and phase 10c's fixed-rank 256^5 cross at ranks 100
    (float32): the rank schedule, sample count and every rank's index sets
    equal to the single process's, the approximations within ``CROSS17_TOL``,
-   val_eps within its limit; the batched minimize of phase 11b's separable
-   function as B=8 rank-2 TTs over dp=4: minima and argmins equal, the dense
-   optima within ``MIN_OPT_TOL``; (17b) ``als_completion(mesh=)`` on config 4
+   val_eps within its limit; config 3 on the fused sweep (``fuse=True``,
+   float64: one all-gather a step of every iteration the chunks ran,
+   index sets equal to the single process's fused run); the batched
+   minimize of phase 11b's separable function as B=8 rank-2 TTs over dp=4,
+   by one cross per sample (``fuse=False``) and by the one stream
+   (``fuse=True``: one all-gather a chunk, then the minima's and the
+   argmins'): minima and argmins equal, the dense optima within
+   ``MIN_OPT_TOL``; (17b) ``als_completion(mesh=)`` on config 4
    (phase 12a's), float64, within ``ALS17_TOL``; (17c) phase 12c's
    ``TTRegressor`` at 2^16 samples as a plain TT (its samples over dp; the
    tt_eval kernels forward and backward) and as an 8-member ensemble (its
@@ -312,7 +317,24 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    turns up to 16 CTAs' shared memory (`swap_crossover`, what sets
    ``_CLUSTER_MAX_BYTES``); ``--only 18p`` runs 18f's profiles and the
    swap kernel at the sweep's shapes, for comparing two trees
-   (`maxvol_profiles`).
+   (`maxvol_profiles`);
+19. the one-stream batched minimize (``tn.minimum``, ``argmin``,
+   ``maximum``, ``argmax`` of a batch, ``fuse="auto"``: every sample as one
+   stream of fused chunks on the batched maxvol kernels), each against
+   the per-sample loop (``fuse=False``) in turns (``SIZES19``): phase 17's
+   B=8 separable 32^5 batch, float64 (optima within ``MIN_OPT_TOL``,
+   argmins and argmaxes the dense ones), and phase 4's B=32 ensemble
+   rounded to rank 64, float32 and float64 (each optimum equal to t at its
+   coordinates within ``KERNEL_TOL``; the float64 minima against the CPU's
+   one stream within ``MIN_CPU_TOL``, argmins equal, argmaxes compared).
+   Per batch: walls in turns (one stream, loop, one stream), the one
+   stream's launches (``tt_eval`` 1 + 10, ``lu_rows`` and ``maxvol_swaps``
+   one a maxvol step, for the whole batch) against the loop's, host reads
+   by CUDA's sync debug mode (one a chunk); then every batched ``maxvol_swaps`` shape of the runs held
+   bitwise to the plain loop, and at the largest of each B and dtype one
+   batched launch timed in turns against B single launches and the plain
+   loop beside its bound. ``--only 19`` runs it alone;
+   ``one_stream_path("cpu", small sizes)`` rehearses it on the CPU.
 
 The data of phases 6 to 8 comes without a device and lands on the card by
 the package's default. The second-to-last line is one JSON object with
@@ -4932,7 +4954,7 @@ def report16(group, tag, case, shape, dtype_name, cfg, device, repeats, total):
     return failed + _check16(case, dtype, cfg, outs[0]["whole"], data, single, device)
 
 
-def parallel_path(device="cuda", cfg=SIZES16, repeats=3, smi=None):
+def parallel_path(device="cuda", cfg=SIZES16, repeats=2, smi=None):
     """Phase 16; returns each kernel's launches in it, summed over the
     ranks. On the CPU (``device="cpu"``, a rehearsal at the small sizes
     ``cfg`` gives) 16a takes gloo, and no launches are counted."""
@@ -5005,7 +5027,8 @@ SIZES17 = dict(cross3=CROSS3, fixed=CROSS_FIXED, separable=dict(N=5, I=32, B=8),
                           ranks_tucker=8, clf_tucker=6, members=8, clf_members=4),
                steps=dict(regressor=40, ensemble=40, classifier=60), round=BENCH)
 CASES17 = (("cross3", "float64"), ("cross3", "float32"), ("fixed", "float32"),
-           ("minimize", "float64"), ("als", "float64"), ("regressor", "float64"),
+           ("cross3f", "float64"), ("minimize", "float64"), ("minimize1", "float64"),
+           ("als", "float64"), ("regressor", "float64"),
            ("ensemble", "float64"), ("classifier", "float64"), ("checkpoint", "float32"))
 # Tolerances of phase 17, each with its reason:
 # - the crosses against the single process on the card: each rank evaluates
@@ -5035,7 +5058,8 @@ PRED17_RTOL, PRED17_ATOL = 1e-6, 1e-9
 def _separable17(cfg, device):
     """11b's separable function sum_n (x_n - s_n)^2 on [-1, 1]^N (I points a
     mode) as a batch of B rank-2 TTs, the shifts s drawn per sample; and
-    each sample's dense minimum."""
+    its terms g (B x N x I, NumPy): each sample's dense optimum is the sum
+    of its terms' optima, at their coordinates."""
     import numpy as np
     import torch
 
@@ -5050,7 +5074,7 @@ def _separable17(cfg, device):
         cores.append(np.stack([np.stack([one, zero], -1), np.stack([g[:, n], one], -1)], 1))
     cores.append(np.stack([one, g[:, -1]], axis=1)[..., None])  # (B, 2, I, 1): [1; g_last]
     t = tn.Tensor([torch.from_numpy(c).to(device) for c in cores], batch=True)
-    return t, g.min(-1).sum(-1)
+    return t, g
 
 
 def _case17(case, dtype_name, cfg, device, mesh=None):
@@ -5070,23 +5094,27 @@ def _case17(case, dtype_name, cfg, device, mesh=None):
         return {k: [np.asarray(x.cpu() if hasattr(x, "cpu") else x) for x in info[k]]
                 for k in ("lsets", "rsets", "left_locals")}
 
-    if case in ("cross3", "fixed"):
-        c = cfg[case]
-        f = _sines if case == "cross3" else _hilbert
+    if case in ("cross3", "cross3f", "fixed"):
+        # cross3f: config 3 on the fused sweep (True: fused on the CPU too)
+        c = cfg["cross3" if case == "cross3f" else case]
+        f = _hilbert if case == "fixed" else _sines
 
         def call():
-            t, info, _ = _cross(c, f, dtype, device=None if device == "cuda" else device, **kw)
+            t, info, _ = _cross(c, f, dtype, device=None if device == "cuda" else device,
+                                fuse=case == "cross3f", **kw)
             return dict(cores=[x.double().cpu() for x in t.cores], Rs=[int(r) for r in info["Rs"]],
                         nsamples=info["nsamples"], val_eps=info["val_eps"],
                         iters=len(info["val_epss"]), sets=sets(info))
         return call
-    if case == "minimize":
-        t, dense = _separable17(cfg["separable"], device)
+    if case in ("minimize", "minimize1"):
+        # the per-sample crosses (fuse=False), or the one stream (fuse=True)
+        t, g = _separable17(cfg["separable"], device)
+        fuse = case == "minimize1"
 
         def call():
-            m = tn.minimum(t, seed=0, fuse=False, **kw)
-            return dict(min=m.cpu().numpy(), argmin=tn.argmin(t, seed=0, fuse=False, **kw),
-                        dense=dense)
+            m = tn.minimum(t, seed=0, fuse=fuse, **kw)
+            return dict(min=m.cpu().numpy(), argmin=tn.argmin(t, seed=0, fuse=fuse, **kw),
+                        dense=g.min(-1).sum(-1))
         return call
     if case == "als":
         A = cfg["als"]
@@ -5230,16 +5258,21 @@ def _expected17(case, cfg, out, world):
     checked) in one call of a case, from what the call reports (``out``:
     a cross's ranks and iterations)."""
     none = {"gram_edge": 0, "wgram": 0, "proj2": 0, "tt_eval": 0, "tt_eval_backward": 0}
-    if case in ("cross3", "fixed"):
-        c = cfg[case]
+    if case in ("cross3", "cross3f", "fixed"):
+        c = cfg["cross3" if case == "cross3f" else case]
         N, I, iters = c["N"], c["I"], out["iters"]
+        if case == "cross3f":  # every iteration the chunks ran, speculative ones too
+            iters = _chunk_runs(iters, c.get("max_iter", 25))
         # one validation evaluation per input and per iteration; every step's
         # fibers (a multiple of I points) divide over the ranks
         P = max(out["Rs"][n] * I * out["Rs"][n + 1] for n in range(N))
-        return {**none, "tt_eval": N + iters}, [("all_gather", (2 * N - 1) * iters, P)]
+        return {**none, "tt_eval": N + iters}, [("all_gather", (2 * N - 1) * iters,
+                                                  None if case == "cross3f" else P)]
     if case == "minimize":
         B, N = cfg["separable"]["B"], cfg["separable"]["N"]
         return None, [("all_gather", 4, B * N)]  # minimum's and argmin's
+    if case == "minimize1":  # a chunk's read each (10 iterations: 2), then the minima, argmins
+        return None, [("all_gather", 2 * (2 + 2), None)]
     if case == "als":
         A = cfg["als"]
         N, I, R = A["N"], A["I"], A["R"]
@@ -5270,7 +5303,7 @@ def _check17(case, dtype_name, cfg, outs, single):
     import numpy as np
 
     failed, got = [], outs[0]["out"]
-    if case in ("cross3", "fixed"):
+    if case in ("cross3", "cross3f", "fixed"):
         tol = CROSS17_TOL[dtype_name]
         same = all(o["out"]["Rs"] == single["Rs"] and o["out"]["nsamples"] == single["nsamples"]
                    for o in outs)
@@ -5278,7 +5311,7 @@ def _check17(case, dtype_name, cfg, outs, single):
                    and len(o["out"]["sets"][k]) == len(single["sets"][k])
                    for o in outs for k in single["sets"])
         err = _f64_dist(got["cores"], single["cores"])
-        eps_tol = cfg[case]["eps"] if case == "cross3" else CROSS_FIXED_TOL
+        eps_tol = CROSS_FIXED_TOL if case == "fixed" else cfg["cross3"]["eps"]
         print(f"  ranks {got['Rs']}, {got['nsamples']} f-evals, {got['iters']} iterations, "
               f"val_eps {got['val_eps']:.3e} (tol {eps_tol}); the single process: ranks "
               f"{single['Rs']}, {single['nsamples']} f-evals, val_eps {single['val_eps']:.3e}; "
@@ -5288,7 +5321,7 @@ def _check17(case, dtype_name, cfg, outs, single):
         if not (same and sets and err <= tol and got["val_eps"] <= eps_tol):
             failed.append(f"{case} {dtype_name}: schedule {same}, sets {sets}, rel {err:.3e}, "
                           f"val_eps {got['val_eps']:.3e}")
-    elif case == "minimize":
+    elif case in ("minimize", "minimize1"):
         equal = all(np.array_equal(o["out"]["min"], single["min"])
                     and o["out"]["argmin"] == single["argmin"] for o in outs)
         opt = float(np.abs(got["min"] - got["dense"]).max())
@@ -5479,6 +5512,15 @@ def _chunks(iters):
     """The reads of a fused run that kept ``iters`` iterations: chunks of
     6, then 4 (cross._CHUNK_DEPTH_FIRST, _CHUNK_DEPTH_NEXT)."""
     return 1 + max(0, -(-(iters - 6) // 4))
+
+
+def _chunk_runs(kept, max_iter):
+    """The iterations a fused run ran, speculative ones included, to keep
+    ``kept``: chunks of 6, then 4, up to ``max_iter``."""
+    ran = 0
+    while ran < kept:
+        ran += min(6 if ran == 0 else 4, max_iter - ran)
+    return ran
 
 
 def _axes_on(cfg, dtype, device):
@@ -6104,13 +6146,336 @@ def fused_path(device="cuda", cfg=SIZES18):
     return launches, report
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the one-stream batched minimize (tn.minimum, argmin, maximum and
+# argmax of a batch: every sample's minimizing cross as one stream of
+# chunks, 6 then 4 iterations with one read each, on one launch of each
+# maxvol kernel a step for the batch and one tt_eval launch an iteration),
+# each against the per-sample loop (fuse=False) in turns, at full width:
+# - phase 17's B=8 separable 32^5 batch (rank-2 TTs), whose dense optima
+#   are known, float64;
+# - phase 4's B=32 rounding ensemble (N=4, I=256, rank 128) rounded to rank
+#   64 (``round_tt(rmax=64, 'randgram')``), the ensemble users hold (about
+#   270 MB in float32), float32 and float64.
+# Tolerances of phase 19: the separable optima within MIN_OPT_TOL of the
+# dense ones, its argmins and argmaxes the dense ones; the ensemble's
+# minima equal to t[argmin] within KERNEL_TOL (relative to max(1, |t|): the
+# sweep's fiber value against the tt_eval kernel's, one TT contracted in
+# two orders, and the atan transform's round trip); the float64 run against
+# the same call on the CPU (the plain versions) within MIN_CPU_TOL relative,
+# argmins and argmaxes equal; the batched swap kernel bitwise equal to its
+# plain version at every shape the runs gave it.
+SIZES19 = dict(separable=SIZES17["separable"], ensemble=BENCH, turns=1)
+
+
+def _ensemble19(cfg, dtype, device):
+    """Phase 4's ensemble in ``dtype`` on ``device``, rounded to rank
+    ``cfg["rmax"]`` by 'randgram'."""
+    import torch
+
+    import tntorch_tpu_torch as tn
+
+    t = tn.Tensor([torch.from_numpy(c).to(device=device, dtype=dtype) for c in bench_cores(cfg)],
+                  batch=True)
+    return tn.round_tt(t, rmax=cfg["rmax"], algorithm="randgram")
+
+
+def recording_batched_swaps(calls):
+    """A context in which every batched `maxvol_swaps` call of the device
+    maxvol keeps a copy of its inputs (C, idx, max_iters) in ``calls`` by
+    (shape, dtype), the first call of each."""
+    import importlib
+
+    mv = importlib.import_module("tntorch_tpu_torch.maxvol")
+
+    @contextlib.contextmanager
+    def ctx():
+        swaps = mv.maxvol_swaps
+
+        def spy(C, idx, tol, max_iters, block=4):
+            if C.ndim == 3:
+                calls.setdefault((tuple(C.shape), str(C.dtype)[6:]),
+                                 (C.clone(), idx.clone(), max_iters))
+            return swaps(C, idx, tol, max_iters, block)
+
+        mv.maxvol_swaps = spy
+        try:
+            yield
+        finally:
+            mv.maxvol_swaps = swaps
+
+    return ctx()
+
+
+def one_stream19(tag, t, device, turns, failed, swaps):
+    """19: one batch's minimum, one stream against the per-sample loop
+    (fuse=False) in turns, ``turns`` loops each between two one-stream
+    calls (walls; each one's launches), then a counted
+    one-stream run (CUDA's sync debug mode on the card: its host reads; its
+    launches of tt_eval, lu_rows and maxvol_swaps against the batched
+    maxvol calls and iterations it made), then argmin, maximum and argmax
+    on the one stream, their batched swap calls recorded into ``swaps``. Returns
+    the minima, argmins, maxima and argmaxes (host) and the launches of
+    all these runs."""
+    import importlib
+    import warnings
+
+    import torch
+
+    import tntorch_tpu_torch as tn
+    from tntorch_tpu_torch.ops import maxvol_kernels as mk
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    cr = importlib.import_module("tntorch_tpu_torch.cross")
+    cuda = torch.device(device).type == "cuda"
+    fuse = "auto" if cuda else True
+    B = t.cores[0].shape[0]
+
+    def counts():
+        return {"tt_eval": te.tt_eval_kernel.launches, "lu_rows": mk.lu_rows.launches,
+                "maxvol_swaps": mk.maxvol_swaps.launches}
+
+    def delta(before):
+        return {k: v - before[k] for k, v in counts().items()}
+
+    walls, seen, first = {"one stream": [], "loop": []}, {}, counts()
+    tn.minimum(t, seed=0, fuse=fuse)  # warm-up
+    # in turns, the one stream before and after each loop: the loop's B
+    # crosses take 5-15 times as long
+    for which in ["one stream", "loop"] * turns + ["one stream"]:
+        before = counts()
+        _sync(device)
+        t0 = time.perf_counter()
+        tn.minimum(t, seed=0, fuse=fuse if which == "one stream" else False)
+        _sync(device)
+        walls[which].append(time.perf_counter() - t0)
+        seen[which] = delta(before)
+    steps, batched = [], cr._maxvol_device_batched
+
+    def counted_maxvol(Q, tol, iters):
+        steps.append(tuple(Q.shape))
+        return batched(Q, tol, iters)
+
+    before = counts()
+    _sync(device)
+    cr._maxvol_device_batched = counted_maxvol
+    if cuda:
+        torch.cuda.set_sync_debug_mode(1)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            m = tn.minimum(t, seed=0, fuse=fuse)
+    finally:
+        if cuda:
+            torch.cuda.set_sync_debug_mode(0)
+        cr._maxvol_device_batched = batched
+    launches = delta(before)
+    stats = dict(cr._BATCHED_MIN_STATS)
+    reads = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+             if "synchroniz" in str(w.message)]
+    runs = min(10, 6 + 4 * (stats["chunks"] - 1))  # the chunks of max_iter 10
+    with recording_batched_swaps(swaps):
+        am = tn.argmin(t, seed=0, fuse=fuse)
+        M = tn.maximum(t, seed=0, fuse=fuse)
+        aM = tn.argmax(t, seed=0, fuse=fuse)
+    ms = {k: [round(w * 1e3, 1) for w in v] for k, v in walls.items()}
+    print(f"19 {tag}, B={B}: one stream {stats}, {runs} iterations run, {len(steps)} batched "
+          f"maxvol calls (Q shapes {sorted(set(steps))}), launches {launches}, host reads "
+          f"{len(reads) if cuda else 'not counted on the CPU'} {reads}; the loop (fuse=False) "
+          f"launched {seen['loop']} against the one stream's {seen['one stream']}; walls in "
+          f"turns (ms) one stream {ms['one stream']}, loop {ms['loop']}; the loop over the one "
+          f"stream {min(walls['loop']) / min(walls['one stream']):.2f}x (least of each)")
+    if not stats["onestream"]:
+        failed.append(f"19 {tag}: the one stream did not run")
+    if cuda:
+        # one tt_eval launch for the input's validation values, then one an
+        # iteration; one lu_rows and one maxvol_swaps launch a maxvol step
+        want = {"tt_eval": 1 + runs, "lu_rows": len(steps), "maxvol_swaps": len(steps)}
+        if launches != want or not len(steps):
+            failed.append(f"19 {tag}: launches {launches}, expected {want} (one a step or an "
+                          "iteration for the batch)")
+        if len(reads) != stats["chunks"]:
+            failed.append(f"19 {tag}: {len(reads)} host reads in {stats['chunks']} chunks: {reads}")
+    return m.cpu().numpy(), am, M.cpu().numpy(), aM, delta(first)
+
+
+def hold_batched_swaps(swaps, failed):
+    """19: every recorded batched ``maxvol_swaps`` call (C: B x n x r) held
+    bitwise to the plain version (rows and C), with its launches (one on
+    the cluster route); at the largest shape of each B and dtype one
+    batched call timed in turns against B single launches and the plain
+    loop (CUDA events, less the copy of C and idx both start from), with
+    the kernel's device time (torch.profiler) and its bound: bytes (C read
+    and written once) and operations (3 n r a swap, the swaps the plain
+    loop makes). Returns the timings by (B, dtype)."""
+    import torch
+
+    from tntorch_tpu_torch.ops import maxvol_kernels as mk
+
+    parts, times = [], {}
+    largest = {}
+    for (shape, dname), v in swaps.items():
+        key = (shape[0], dname)
+        if key not in largest or shape[1] * shape[2] > largest[key][0][1] * largest[key][0][2]:
+            largest[key] = (shape, v)
+    for (shape, dname), (C, idx, iters) in sorted(swaps.items()):
+        B, n, r = shape
+        want_C, want_idx = mk.maxvol_swaps_plain(C.clone(), idx.clone(), 1.05, iters)
+        before = mk.maxvol_swaps.launches
+        got_C, got_idx = mk.maxvol_swaps(C.clone(), idx.clone(), 1.05, iters)
+        torch.cuda.synchronize()
+        launched = mk.maxvol_swaps.launches - before
+        route = swap_route(n, r, C.element_size())
+        same = torch.equal(got_C, want_C) and torch.equal(got_idx, want_idx)
+        parts.append(f"{B}x{n}x{r} {dname} {route[0]}/{route[1]}: {'equal' if same else 'DIFFER'}"
+                     f", {launched} launch(es)")
+        if not same or launched != (1 if route[0] == "cluster" else B):
+            failed.append(f"19 batched maxvol_swaps at {shape} {dname}: equal {same}, "
+                          f"{launched} launches on {route}")
+    print("19, every batched maxvol_swaps shape against the plain version: " + "; ".join(parts))
+    for (B, dname), (shape, (C, idx, iters)) in sorted(largest.items()):
+        _, n, r = shape
+        work, wi = C.clone(), idx.clone()
+
+        def reset():
+            work.copy_(C)
+            wi.copy_(idx)
+
+        def singles():
+            reset()
+            for b in range(B):
+                mk.maxvol_swaps(work[b], wi[b], 1.05, iters)
+
+        copy_ms = cuda_time(reset)
+        turns = in_turns({"batched": lambda: (reset(), mk.maxvol_swaps(work, wi, 1.05, iters)),
+                          "single": singles,
+                          "plain": lambda: mk.maxvol_swaps_plain(C, idx, 1.05, iters)})
+        best = {k: sorted(v)[0] - (copy_ms if k != "plain" else 0) for k, v in turns.items()}
+        dev = kernel_ms(lambda: (reset(), mk.maxvol_swaps(work, wi, 1.05, iters)), "swaps_")
+        its = sum(swaps_needed(C[b], idx[b], iters) for b in range(B))
+        item = C.element_size()
+        bound, by = bound_ms(its * 3 * n * r, B * (2 * n * r * item + 2 * r * 8),
+                             PEAK_FP32 if item == 4 else PEAK_FP64)
+        times[(B, dname)] = dict(ms=best["batched"], single_ms=best["single"],
+                                 plain_ms=best["plain"], kernel_ms=dev, bound_ms=bound, bound_by=by,
+                                 swaps=its, shape=shape)
+        print(f"19 maxvol_swaps, B={B} {dname} at {n} x {r} ({its} swaps in all, "
+              f"{swap_route(n, r, item)[0]} route): one batched launch {best['batched']:.4f} ms "
+              f"(kernel {_ms(dev)} of device time), {B} single launches {best['single']:.4f} ms, "
+              f"plain loop {best['plain']:.4f} ms, bound {bound:.6f} ms ({by}); turns "
+              f"{ {k: [round(x, 4) for x in v] for k, v in turns.items()} }, less the copies' "
+              f"{copy_ms:.4f} ms")
+    return times
+
+
+def one_stream_path(device="cuda", cfg=SIZES19):
+    """Phase 19; returns each kernel's launches in its main-path runs (the
+    turns and the counted runs; on the CPU, a rehearsal at the small sizes
+    ``cfg`` gives, none are counted)."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    import tntorch_tpu_torch as tn
+    from tntorch_tpu_torch.ops import maxvol_kernels as mk
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    cr = importlib.import_module("tntorch_tpu_torch.cross")
+    cuda = torch.device(device).type == "cuda"
+    start = time.perf_counter()
+    phase("19. the one-stream batched minimize against the per-sample loop, in turns")
+    failed, swaps = [], {}
+    launches = {"tt_eval": 0, "lu_rows": 0, "maxvol_swaps": 0}
+
+    def add(ran):
+        for k, n in ran.items():
+            launches[k] += n
+
+    prev = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        t, g = _separable17(cfg["separable"], device)
+        m, am, _, aM, ran = one_stream19(f"separable {cfg['separable']['N']}-D on "
+                                      f"{cfg['separable']['I']}^{cfg['separable']['N']}, float64",
+                                      t, device, cfg["turns"], failed, swaps)
+        add(ran)
+        dense = g.min(-1).sum(-1)
+        want_am = [tuple(int(i) for i in row) for row in g.argmin(-1)]
+        want_aM = [tuple(int(i) for i in row) for row in g.argmax(-1)]
+        opt = float(np.abs(m - dense).max())
+        print(f"19 separable: minima {m.tolist()}, vs the dense optima max |diff| {opt:.3e} (tol "
+              f"{MIN_OPT_TOL}); argmins the dense ones: {am == want_am}; argmaxes the dense "
+              f"ones: {aM == want_aM}")
+        if not (opt <= MIN_OPT_TOL and am == want_am and aM == want_aM):
+            failed.append(f"19 separable: off the optima by {opt:.3e}, argmins {am == want_am}, "
+                          f"argmaxes {aM == want_aM}")
+        del t
+        E = cfg["ensemble"]
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype)[6:]
+            t = _ensemble19(E, dtype, device)
+            m, am, M, aM, ran = one_stream19(f"ensemble N={E['N']} I={E['I']} rank "
+                                             f"{E['rmax']}, {dname}", t, device, cfg["turns"],
+                                             failed, swaps)
+            add(ran)
+
+            def at(args):  # t at each sample's own coordinates, one tt_eval launch
+                rows = cr._batched_rows(np.array(args), len(args), list(t.shape)[1:])
+                return cr._batched_values(t.cores, cr._index(rows, device)).diagonal().double().cpu()
+
+            err = max(float(((torch.from_numpy(v).double() - at(a)).abs()
+                             / at(a).abs().clamp(min=1)).max()) for v, a in ((m, am), (M, aM)))
+            print(f"19 ensemble {dname}: minima {np.round(m[:4], 6).tolist()}..., maxima "
+                  f"{np.round(M[:4], 6).tolist()}..., each against t at its argmin or argmax: "
+                  f"max rel {err:.3e} (tol {KERNEL_TOL[dname]})")
+            if not err <= KERNEL_TOL[dname]:
+                failed.append(f"19 ensemble {dname}: optima off t at their coordinates by "
+                              f"{err:.3e}")
+            if dtype == torch.float64:
+                tc = tn.Tensor([c.cpu() for c in t.cores], batch=True)
+                t0 = time.perf_counter()
+                cm, cam = cr._minimize_all(tc, lambda x: x, 10, 10, False,
+                                           dict(seed=0, fuse=True))
+                caM = cr._minimize_all(tc, cr._negated(lambda x: x), 10, 10, False,
+                                       dict(seed=0, fuse=True))[1]
+                sec = time.perf_counter() - t0
+                rel_cpu = float(((torch.from_numpy(m) - cm).abs() / cm.abs()).max())
+                # the argmaxes are printed, not held: where a rank-10 search of
+                # a rank-64 TT meets near-ties, roundoff may part the paths
+                apart = [b for b in range(len(aM)) if aM[b] != caM[b]]
+                print(f"19 ensemble float64 against the CPU's one stream ({sec:.1f} s there): "
+                      f"minima max rel {rel_cpu:.3e} (tol {MIN_CPU_TOL}), argmins equal "
+                      f"{am == cam}; argmaxes equal in {len(aM) - len(apart)} of {len(aM)} "
+                      f"samples, t there: " + ", ".join(
+                          f"sample {b} card {at([aM[b]] * len(aM))[b]:.15g} CPU "
+                          f"{at([caM[b]] * len(aM))[b]:.15g}" for b in apart))
+                if not (rel_cpu <= MIN_CPU_TOL and am == cam):
+                    failed.append(f"19 ensemble float64 vs the CPU: rel {rel_cpu:.3e}, argmins "
+                                  f"{am == cam}")
+            del t
+    finally:
+        torch.set_default_dtype(prev)
+    print(f"19, launches on the main path: {launches}")
+    if cuda:
+        if not all(launches.values()):
+            failed.append(f"a kernel of the one-stream path was not launched: {launches}")
+        hold_batched_swaps(swaps, failed)
+    print(f"19, {len(swaps)} batched swap shapes recorded; the phase "
+          f"{time.perf_counter() - start:.1f} s")
+    if failed:
+        raise AssertionError("phase 19: " + "; ".join(failed))
+    return launches
+
+
 PHASES = {"3": "check_kernels", "3b": "check_tt_kernels", "3s": "hold_per_sample_plans",
           "3t": "time_per_sample", "3h": "time_host", "3x": "plan_choices", "4": "main_path",
           "5": "nonbatch_pass", "6": "eval_path", "7": "train_path", "8": "train_design_path",
           "9": "baseline_path", "10": "cross_path", "11": "elementwise_path",
           "12": "config4_path", "13": "config5_path", "14": "missing_modules_path",
           "15": "tutorials_path", "16": "parallel_path", "17": "mesh_paths_path",
-          "18": "fused_path", "18x": "swap_crossover", "18p": "maxvol_profiles"}
+          "18": "fused_path", "18x": "swap_crossover", "18p": "maxvol_profiles",
+          "19": "one_stream_path"}
 
 
 def main():
@@ -6148,11 +6513,12 @@ def main():
     mesh_paths = mesh_paths_path(smi=smi)
     fused, maxvol_report = fused_path()
     report.update(maxvol_report)
+    one_stream = one_stream_path()
     launches.update({k: evals[k] + trains[k] + designs[k] for k in evals})
     launches.update(lu_rows=0, maxvol_swaps=0)
     launches = {k: n + sum(p.get(k, 0) for p in (baselines, crosses, elementwise, config4,
                                                          config5, missing, tutorials, parallel,
-                                                         mesh_paths, fused))
+                                                         mesh_paths, fused, one_stream))
                 for k, n in launches.items()}
 
     import torch

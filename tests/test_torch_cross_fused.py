@@ -274,8 +274,13 @@ def test_auto_is_eager_on_the_cpu_and_mesh_keeps_the_eager_sweep():
               return_info=True)
     assert not tn.cross(function=_hilbert, **kw)[1]["fused"]
     assert not tn.cross(function=_hilbert, record_samples=True, fuse=True, **kw)[1]["fused"]
+    # a mesh now fuses too (each step's fibers sharded inside the chunk), as
+    # in the JAX package, and gives the unsharded fused run
     with torch_parallel_ranks.solo_mesh() as mesh:
-        assert not tn.cross(function=_hilbert, mesh=mesh, fuse=True, **kw)[1]["fused"]
+        t, info = tn.cross(function=_hilbert, mesh=mesh, fuse=True, **kw)
+    t1, info1 = tn.cross(function=_hilbert, fuse=True, **kw)
+    assert info["fused"] and info1["fused"]
+    assert torch.equal(t.full(), t1.full()) and info["nsamples"] == info1["nsamples"]
 
 
 @pytest.mark.cuda

@@ -402,3 +402,80 @@ def test_maxvol_kernels_match_plain_versions_on_cuda(monkeypatch):
         torch.cuda.set_sync_debug_mode(0)
     assert not [w for w in caught if "synchroniz" in str(w.message)]
     _rows_and_C((rows, C), TM.maxvol_device(Q.cpu()))
+
+
+def _batch(B, n, r, seed):
+    """B orthonormal n x r matrices, as the batched minimize's QR gives
+    them, and their LU start (rows, C) as `maxvol_device` begins."""
+    Q = torch.stack([torch.linalg.qr(torch.from_numpy(_matrix(n, r, seed=seed + b)))[0]
+                     for b in range(B)])
+    idx = TM._device_lu_pivots(Q)
+    return Q, idx, torch.linalg.solve(TM._rows_of(Q, idx).mT, Q.mT).mT.contiguous()
+
+
+@pytest.mark.parametrize("B", [1, 3, 32])
+def test_batched_plain_swap_loop_is_the_per_matrix_loop(B):
+    # (320, 10): the minimize's Q at rmax 10 and I = 32; 10 and 100 swaps
+    _, idx, C = _batch(B, 320, 10, seed=7)
+    for iters in (10, 100):
+        got_C, got_idx = MK.maxvol_swaps_plain(C, idx, 1.05, iters)
+        assert got_C.shape == C.shape and got_idx.shape == idx.shape
+        for b in range(B):
+            want_C, want_idx = MK.maxvol_swaps_plain(C[b], idx[b], 1.05, iters)
+            assert torch.equal(got_C[b], want_C) and torch.equal(got_idx[b], want_idx)
+        wrapped = MK.maxvol_swaps(C, idx, 1.05, iters)  # the plain loop on the CPU
+        assert torch.equal(wrapped[0], got_C) and torch.equal(wrapped[1], got_idx)
+    empty = torch.zeros((0, 320, 10), dtype=C.dtype)
+    assert MK.maxvol_swaps_plain(empty, torch.zeros((0, 10), dtype=torch.int64), 1.05, 10)[0] \
+        is empty
+
+
+@pytest.mark.parametrize("shape", [(3, 320, 10), (2, 40000, 64), (4, 7, 10)],
+                         ids=["minimize", "tall_tournament", "wide"])
+def test_batched_device_maxvol_is_the_per_matrix_maxvol(shape):
+    # one LU call, one lu_rows call (two past the tournament's block), one
+    # solve and one swap call for the batch: each matrix's rows and C
+    # bitwise as maxvol_device gives them alone
+    B, n, r = shape
+    Q = torch.stack([torch.from_numpy(_matrix(n, r, seed=b)) for b in range(B)])
+    if n > r:
+        Q = torch.linalg.qr(Q)[0]
+    for iters in (10, 100):
+        rows, C = TM._maxvol_device_batched(Q, 1.05, iters)
+        assert rows.shape == (B, min(n, r)) and C.shape == (B, n, min(n, r))
+        for b in range(B):
+            want_rows, want_C = TM.maxvol_device(Q[b], 1.05, iters)
+            assert torch.equal(rows[b], want_rows) and torch.equal(C[b], want_C)
+
+
+def test_batched_swap_wrapper_checks_its_inputs():
+    C = torch.zeros(3, 5, 2)
+    for idx in (torch.zeros(3, 3, dtype=torch.int64), torch.zeros(2, 2, dtype=torch.int64),
+                torch.zeros(2, dtype=torch.int64)):
+        with pytest.raises(ValueError):
+            MK.maxvol_swaps(C, idx, 1.05, 10)
+
+
+@pytest.mark.cuda
+def test_batched_swap_kernel_matches_plain_versions_on_cuda(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    # the minimize's Qs at rmax 10 (I = 32, I = 256) take the cluster: one
+    # launch for the batch; past the cluster's last shape the resident
+    # grid: one launch a matrix; each matrix bitwise the plain loop's
+    crows = MK._cta_rows(100, 8, 32)
+    last = min(16 * crows, MK._CLUSTER_MAX_BYTES // (100 * 8))
+    for B in (1, 3, 32):
+        for n, r, dtype in ((320, 10, torch.float64), (2560, 10, torch.float32),
+                            (last, 100, torch.float64), (last + 1, 100, torch.float64)):
+            _, idx, C = _batch(B, n, r, seed=n)
+            C, idx = C.to(dtype).cuda(), idx.cuda()
+            want_C, want_idx = MK.maxvol_swaps_plain(C.clone(), idx.clone(), 1.05, 10)
+            route = MK._swap_plan(n, r, C.element_size(),
+                                  torch.cuda.get_device_properties(0).multi_processor_count)[0]
+            before = MK.maxvol_swaps.launches
+            got_C, got_idx = MK.maxvol_swaps(C.clone(), idx.clone(), 1.05, 10)
+            torch.cuda.synchronize()
+            assert MK.maxvol_swaps.launches - before == (1 if route == "cluster" else B)
+            assert torch.equal(got_idx, want_idx), (B, n, r, dtype)
+            assert torch.equal(got_C, want_C), (B, n, r, dtype)  # bitwise

@@ -11,7 +11,11 @@ of ``jax.devices()[:4]``, on the same NumPy inputs. Tolerances:
   within 1e-10 relative in norm (tests/test_torch_cross.py), every rank's
   run equal to rank 0's bitwise (the same values in the same order);
 - the batched minimize and ALS: the single process's results bitwise (the
-  same operations on the same values), JAX's ALS within 1e-10;
+  same operations on the same values), JAX's ALS within 1e-10; the
+  one-stream minimize's ranks run their samples as the single process's
+  one stream runs them, so bitwise too;
+- the fused cross with a mesh: the single process's fused run's ranks,
+  samples and index sets on every rank, ``full()`` within 1e-10;
 - the learners: predictions within rtol 1e-6 and atol 1e-9 of the single
   process (tests/test_parallel.py:294-321), the 30 losses within 1e-8 of
   JAX's ``mesh=`` fit (tests/test_torch_learners.py: the two Adams round
@@ -20,6 +24,7 @@ of ``jax.devices()[:4]``, on the same NumPy inputs. Tolerances:
 JAX's calls stay on one shape each (a JAX run compiles per shape and mesh).
 """
 
+import importlib
 import json
 
 import jax
@@ -34,6 +39,7 @@ import tntorch_tpu_torch as tn
 import torch_parallel_ranks as ranks
 from tntorch_tpu_torch.parallel import launch
 
+CROSS = importlib.import_module("tntorch_tpu_torch.cross")  # tn.cross is the function
 TOL = 1e-10
 PRED_RTOL, PRED_ATOL = 1e-6, 1e-9
 LOSS_TOL = 1e-8
@@ -127,6 +133,64 @@ def test_batched_minimize_shards_the_batch(group):
     for m, _, calls, logged in group.run(ranks.minimize, (4,), two, dict(seed=0)):
         np.testing.assert_array_equal(m, want[:2])
         assert not calls and logged and "mesh= ignored (batch size 2" in logged[0]
+
+
+def _chunk_runs(kept, max_iter):
+    """The iterations a fused run ran, speculative ones included, to keep
+    ``kept``: chunks of 6, then 4 (cross._CHUNK_DEPTH_FIRST, _NEXT)."""
+    ran = 0
+    while ran < kept:
+        ran += min(6 if ran == 0 else 4, max_iter - ran)
+    return ran
+
+
+def test_one_stream_minimize_shards_the_batch(group):
+    # the one stream on each rank's two samples: bitwise the single
+    # process's one stream; one all-gather of each chunk's read, then one
+    # of the minima and one of the argmins
+    cores = [np.random.default_rng(5).standard_normal((8,) + s)
+             for s in ((1, 6, 2), (2, 6, 2), (2, 6, 1))]
+    t = tn.Tensor([torch.from_numpy(c) for c in cores], batch=True)
+    want = tn.minimum(t, seed=0, fuse=True).numpy()
+    single = dict(CROSS._BATCHED_MIN_STATS)
+    want_arg = tn.argmin(t, seed=0, fuse=True)
+    assert single == {"onestream": True, "chunks": 2, "mesh_sharded": False}
+    dense = t.numpy().reshape(8, -1)
+    np.testing.assert_allclose(want, dense.min(1), rtol=0, atol=1e-10)
+    for m, a, calls, arg_calls, logged, stats in group.run(ranks.minimize_one_stream, (4,),
+                                                           cores, dict(seed=0)):
+        np.testing.assert_array_equal(m, want)
+        assert a == want_arg and not logged
+        assert stats == dict(single, mesh_sharded=True)
+        for c in (calls, arg_calls):
+            assert [name for name, _ in c] == ["all_gather"] * (stats["chunks"] + 2)
+    # a batch that the axis does not divide: the JAX package's warning, then
+    # the one stream unsharded on every rank
+    two = [c[:2] for c in cores]
+    want2 = tn.minimum(tn.Tensor([torch.from_numpy(c) for c in two], batch=True), seed=0,
+                       fuse=True).numpy()
+    for m, _, calls, arg_calls, logged, stats in group.run(ranks.minimize_one_stream, (4,), two,
+                                                           dict(seed=0)):
+        np.testing.assert_array_equal(m, want2)
+        assert not calls and not arg_calls
+        assert stats["onestream"] and not stats["mesh_sharded"]
+        assert len(logged) == 2 and "one-stream path unsharded" in logged[0]
+        assert "mesh= ignored (batch size 2 is not divisible by mesh axis size 4)" in logged[0]
+
+
+@pytest.mark.parametrize("kw", [_FIXED, dict(eps=1e-6, seed=0)], ids=["fixed", "adaptive"])
+def test_fused_cross_mesh_matches_one_process(group, kw):
+    t, info = _port_cross(dict(kw, fuse=True))
+    assert info["fused"]
+    runs = _chunk_runs(len(info["val_epss"]), kw.get("max_iter", 25))
+    for full, Rs, nsamples, sets, calls, fused, kept in group.run(ranks.fused_cross, (4,), _AXES,
+                                                                  kw):
+        assert fused and kept == len(info["val_epss"])
+        assert Rs == [int(r) for r in info["Rs"]] and nsamples == info["nsamples"]
+        _same_sets(info, sets)
+        assert _rel(full, t.numpy()) <= TOL
+        # one all-gather a sweep step of every iteration run, speculative ones too
+        assert [name for name, _ in calls] == ["all_gather"] * ((2 * len(_AXES) - 1) * runs)
 
 
 def test_host_sweep_drops_the_mesh(group):

@@ -193,6 +193,45 @@ def minimize(shape, cores, kw):
     return m.numpy(), a, calls, logged
 
 
+def fused_cross(shape, axes, kw):
+    """cross(mesh=, fuse=True) of 1/sum(x) on ``axes``: `cross`'s results,
+    then whether the run fused and the iterations it kept."""
+    _float64()
+    mesh = _mesh(shape, ("dp",))
+    with par.counting_collectives() as calls:
+        t, info = tn.cross(function=hilbert, domain=axes, device="cpu", verbose=False,
+                           return_info=True, mesh=mesh, fuse=True, **kw)
+    sets = {k: [np.asarray(x) for x in info[k]] for k in ("lsets", "rsets", "left_locals")}
+    return (t.numpy(), [int(r) for r in info["Rs"]], info["nsamples"], sets, calls,
+            info["fused"], len(info["val_epss"]))
+
+
+def minimize_one_stream(shape, cores, kw):
+    """minimum and argmin of a batch TT with mesh= on the one stream
+    (``fuse=True``): the results, the collectives of each, the warnings
+    logged and the one stream's record after the minimum."""
+    import importlib
+    import logging
+
+    _float64()
+    cross_module = importlib.import_module("tntorch_tpu_torch.cross")
+    mesh = _mesh(shape, ("dp",))
+    t = tn.Tensor(_t(cores), batch=True)
+    logged = []
+    handler = logging.Handler()
+    handler.emit = lambda record: logged.append(record.getMessage())
+    tn.utils.logger.addHandler(handler)
+    try:
+        with par.counting_collectives() as calls:
+            m = tn.minimum(t, mesh=mesh, fuse=True, **kw)
+        stats = dict(cross_module._BATCHED_MIN_STATS)
+        with par.counting_collectives() as arg_calls:
+            a = tn.argmin(t, mesh=mesh, fuse=True, **kw)
+    finally:
+        tn.utils.logger.removeHandler(handler)
+    return m.numpy(), a, calls, arg_calls, logged, stats
+
+
 def host_cross(axes):
     """cross(fuse="host", mesh=): the warnings logged and the dense result."""
     import logging

@@ -53,7 +53,7 @@ SIGNATURES = {
     },
     "maxvol_device": {
         "tnt_lu_rows": [_P, _I, _I, _I, _I, _P, _P],
-        "tnt_maxvol_swaps": [_I, _I, _P, _P, _I, _I, _D, _I, _I, _P, _P, _P],
+        "tnt_maxvol_swaps": [_I, _I, _P, _P, _I, _I, _I, _D, _I, _I, _P, _P, _P],
     },
 }
 

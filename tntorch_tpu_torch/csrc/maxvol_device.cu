@@ -69,6 +69,12 @@
 // - streamed (swaps_grid_kernel<T, false>): the same grid with C left in
 //   device memory (L2 holds 50 MB), for C beyond the resident route: a
 //   row belongs to a group of lanes, so its reads and writes coalesce.
+// A batch of matrices (C: batch x n x r, idx: batch x r, each matrix on
+// the route its own shape plans) takes one launch on the cluster route: a
+// grid of batch clusters, cluster b on matrix b (blockIdx.x / CTAs); the
+// clusters share nothing and may run in waves. The grid routes, whose
+// cooperative grid takes every SM, take one launch per matrix, in stream
+// order, reusing one scratch.
 // A launch that the card cannot co-schedule (a cluster, or a cooperative
 // grid) is refused, and the wrapper raises.
 // Each C entry point launches on the stream it is given (PyTorch's current
@@ -339,6 +345,10 @@ swaps_cluster_kernel(T* __restrict__ C, long long* __restrict__ idx, int n, int 
   using K = typename KeyOf<T>::type;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank(), ctas = (int)cluster.num_blocks();
+  // This cluster's matrix of the batch
+  const size_t mat = blockIdx.x / ctas;
+  C += mat * n * r;
+  idx += mat * r;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int rs = smem_stride(r);
   T* Cs = reinterpret_cast<T*>(smem_raw);
@@ -489,8 +499,8 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 }
 
 template <typename T>
-int swaps_cluster(T* C, long long* idx, int n, int r, double tol, int max_iters, int ctas,
-                  cudaStream_t s) {
+int swaps_cluster(T* C, long long* idx, int batch, int n, int r, double tol, int max_iters,
+                  int ctas, cudaStream_t s) {
   if (ctas < 1 || ctas > kMaxCluster) return (int)cudaErrorInvalidValue;
   int rows_per_cta = (n + ctas - 1) / ctas;
   const size_t smem = swap_smem<T>(rows_per_cta, r, 2 * ctas);
@@ -498,7 +508,7 @@ int swaps_cluster(T* C, long long* idx, int n, int r, double tol, int max_iters,
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   if (ctas == 1) {  // a plain launch (a CTA is a cluster of one): no occupancy query
-    kernel<<<1, kSwapThreads, smem, s>>>(C, idx, n, r, tol, max_iters, rows_per_cta);
+    kernel<<<batch, kSwapThreads, smem, s>>>(C, idx, n, r, tol, max_iters, rows_per_cta);
     return (int)cudaGetLastError();
   }
   if (ctas > 8) {
@@ -511,7 +521,7 @@ int swaps_cluster(T* C, long long* idx, int n, int r, double tol, int max_iters,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ctas);
+  cfg.gridDim = dim3((unsigned)batch * ctas);
   cfg.blockDim = dim3(kSwapThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
@@ -541,11 +551,18 @@ int swaps_grid(T* C, long long* idx, int n, int r, double tol, int max_iters, in
 }
 
 template <typename T>
-int swaps(int route, T* C, long long* idx, int n, int r, double tol, int max_iters, int ctas,
-          longlong2* cand, T* cand_rows, cudaStream_t s) {
-  if (route == 0) return swaps_cluster(C, idx, n, r, tol, max_iters, ctas, s);
-  if (route == 1) return swaps_grid<T, true>(C, idx, n, r, tol, max_iters, ctas, cand, cand_rows, s);
-  return swaps_grid<T, false>(C, idx, n, r, tol, max_iters, ctas, cand, cand_rows, s);
+int swaps(int route, T* C, long long* idx, int batch, int n, int r, double tol, int max_iters,
+          int ctas, longlong2* cand, T* cand_rows, cudaStream_t s) {
+  if (route == 0) return swaps_cluster(C, idx, batch, n, r, tol, max_iters, ctas, s);
+  for (int b = 0; b < batch; ++b) {  // a cooperative grid a matrix, in stream order
+    T* Cb = C + (size_t)b * n * r;
+    long long* ib = idx + (size_t)b * r;
+    const int err =
+        route == 1 ? swaps_grid<T, true>(Cb, ib, n, r, tol, max_iters, ctas, cand, cand_rows, s)
+                   : swaps_grid<T, false>(Cb, ib, n, r, tol, max_iters, ctas, cand, cand_rows, s);
+    if (err != (int)cudaSuccess) return err;
+  }
+  return (int)cudaSuccess;
 }
 
 }  // namespace
@@ -566,21 +583,26 @@ int tnt_lu_rows(const void* piv, int batch, int npiv, int n, int k, void* rows, 
   return (int)cudaGetLastError();
 }
 
-// The guarded swap loop on C (n x r, row-major) and idx (r, int64), in
-// place, on `ctas` CTAs. route 0: a cluster of ctas (1-16) CTAs, C in their
-// shared memory (cand, cand_rows unused); route 1: a cooperative grid of
-// ctas blocks, C in their shared memory; route 2: the same grid, C in
-// device memory. Routes 1-2 take cand (2 x ctas x 16 bytes) and cand_rows
-// (2 x ctas x (r + 1), C's type) as their scratch.
-int tnt_maxvol_swaps(int dtype, int route, void* C, void* idx, int n, int r, double tol,
-                     int max_iters, int ctas, void* cand, void* cand_rows, void* stream) {
-  if (n <= 0 || r <= 0 || ctas <= 0 || ctas > n || route < 0 || route > 2)
+// The guarded swap loop on each of `batch` matrices C (batch x n x r,
+// row-major) and their idx (batch x r, int64), in place, on `ctas` CTAs a
+// matrix. route 0: a cluster of ctas (1-16) CTAs a matrix, C in their
+// shared memory, one launch for the batch (cand, cand_rows unused); route
+// 1: a cooperative grid of ctas blocks, C in their shared memory; route 2:
+// the same grid, C in device memory; routes 1-2 launch once a matrix and
+// take cand (2 x ctas x 16 bytes) and cand_rows (2 x ctas x (r + 1), C's
+// type) as their scratch.
+int tnt_maxvol_swaps(int dtype, int route, void* C, void* idx, int batch, int n, int r,
+                     double tol, int max_iters, int ctas, void* cand, void* cand_rows,
+                     void* stream) {
+  if (batch <= 0 || n <= 0 || r <= 0 || ctas <= 0 || ctas > n || route < 0 || route > 2 ||
+      (route == 0 && (long long)batch * ctas > INT_MAX))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   long long* ix = (long long*)idx;
   longlong2* cd = (longlong2*)cand;
-  if (dtype == 0) return swaps(route, (float*)C, ix, n, r, tol, max_iters, ctas, cd, (float*)cand_rows, s);
-  return swaps(route, (double*)C, ix, n, r, tol, max_iters, ctas, cd, (double*)cand_rows, s);
+  if (dtype == 0)
+    return swaps(route, (float*)C, ix, batch, n, r, tol, max_iters, ctas, cd, (float*)cand_rows, s);
+  return swaps(route, (double*)C, ix, batch, n, r, tol, max_iters, ctas, cd, (double*)cand_rows, s);
 }
 
 

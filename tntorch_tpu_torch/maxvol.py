@@ -195,24 +195,34 @@ def _lu_pivots(mats: torch.Tensor) -> torch.Tensor:
 
 
 def _device_lu_pivots(A: torch.Tensor) -> torch.Tensor:
-    """The first r LU row pivots of a tall A (n x r), on A's device.
+    """The first r LU row pivots of a tall A (n x r), on A's device; of
+    each matrix of a batch A (B x n x r) as (B x r).
 
     Above ``chunk`` rows, tournament pivoting (CALU, Grigori-Demmel-Xiang)
     as the JAX package does it: LU each block of ``chunk`` rows (the last
     padded with zero rows, which never win first), then LU the blocks'
     winners, and keep the first r winners that are real rows (a stable
-    argsort of ``row >= n``)."""
-    n, r = A.shape
+    argsort of ``row >= n``). A batch takes one LU call and one `lu_rows`
+    launch where one matrix takes one."""
+    if A.ndim == 2:
+        return _device_lu_pivots(A[None])[0]
+    B, n, r = A.shape
     chunk = max(r, (1 << 20) // max(r, 1))
     if n <= chunk:
-        return lu_rows(_lu_pivots(A)[None], n, r)[0]
+        return lu_rows(_lu_pivots(A), n, r)
     m = -(-n // chunk)
-    Ap = torch.cat([A, A.new_zeros(m * chunk - n, r)])
-    rows = lu_rows(_lu_pivots(Ap.reshape(m, chunk, r)), chunk, r)
-    cand = (rows + torch.arange(m, device=A.device)[:, None] * chunk).reshape(-1)
-    piv = cand[lu_rows(_lu_pivots(Ap[cand])[None], m * r, m * r)[0]]
-    piv = piv[torch.argsort((piv >= n).to(torch.int32), stable=True)]
-    return piv[:r].contiguous()
+    Ap = torch.cat([A, A.new_zeros(B, m * chunk - n, r)], dim=1)
+    rows = lu_rows(_lu_pivots(Ap.reshape(B * m, chunk, r)), chunk, r).reshape(B, m, r)
+    cand = (rows + torch.arange(m, device=A.device)[:, None] * chunk).reshape(B, m * r)
+    piv = cand.gather(1, lu_rows(_lu_pivots(_rows_of(Ap, cand)), m * r, m * r))
+    piv = piv.gather(1, torch.argsort((piv >= n).to(torch.int32), dim=1, stable=True))
+    return piv[:, :r].contiguous()
+
+
+def _rows_of(x: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``x[b, rows[b]]`` for each b: x (B, n, ...) at the rows (B, k) of
+    each batch entry, as (B, k, ...)."""
+    return x[torch.arange(x.shape[0], device=x.device)[:, None], rows]
 
 
 @policy_precision
@@ -222,16 +232,25 @@ def maxvol_device(A, tol: float = 1.05, max_iters: int = 100):
     device. On the card it reads nothing back: the pivots' rows
     (`lu_rows`) and the swap loop (`maxvol_swaps`) are kernels, and the LU
     and the solve skip their info checks."""
-    A = asarray(A)
-    n, r = A.shape
+    idx, C = _maxvol_device_batched(asarray(A)[None], tol, max_iters)
+    return idx[0], C[0]
+
+
+def _maxvol_device_batched(A: torch.Tensor, tol: float, max_iters: int):
+    """`maxvol_device` of each matrix of a batch A (B x n x r): (rows [B x
+    r] int64, C [B x n x r]), each matrix's as `maxvol_device` gives it
+    alone. One batched LU, one `lu_rows` launch (a tournament takes two),
+    one batched solve and one `maxvol_swaps` call for the batch; on the
+    card it reads nothing back."""
+    B, n, r = A.shape
     if n <= r:
-        return (torch.arange(n, device=A.device),
-                torch.eye(n, dtype=A.dtype, device=A.device))
+        return (torch.arange(n, device=A.device).expand(B, n),
+                torch.eye(n, dtype=A.dtype, device=A.device).expand(B, n, n))
     with trace_annotation("tn.maxvol:lu"):
         idx = _device_lu_pivots(A)
     with trace_annotation("tn.maxvol:solve"), _cusolver(A.device):
         # as jnp.linalg.solve(S.T, A.T).T, without solve's check (a host sync)
-        C = torch.linalg.solve_ex(A[idx].T, A.T)[0].T.contiguous()
+        C = torch.linalg.solve_ex(_rows_of(A, idx).mT, A.mT)[0].mT.contiguous()
     with trace_annotation("tn.maxvol:swaps"):
         C, idx = maxvol_swaps(C, idx, tol, max_iters, _BLOCK)
     return idx, C

@@ -20,7 +20,9 @@ from the card:
   cluster of 1-16 CTAs with C in their shared memory (to 1 MiB), a
   cooperative grid of one CTA per SM with C in their shared memory (to ~29
   MB on 132 SMs), or the same grid with C streamed through L2 beyond that
-  (csrc/maxvol_device.cu says how each works).
+  (csrc/maxvol_device.cu says how each works). It also takes a batch of
+  matrices of one shape: on the cluster route one launch, a cluster a
+  matrix; on the grid routes one launch a matrix, in stream order.
 
 What bounds them on an H100: ``lu_rows`` is launch latency (npiv^2
 compare-selects spread over a block; the call's host work, a few tens of
@@ -106,7 +108,13 @@ def maxvol_swaps_plain(C: torch.Tensor, idx: torch.Tensor, tol: float, max_iters
     """The swap loop in torch ops: guarded iterations (`_swap`) in blocks of
     ``block``, with a host check of ``max|C| > tol`` after each block (a
     guarded iteration after convergence changes nothing, so this is the
-    while loop's result). Returns new (C, idx)."""
+    while loop's result). A batch (C: B x n x r, idx: B x r) runs the loop
+    on each matrix in turn. Returns new (C, idx)."""
+    if C.ndim == 3:
+        if not C.shape[0]:
+            return C, idx
+        outs = [maxvol_swaps_plain(c, i, tol, max_iters, block) for c, i in zip(C, idx)]
+        return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
     eye = torch.eye(C.shape[1], dtype=C.dtype, device=C.device)
     done = 0
     while done < max_iters:
@@ -189,21 +197,25 @@ def maxvol_swaps(C: torch.Tensor, idx: torch.Tensor, tol: float, max_iters: int,
     """The guarded swap loop of maxvol on C (n x r) and the pivot rows idx
     (r, int64): while fewer than ``max_iters`` iterations ran and ``max|C|
     > tol``, swap the row of the largest |C[i, j]| into slot j and update C
-    by rank 1. Returns (C, idx). On the card one launch of the kernel
-    `_swap_plan` picks, which updates C and idx in place and reads nothing
-    back; on the CPU, and for
-    complex C, `maxvol_swaps_plain` (``block``: its guarded iterations per
-    host check)."""
-    n, r = C.shape
-    if tuple(idx.shape) != (r,):
-        raise ValueError(f"maxvol_swaps: idx of shape {tuple(idx.shape)} for {r} columns")
+    by rank 1. A batch, C (B x n x r) and idx (B x r), runs the loop on
+    each matrix. Returns (C, idx). On the card the kernel `_swap_plan`
+    picks for one n x r matrix updates C and idx in place and reads
+    nothing back: one launch for the batch on the cluster route, one a
+    matrix on the grid routes, each counted; on the CPU, and for complex
+    C, `maxvol_swaps_plain` (``block``: its guarded iterations per host
+    check)."""
+    batch = C.shape[0] if C.ndim == 3 else None
+    n, r = C.shape[-2:]
+    if C.ndim not in (2, 3) or tuple(idx.shape) != C.shape[:-2] + (r,):
+        raise ValueError(f"maxvol_swaps: idx of shape {tuple(idx.shape)} for C of shape "
+                         f"{tuple(C.shape)}")
     if _on_cpu(C, idx) or C.is_complex():
         return maxvol_swaps_plain(C, idx, tol, max_iters, block)
     if C.dtype not in _DTYPES:
         raise TypeError(f"maxvol_swaps: kernel takes float32 or float64, got {C.dtype}")
     if idx.dtype != torch.int64 or not (C.is_contiguous() and idx.is_contiguous()):
         raise ValueError("maxvol_swaps: C and an int64 idx must be contiguous")
-    if n == 0 or r == 0 or max_iters <= 0:
+    if n == 0 or r == 0 or max_iters <= 0 or batch == 0:
         return C, idx
     with torch.cuda.device(C.device):
         sms = torch.cuda.get_device_properties(C.device).multi_processor_count
@@ -212,9 +224,9 @@ def maxvol_swaps(C: torch.Tensor, idx: torch.Tensor, tol: float, max_iters: int,
         if route != "cluster":  # the grid's candidates and their row copies
             scratch = [torch.empty((2 * ctas, 2), dtype=torch.int64, device=C.device),
                        torch.empty((2 * ctas, r + 1), dtype=C.dtype, device=C.device)]
-        _launch("tnt_maxvol_swaps", _DTYPES[C.dtype], _ROUTES[route], _ptr(C), _ptr(idx), n, r,
-                float(tol), int(max_iters), ctas, *map(_ptr, scratch))
-    maxvol_swaps.launches += 1
+        _launch("tnt_maxvol_swaps", _DTYPES[C.dtype], _ROUTES[route], _ptr(C), _ptr(idx),
+                batch or 1, n, r, float(tol), int(max_iters), ctas, *map(_ptr, scratch))
+    maxvol_swaps.launches += 1 if route == "cluster" else batch or 1
     return C, idx
 
 
