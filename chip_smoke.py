@@ -513,29 +513,70 @@ def cuda_time(fn, reps=5, inner=5):
     return sorted(times)[len(times) // 2]
 
 
-def _two_stage(predicate, fn):
+def forced_tile(name, tile, fn):
+    """``fn()`` with Gram kernel ``name`` (gram_edge and wgram share their
+    route) forced onto tile instance ``tile`` at every shape; None forces
+    the two-stage kernel."""
     from tntorch_tpu_torch.ops import gram_kernels as gk
 
-    choice = getattr(gk, predicate)
-    setattr(gk, predicate, lambda *_: False)
+    attr = "_proj2_tile" if name == "proj2" else "_gram_tile"
+    choice = getattr(gk, attr)
+    setattr(gk, attr, lambda *_: tile)
     try:
         return fn()
     finally:
-        setattr(gk, predicate, choice)
+        setattr(gk, attr, choice)
 
 
 def two_stage_proj2(fn):
     """``fn()`` with proj2 on its two-stage kernel at every shape."""
-    return _two_stage("_proj2_resident", fn)
+    return forced_tile("proj2", None, fn)
 
 
 def two_stage_gram(fn):
     """``fn()`` with gram_edge and wgram on their two-stage kernel at every
     shape."""
-    return _two_stage("_gram_resident", fn)
+    return forced_tile("gram_edge", None, fn)
 
 
-TWO_STAGE = {"gram_edge": two_stage_gram, "wgram": two_stage_gram, "proj2": two_stage_proj2}
+def gram_instances(name, shape, itemsize):
+    """Every tile instance of Gram kernel ``name`` that takes ``shape`` (B,
+    Rl, I, Rr, r1, r2), the wrapper's own choice first; then None, the
+    two-stage kernel."""
+    from tntorch_tpu_torch.ops import gram_kernels as gk
+
+    _, Rl, _, Rr, r1, r2 = shape
+    tiles = (gk._proj2_tiles_for(r1, Rl, Rr, r2, itemsize) if name == "proj2"
+             else gk._gram_tiles_for(Rl, Rr, itemsize))
+    return tiles + [None]
+
+
+def route_name(tile):
+    if tile is None:
+        return "two-stage"
+    return f"tile r{tile[0]} seg{tile[1]}" if isinstance(tile, tuple) else f"tile {tile}"
+
+
+def route_kernel(name, tile, itemsize):
+    """The CUDA kernel that runs Gram kernel ``name`` on ``tile``, as the
+    profiler names it (the sum over slots is a second launch)."""
+    if tile is None:
+        return "two_stage_kernel"
+    if name == "proj2":
+        return "proj2_resident_kernel" if itemsize == 4 and tile[0] == 64 else "proj2_tile_kernel"
+    return "gram_resident_kernel" if tile == 128 else "gram_tile_kernel"
+
+
+def gram_route(kernel, args):
+    """The route Gram wrapper ``kernel`` takes on ``args``, by its pure
+    route function."""
+    from tntorch_tpu_torch.ops import gram_kernels as gk
+
+    if kernel.__name__ == "proj2":
+        (B, r1, Rl), (_, Rr, r2) = args[0].shape, args[2].shape
+        return route_name(gk._proj2_tile(r1, Rl, Rr, r2, args[1].element_size()))
+    B, Rl, I, Rr = args[0].shape
+    return route_name(gk._gram_tile(Rl, Rr, args[0].element_size()))
 
 
 def tt_path(grouped, fn):
@@ -626,7 +667,9 @@ def build():
     paths = _build.build_all()
     for name in paths:
         _build.library(name)
-    print(f"built {', '.join(so.name for so in paths.values())} in {time.time() - t0:.1f} s")
+    seconds = getattr(_build, "BUILD_SECONDS", {})  # an older tree's _build has none
+    print(f"built {', '.join(so.name for so in paths.values())} in {time.time() - t0:.1f} s; "
+          "nvcc by source (s): " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     for name, so in paths.items():
         for line in so.with_suffix(".log").read_text().splitlines():
             if "Function properties for" in line:  # the mangled name, past its namespace
@@ -686,6 +729,12 @@ def in_turns(variants):
     return turns
 
 
+# Phase 3's Gram shapes beyond the bench's: P13 is config 5's divergence
+# fields (phase 13c) at rank 49 rounded to 16; a rank-16 core rounded to 8
+P13 = (32, 49, 256, 49, 16, 16)
+RANK16 = (32, 16, 256, 16, 8, 8)
+
+
 def check_kernels():
     phase("3. kernels against their plain versions")
     import torch
@@ -694,73 +743,70 @@ def check_kernels():
 
     B, R, I, r = BENCH["B"], BENCH["R"], BENCH["I"], BENCH["rmax"]
     bench_shape = (B, R, I, R, r, r)
-    # In float32, gram_edge, wgram and proj2 run their resident kernels at
-    # the first four shapes and the two-stage kernel at the last two (beyond
-    # the resident tiles); at the first four the two-stage kernel is
-    # checked too. Float64 runs the two-stage Gram kernel everywhere
-    shapes = [bench_shape, (B, R, I, 1, r, 1), (3, 5, 37, 3, 4, 2), (2, 5, 37, 1, 3, 1),
-              (2, 70, 37, 130, 65, 3), (2, 256, 16, 256, 128, 128)]
+    # Every tile instance that takes a shape (gram_instances), forced, and
+    # the two-stage kernel, f32 and f64, each held to the plain version and
+    # bitwise to a second call; the last two shapes are beyond every tile.
+    # At the bench shape, P13 and RANK16 each is timed in turns with the
+    # plain version, beside one einsum and its bound (f64 at the FP64 peak)
+    shapes = [bench_shape, P13, RANK16, (B, R, I, 1, r, 1), (3, 5, 37, 3, 4, 2),
+              (2, 5, 37, 1, 3, 1), (2, 70, 37, 130, 65, 3), (2, 256, 16, 256, 128, 128)]
+    timed = (bench_shape, P13, RANK16)
     kernels = {"gram_edge": gk.gram_edge, "wgram": gk.wgram, "proj2": gk.proj2}
     flops = gram_flops
     report = {name: {} for name in kernels}
     gen = torch.Generator(device="cuda").manual_seed(0)
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split(".")[-1]
+        peak = PEAK_FP64 if dtype == torch.float64 else PEAK_FP32
         for shape in shapes:
             inputs = kernel_inputs(shape, dtype, gen)
-            Rl, Rr, r1, r2 = shape[1], shape[3], shape[4], shape[5]
-            resident = {"gram_edge": gk._gram_resident(Rl, Rr, dtype.itemsize),
-                        "wgram": gk._gram_resident(Rl, Rr, dtype.itemsize),
-                        "proj2": gk._proj2_resident(r1, Rl, Rr, r2, dtype.itemsize)}
-            # (tag, kernel name, call, whether the call is the wrapper's own
-            # choice); where the wrapper takes a resident kernel, the
-            # two-stage kernel is held to the plain version too
-            runs = []
             for name, kernel in kernels.items():
-                runs.append((f"{name}/{'resident' if resident[name] else 'two-stage'}", name,
-                             kernel, True))
-                if resident[name]:
-                    runs.append((f"{name}/two-stage", name,
-                                 lambda *a, n=name: TWO_STAGE[n](lambda: kernels[n](*a)), False))
-            for tag, name, kernel, main in runs:
                 args = inputs[name]
-                got = kernel(*args)
-                again = kernel(*args)
-                torch.cuda.synchronize()
-                want = gk.PLAIN[kernels[name]](*args)
-                torch.cuda.synchronize()
-                if not torch.isfinite(got).all():
-                    raise AssertionError(f"{tag} {dname} {shape}: non-finite output")
-                if not torch.equal(got, again):
-                    raise AssertionError(f"{tag} {dname} {shape}: two calls differ")
-                err = float((got - want).abs().max())
-                rel = err / max(float(want.abs().max()), 1e-300)
-                line = (f"{tag:19s} {dname} B,Rl,I,Rr,r1,r2={shape}: max|diff| {err:.3e}, "
-                        f"rel {rel:.3e}, bitwise equal on two calls")
-                if shape == bench_shape and dtype == torch.float32 and main:
-                    # The kernel, its plain version and (where the wrapper
-                    # takes a resident kernel) the two-stage kernel, in turns
-                    variants = {"kernel": lambda: kernel(*args),
-                                "plain": lambda: gk.PLAIN[kernel](*args)}
-                    if resident[name]:
-                        variants["two-stage"] = lambda: TWO_STAGE[name](lambda: kernel(*args))
-                    turns = in_turns(variants)
-                    ms, plain_ms = min(turns["kernel"]), min(turns["plain"])
-                    library_ms = cuda_time(lambda: gram_library(name, *args))
-                    bound, by = bound_ms(flops(name, *shape), nbytes(*args, got))
-                    report[name].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                        bound_ms=bound, bound_by=by, library_ms=library_ms)
-                    line += (f", kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, one einsum "
-                             f"{library_ms:.3f} ms, bound {bound:.3f} ms ({by}), "
-                             f"{flops(name, *shape) / ms / 1e9:.1f} TFLOP/s"
-                             f"\n    in turns (ms): " + "; ".join(f"{v} {t}" for v, t in turns.items()))
-                    if resident[name]:
-                        report[name]["two_stage_ms"] = min(turns["two-stage"])
-                        line += (f"\n    SM clock, power while the resident kernel runs: "
-                                 f"{smi_while(lambda: kernel(*args))}")
-                print(line, flush=True)
-                if rel > KERNEL_TOL[dname]:
-                    raise AssertionError(f"{tag} disagrees with its plain version: rel {rel:.3e}")
+                want = gk.PLAIN[kernel](*args)
+                instances = gram_instances(name, shape, dtype.itemsize)
+                calls = {route_name(t): (lambda t=t: forced_tile(name, t, lambda: kernel(*args)))
+                         for t in instances}
+                errs = {}
+                for tag, call in calls.items():
+                    got = call()
+                    again = call()
+                    torch.cuda.synchronize()
+                    label = f"{name}/{tag}{' (route)' if tag == route_name(instances[0]) else ''}"
+                    if not torch.isfinite(got).all():
+                        raise AssertionError(f"{label} {dname} {shape}: non-finite output")
+                    if not torch.equal(got, again):
+                        raise AssertionError(f"{label} {dname} {shape}: two calls differ")
+                    err = float((got - want).abs().max())
+                    rel = err / max(float(want.abs().max()), 1e-300)
+                    errs[tag] = err
+                    print(f"{label:32s} {dname} B,Rl,I,Rr,r1,r2={shape}: max|diff| {err:.3e}, "
+                          f"rel {rel:.3e}, bitwise equal on two calls", flush=True)
+                    if rel > KERNEL_TOL[dname]:
+                        raise AssertionError(f"{label} {dname} {shape} disagrees with its plain "
+                                             f"version: rel {rel:.3e}")
+                if shape not in timed:
+                    continue
+                route = route_name(instances[0])
+                turns = in_turns({**calls, "plain": lambda: gk.PLAIN[kernel](*args)})
+                ms, plain_ms = min(turns[route]), min(turns["plain"])
+                library_ms = cuda_time(lambda: gram_library(name, *args))
+                bound, by = bound_ms(flops(name, *shape), nbytes(*args, want), peak)
+                # The route's kernel alone on the card's clock (the call's
+                # time also holds the host's launch and, on a tile, the sum
+                # over slots)
+                dev, _ = device_ms(calls[route], route_kernel(name, instances[0], dtype.itemsize))
+                print(f"  {name} {dname} {shape} on its route ({route}): {ms:.4f} ms a call, "
+                      f"its kernel {dev:.4f} ms, plain {plain_ms:.4f} ms, one einsum "
+                      f"{library_ms:.4f} ms (call / einsum {ms / library_ms:.2f}x), bound "
+                      f"{bound:.4f} ms ({by}; kernel / bound {dev / bound:.2f}x), "
+                      f"{flops(name, *shape) / ms / 1e9:.1f} TFLOP/s\n    in turns (ms): "
+                      + "; ".join(f"{v} {t}" for v, t in turns.items()), flush=True)
+                if shape == bench_shape and dtype == torch.float32:
+                    report[name].update(max_abs_err=errs[route], ms=ms, plain_ms=plain_ms,
+                                        bound_ms=bound, bound_by=by, library_ms=library_ms,
+                                        two_stage_ms=min(turns["two-stage"]))
+                    print(f"    SM clock, power while the route runs: "
+                          f"{smi_while(lambda: kernel(*args))}", flush=True)
     # The last right edge of the bench sweep: C (B, R, I, 1), G (B, 1, 1).
     # The sweep routes it to one batched product, as the JAX package does;
     # the kernel still takes it
@@ -776,6 +822,55 @@ def check_kernels():
           f"batched product {routed_ms:.3f} ms (max|diff| to the kernel {err:.3e}), plain "
           f"{plain_ms:.3f} ms, one einsum {library_ms:.3f} ms, bound {bound:.4f} ms ({by})")
     return report
+
+
+def device_per_call(fn, calls=20):
+    """Device time (ms) per call of ``fn``: every kernel it launches, summed
+    over `calls` calls (torch.profiler), divided by `calls`."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a session now and then returns no device events: take another
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if times:
+            return sum(times) / 1e3 / calls
+    raise AssertionError("the profiler saw no device work")
+
+
+def time_gram_routes():
+    """3g (off by default): each Gram wrapper on its own route at the bench
+    shape, P13 and RANK16, f32 and f64: call time (CUDA events) and device
+    time per call (profiler) beside one einsum and the bound. It uses only
+    the wrappers, so it runs on the parent's tree too: copy this file into
+    an unpacked parent and run `--only 3g` there and here in turns."""
+    phase("3g. each Gram kernel on its own route: call and device time, one einsum")
+    import torch
+
+    from tntorch_tpu_torch.ops import gram_kernels as gk
+
+    B, R, I, r = BENCH["B"], BENCH["R"], BENCH["I"], BENCH["rmax"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for shape in ((B, R, I, R, r, r), P13, RANK16):
+        for dtype in (torch.float32, torch.float64):
+            inputs = kernel_inputs(shape, dtype, gen)
+            peak = PEAK_FP64 if dtype == torch.float64 else PEAK_FP32
+            for kernel in gk.KERNELS:
+                name, args = kernel.__name__, inputs[kernel.__name__]
+                ms = cuda_time(lambda: kernel(*args))
+                dev = device_per_call(lambda: kernel(*args))
+                library_ms = cuda_time(lambda: gram_library(name, *args))
+                bound, by = bound_ms(gram_flops(name, *shape),
+                                     nbytes(*args, kernel(*args)), peak)
+                print(f"3g {name:9s} {str(dtype)[6:]} {shape}: call {ms:.4f} ms, device "
+                      f"{dev:.4f} ms a call, one einsum {library_ms:.4f} ms, bound {bound:.4f} ms "
+                      f"({by})", flush=True)
 
 
 def tt_problem(ranks, I, B, dtype, seed, negative=False, skew=False):
@@ -3785,6 +3880,13 @@ def field_checks(device="cuda", cfg=FIELDS13):
           f"CPU {dev.tolist()} (tol {GRAM_SHARE} x the CPU's truncation error {ref_trunc.tolist()})")
     if not bool((dev <= GRAM_SHARE * ref_trunc).all()) or not worst32 <= RANDGRAM_FACTOR:
         failed.append(f"13c rounding: card vs CPU {dev.tolist()}, randgram {worst32:.3f}")
+    calls = []
+    with recording_gram(calls):
+        tn.round_tt(div, rmax=rmax, algorithm="gram")
+        tn.round_tt(div32, rmax=rmax, algorithm="randgram")
+    print("13c the two roundings' Gram calls and their routes: " + "; ".join(
+        f"{k.__name__} {str(a[0].dtype)[6:]} C {tuple((a[1] if k.__name__ == 'proj2' else a[0]).shape)}"
+        f" ({gram_route(k, a)})" for k, a in calls))
 
     def chain():
         g = tn.gradient(phi)
@@ -3923,6 +4025,7 @@ def hold_gram(name, C, r):
         report[(kname, dname)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, err=err)
         print(f"{name} {kname} {dname} B,Rl,I,Rr={tuple(C.shape)}"
               + (f" r1,r2={r1},{r2}" if kname == "proj2" else "")
+              + f" ({gram_route(kernel, args)})"
               + f": rel {err:.2e} against plain (tol {KERNEL_TOL[dname]}); kernel {ms:.3f} ms, "
               f"plain {plain_ms:.3f} ms, one einsum {library_ms:.3f} ms, bound {bound:.4f} ms "
               f"({by}); in turns {turns}")
@@ -4157,7 +4260,8 @@ def hold_gram_calls(name, calls):
         dname = str(want.dtype)[6:]
         err = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-300)
         C = args[1] if kernel.__name__ == "proj2" else args[0]
-        parts.append(f"{kernel.__name__} {dname} {tuple(C.shape)} {err:.1e}")
+        parts.append(f"{kernel.__name__} {dname} {tuple(C.shape)} ({gram_route(kernel, args)}) "
+                     f"{err:.1e}")
         if not bool(torch.isfinite(got).all()) or not err <= KERNEL_TOL[dname]:
             failed.append(f"{kernel.__name__} {dname} {tuple(C.shape)}: rel {err:.3e}")
     print(f"{name}, Gram kernels vs plain at the path's {len(calls)} calls (tol {KERNEL_TOL}): "
@@ -6468,7 +6572,7 @@ def one_stream_path(device="cuda", cfg=SIZES19):
     return launches
 
 
-PHASES = {"3": "check_kernels", "3b": "check_tt_kernels", "3s": "hold_per_sample_plans",
+PHASES = {"3": "check_kernels", "3g": "time_gram_routes", "3b": "check_tt_kernels", "3s": "hold_per_sample_plans",
           "3t": "time_per_sample", "3h": "time_host", "3x": "plan_choices", "4": "main_path",
           "5": "nonbatch_pass", "6": "eval_path", "7": "train_path", "8": "train_design_path",
           "9": "baseline_path", "10": "cross_path", "11": "elementwise_path",

@@ -75,6 +75,7 @@ JAX_EINSUM = {
     (2, 16, 32, 128, 8, 24),
     (3, 5, 37, 3, 4, 3),  # odd ranks, I not a multiple of any tile
     (2, 5, 37, 1, 3, 1),  # Rr = 1, as on the last right edge
+    (3, 49, 37, 49, 16, 16),  # P13's ranks (config 5's fields, rank 49 -> 16)
 ])
 @pytest.mark.parametrize("name", ["gram_edge", "wgram", "proj2"])
 def test_plain_version_matches_jax_einsum_f64(name, shape):
@@ -104,44 +105,50 @@ def test_wrappers_refuse_other_devices_instead_of_falling_back():
 
 
 @pytest.mark.parametrize("itemsize", [4, 8])
-@pytest.mark.parametrize("ranks, resident", [
-    ((64, 128, 128, 64), True),     # the bench sweep's middle cores
-    ((3, 5, 3, 2), True),           # small ragged ranks
-    ((64, 128, 1, 1), True),        # Rr = 1
-    ((128, 256, 256, 128), False),  # r = 128 outgrows the tile
-    ((65, 128, 128, 64), False),    # r1 one over
-    ((64, 128, 129, 64), False),    # Rr one over
-    ((64, 1024, 128, 64), False),   # Y^T outgrows shared memory
+@pytest.mark.parametrize("ranks, tiles", [
+    ((64, 128, 128, 64), ((64, 128), (64, 128))),   # the bench sweep's middle cores
+    ((3, 5, 3, 2), ((16, 256), (16, 256))),         # small ragged ranks
+    ((64, 128, 1, 1), ((64, 128), (64, 128))),      # Rr = 1
+    ((128, 256, 256, 128), (None, None)),           # r = 128 outgrows every tile
+    ((65, 128, 128, 64), (None, None)),             # r1 one over
+    ((64, 128, 129, 64), (None, None)),             # Rr one over the r = 64 segment
+    ((64, 1024, 128, 64), (None, None)),            # Y^T outgrows shared memory
 ])
-def test_proj2_kernel_choice_by_shared_memory(ranks, resident, itemsize):
+def test_proj2_kernel_choice_by_shared_memory(ranks, tiles, itemsize):
     r1, Rl, Rr, r2 = ranks
-    assert gk._proj2_resident(r1, Rl, Rr, r2, itemsize) is resident
-    if resident:
-        assert gk._proj2_smem(Rl, itemsize) <= gk._SMEM_MAX
+    tile = tiles[itemsize == 8]
+    assert gk._proj2_tile(r1, Rl, Rr, r2, itemsize) == tile
+    if tile is not None:
+        assert gk._proj2_smem(tile, Rl, Rr, itemsize) <= gk._SMEM_MAX
 
 
-@pytest.mark.parametrize("itemsize, largest", [(4, 320), (8, 144)])
+@pytest.mark.parametrize("itemsize, largest", [(4, 320), (8, 128)])
 def test_proj2_resident_limit_in_Rl(itemsize, largest):
-    # The largest Rl whose Y^T, X, intermediate and ring fit 227 KB; the
-    # kernel's own check (csrc/gram_kernels.cu, resident_smem) is the same sum
-    assert gk._proj2_resident(64, largest, 128, 64, itemsize)
-    assert not gk._proj2_resident(64, largest + 1, 128, 64, itemsize)
+    # The largest Rl whose Y^T, X, intermediate and ring fit 227 KB at r =
+    # 64, Rr = 128 (float32: the resident-projector kernel, float64: its
+    # DMMA instance); csrc's resident_smem and P2Tile::smem are the same sums
+    assert gk._proj2_tile(64, largest, 128, 64, itemsize) == (64, 128)
+    assert gk._proj2_tile(64, largest + 1, 128, 64, itemsize) is None
 
 
-@pytest.mark.parametrize("Rl, Rr, itemsize, resident", [
-    (128, 128, 4, True),    # the bench sweep's middle edges
-    (128, 128, 8, False),   # float64 takes the two-stage kernel
-    (5, 3, 4, True),        # small ragged ranks
-    (128, 1, 4, True),      # Rr = 1
-    (1, 128, 4, True),      # Rl = 1
-    (127, 127, 4, True),
-    (129, 128, 4, False),   # Rl one over the tile
-    (128, 129, 4, False),   # Rr one over the tile
-    (70, 130, 4, False),
-    (256, 256, 4, False),
+@pytest.mark.parametrize("Rl, Rr, itemsize, tile", [
+    (128, 128, 4, 128),   # the bench sweep's middle edges
+    (128, 128, 8, None),  # float64 above 64 takes the two-stage kernel
+    (64, 64, 8, 64),      # float64 on DMMA up to 64
+    (49, 49, 8, 64),      # P13
+    (49, 49, 4, 64),
+    (5, 3, 4, 32),        # small ragged ranks
+    (5, 3, 8, 32),
+    (128, 1, 4, 128),     # Rr = 1
+    (1, 128, 4, 128),     # Rl = 1
+    (127, 127, 4, 128),
+    (129, 128, 4, None),  # Rl one over the largest tile
+    (128, 129, 4, None),  # Rr one over it
+    (70, 130, 4, None),
+    (256, 256, 4, None),
 ])
-def test_gram_kernel_choice_by_tile_and_dtype(Rl, Rr, itemsize, resident):
-    assert gk._gram_resident(Rl, Rr, itemsize) is resident
+def test_gram_kernel_choice_by_tile_and_dtype(Rl, Rr, itemsize, tile):
+    assert gk._gram_tile(Rl, Rr, itemsize) == tile
 
 
 def _plan_items(B, I, blocks):
@@ -228,14 +235,18 @@ def test_build_needs_nvcc_and_keys_the_library_on_the_source(monkeypatch):
 def test_kernels_match_plain_versions_on_cuda(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    # (2, 70, 37, 130, 65, 3) is beyond the resident kernels' tiles: the
-    # wrappers take the two-stage kernel there and (in float32) the resident
-    # ones elsewhere; (300, 7, 3, 9, 2, 2) makes block runs cross samples
+    # (2, 70, 37, 130, 65, 3) is beyond every tile: the wrappers take the
+    # two-stage kernel there and a tile instance elsewhere; (300, 7, 3, 9,
+    # 2, 2) makes block runs cross samples; (32, 49, 64, 49, 16, 16) has
+    # P13's ranks. Every instance that takes a shape is forced there too
     shapes = [(4, 64, 40, 64, 32, 32), (3, 5, 37, 3, 4, 3), (2, 5, 37, 1, 3, 1),
-              (2, 70, 37, 130, 65, 3), (300, 7, 3, 9, 2, 2), (2, 128, 33, 128, 8, 8)]
+              (2, 70, 37, 130, 65, 3), (300, 7, 3, 9, 2, 2), (2, 128, 33, 128, 8, 8),
+              (32, 49, 64, 49, 16, 16), (2, 33, 37, 17, 17, 5)]
     for dtype, tol in ((np.float32, 1e-4), (np.float64, 1e-12)):
+        item = np.dtype(dtype).itemsize
         for shape in shapes:
             a = _inputs(shape, dtype, seed=3)
+            B, Rl, I, Rr, r1, r2 = shape
             for name, kernel in zip(ARGS, gk.KERNELS):
                 args = [torch.from_numpy(a[k]).cuda() for k in ARGS[name]]
                 before = kernel.launches
@@ -244,15 +255,13 @@ def test_kernels_match_plain_versions_on_cuda(monkeypatch):
                 assert kernel.launches == before + 1
                 want = gk.PLAIN[kernel](*args)
                 assert _rel(got.cpu().numpy(), want.cpu().numpy()) <= tol, (name, shape, dtype)
-            for name, predicate in (("proj2", "_proj2_resident"), ("gram_edge", "_gram_resident"),
-                                    ("wgram", "_gram_resident")):
-                kernel = getattr(gk, name)
-                args = [torch.from_numpy(a[k]).cuda() for k in ARGS[name]]
-                got = kernel(*args)
-                assert torch.equal(got, kernel(*args)), (name, shape, "two calls differ")
-                with monkeypatch.context() as m:  # the two-stage kernel at every shape
-                    m.setattr(gk, predicate, lambda *_: False)
-                    two_stage = kernel(*args)
-                want = gk.PLAIN[kernel](*args)
-                assert _rel(two_stage.cpu().numpy(), want.cpu().numpy()) <= tol, (name, shape)
-                assert _rel(got.cpu().numpy(), two_stage.cpu().numpy()) <= tol, (name, shape)
+                route, tiles = (("_proj2_tile", gk._proj2_tiles_for(r1, Rl, Rr, r2, item))
+                                if name == "proj2" else
+                                ("_gram_tile", gk._gram_tiles_for(Rl, Rr, item)))
+                for tile in tiles + [None]:  # None: the two-stage kernel
+                    with monkeypatch.context() as m:
+                        m.setattr(gk, route, lambda *_, t=tile: t)
+                        forced = kernel(*args)
+                        again = kernel(*args)
+                    assert torch.equal(forced, again), (name, shape, tile, "two calls differ")
+                    assert _rel(forced.cpu().numpy(), want.cpu().numpy()) <= tol, (name, shape, tile)

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
@@ -33,15 +34,19 @@ _D = ctypes.c_double
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _PI = ctypes.POINTER(ctypes.c_int)
 
+# Seconds each source's nvcc took in this process's builds, by source
+BUILD_SECONDS = {}
+
 # The C entry points of each library and their argument types
 SIGNATURES = {
     "gram_kernels": {
         "tnt_gram_edge": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "tnt_wgram": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "tnt_proj2": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-        "tnt_proj2_resident": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-        "tnt_gram_resident": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        "tnt_occupancy": [_I, _I, _I],
+        "tnt_proj2_tile": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "tnt_gram_tile": [_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "tnt_occupancy": [_I, _I],
+        "tnt_tile_occupancy": [_I, _I, _I, _I, _I],
     },
     "tt_eval": {
         "tnt_tt_eval": [_I, _I, _I, _PP, _PI, _PI, _P, _L, _P, _P, _I, _I, _I, _I, _P],
@@ -79,7 +84,8 @@ def build_all(names=None) -> dict:
     """Compile each named source (default: all) whose library does not exist
     yet, one ``nvcc`` per source, all started together; returns the library
     paths by name. The compiler's output (``-Xptxas -v``: registers, shared
-    memory, spills) is kept beside each library as ``.log``."""
+    memory, spills) is kept beside each library as ``.log``, and each
+    source's compile time in `BUILD_SECONDS`."""
     names = list(SOURCES) if names is None else list(names)
     paths = {name: library_path(name) for name in names}
     todo = {name: so for name, so in paths.items() if not so.exists()}
@@ -87,15 +93,24 @@ def build_all(names=None) -> dict:
         BUILD_DIR.mkdir(exist_ok=True)
         nvcc = _nvcc()
         procs = {}
+        start = time.time()
         for name, so in todo.items():
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            procs[name] = (tmp, subprocess.Popen(
+            log = open(so.with_suffix(".log"), "w")
+            procs[name] = (tmp, log, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+                stdout=log, stderr=subprocess.STDOUT, text=True))
+        seconds = {}
+        while len(seconds) < len(procs):
+            for name, (_, _, proc) in procs.items():
+                if name not in seconds and proc.poll() is not None:
+                    seconds[name] = time.time() - start
+            time.sleep(0.05)
+        BUILD_SECONDS.update(seconds)
         failed = []
-        for name, (tmp, proc) in procs.items():
-            log = proc.communicate()[0]
-            todo[name].with_suffix(".log").write_text(log)
+        for name, (tmp, log, proc) in procs.items():
+            log.close()
+            log = todo[name].with_suffix(".log").read_text()
             if proc.returncode != 0:
                 failed.append(f"nvcc failed on {SOURCES[name].name}:\n{log}")
             else:

@@ -10,45 +10,64 @@
 //                out[r,i,c] = sum_b (sum_a Y[r,a] C[a,i,b]) X[b,c]
 // with C (B, Rl, I, Rr) and every matrix row-major, batch sample z.
 //
-// What bounds them on this card: at the bench shape (B=32, Rl=Rr=128,
+// Routes. A pure function of the ranks and the dtype picks an instance
+// (ops/gram_kernels.py: _gram_tile, _proj2_tile), the smallest that serves
+// the ranks; ranks beyond every instance take two_stage_kernel:
+//   gram_edge, wgram  f32: gram_tile_kernel<float, GE, 32 | 64>, then
+//                          gram_resident_kernel (GR = 128);
+//                     f64: gram_tile_kernel<double, GE, 32 | 64> (DMMA);
+//                          65-128 stays on two_stage_kernel (G or W, T and a
+//                          C_i tile at 128 x 132 doubles each, 135 KB, would
+//                          not fit a block's 227 KB twice over).
+//   proj2             f32: proj2_tile_kernel<float, 16 | 32, 256>, then
+//                          proj2_resident_kernel (r <= 64, Rr <= 128);
+//                     f64: proj2_tile_kernel<double, 16, 256 | 32, 128 |
+//                          64, 128> (DMMA).
+//
+// What bounds them on this card. At the bench shape (B=32, Rl=Rr=128,
 // I=256, f32) one sample's middle edge is ~2.15 GFLOP over a 16 MiB read of
 // C, ~128 FLOP/B, far above the H100's FP32-FMA ridge (~67 TFLOP/s over
-// 3.35 TB/s, ~20 FLOP/B). In exact f32 they are bound by FMA issue and the
-// shared-memory traffic that feeds it, not by HBM. The TPU kernels' point
-// (keep the intermediate T = C.G out of device memory) holds here for free;
-// the design spends its effort on the inner product. Tensor cores (3xTF32
-// or TF32 wgmma) are later work.
+// 3.35 TB/s, ~20 FLOP/B): in exact f32 they are bound by FMA issue and the
+// shared-memory traffic that feeds it, not by HBM. At the ranks users run
+// (5-64) the Gram kernels stay compute-bound (rank 49: ~24 FLOP/B, at the
+// FP64 ridge before the padding to a tile), while proj2 at r = 16 does ~5
+// FLOP per byte of C and is bound by streaming C once. In float64 only the
+// tensor cores (DMMA, mma.sync .f64: IEEE double FMAs at the 67 TFLOP/s
+// FP64 peak, about twice FFMA64's rate) can approach the bound. The TPU
+// kernels' point (keep the intermediate T = C.G out of device memory)
+// holds here for free; TF32 or 3xTF32 for f32 are later work.
 //
-// gram_edge and wgram in float32 with Rl, Rr <= 128 (the bench sweep's
-// middle edges) run gram_resident_kernel, one kernel for both edges:
-// - persistent blocks, one wave (one block per SM, sized by the caller from
-//   tnt_occupancy), each walking a contiguous run of the B x I work units
-//   (z, i) that the caller's plan hands it; a block owns a sample's whole
-//   output (128 x 128: 256 threads x 8 x 8 registers), so C_i comes on chip
-//   once per i, by one block, and the sum over i stays in registers;
-// - G (or W, transposed) resident in shared memory, reloaded only when the
-//   block's sample changes;
-// - C_i streamed through a 12-slot ring of 16-deep k-slices, 4 slices ahead
-//   (16-byte cp.async.cg copies for wgram, whose contraction runs over C's
-//   rows; 4-byte copies that transpose for gram_edge, whose contraction runs
-//   over C's contiguous index), one barrier per slice, a slice's copies
-//   spread over stage 1's k-steps. One transfer of C_i serves both stages:
-//   the unit's slices stay in the ring through stage 2 while the next
-//   unit's first 4 slices load;
-// - T_i = C_i G (or W C_i) kept in shared memory between the stages;
-//   transposed stores and copies are XOR-swizzled (swz, tsw) so they are
-//   free of bank conflicts; a warp is 4 x 8 threads of the 16 x 16, so a
-//   16-byte shared load asks for 4 or 8 distinct addresses; exact FP32 FMAs;
-// - at a sample boundary and at the end of its run a block writes its
-//   partial into the slot the plan gives it, and a second pass sums each
-//   sample's slots in slot order: no atomics, bitwise reproducible.
-// G (or W), T and the ring take 224 KB of the 227 KB a block may use. f64,
-// and ranks above 128, take two_stage_kernel<T, 8, false>. At the bench
-// shape it runs at 60% (gram_edge) and 68% (wgram) of the FP32 peak against
-// two_stage_kernel's 38% (NVIDIA H100 80GB HBM3, 700.00 W, chip_smoke.py
-// phase 3); its hot loops are 81% (stage 1) and 94% (stage 2) FFMA, so what
-// is left is stalls; gram_edge's ~12% over wgram most likely comes from
-// its transposing 4-byte copies (the one part of the two that differs).
+// gram_tile_kernel (Rl, Rr <= GR = 32 or 64, both dtypes):
+// - persistent blocks, one wave sized from tnt_tile_occupancy, each walking
+//   the contiguous run of (z, i) units _gram_plan gives it; a warp per
+//   16 x 32 region of the GR x GR output, (GR / 4)^2 threads, the sum over
+//   i in registers, partials per sample to the plan's slots and a second
+//   pass (sum_slots_kernel) in slot order: no atomics, bitwise repeatable;
+// - G (or W transposed) resident in shared memory per sample; C_i through 3
+//   whole-unit buffers of element cp.async copies (C's rows, Rr long, are
+//   16-byte aligned only by chance), two units ahead; T between the stages;
+//   every operand k-major with rows GR + 4 long (4 mod 16 doubles: each DMMA
+//   fragment load takes the two wavefronts its 256 bytes need);
+// - shared memory zeroed once: the padding past the ranks stays 0, so the
+//   products run over the tile, k rounded to 8, and warps whose region lies
+//   past the ranks skip it;
+// - float32: a lane holds 4 x 4 of its warp's region, 16-byte loads, exact
+//   FFMA; float64: four m16n8k8 DMMA fragments a warp.
+// At rank 49 the tile is 64: the padding costs (64 / 49)^2 in operations.
+//
+// proj2_tile_kernel (r1, r2 <= RT, Rr <= NSEG): a unit is a sample z and
+// NSEG / Rr consecutive mode indices, so that each row a of C_z over them
+// is one contiguous segment and stage 1 is one product Y (RT x Rl) by the
+// segments (Rl x NSEG); stage 2 multiplies each mode index's block of T by
+// X. Persistent blocks (one wave) walk contiguous runs of units; C streams
+// once through a 3-stage ring of 8-row (f64) or 16-row (f32) slices of
+// 16-byte cp.async copies taken from each row's 16-byte boundary below its
+// segment (the shift, the first element's offset mod 16 bytes, is added
+// back by the readers; the tail copy is trimmed to the segment and rows
+// past Rl are zero-filled), the ring running on across units; Y^T and X
+// resident per sample; stage 1 in float32 by lanes along the segment
+// (conflict-free scalar loads), in float64 by DMMA fragments; stage 2
+// masks T's entries past Rr, which belong to the next mode index.
 //
 // Design of two_stage_kernel (gram_edge and wgram outside that tile, proj2
 // beyond its resident tile): one pattern with the operands' strides as
@@ -77,12 +96,12 @@
 // 128) its ~38 FLOP per byte of C is only ~2x the ridge: the two-stage
 // kernel, which reloads Y and X for every i and waits on each k-slice,
 // reached 31% of the FP32 peak there (NVIDIA H100 80GB HBM3, 700.00 W,
-// chip_smoke.py phase 3). Where r1 <= 64, r2 <= 64, Rr <= 128
-// and Y, X, the intermediate and the ring fit the 227 KB a block may use
-// (Rl <= 320 in f32, <= 144 in f64), proj2 runs proj2_resident_kernel:
-// - persistent blocks, one wave sized by the caller from tnt_occupancy,
-//   each walking a contiguous run of the B x ceil(I / IP) work units (z, a
-//   pair of consecutive i in f32, one i in f64);
+// chip_smoke.py phase 3). In float32 where 32 < max(r1, r2) <= 64, Rr <=
+// 128 and Y, X, the intermediate and the ring fit the 227 KB a block may
+// use (Rl <= 320), proj2 runs proj2_resident_kernel:
+// - persistent blocks, one wave sized by the caller from
+//   tnt_tile_occupancy, each walking a contiguous run of the B x ceil(I / 2)
+//   work units (z, a pair of consecutive i);
 // - Y (transposed) and X resident in shared memory, reloaded only when the
 //   block's sample z changes;
 // - C streamed in k-slices (rows a of C_i) through a ring of 3 stages of
@@ -94,9 +113,8 @@
 //   XOR swizzle of 4-element chunks that makes its transposed store free of
 //   bank conflicts;
 // - register tiles of 8 x 8 (stage 1, both i of a pair) and 8 x 4 (stage
-//   2) per thread in f32, 8 x 4 and 4 x 4 in f64, fed by 16-byte shared
-//   loads; exact FP32 FMAs (no TF32).
-// Shapes outside that tile take two_stage_kernel<T, 4, true> unchanged.
+//   2) per thread, fed by 16-byte shared loads; exact FP32 FMAs (no TF32).
+// Shapes outside every instance take two_stage_kernel<T, 4, true> unchanged.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -389,16 +407,12 @@ constexpr int RB = 128;   // the tile's Rr
 constexpr int RSTAGES = 3;
 constexpr size_t SMEM_MAX = 232448;  // the shared memory a block may use
 
-// Per type: mode indices per work unit, depth of a k-slice
+// Mode indices per work unit, depth of a k-slice (float32 only)
 template <typename T>
 struct Res;
 template <>
 struct Res<float> {
   static constexpr int IP = 2, KS = 16;
-};
-template <>
-struct Res<double> {
-  static constexpr int IP = 1, KS = 8;
 };
 
 template <typename T>
@@ -440,10 +454,6 @@ __device__ __forceinline__ void cp_async_wait() {
 
 __device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
   *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-__device__ __forceinline__ void store4(double* p, double a, double b, double c, double d) {
-  *reinterpret_cast<double2*>(p) = make_double2(a, b);
-  *reinterpret_cast<double2*>(p + 2) = make_double2(c, d);
 }
 
 // Column of element (b, m) of the intermediate in its b-major shared tile:
@@ -662,16 +672,17 @@ constexpr int GAHEAD = 4;   // slices in flight ahead of the one being multiplie
 static_assert(GSLOTS - GAHEAD >= GR / GKS, "ring too small for a unit");
 constexpr size_t GRAM_SMEM = sizeof(float) * (2 * GR * GR + GSLOTS * GKS * GR);
 
+template <typename T>
 struct GramArgs {
-  const float* C;
-  const float* Q;  // G (gram_edge) or W (wgram)
-  float* part;     // the partial sums, slot by slot, each M x M
-  float* out;
+  const T* C;
+  const T* Q;  // G (gram_edge) or W (wgram)
+  T* part;     // the partial sums, slot by slot, each M x M
+  T* out;
   const int64_t* run;     // block j walks the units [run[j], run[j + 1]) ...
   const int64_t* first;   // ... and writes its partials from slot first[j] on
   const int64_t* sample;  // sample z's partials: slots [sample[z], sample[z + 1])
   int B, Rl, I, Rr;
-  int vec;  // rows of C are 16-byte aligned (wgram's copies)
+  int vec;  // rows of C are 16-byte aligned (wgram's copies; float32 at tile 128)
 };
 
 // Column of element (k, x) of a tile stored transposed (k-major, filled by
@@ -693,7 +704,7 @@ __device__ __forceinline__ int tsw(int k, int x) { return x ^ ((k & 7) << 2); }
 // The ring's slices run on across units: slice g goes to slot g % GSLOTS,
 // GAHEAD slices ahead of the one multiplied, one barrier per slice.
 template <bool GE>
-__global__ void __launch_bounds__(NT, 1) gram_resident_kernel(const GramArgs p) {
+__global__ void __launch_bounds__(NT, 1) gram_resident_kernel(const GramArgs<float> p) {
   constexpr int SL = GKS * GR;  // floats per slice
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);  // GR x GR, k-major
@@ -881,15 +892,26 @@ __global__ void __launch_bounds__(NT, 1) gram_resident_kernel(const GramArgs p) 
 }
 
 // out[z][j] = the sum of part[s][j] over sample z's slots, in slot order.
-__global__ void sum_slots_kernel(const float* __restrict__ part, const int64_t* __restrict__ sample,
-                                 float* __restrict__ out, int B, int64_t n) {
+template <typename T>
+__global__ void sum_slots_kernel(const T* __restrict__ part, const int64_t* __restrict__ sample,
+                                 T* __restrict__ out, int B, int64_t n) {
   for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; e < B * n;
        e += (int64_t)gridDim.x * blockDim.x) {
     const int64_t z = e / n, j = e % n, s1 = sample[z + 1];
-    float s = part[sample[z] * n + j];
+    T s = part[sample[z] * n + j];
     for (int64_t q = sample[z] + 1; q < s1; ++q) s += part[q * n + j];
     out[e] = s;
   }
+}
+
+// The second pass of a Gram kernel with a plan: each sample's slots summed
+template <typename T, bool GE>
+int sum_slots(const GramArgs<T>& p, cudaStream_t stream) {
+  const int64_t n = GE ? (int64_t)p.Rl * p.Rl : (int64_t)p.Rr * p.Rr;
+  const int64_t grid = (p.B * n + 255) / 256;
+  sum_slots_kernel<T><<<(unsigned)(grid < 4096 ? grid : 4096), 256, 0, stream>>>(p.part, p.sample,
+                                                                                p.out, p.B, n);
+  return (int)cudaGetLastError();
 }
 
 template <bool GE>
@@ -908,16 +930,511 @@ int gram_resident_occupancy() {
 }
 
 template <bool GE>
-int gram_resident(const GramArgs& p, int blocks, cudaStream_t stream) {
+int gram_resident(const GramArgs<float>& p, int blocks, cudaStream_t stream) {
   cudaError_t e = allow_gram_resident<GE>();
   if (e != cudaSuccess) return (int)e;
   gram_resident_kernel<GE><<<blocks, NT, GRAM_SMEM, stream>>>(p);
   e = cudaGetLastError();
+  return e != cudaSuccess ? (int)e : sum_slots<float, GE>(p, stream);
+}
+
+// ---------------------------------------------------------------------------
+// Rank-sized tiles (see the design notes at the top): gram_tile_kernel for
+// gram_edge and wgram at tiles GR = 32 and 64, proj2_tile_kernel for proj2
+// at r1, r2 <= RT = 16, 32 or 64; float32 on exact FFMA, float64 on DMMA
+// ---------------------------------------------------------------------------
+
+// D (16 x 8) += A (16 x 8) B (8 x 8) in float64 on the tensor cores, one
+// m16n8k8 DMMA (IEEE double FMAs; only the order of the sums is the
+// instruction's). With lane = 4 g + t of the warp:
+//   a = {A[g][t], A[g + 8][t], A[g][t + 4], A[g + 8][t + 4]},
+//   b = {B[t][g], B[t + 4][g]},
+//   c = {D[g][2t], D[g][2t + 1], D[g + 8][2t], D[g + 8][2t + 1]}.
+// The m16n8 shapes of sm_90 run at the FP64 tensor peak; pairs of the
+// older m8n8k4 at half of it.
+__device__ __forceinline__ void dmma(double (&c)[4], const double (&a)[4], const double (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+// acc += sum_{k < kp} At[k][m] Bt[k][n] over a warp's 16 x 32 region at
+// (m0, n0); At and Bt are k-major with row strides la and lb, 0 past the
+// ranks, and kp is a multiple of 8. Element e of a lane's acc[e / 4][e % 4]
+// lies at (m0, n0) + region_at<T>(e).
+//   float:  acc[r][c] at (4 (l / 8) + r, 4 (l % 8) + c): 16-byte loads, a
+//           warp asking for 4 (A) and 8 (B) distinct vectors, exact FFMA;
+//   double: acc[j][q] at (g + 8 (q / 2), 8 j + 2 t + q % 2), four DMMA
+//           fragments; strides of 4 mod 16 doubles make every fragment
+//           load take the two wavefronts its 256 bytes need.
+__device__ __forceinline__ void region_mma(float (&acc)[4][4], const float* At, int la,
+                                           const float* Bt, int lb, int m0, int n0, int kp) {
+  const int l = threadIdx.x % 32;
+  At += m0 + 4 * (l / 8);
+  Bt += n0 + 4 * (l % 8);
+#pragma unroll 8
+  for (int k = 0; k < kp; ++k) {
+    float a[4], b[4];
+    load4(a, At + k * la);
+    load4(b, Bt + k * lb);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] += a[r] * b[c];
+  }
+}
+__device__ __forceinline__ void region_mma(double (&acc)[4][4], const double* At, int la,
+                                           const double* Bt, int lb, int m0, int n0, int kp) {
+  const int l = threadIdx.x % 32, g = l / 4, t = l % 4;
+  At += t * la + m0 + g;
+  Bt += t * lb + n0 + g;
+#pragma unroll 2
+  for (int k = 0; k < kp; k += 8) {
+    const double* A = At + k * la;
+    const double* Bk = Bt + k * lb;
+    const double a[4] = {A[0], A[8], A[4 * la], A[4 * la + 8]};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const double b[2] = {Bk[8 * j], Bk[4 * lb + 8 * j]};
+      dmma(acc[j], a, b);
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ int2 region_at(int e) {
+  const int l = threadIdx.x % 32;
+  if constexpr (sizeof(T) == 4) return make_int2(4 * (l / 8) + e / 4, 4 * (l % 8) + e % 4);
+  return make_int2(l / 4 + 8 * (e % 4 / 2), 8 * (e / 4) + 2 * (l % 4) + e % 2);
+}
+
+template <typename T>
+__device__ __forceinline__ void zero16(T (&acc)[4][4]) {
+#pragma unroll
+  for (int e = 0; e < 16; ++e) acc[e / 4][e % 4] = T(0);
+}
+
+constexpr int TBUF = 3;  // C_i buffers: two units load while one is multiplied
+
+template <int GR>
+__host__ __device__ constexpr int gram_tile_threads() {
+  return GR * GR / 16;  // a warp per 16 x 32 region of the GR x GR output
+}
+template <typename T, int GR>
+__host__ __device__ constexpr size_t gram_tile_smem() {
+  return sizeof(T) * (2 + TBUF) * GR * (GR + 4);
+}
+template <typename T, int GR>
+__host__ __device__ constexpr int gram_tile_min_blocks() {
+  return GR == 64 ? (sizeof(T) == 8 ? 1 : 2) : 8;
+}
+
+// gram_edge (GE) or wgram with Rl, Rr <= GR. Per unit (z, i), with K the
+// contracted rank (Rr for gram_edge, Rl for wgram), every operand k-major:
+//   gram_edge: Cb[b][a] = C[a, i, b] (transposed by the copies)
+//     stage 1  T[a][c] = sum_b Cb[b][a] G[b][c]       (At: Cb, Bt: Qs = G)
+//     stage 2  o[a][d] += sum_c Ts[c][a] Cb[c][d]     (Ts = T transposed)
+//   wgram: Cb[a][b] = C[a, i, b]
+//     stage 1  T[a][d] = sum_a' Qs[a'][a] Cb[a'][d]   (Qs = W transposed)
+//     stage 2  o[b][d] += sum_a Cb[a][b] Ts[a][d]     (Ts = T)
+// Shared memory is zeroed once; the copies, Q and the warps' stores touch
+// the same in-range entries for every unit, so the padding stays 0 and the
+// products over a tile padded to 8 in k are exact. Warps whose region lies
+// past the ranks skip it.
+template <typename T, bool GE, int GR>
+__global__ void __launch_bounds__(gram_tile_threads<GR>(), gram_tile_min_blocks<T, GR>())
+    gram_tile_kernel(const GramArgs<T> p) {
+  constexpr int NTT = gram_tile_threads<GR>(), LDG = GR + 4, TS = GR * LDG;
+  constexpr int WC = GR / 32;  // warp regions across the tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* Ts = Qs + TS;
+  T* Cs = Ts + TS;  // TBUF unit buffers
+
+  const int tid = threadIdx.x, w = tid / 32;
+  const int m0 = 16 * (w / WC), n0 = 32 * (w % WC);
+  const int K = GE ? p.Rr : p.Rl, M = GE ? p.Rl : p.Rr;
+  const int kp = (K + 7) / 8 * 8;
+  const bool stage1 = m0 < p.Rl && n0 < p.Rr, stage2 = m0 < M && n0 < M;
+  const int64_t sA = (int64_t)p.I * p.Rr;  // stride of C's left-rank index
+  const int64_t u0 = p.run[blockIdx.x], u1 = p.run[blockIdx.x + 1];
+  const int z0 = (int)(u0 / p.I);
+  T* part = p.part + p.first[blockIdx.x] * M * M;
+
+  for (int e = tid; e < (2 + TBUF) * TS; e += NTT) Qs[e] = T(0);
+  __syncthreads();
+
+  // Unit u's C_i into its buffer as one group of element copies (empty
+  // past the run): C's rows are Rr long, 16-byte aligned only by chance
+  auto issue = [&](int64_t u) {
+    if (u < u1) {
+      const int z = (int)(u / p.I), i = (int)(u % p.I);
+      T* dst = Cs + (int)((u - u0) % TBUF) * TS;
+      const T* src = p.C + (int64_t)z * p.Rl * sA + (int64_t)i * p.Rr;
+      for (int e = tid; e < p.Rl * p.Rr; e += NTT) {
+        const int a = e / p.Rr, b = e % p.Rr;
+        cp_async<sizeof(T)>(dst + (GE ? b * LDG + a : a * LDG + b), src + a * sA + b,
+                            (int)sizeof(T));
+      }
+    }
+    cp_async_commit();
+  };
+  for (int s = 0; s < TBUF - 1; ++s) issue(u0 + s);
+
+  T o[4][4];
+  zero16(o);
+  int zq = -1;
+  for (int64_t u = u0; u < u1; ++u) {
+    const int z = (int)(u / p.I), i = (int)(u % p.I);
+    if (z != zq) {
+      // Q of sample z; the last reads of Qs (stage 1 of the last unit) are
+      // behind the barrier that published T, and the barrier below
+      // publishes this
+      if (GE) {  // Qs[b][c] = G[z, b, c]
+        const T* G = p.Q + (int64_t)z * p.Rr * p.Rr;
+        for (int e = tid; e < p.Rr * p.Rr; e += NTT) Qs[(e / p.Rr) * LDG + e % p.Rr] = G[e];
+      } else {  // Qs[a'][a] = W[z, a, a']
+        const T* W = p.Q + (int64_t)z * p.Rl * p.Rl;
+        for (int e = tid; e < p.Rl * p.Rl; e += NTT) Qs[(e % p.Rl) * LDG + e / p.Rl] = W[e];
+      }
+      zq = z;
+    }
+    cp_async_wait<TBUF - 2>();  // this thread's copies of unit u landed
+    __syncthreads();  // everyone's landed, and everyone is past stage 2 of the last unit
+    issue(u + TBUF - 1);  // into the last unit's buffer
+    const T* Cb = Cs + (int)((u - u0) % TBUF) * TS;
+
+    if (stage1) {
+      T t[4][4];
+      zero16(t);
+      region_mma(t, GE ? Cb : Qs, LDG, GE ? Qs : Cb, LDG, m0, n0, kp);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {  // k-major for stage 2
+        const int2 mn = region_at<T>(e);
+        const int m = m0 + mn.x, n = n0 + mn.y;
+        Ts[GE ? n * LDG + m : m * LDG + n] = t[e / 4][e % 4];
+      }
+    }
+    __syncthreads();
+    if (stage2) region_mma(o, GE ? Ts : Cb, LDG, GE ? Cb : Ts, LDG, m0, n0, kp);
+
+    // At the end of a sample's units in this run, its partial to its slot
+    if (i + 1 == p.I || u + 1 == u1) {
+      T* dst = part + (int64_t)(z - z0) * M * M;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const int2 mn = region_at<T>(e);
+        const int m = m0 + mn.x, n = n0 + mn.y;
+        if (m < M && n < M) dst[m * M + n] = o[e / 4][e % 4];
+      }
+      zero16(o);
+    }
+  }
+  cp_async_wait<0>();  // only empty groups remain; leave none in flight
+}
+
+template <typename T, bool GE, int GR>
+cudaError_t allow_gram_tile() {
+  return cudaFuncSetAttribute(gram_tile_kernel<T, GE, GR>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)gram_tile_smem<T, GR>());
+}
+
+template <typename T, bool GE, int GR>
+int gram_tile_occupancy() {
+  int n = 0;
+  cudaError_t e = allow_gram_tile<T, GE, GR>();
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, gram_tile_kernel<T, GE, GR>,
+                                                      gram_tile_threads<GR>(),
+                                                      gram_tile_smem<T, GR>());
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+template <typename T, bool GE, int GR>
+int gram_tile(const GramArgs<T>& p, int blocks, cudaStream_t stream) {
+  if (p.Rl > GR || p.Rr > GR) return (int)cudaErrorInvalidValue;
+  cudaError_t e = allow_gram_tile<T, GE, GR>();
   if (e != cudaSuccess) return (int)e;
-  const int64_t n = GE ? (int64_t)p.Rl * p.Rl : (int64_t)p.Rr * p.Rr;
-  const int64_t grid = (p.B * n + 255) / 256;
-  sum_slots_kernel<<<(unsigned)(grid < 4096 ? grid : 4096), 256, 0, stream>>>(p.part, p.sample,
-                                                                             p.out, p.B, n);
+  gram_tile_kernel<T, GE, GR>
+      <<<blocks, gram_tile_threads<GR>(), gram_tile_smem<T, GR>(), stream>>>(p);
+  e = cudaGetLastError();
+  return e != cudaSuccess ? (int)e : sum_slots<T, GE>(p, stream);
+}
+
+// proj2 at r1, r2 <= RT and Rr <= NSEG. A unit is (z, ip consecutive mode
+// indices i0..): row a of C_z over those indices is one contiguous segment
+// of L = ip Rr elements, so
+//   stage 1  T[r][n] = sum_a Y[r, a] C[z, a, i0 + n / Rr, n % Rr]   (n < L)
+//   stage 2  out[r, i0 + i', c] = sum_b T[r][i' Rr + b] X[b, c]
+// C streams through a ring of KS-row slices (RSTAGES deep, across units)
+// as 16-byte copies of each row's segment from the 16-byte boundary below
+// it: row a lands shifted by s_a = its first element's offset mod 16 B,
+// which the readers add back. The segment's tail is trimmed, so no copy
+// reads past it; rows past Rl are zero-filled.
+template <typename T, int RT, int NSEG>
+struct P2Tile {
+  static constexpr int V = 16 / (int)sizeof(T);  // elements per 16-byte copy
+  static constexpr int KS = sizeof(T) == 8 ? 8 : 16;  // rows of C per ring slice
+  static constexpr int LDC = NSEG + 2 * V;   // a ring row: a shift and a trimmed chunk
+  static constexpr int LDT = NSEG + 4, LDY = RT + 4;
+  static constexpr int MINB = RT == 64 ? 1 : 2;  // blocks an SM holds
+  static size_t smem(int Rl, int Rr) {
+    const size_t krl = (size_t)(Rl + KS - 1) / KS * KS, kr2 = (size_t)(Rr + 7) / 8 * 8;
+    return sizeof(T) * ((krl + kr2) * LDY + (size_t)RT * LDT + (size_t)RSTAGES * KS * LDC);
+  }
+};
+
+template <typename T, int RT, int NSEG>
+__global__ void __launch_bounds__(NT, (P2Tile<T, RT, NSEG>::MINB))
+    proj2_tile_kernel(const Proj2Args<T> p, int ip) {
+  using P = P2Tile<T, RT, NSEG>;
+  constexpr int V = P::V, KS = P::KS, LDC = P::LDC, LDT = P::LDT, LDY = P::LDY;
+  constexpr int CH = LDC / V;  // 16-byte chunks of a ring row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int krl = (p.Rl + KS - 1) / KS * KS, kr2 = (p.Rr + 7) / 8 * 8;
+  T* Ys = reinterpret_cast<T*>(smem_raw);  // krl x LDY: Ys[a][r] = Y[z, r, a]
+  T* Xs = Ys + krl * LDY;                  // kr2 x LDY: Xs[b][c] = X[z, b, c]
+  T* Ts = Xs + kr2 * LDY;                  // RT x LDT: T[r][n]
+  T* Cs = Ts + RT * LDT;                   // RSTAGES x KS x LDC: the ring
+
+  const int tid = threadIdx.x, w = tid / 32, l = tid % 32;
+  const int ngrp = (p.I + ip - 1) / ip;
+  const int64_t units = (int64_t)p.B * ngrp;
+  const int64_t u0 = units * blockIdx.x / gridDim.x;
+  const int64_t u1 = units * (blockIdx.x + 1) / gridDim.x;
+  const int nk = krl / KS;
+  const int64_t sA = (int64_t)p.I * p.Rr;  // stride of C's a index
+  const int dA = (int)(sA & (V - 1));      // how a row's shift moves from row to row
+
+  for (int e = tid; e < (krl + kr2) * LDY + RT * LDT + RSTAGES * KS * LDC; e += NT) Ys[e] = T(0);
+  __syncthreads();
+
+  // The producer's place: k-slice pk of unit pu = (pz, group pg), into ring
+  // stage pst; each call issues that slice and commits one group (empty
+  // past the block's last slice)
+  int64_t pu = u0;
+  int pz = (int)(u0 / ngrp), pg = (int)(u0 % ngrp), pk = 0, pst = 0;
+  auto issue = [&]() {
+    if (pu < u1) {
+      const int i0 = pg * ip, L = min(ip, p.I - i0) * p.Rr;
+      T* dst = Cs + pst * (KS * LDC);
+      const int64_t e0 = ((int64_t)pz * p.Rl * p.I + i0) * p.Rr + (int64_t)pk * KS * sA;
+      if (p.vec_c) {
+        for (int q = tid; q < KS * CH; q += NT) {
+          const int k = q / CH, ch = q % CH;
+          T* d = dst + k * LDC + ch * V;
+          if (pk * KS + k >= p.Rl) {
+            cp_async16(d, p.C, 0);  // zero rows past Rl
+            continue;
+          }
+          const int64_t e = e0 + k * sA;
+          const int off = ch * V - (int)(e & (V - 1));  // the chunk's first element, from e
+          if (off < L) cp_async16(d, p.C + e + off, min(16, (L - off) * (int)sizeof(T)));
+        }
+      } else {  // C itself is not 16-byte aligned: element copies, no shift
+        for (int q = tid; q < KS * NSEG; q += NT) {
+          const int k = q / NSEG, n = q % NSEG;
+          const bool row = pk * KS + k < p.Rl;
+          if (!row || n < L)
+            cp_async<sizeof(T)>(dst + k * LDC + n, row ? p.C + e0 + k * sA + n : p.C,
+                                row ? (int)sizeof(T) : 0);
+        }
+      }
+      if (++pk == nk) {  // on to the next unit
+        pk = 0, ++pu;
+        if (++pg == ngrp) pg = 0, ++pz;
+      }
+    }
+    cp_async_commit();
+    pst = pst == RSTAGES - 1 ? 0 : pst + 1;
+  };
+  for (int s = 0; s < RSTAGES - 1; ++s) issue();
+
+  // Stage 1's layout. float: thread (ty, tx) holds rows 4 ty + r and
+  // columns tx + TX j; double: warp w a 16 x WN region of DMMA fragments
+  constexpr int TY = RT / 4, TX = NT / TY, CPT = NSEG / TX;
+  constexpr int WN = RT * NSEG / (16 * (NT / 32)), NFR = WN / 8, WX = NSEG / WN;
+  static_assert(sizeof(T) == 4 ? TX % 32 == 0 && NSEG % TX == 0 : WN % 8 == 0, "stage-1 layout");
+  constexpr int ACC_R = sizeof(T) == 4 ? 4 : NFR, ACC_C = sizeof(T) == 4 ? CPT : 4;
+  const int ty = tid / TX, tx = tid % TX;
+  const int m0 = 16 * (w / WX), n0 = WN * (w % WX);
+  const int g = l / 4, t = l % 4;
+
+  int zcur = -1, cst = 0;  // cst: the ring stage of the next slice
+  for (int64_t u = u0; u < u1; ++u) {
+    const int z = (int)(u / ngrp), i0 = (int)(u % ngrp) * ip;
+    const int ipu = min(ip, p.I - i0), L = ipu * p.Rr;
+    if (z != zcur) {
+      __syncthreads();  // every thread is done with the last sample's Ys and Xs
+      const T* Yz = p.Y + (int64_t)z * p.r1 * p.Rl;
+      for (int q = tid; q < krl * RT; q += NT) {
+        const int a = q % krl, r = q / krl;
+        Ys[a * LDY + r] = (a < p.Rl && r < p.r1) ? Yz[(int64_t)r * p.Rl + a] : T(0);
+      }
+      const T* Xz = p.X + (int64_t)z * p.Rr * p.r2;
+      for (int q = tid; q < kr2 * RT; q += NT) {
+        const int b = q / RT, c = q % RT;
+        Xs[b * LDY + c] = (b < p.Rr && c < p.r2) ? Xz[(int64_t)b * p.r2 + c] : T(0);
+      }
+      zcur = z;  // the first slice's barrier below publishes Ys and Xs
+    }
+    // Row a's shift: its first element's offset mod V, from e(a) = ez + a sA
+    const int sz = p.vec_c ? (int)((((int64_t)z * p.Rl * p.I + i0) * p.Rr) & (V - 1)) : 0;
+    const int da = p.vec_c ? dA : 0;
+
+    // Stage 1, over the unit's nk slices as they land
+    T acc[ACC_R][ACC_C];
+#pragma unroll
+    for (int r = 0; r < ACC_R; ++r)
+#pragma unroll
+      for (int c = 0; c < ACC_C; ++c) acc[r][c] = T(0);
+    const bool active = sizeof(T) == 4 || (m0 < p.r1 && n0 < L);
+    for (int kk = 0; kk < nk; ++kk) {
+      cp_async_wait<RSTAGES - 2>();  // this thread's copies of this slice landed
+      __syncthreads();  // everyone's landed, and everyone left the last slice's stage
+      issue();          // RSTAGES - 1 slices ahead, into the last slice's stage
+      const T* Cb = Cs + cst * (KS * LDC);
+      cst = cst == RSTAGES - 1 ? 0 : cst + 1;
+      const T* Yb = Ys + kk * KS * LDY;
+      const int a0 = kk * KS;
+      if constexpr (sizeof(T) == 4) {
+#pragma unroll 4
+        for (int k = 0; k < KS; ++k) {
+          const int s = (sz + (a0 + k) * da) & (V - 1);
+          T a[4];
+          load4(a, Yb + k * LDY + 4 * ty);
+          const T* cr = Cb + k * LDC + s + tx;
+#pragma unroll
+          for (int j = 0; j < CPT; ++j) {
+            const T b = cr[TX * j];
+#pragma unroll
+            for (int r = 0; r < 4; ++r) acc[r][j] += a[r] * b;
+          }
+        }
+      } else if (active) {
+        const int s0 = (sz + (a0 + t) * da) & (V - 1), s1 = (sz + (a0 + t + 4) * da) & (V - 1);
+        const T a[4] = {Yb[t * LDY + m0 + g], Yb[t * LDY + m0 + 8 + g],
+                        Yb[(t + 4) * LDY + m0 + g], Yb[(t + 4) * LDY + m0 + 8 + g]};
+        const T* c0 = Cb + t * LDC + s0 + n0 + g;
+        const T* c1 = Cb + (t + 4) * LDC + s1 + n0 + g;
+#pragma unroll
+        for (int j = 0; j < NFR; ++j) {
+          const T b[2] = {c0[8 * j], c1[8 * j]};
+          dmma(acc[j], a, b);
+        }
+      }
+    }
+    // T to shared memory (the ring's barrier above ordered this after every
+    // thread's stage 2 of the previous unit)
+    if constexpr (sizeof(T) == 4) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) Ts[(4 * ty + r) * LDT + tx + TX * j] = acc[r][j];
+    } else if (active) {
+#pragma unroll
+      for (int j = 0; j < NFR; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          Ts[(m0 + g + 8 * (q / 2)) * LDT + n0 + 8 * j + 2 * t + q % 2] = acc[j][q];
+    }
+    __syncthreads();
+
+    // Stage 2: out[r, i0 + i', c] = sum_b T[r][i' Rr + b] X[b, c]
+    T* outz = p.out + (int64_t)z * p.r1 * p.I * p.r2;
+    if constexpr (sizeof(T) == 4) {
+      // A thread: 4 columns of two rows, m and m + RP, sharing X's loads
+      constexpr int CG = RT / 4, RP = NT / CG;
+      const int rr = tid / CG, c0 = 4 * (tid % CG), m2 = ipu * RT;
+      for (int m = rr; m < m2 && c0 < p.r2; m += 2 * RP) {
+        const int ma = m, mb = m + RP < m2 ? m + RP : m;
+        const bool use_a = ma % RT < p.r1, use_b = mb != ma && mb % RT < p.r1;
+        const T* ta = Ts + (ma % RT) * LDT + ma / RT * p.Rr;
+        const T* tb = Ts + (mb % RT) * LDT + mb / RT * p.Rr;
+        T oa[4] = {T(0), T(0), T(0), T(0)}, ob[4] = {T(0), T(0), T(0), T(0)};
+#pragma unroll 4
+        for (int b = 0; b < p.Rr; ++b) {
+          T x[4];
+          load4(x, Xs + b * LDY + c0);
+          const T va = ta[b], vb = tb[b];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) oa[c] += va * x[c], ob[c] += vb * x[c];
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (!(h ? use_b : use_a)) continue;
+          const int mm = h ? mb : ma;
+          T* dst = outz + ((int64_t)(mm % RT) * p.I + i0 + mm / RT) * p.r2 + c0;
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (c0 + c < p.r2) dst[c] = h ? ob[c] : oa[c];
+        }
+      }
+    } else {
+      // A warp item: one 16-row block (one mode index) by half of the
+      // columns, so that the 8 warps share even a single mode index's rows
+      constexpr int NFH = RT / 16;  // DMMA fragments of a half
+      for (int it = w; it < ipu * RT / 16 * 2; it += NT / 32) {
+        const int mb = it / 2, j0 = (it % 2) * NFH;
+        const int ii = mb * 16 / RT, r0 = mb * 16 % RT;
+        if (r0 >= p.r1 || 8 * j0 >= p.r2) continue;
+        const T* tr = Ts + (r0 + g) * LDT + ii * p.Rr;
+        T o2[NFH][4];
+#pragma unroll
+        for (int j = 0; j < NFH; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) o2[j][q] = T(0);
+        for (int b = 0; b < kr2; b += 8) {
+          const bool k0 = b + t < p.Rr, k1 = b + t + 4 < p.Rr;  // T's next index is not X's
+          const T a[4] = {k0 ? tr[b + t] : T(0), k0 ? tr[8 * LDT + b + t] : T(0),
+                          k1 ? tr[b + t + 4] : T(0), k1 ? tr[8 * LDT + b + t + 4] : T(0)};
+#pragma unroll
+          for (int j = 0; j < NFH; ++j) {
+            const int c = 8 * (j0 + j) + g;
+            const T x[2] = {Xs[(b + t) * LDY + c], Xs[(b + t + 4) * LDY + c]};
+            dmma(o2[j], a, x);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NFH; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int r = r0 + g + 8 * (q / 2), c = 8 * (j0 + j) + 2 * t + q % 2;
+            if (r < p.r1 && c < p.r2) outz[((int64_t)r * p.I + i0 + ii) * p.r2 + c] = o2[j][q];
+          }
+      }
+    }
+  }
+  cp_async_wait<0>();  // only empty groups remain; leave none in flight
+}
+
+template <typename T, int RT, int NSEG>
+int proj2_tile_occupancy(int Rl, int Rr) {
+  const size_t smem = P2Tile<T, RT, NSEG>::smem(Rl, Rr);
+  if (smem > SMEM_MAX) return -(int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(proj2_tile_kernel<T, RT, NSEG>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int n = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, proj2_tile_kernel<T, RT, NSEG>, NT, smem);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+template <typename T, int RT, int NSEG>
+int proj2_tile(const T* Y, const T* C, const T* X, T* out, int B, int r1, int Rl, int I, int Rr,
+               int r2, int blocks, cudaStream_t stream) {
+  const size_t smem = P2Tile<T, RT, NSEG>::smem(Rl, Rr);
+  if (r1 > RT || r2 > RT || Rr > NSEG || smem > SMEM_MAX || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  const int ip = min(NSEG / Rr, I);
+  const Proj2Args<T> p{Y, C, X, out, B, r1, Rl, I, Rr, r2, (uintptr_t)C % 16 == 0, 0};
+  cudaError_t e = cudaFuncSetAttribute(proj2_tile_kernel<T, RT, NSEG>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  proj2_tile_kernel<T, RT, NSEG><<<blocks, NT, smem, stream>>>(p, ip);
   return (int)cudaGetLastError();
 }
 
@@ -929,49 +1446,90 @@ int gram_resident(const GramArgs& p, int blocks, cudaStream_t stream) {
 extern "C" {
 
 // Resident blocks per SM of the two-stage Gram kernel (kernel 0: gram_edge,
-// wgram beyond the resident tile), the two-stage projection kernel (kernel
-// 1: proj2 beyond its resident tile), the resident-projector kernel (kernel
-// 2, whose shared memory grows with Rl) or the resident-Gram kernel (kernel
-// 3, float32 only); a negative value is -cudaError_t.
-int tnt_occupancy(int dtype, int kernel, int Rl) {
-  if (kernel == 3) return dtype == 0 ? gram_resident_occupancy() : -(int)cudaErrorInvalidValue;
-  if (dtype == 0) {
-    if (kernel == 2) return resident_occupancy<float>(Rl);
-    return kernel == 0 ? occupancy<float, 8, false>() : occupancy<float, 4, true>();
-  }
-  if (kernel == 2) return resident_occupancy<double>(Rl);
+// wgram beyond the tiles) or the two-stage projection kernel (kernel 1:
+// proj2 beyond the tiles); a negative value is -cudaError_t.
+int tnt_occupancy(int dtype, int kernel) {
+  if (dtype == 0) return kernel == 0 ? occupancy<float, 8, false>() : occupancy<float, 4, true>();
   return kernel == 0 ? occupancy<double, 8, false>() : occupancy<double, 4, true>();
 }
 
-// proj2 through the resident-projector kernel on `blocks` persistent blocks;
-// cudaErrorInvalidValue for a shape outside its tile (r1, r2 <= 64,
-// Rr <= 128, shared memory for Rl).
-int tnt_proj2_resident(int dtype, const void* Y, const void* C, const void* X,
-                       void* out, int B, int r1, int Rl, int I, int Rr, int r2,
-                       int blocks, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return proj2_resident((const float*)Y, (const float*)C, (const float*)X,
-                          (float*)out, B, r1, Rl, I, Rr, r2, blocks, s);
-  return proj2_resident((const double*)Y, (const double*)C, (const double*)X,
-                        (double*)out, B, r1, Rl, I, Rr, r2, blocks, s);
+// Resident blocks per SM of a tile instance (kind 0: gram_edge, 1: wgram,
+// 2: proj2) at these ranks (proj2's shared memory grows with Rl and Rr),
+// or -cudaError_t; -cudaErrorInvalidValue for an instance that does not
+// exist or does not fit.
+int tnt_tile_occupancy(int dtype, int kind, int tile, int Rl, int Rr) {
+  const int bad = -(int)cudaErrorInvalidValue;
+  if (kind == 2) {
+    if (dtype == 0)
+      return tile == 16 ? proj2_tile_occupancy<float, 16, 256>(Rl, Rr)
+           : tile == 32 ? proj2_tile_occupancy<float, 32, 256>(Rl, Rr)
+           : tile == 64 ? resident_occupancy<float>(Rl) : bad;
+    return tile == 16 ? proj2_tile_occupancy<double, 16, 256>(Rl, Rr)
+         : tile == 32 ? proj2_tile_occupancy<double, 32, 128>(Rl, Rr)
+         : tile == 64 ? proj2_tile_occupancy<double, 64, 128>(Rl, Rr) : bad;
+  }
+  if (dtype == 0 && tile == 128) return gram_resident_occupancy();
+  if (kind == 0)
+    return dtype == 0 ? (tile == 32 ? gram_tile_occupancy<float, true, 32>()
+                         : tile == 64 ? gram_tile_occupancy<float, true, 64>() : bad)
+                      : (tile == 32 ? gram_tile_occupancy<double, true, 32>()
+                         : tile == 64 ? gram_tile_occupancy<double, true, 64>() : bad);
+  return dtype == 0 ? (tile == 32 ? gram_tile_occupancy<float, false, 32>()
+                       : tile == 64 ? gram_tile_occupancy<float, false, 64>() : bad)
+                    : (tile == 32 ? gram_tile_occupancy<double, false, 32>()
+                       : tile == 64 ? gram_tile_occupancy<double, false, 64>() : bad);
 }
 
-// gram_edge (edge 0: Q = G) or wgram (edge 1: Q = W) in float32 through the
-// resident-Gram kernel on `blocks` persistent blocks, then the sum of each
-// sample's partials. plan: run (blocks + 1), first (blocks), sample (B + 1),
-// int64, on the card; part: the plan's slots of M x M floats.
-// cudaErrorInvalidValue for a rank above 128.
-int tnt_gram_resident(int edge, const void* C, const void* Q, void* out, void* part,
-                      const void* plan, int B, int Rl, int I, int Rr, int blocks,
-                      void* stream) {
-  if (Rl > GR || Rr > GR || blocks < 1) return (int)cudaErrorInvalidValue;
-  const int64_t* run = (const int64_t*)plan;
-  const GramArgs p{(const float*)C, (const float*)Q, (float*)part, (float*)out,
-                   run, run + blocks + 1, run + 2 * blocks + 1, B, Rl, I, Rr,
-                   Rr % 4 == 0 && (uintptr_t)C % 16 == 0};
+// proj2 on the tile instance for r1, r2 <= tile (16, 32 or 64) on `blocks`
+// persistent blocks: proj2_tile_kernel, or in float32 at tile 64 the
+// resident-projector kernel. cudaErrorInvalidValue for ranks outside the
+// instance or shared memory beyond a block's.
+int tnt_proj2_tile(int dtype, int tile, const void* Y, const void* C, const void* X, void* out,
+                   int B, int r1, int Rl, int I, int Rr, int r2, int blocks, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  return edge == 0 ? gram_resident<true>(p, blocks, s) : gram_resident<false>(p, blocks, s);
+  if (dtype == 0) {
+    const float *y = (const float*)Y, *c = (const float*)C, *x = (const float*)X;
+    float* o = (float*)out;
+    if (tile == 16) return proj2_tile<float, 16, 256>(y, c, x, o, B, r1, Rl, I, Rr, r2, blocks, s);
+    if (tile == 32) return proj2_tile<float, 32, 256>(y, c, x, o, B, r1, Rl, I, Rr, r2, blocks, s);
+    if (tile == 64) return proj2_resident(y, c, x, o, B, r1, Rl, I, Rr, r2, blocks, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  const double *y = (const double*)Y, *c = (const double*)C, *x = (const double*)X;
+  double* o = (double*)out;
+  if (tile == 16) return proj2_tile<double, 16, 256>(y, c, x, o, B, r1, Rl, I, Rr, r2, blocks, s);
+  if (tile == 32) return proj2_tile<double, 32, 128>(y, c, x, o, B, r1, Rl, I, Rr, r2, blocks, s);
+  if (tile == 64) return proj2_tile<double, 64, 128>(y, c, x, o, B, r1, Rl, I, Rr, r2, blocks, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// gram_edge (edge 0: Q = G) or wgram (edge 1: Q = W) on the tile instance
+// for Rl, Rr <= tile (32 or 64; 128 in float32: the resident-Gram kernel)
+// on `blocks` persistent blocks, then the sum of each sample's partials.
+// plan: run (blocks + 1), first (blocks), sample (B + 1), int64, on the
+// card; part: the plan's slots of M x M elements. cudaErrorInvalidValue for
+// a rank above the tile or an instance that does not exist.
+int tnt_gram_tile(int dtype, int edge, int tile, const void* C, const void* Q, void* out,
+                  void* part, const void* plan, int B, int Rl, int I, int Rr, int blocks,
+                  void* stream) {
+  if (Rl > tile || Rr > tile || blocks < 1) return (int)cudaErrorInvalidValue;
+  const int64_t* run = (const int64_t*)plan;
+  const int64_t *first = run + blocks + 1, *sample = run + 2 * blocks + 1;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0) {
+    const GramArgs<float> p{(const float*)C, (const float*)Q, (float*)part, (float*)out,
+                            run, first, sample, B, Rl, I, Rr,
+                            Rr % 4 == 0 && (uintptr_t)C % 16 == 0};
+    if (tile == 128) return edge == 0 ? gram_resident<true>(p, blocks, s) : gram_resident<false>(p, blocks, s);
+    if (tile == 64) return edge == 0 ? gram_tile<float, true, 64>(p, blocks, s) : gram_tile<float, false, 64>(p, blocks, s);
+    if (tile == 32) return edge == 0 ? gram_tile<float, true, 32>(p, blocks, s) : gram_tile<float, false, 32>(p, blocks, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  const GramArgs<double> p{(const double*)C, (const double*)Q, (double*)part, (double*)out,
+                           run, first, sample, B, Rl, I, Rr, 0};
+  if (tile == 64) return edge == 0 ? gram_tile<double, true, 64>(p, blocks, s) : gram_tile<double, false, 64>(p, blocks, s);
+  if (tile == 32) return edge == 0 ? gram_tile<double, true, 32>(p, blocks, s) : gram_tile<double, false, 32>(p, blocks, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 int tnt_gram_edge(int dtype, const void* C, const void* G, void* out,

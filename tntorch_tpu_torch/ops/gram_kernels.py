@@ -12,29 +12,37 @@ They replace the Pallas TPU kernels of ``tntorch_tpu/ops/pallas_gram.py``:
 What bounds them on an H100: at the bench shape (B=32, Rl=Rr=128, I=256,
 f32) an edge does ~128 FLOP per byte of C it reads, far above the ~20 FLOP/B
 ridge of FP32 FMA against HBM, so in exact f32 they are compute-bound, not
-memory-bound as on the TPU. The kernels keep the intermediate (T = C G, W C,
-Y C) in shared memory as the TPU kernels kept it in VMEM. Tensor cores are
-later work.
+memory-bound as on the TPU. At the ranks users run (5-64) the Gram edges
+stay compute-bound and ``proj2`` at r = 16 (~5 FLOP/B) is bound by reading
+C once. In float64 only the tensor cores (DMMA: IEEE double FMAs at the
+FP64 peak, about twice FFMA64's rate) approach the bound. The kernels keep
+the intermediate (T = C G, W C, Y C) in shared memory as the TPU kernels
+kept it in VMEM.
 
-``gram_edge`` and ``wgram`` have two kernels, chosen by a pure function of
-the shape and dtype, `_gram_resident`. In float32 with Rl, Rr <= 128 they
-run the resident-Gram kernel: one wave of persistent blocks, each walking a
-contiguous run of the B x I items (z, i) that `_gram_plan` gives it, with G
-(or W) loaded once per sample, C_i streamed once per i through a
-``cp.async`` ring and the sum over i held in registers; each block writes
-one partial per sample its run touches, and a second pass sums each
-sample's partials in a fixed order (no atomics, deterministic). Elsewhere
-(float64, ranks above 128) they run the two-stage kernel, which splits I
-across blocks until a wave is full and sums the splits the same way.
+Each wrapper runs the tile instance that a pure function of the ranks and
+the item size picks, the smallest that serves the ranks, or beyond every
+instance the two-stage kernel (I split across blocks until a wave is
+full, the splits summed in a fixed order):
 
-``proj2`` has two kernels, chosen by a pure function of the shape,
-`_proj2_resident`. Where r1 <= 64, r2 <= 64, Rr <= 128 and Y, X, the
-intermediate and a 3-stage ring of C slices fit the 227 KB of shared memory
-a block may use (Rl <= 320 in float32, <= 144 in float64), it runs the
-resident-projector kernel: persistent blocks, one wave, each walking a
-contiguous run of (z, i) items with Y and X loaded once per sample and C
-streamed through a ``cp.async`` ring. Beyond that tile it runs the two-stage
-kernel that ``gram_edge`` and ``wgram`` use, per i.
+- ``gram_edge`` and ``wgram`` (`_gram_tile`): Rl, Rr <= 32 or 64, float32
+  (exact FFMA) and float64 (DMMA), on ``gram_tile_kernel``; float32 to 128
+  on the resident-Gram kernel. One wave of persistent blocks, each walking
+  the contiguous run of the B x I items (z, i) that `_gram_plan` gives it,
+  G (or W) loaded once per sample, C_i brought on chip once per i, the sum
+  over i held in registers; each block writes one partial per sample its
+  run touches, and a second pass sums each sample's partials in a fixed
+  order (no atomics, deterministic). Float64 above 64 stays on the
+  two-stage kernel.
+- ``proj2`` (`_proj2_tile`): r1, r2 <= RT = 16 or 32 with Rr <= NSEG on
+  ``proj2_tile_kernel`` (a work unit is NSEG // Rr consecutive mode indices,
+  one contiguous segment per row of C, streamed once through a
+  ``cp.async`` ring), float64 also at RT = 64 (NSEG 128); float32 at
+  RT = 64 with Rr <= 128 on the resident-projector kernel (Rl <= 320). Y
+  and X are loaded once per sample.
+
+Tests and ``chip_smoke.py`` force an instance by replacing `_gram_tile` or
+`_proj2_tile` (the wrappers look them up at call time); None forces the
+two-stage kernel.
 
 Each wrapper takes the plain version for tensors on the CPU, and only
 there. For CUDA tensors it checks device, dtype (float32 or float64), shape
@@ -52,46 +60,89 @@ import functools
 import torch
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
-# Output tile of a block (csrc/gram_kernels.cu): 64 rows by 128 columns for
-# gram_edge and wgram, by 64 columns for proj2
+# Output tile of a two-stage block (csrc/gram_kernels.cu): 64 rows by 128
+# columns for gram_edge and wgram, by 64 columns for proj2
 _TM, _TN_GRAM, _TN_PROJ = 64, 128, 64
 _MAX_GRID_YZ = 65535
-# The resident proj2 kernel's tile (r1 and r2, Rr), its ring stages, and per
-# item size its mode indices per work unit and k-slice depth; the shared
-# memory a block may use
-_RES_R, _RES_RR, _RES_STAGES = 64, 128, 3
-_RES_UNIT = {4: (2, 16), 8: (1, 8)}
-_SMEM_MAX = 232448
-# The resident-Gram kernel's tile: Rl, Rr <= 128, float32 only
-_GRAM_R = 128
+_SMEM_MAX = 232448  # the shared memory a block may use
+
+# The Gram kernels' tile instances per item size, smallest first: a tile
+# serves Rl, Rr <= tile. Float32 at 128 is the resident-Gram kernel (fixed
+# 224 KB); the others are gram_tile_kernel (G or W, T and 3 buffers of C_i,
+# each tile x (tile + 4))
+_GRAM_TILES = {4: (32, 64, 128), 8: (32, 64)}
+_GRAM_RESIDENT_SMEM = 4 * (2 * 128 * 128 + 12 * 16 * 128)
+_UNIT_BUFFERS = 3
+
+# proj2's tile instances per item size, smallest first, as (RT, NSEG): an
+# instance serves r1, r2 <= RT and Rr <= NSEG, the segment of C a work unit
+# reads per row (NSEG // Rr mode indices). Float32 at RT = 64 is the
+# resident-projector kernel (Rr <= 128); the others are proj2_tile_kernel
+_PROJ2_TILES = {4: ((16, 256), (32, 256), (64, 128)), 8: ((16, 256), (32, 128), (64, 128))}
+# proj2_tile_kernel: ring stages, and rows of C per ring slice by item size
+_RING_STAGES = 3
+_RING_ROWS = {4: 16, 8: 8}
+# The resident-projector kernel (float32): mode indices per work unit and
+# k-slice depth
+_RES_UNIT = (2, 16)
 
 
-def _proj2_smem(Rl: int, itemsize: int) -> int:
-    """Shared bytes of the resident proj2 kernel: Y^T (Rl rounded up to a
-    k-slice, by 64), X (128 x 64), the intermediate (128 x 64 per mode
-    index of a unit) and the ring of C slices."""
-    ip, ks = _RES_UNIT[itemsize]
-    krl = -(-Rl // ks) * ks
-    return itemsize * (krl * _RES_R + _RES_RR * _RES_R + _RES_RR * ip * _RES_R
-                       + _RES_STAGES * ks * ip * _RES_RR)
+def _gram_smem(tile: int, itemsize: int) -> int:
+    """Shared bytes of a Gram tile instance."""
+    if itemsize == 4 and tile == 128:
+        return _GRAM_RESIDENT_SMEM
+    return itemsize * (2 + _UNIT_BUFFERS) * tile * (tile + 4)
 
 
-def _proj2_resident(r1: int, Rl: int, Rr: int, r2: int, itemsize: int) -> bool:
-    """True when proj2 of these ranks runs the resident-projector kernel:
-    the shape fits its tile and its shared memory fits one block."""
-    return (r1 <= _RES_R and r2 <= _RES_R and Rr <= _RES_RR
-            and _proj2_smem(Rl, itemsize) <= _SMEM_MAX)
+def _gram_tiles_for(Rl: int, Rr: int, itemsize: int) -> list:
+    """Every Gram tile instance that serves these ranks, smallest first."""
+    return [t for t in _GRAM_TILES.get(itemsize, ()) if max(Rl, Rr) <= t]
 
 
-def _gram_resident(Rl: int, Rr: int, itemsize: int) -> bool:
-    """True when gram_edge and wgram of these ranks run the resident-Gram
-    kernel: float32, both ranks within its 128 x 128 tile (its shared
-    memory, G or W, T and the ring, is fixed at 224 KB)."""
-    return itemsize == 4 and Rl <= _GRAM_R and Rr <= _GRAM_R
+def _gram_tile(Rl: int, Rr: int, itemsize: int):
+    """The tile instance gram_edge and wgram of these ranks run (the
+    smallest that covers both ranks), or None for the two-stage kernel."""
+    tiles = _gram_tiles_for(Rl, Rr, itemsize)
+    return tiles[0] if tiles else None
+
+
+def _proj2_smem(tile, Rl: int, Rr: int, itemsize: int) -> int:
+    """Shared bytes of a proj2 instance (RT, NSEG) at Rl, Rr; csrc's
+    P2Tile::smem and resident_smem are the same sums."""
+    rt, seg = tile
+    if itemsize == 4 and rt == 64:  # the resident-projector kernel
+        ip, ks = _RES_UNIT
+        krl = -(-Rl // ks) * ks
+        return itemsize * (krl * 64 + 128 * 64 + 128 * ip * 64 + _RING_STAGES * ks * ip * 128)
+    ks, v = _RING_ROWS[itemsize], 16 // itemsize
+    krl, kr2 = -(-Rl // ks) * ks, -(-Rr // 8) * 8
+    return itemsize * ((krl + kr2) * (rt + 4) + rt * (seg + 4) + _RING_STAGES * ks * (seg + 2 * v))
+
+
+def _proj2_tiles_for(r1: int, Rl: int, Rr: int, r2: int, itemsize: int) -> list:
+    """Every proj2 instance that serves these ranks and fits a block's
+    shared memory, smallest first."""
+    return [t for t in _PROJ2_TILES.get(itemsize, ())
+            if max(r1, r2) <= t[0] and Rr <= t[1] and _proj2_smem(t, Rl, Rr, itemsize) <= _SMEM_MAX]
+
+
+def _proj2_tile(r1: int, Rl: int, Rr: int, r2: int, itemsize: int):
+    """The instance (RT, NSEG) proj2 of these ranks runs (the smallest that
+    serves them), or None for the two-stage kernel."""
+    tiles = _proj2_tiles_for(r1, Rl, Rr, r2, itemsize)
+    return tiles[0] if tiles else None
+
+
+def _proj2_group(I: int, Rr: int, tile, itemsize: int) -> int:
+    """Mode indices per work unit of a proj2 instance: two on the
+    resident-projector kernel, NSEG // Rr on proj2_tile_kernel."""
+    if itemsize == 4 and tile[0] == 64:
+        return _RES_UNIT[0]
+    return min(tile[1] // Rr, I)
 
 
 def _gram_plan(B: int, I: int, blocks: int):
-    """The resident-Gram kernel's work plan for `blocks` blocks over the
+    """A Gram tile kernel's work plan for `blocks` blocks over the
     B x I items (z, i), numbered z * I + i: block j walks items
     [run[j], run[j + 1]) in order and writes the partial sum of each sample
     its run touches, the first into slot first[j] and one slot further for
@@ -125,14 +176,14 @@ def _plan_on(B: int, I: int, blocks: int, device_index: int):
     return plan, sample[-1]
 
 
-def _gram_resident_launch(edge: int, C, Q, out):
-    """gram_edge (edge 0) or wgram (edge 1) through the resident-Gram kernel."""
+def _gram_tile_launch(code: int, edge: int, tile: int, C, Q, out):
+    """gram_edge (edge 0) or wgram (edge 1) on a Gram tile instance."""
     B, Rl, I, Rr = C.shape
     M = out.shape[-1]
-    blocks = min(B * I, _wave(0, 3, C.device.index))
+    blocks = min(B * I, _tile_wave(code, edge, tile, C.device.index))
     plan, slots = _plan_on(B, I, blocks, C.device.index)
     part = torch.empty((slots, M, M), dtype=C.dtype, device=C.device)
-    _launch("tnt_gram_resident", edge, _ptr(C), _ptr(Q), _ptr(out), _ptr(part), _ptr(plan),
+    _launch("tnt_gram_tile", code, edge, tile, _ptr(C), _ptr(Q), _ptr(out), _ptr(part), _ptr(plan),
             B, Rl, I, Rr, blocks)
 
 
@@ -191,18 +242,30 @@ def _check(name, ts, shapes):
     return _DTYPES[dtype]
 
 
+def _per_sm(per_sm: int, fn: str, device_index: int) -> int:
+    if per_sm <= 0:
+        raise RuntimeError(f"{fn}: CUDA error {-per_sm}" if per_sm else f"{fn}: the kernel fits no SM")
+    return per_sm * torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 @functools.lru_cache(maxsize=None)
-def _wave(code: int, kernel: int, device_index: int, Rl: int = 0) -> int:
-    """Blocks of one kernel that the card holds at once (occupancy x SMs).
-    Kernels: 0 two-stage Gram, 1 two-stage proj2, 2 resident proj2 (sized
-    for its shared memory at Rl), 3 resident Gram."""
+def _wave(code: int, kernel: int, device_index: int) -> int:
+    """Blocks of a two-stage kernel that the card holds at once (occupancy
+    x SMs). Kernels: 0 Gram, 1 proj2."""
     from tntorch_tpu_torch._build import library
 
-    per_sm = library("gram_kernels").tnt_occupancy(code, kernel, Rl)
-    if per_sm <= 0:
-        raise RuntimeError(f"tnt_occupancy: CUDA error {-per_sm}" if per_sm else
-                           "tnt_occupancy: the kernel fits no SM")
-    return per_sm * torch.cuda.get_device_properties(device_index).multi_processor_count
+    return _per_sm(library("gram_kernels").tnt_occupancy(code, kernel), "tnt_occupancy",
+                   device_index)
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_wave(code: int, kind: int, tile: int, device_index: int, Rl: int = 0, Rr: int = 0) -> int:
+    """Blocks of a tile instance that the card holds at once. Kinds: 0
+    gram_edge, 1 wgram, 2 proj2 (sized for its shared memory at Rl, Rr)."""
+    from tntorch_tpu_torch._build import library
+
+    return _per_sm(library("gram_kernels").tnt_tile_occupancy(code, kind, tile, Rl, Rr),
+                   "tnt_tile_occupancy", device_index)
 
 
 def _pieces(code: int, kernel: int, blocks: int, I: int, device) -> int:
@@ -231,15 +294,16 @@ def _launch(fn, *args):
 
 def gram_edge(C, G):
     """Right-Gram edge (B, Rl, I, Rr), (B, Rr, Rr) -> (B, Rl, Rl). On the
-    card it runs the kernel `_gram_resident` picks."""
+    card it runs the instance `_gram_tile` picks, or the two-stage kernel."""
     if _on_cpu(C, G):
         return gram_edge_plain(C, G)
     B, Rl, I, Rr = C.shape
     code = _check("gram_edge", (C, G), ((B, Rl, I, Rr), (B, Rr, Rr)))
     with torch.cuda.device(C.device):
         out = torch.empty((B, Rl, Rl), dtype=C.dtype, device=C.device)
-        if _gram_resident(Rl, Rr, C.element_size()):
-            _gram_resident_launch(0, C, G, out)
+        tile = _gram_tile(Rl, Rr, C.element_size())
+        if tile is not None:
+            _gram_tile_launch(code, 0, tile, C, G, out)
         else:
             splits = _pieces(code, 0, B * _tiles(Rl, Rl, _TN_GRAM), I, C.device)
             scratch = torch.empty((splits, B, Rl, Rl), dtype=C.dtype, device=C.device) if splits > 1 else None
@@ -251,15 +315,16 @@ def gram_edge(C, G):
 
 def wgram(C, W):
     """Weighted left Gram (B, Rl, I, Rr), (B, Rl, Rl) -> (B, Rr, Rr). On the
-    card it runs the kernel `_gram_resident` picks."""
+    card it runs the instance `_gram_tile` picks, or the two-stage kernel."""
     if _on_cpu(C, W):
         return wgram_plain(C, W)
     B, Rl, I, Rr = C.shape
     code = _check("wgram", (C, W), ((B, Rl, I, Rr), (B, Rl, Rl)))
     with torch.cuda.device(C.device):
         out = torch.empty((B, Rr, Rr), dtype=C.dtype, device=C.device)
-        if _gram_resident(Rl, Rr, C.element_size()):
-            _gram_resident_launch(1, C, W, out)
+        tile = _gram_tile(Rl, Rr, C.element_size())
+        if tile is not None:
+            _gram_tile_launch(code, 1, tile, C, W, out)
         else:
             splits = _pieces(code, 0, B * _tiles(Rr, Rr, _TN_GRAM), I, C.device)
             scratch = torch.empty((splits, B, Rr, Rr), dtype=C.dtype, device=C.device) if splits > 1 else None
@@ -271,8 +336,8 @@ def wgram(C, W):
 
 def proj2(Y, C, X):
     """Double-sided projection (B, r1, Rl), (B, Rl, I, Rr), (B, Rr, r2) ->
-    (B, r1, I, r2). On the card it runs the kernel `_proj2_resident`
-    picks."""
+    (B, r1, I, r2). On the card it runs the instance `_proj2_tile` picks,
+    or the two-stage kernel."""
     if _on_cpu(Y, C, X):
         return proj2_plain(Y, C, X)
     B, Rl, I, Rr = C.shape
@@ -280,10 +345,12 @@ def proj2(Y, C, X):
     code = _check("proj2", (C, Y, X), ((B, Rl, I, Rr), (B, r1, Rl), (B, Rr, r2)))
     with torch.cuda.device(C.device):
         out = torch.empty((B, r1, I, r2), dtype=C.dtype, device=C.device)
-        if _proj2_resident(r1, Rl, Rr, r2, C.element_size()):
-            units = B * -(-I // _RES_UNIT[C.element_size()][0])
-            blocks = min(units, _wave(code, 2, C.device.index, Rl))
-            _launch("tnt_proj2_resident", code, _ptr(Y), _ptr(C), _ptr(X), _ptr(out),
+        item = C.element_size()
+        tile = _proj2_tile(r1, Rl, Rr, r2, item)
+        if tile is not None:
+            units = B * -(-I // _proj2_group(I, Rr, tile, item))
+            blocks = min(units, _tile_wave(code, 2, tile[0], C.device.index, Rl, Rr))
+            _launch("tnt_proj2_tile", code, tile[0], _ptr(Y), _ptr(C), _ptr(X), _ptr(out),
                     B, r1, Rl, I, Rr, r2, blocks)
         else:
             chunks = _pieces(code, 1, B * _tiles(r1, r2, _TN_PROJ), I, C.device)
