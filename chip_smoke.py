@@ -564,7 +564,9 @@ def route_kernel(name, tile, itemsize):
         return "two_stage_kernel"
     if name == "proj2":
         return "proj2_resident_kernel" if itemsize == 4 and tile[0] == 64 else "proj2_tile_kernel"
-    return "gram_resident_kernel" if tile == 128 else "gram_tile_kernel"
+    if tile == 128:
+        return "gram_pair_kernel" if itemsize == 8 else "gram_resident_kernel"
+    return "gram_tile_kernel"
 
 
 def gram_route(kernel, args):
@@ -730,9 +732,30 @@ def in_turns(variants):
 
 
 # Phase 3's Gram shapes beyond the bench's: P13 is config 5's divergence
-# fields (phase 13c) at rank 49 rounded to 16; a rank-16 core rounded to 8
+# fields (phase 13c) at rank 49 rounded to 16; a rank-16 core rounded to 8;
+# PAIR, ragged ranks that float64 serves on the cluster instance
 P13 = (32, 49, 256, 49, 16, 16)
 RANK16 = (32, 16, 256, 16, 8, 8)
+PAIR = (32, 97, 256, 83, 16, 16)
+
+
+def pair_instance():
+    """Prints, once, what ptxas gave float64's cluster instance
+    (gram_pair_kernel: numRegs, and localSizeBytes as its stack frame, with
+    its spills) and the clusters a wave holds."""
+    from tntorch_tpu_torch import _build
+    from tntorch_tpu_torch.ops import gram_kernels as gk
+
+    lines, kernel = [], None
+    for line in _build.library_path("gram_kernels").with_suffix(".log").read_text().splitlines():
+        if "Function properties for" in line:
+            kernel = ("gram_edge" if "ILb1E" in line else "wgram") if "gram_pair_kernel" in line else None
+        elif kernel and ("Used" in line or "spill" in line):
+            lines.append(f"{kernel}: {line.replace('ptxas info    :', '').strip()}")
+    waves = [gk._tile_wave(1, kind, 128, 0) for kind in (0, 1)]
+    print(f"gram_pair_kernel (float64, tile 128, {gk._PAIR_CTAS} CTAs a cluster, "
+          f"{gk._gram_smem(128, 8)} B of shared memory a CTA): clusters a wave, gram_edge / "
+          f"wgram: {waves[0]} / {waves[1]}; ptxas: " + "; ".join(lines), flush=True)
 
 
 def check_kernels():
@@ -748,9 +771,10 @@ def check_kernels():
     # bitwise to a second call; the last two shapes are beyond every tile.
     # At the bench shape, P13 and RANK16 each is timed in turns with the
     # plain version, beside one einsum and its bound (f64 at the FP64 peak)
-    shapes = [bench_shape, P13, RANK16, (B, R, I, 1, r, 1), (3, 5, 37, 3, 4, 2),
+    # PAIR is timed in float64, where it takes the cluster instance
+    pair_instance()
+    shapes = [bench_shape, P13, RANK16, PAIR, (B, R, I, 1, r, 1), (3, 5, 37, 3, 4, 2),
               (2, 5, 37, 1, 3, 1), (2, 70, 37, 130, 65, 3), (2, 256, 16, 256, 128, 128)]
-    timed = (bench_shape, P13, RANK16)
     kernels = {"gram_edge": gk.gram_edge, "wgram": gk.wgram, "proj2": gk.proj2}
     flops = gram_flops
     report = {name: {} for name in kernels}
@@ -758,6 +782,7 @@ def check_kernels():
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split(".")[-1]
         peak = PEAK_FP64 if dtype == torch.float64 else PEAK_FP32
+        timed = (bench_shape, P13, RANK16) + ((PAIR,) if dtype == torch.float64 else ())
         for shape in shapes:
             inputs = kernel_inputs(shape, dtype, gen)
             for name, kernel in kernels.items():
@@ -807,6 +832,11 @@ def check_kernels():
                                         two_stage_ms=min(turns["two-stage"]))
                     print(f"    SM clock, power while the route runs: "
                           f"{smi_while(lambda: kernel(*args))}", flush=True)
+                if dtype == torch.float64 and instances[0] == 128 and name != "proj2":
+                    report[name].setdefault("float64_pair", []).append(dict(
+                        shape=list(shape[:4]), max_abs_err=errs[route], ms=ms, kernel_ms=dev,
+                        plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=library_ms,
+                        two_stage_ms=min(turns["two-stage"])))
     # The last right edge of the bench sweep: C (B, R, I, 1), G (B, 1, 1).
     # The sweep routes it to one batched product, as the JAX package does;
     # the kernel still takes it
@@ -846,7 +876,7 @@ def device_per_call(fn, calls=20):
 
 def time_gram_routes():
     """3g (off by default): each Gram wrapper on its own route at the bench
-    shape, P13 and RANK16, f32 and f64: call time (CUDA events) and device
+    shape, P13 and RANK16, f32 and f64, and PAIR in f64: call time (CUDA events) and device
     time per call (profiler) beside one einsum and the bound. It uses only
     the wrappers, so it runs on the parent's tree too: copy this file into
     an unpacked parent and run `--only 3g` there and here in turns."""
@@ -857,8 +887,8 @@ def time_gram_routes():
 
     B, R, I, r = BENCH["B"], BENCH["R"], BENCH["I"], BENCH["rmax"]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for shape in ((B, R, I, R, r, r), P13, RANK16):
-        for dtype in (torch.float32, torch.float64):
+    for shape in ((B, R, I, R, r, r), P13, RANK16, PAIR):
+        for dtype in (torch.float32, torch.float64) if shape != PAIR else (torch.float64,):
             inputs = kernel_inputs(shape, dtype, gen)
             peak = PEAK_FP64 if dtype == torch.float64 else PEAK_FP32
             for kernel in gk.KERNELS:
@@ -1561,7 +1591,46 @@ def main_path():
     two_stage_gram(lambda: profile_device(sweep, steps=1, each="two_stage_kernel<float, 8"))
     print("profile, kernels with the two-stage proj2:")
     two_stage_proj2(lambda: profile_device(sweep, steps=1))
+    pair_sweep(t)
     return launches
+
+
+def pair_sweep(t):
+    """Phase 4's sweep on the ensemble in float64: its Gram edges at rank 128
+    on float64's cluster instance against the two-stage kernel, in turns
+    (parent-compatible: only the wrappers' routes are forced)."""
+    import torch
+
+    import tntorch_tpu_torch as tn
+
+    rmax = BENCH["rmax"]
+    t64 = tn.Tensor([c.double() for c in t.cores], batch=True)
+    calls = []
+    with recording_gram(calls):
+        out = tn.round_tt(t64, rmax=rmax, algorithm="randgram")
+    torch.cuda.synchronize()
+    print("float64 sweep, Gram routes: " + "; ".join(
+        f"{k.__name__} {tuple(a[1 if k.__name__ == 'proj2' else 0].shape)} ({gram_route(k, a)})"
+        for k, a in calls))
+    del calls
+    ref = two_stage_gram(lambda: tn.round_tt(t64, rmax=rmax, algorithm="randgram"))
+    dev = tn.relative_error(ref, out)
+    print(f"float64 sweep against the two-stage route: rel err {dev.max().item():.3e} "
+          f"(tol {MAIN_TOL})")
+    if not (bool((dev <= MAIN_TOL).all()) and all(torch.isfinite(c).all() for c in out.cores)):
+        raise AssertionError("the float64 sweep disagrees with its two-stage route")
+
+    def sweep():
+        tn.round_tt(t64, rmax=rmax, algorithm="randgram")
+
+    variants = {"kernels": lambda fn: fn(), "kernels, two-stage gram_edge/wgram": two_stage_gram}
+    runs = {v: [] for v in variants}
+    for v in list(variants) + list(variants)[::-1]:
+        runs[v].append(variants[v](lambda: cuda_time(sweep, reps=5, inner=3)))
+    gain = min(runs["kernels, two-stage gram_edge/wgram"]) - min(runs["kernels"])
+    print(f"float64 sweep time, B={BENCH['B']}, in turns: "
+          + "; ".join(f"{v} {t} ms" for v, t in runs.items())
+          + f"; the cluster instance's gain {gain:.3f} ms a sweep", flush=True)
 
 
 def nonbatch_pass():
@@ -6267,8 +6336,9 @@ def fused_path(device="cuda", cfg=SIZES18):
 # sweep's fiber value against the tt_eval kernel's, one TT contracted in
 # two orders, and the atan transform's round trip); the float64 run against
 # the same call on the CPU (the plain versions) within MIN_CPU_TOL relative,
-# argmins and argmaxes equal; the batched swap kernel bitwise equal to its
-# plain version at every shape the runs gave it.
+# argmins and argmaxes equal, the CPU taking the card's QR basis at
+# rank-deficient steps only (cpu_search_on_card_bases); the batched swap
+# kernel bitwise equal to its plain version at every shape the runs gave it.
 SIZES19 = dict(separable=SIZES17["separable"], ensemble=BENCH, turns=1)
 
 
@@ -6309,6 +6379,71 @@ def recording_batched_swaps(calls):
             mv.maxvol_swaps = swaps
 
     return ctx()
+
+
+# A fiber matrix V of a search step that is rank-deficient leaves the
+# columns of its QR's Q past the rank to roundoff: there the card's and the
+# CPU's Q differ by O(1) and their searches may part, wherever the rest
+# agrees. Phase 19's float64 ensemble meets such steps: at one step of its
+# searches, 2560 x 10 fiber matrices of six samples have sigma_min /
+# sigma_max ~ 1e-18, whichever Gram kernel rounded the ensemble.
+# RANK_DEFICIENT is where a step counts as such.
+RANK_DEFICIENT = 1e-12
+
+
+def cpu_search_on_card_bases(t, tc, function, failed):
+    """The minimizing cross of ``function`` of the float64 batch ``tc`` on
+    the CPU (one stream, the plain versions), its QR bases recorded from the
+    same search of ``t`` on the card: at each step where a sample's fiber
+    matrix is rank-deficient, the CPU takes the card's Q for that sample,
+    after holding the card's V to the CPU's (MIN_CPU_TOL) and its Q to an
+    orthonormal basis whose span holds V; every other step is the CPU's own.
+    Returns ((minima, argmins), [(call, sample, sigma ratio) replayed])."""
+    import importlib
+
+    import torch
+
+    cr = importlib.import_module("tntorch_tpu_torch.cross")
+    qr, rec = cr._qr_q, []
+
+    def record(V):
+        Q = qr(V)
+        rec.append((V.cpu(), Q.cpu()))
+        return Q
+
+    cr._qr_q = record
+    try:
+        cr._minimize_all(t, function, 10, 10, False, dict(seed=0, fuse="auto"))
+    finally:
+        cr._qr_q = qr
+    calls, replayed = iter(enumerate(rec)), []
+
+    def replay(V0):
+        Q0 = qr(V0)
+        k, (Vc, Qc) = next(calls, (None, (None, None)))
+        if V0.dim() != 3 or Vc is None or Vc.shape != V0.shape:
+            return Q0
+        s = torch.linalg.svdvals(V0)
+        for b in torch.nonzero(s[:, -1] <= RANK_DEFICIENT * s[:, 0]).flatten().tolist():
+            Vb, Qb = Vc[b], Qc[b]
+            scale = float(V0[b].abs().max())
+            eye = torch.eye(Qb.shape[-1], dtype=Qb.dtype)
+            if not (float((Vb - V0[b]).abs().max()) <= MIN_CPU_TOL * scale
+                    and float((Qb.mT @ Qb - eye).abs().max()) <= MIN_CPU_TOL
+                    and float((Qb @ (Qb.mT @ Vb) - Vb).abs().max()) <= MIN_CPU_TOL * scale):
+                failed.append(f"19: the card's QR at call {k}, sample {b}, is no basis of its "
+                              "fibers, or its fibers are not the CPU's")
+                continue
+            Q0[b] = Qb
+            replayed.append((k, b, float(f"{float(s[b, -1] / s[b, 0]):.1e}")))
+        return Q0
+
+    cr._qr_q = replay
+    try:
+        out = cr._minimize_all(tc, function, 10, 10, False, dict(seed=0, fuse=True))
+    finally:
+        cr._qr_q = qr
+    return out, replayed
 
 
 def one_stream19(tag, t, device, turns, failed, swaps):
@@ -6518,7 +6653,14 @@ def one_stream_path(device="cuda", cfg=SIZES19):
         E = cfg["ensemble"]
         for dtype in (torch.float32, torch.float64):
             dname = str(dtype)[6:]
-            t = _ensemble19(E, dtype, device)
+            gram_calls = []
+            with recording_gram(gram_calls):
+                t = _ensemble19(E, dtype, device)
+            if dtype == torch.float64:
+                print("19 ensemble float64, the Gram routes of its rounding: " + "; ".join(
+                    f"{k.__name__} {tuple(a[1 if k.__name__ == 'proj2' else 0].shape)} "
+                    f"({gram_route(k, a)})" for k, a in gram_calls))
+            del gram_calls
             m, am, M, aM, ran = one_stream19(f"ensemble N={E['N']} I={E['I']} rank "
                                              f"{E['rmax']}, {dname}", t, device, cfg["turns"],
                                              failed, swaps)
@@ -6539,14 +6681,14 @@ def one_stream_path(device="cuda", cfg=SIZES19):
             if dtype == torch.float64:
                 tc = tn.Tensor([c.cpu() for c in t.cores], batch=True)
                 t0 = time.perf_counter()
-                cm, cam = cr._minimize_all(tc, lambda x: x, 10, 10, False,
-                                           dict(seed=0, fuse=True))
-                caM = cr._minimize_all(tc, cr._negated(lambda x: x), 10, 10, False,
-                                       dict(seed=0, fuse=True))[1]
+                (cm, cam), rmin = cpu_search_on_card_bases(t, tc, lambda x: x, failed)
+                caM, rmax_ = cpu_search_on_card_bases(t, tc, cr._negated(lambda x: x), failed)
+                caM = caM[1]
                 sec = time.perf_counter() - t0
+                print(f"19 ensemble float64: rank-deficient steps whose card bases the CPU's "
+                      f"search took (call, sample, sigma_min / sigma_max): minimum {rmin}, "
+                      f"maximum {rmax_}")
                 rel_cpu = float(((torch.from_numpy(m) - cm).abs() / cm.abs()).max())
-                # the argmaxes are printed, not held: where a rank-10 search of
-                # a rank-64 TT meets near-ties, roundoff may part the paths
                 apart = [b for b in range(len(aM)) if aM[b] != caM[b]]
                 print(f"19 ensemble float64 against the CPU's one stream ({sec:.1f} s there): "
                       f"minima max rel {rel_cpu:.3e} (tol {MIN_CPU_TOL}), argmins equal "
@@ -6554,9 +6696,9 @@ def one_stream_path(device="cuda", cfg=SIZES19):
                       f"samples, t there: " + ", ".join(
                           f"sample {b} card {at([aM[b]] * len(aM))[b]:.15g} CPU "
                           f"{at([caM[b]] * len(aM))[b]:.15g}" for b in apart))
-                if not (rel_cpu <= MIN_CPU_TOL and am == cam):
+                if not (rel_cpu <= MIN_CPU_TOL and am == cam and not apart):
                     failed.append(f"19 ensemble float64 vs the CPU: rel {rel_cpu:.3e}, argmins "
-                                  f"{am == cam}")
+                                  f"{am == cam}, argmaxes apart in samples {apart}")
             del t
     finally:
         torch.set_default_dtype(prev)

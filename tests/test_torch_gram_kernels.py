@@ -133,7 +133,9 @@ def test_proj2_resident_limit_in_Rl(itemsize, largest):
 
 @pytest.mark.parametrize("Rl, Rr, itemsize, tile", [
     (128, 128, 4, 128),   # the bench sweep's middle edges
-    (128, 128, 8, None),  # float64 above 64 takes the two-stage kernel
+    (128, 128, 8, 128),   # float64 above 64 takes the cluster instance
+    (97, 83, 8, 128),
+    (129, 129, 8, None),  # float64 beyond it takes the two-stage kernel
     (64, 64, 8, 64),      # float64 on DMMA up to 64
     (49, 49, 8, 64),      # P13
     (49, 49, 4, 64),
@@ -238,10 +240,11 @@ def test_kernels_match_plain_versions_on_cuda(monkeypatch):
     # (2, 70, 37, 130, 65, 3) is beyond every tile: the wrappers take the
     # two-stage kernel there and a tile instance elsewhere; (300, 7, 3, 9,
     # 2, 2) makes block runs cross samples; (32, 49, 64, 49, 16, 16) has
-    # P13's ranks. Every instance that takes a shape is forced there too
+    # P13's ranks; (2, 97, 37, 83, 16, 16) takes float64's cluster instance
+    # at ragged ranks. Every instance that takes a shape is forced there too
     shapes = [(4, 64, 40, 64, 32, 32), (3, 5, 37, 3, 4, 3), (2, 5, 37, 1, 3, 1),
               (2, 70, 37, 130, 65, 3), (300, 7, 3, 9, 2, 2), (2, 128, 33, 128, 8, 8),
-              (32, 49, 64, 49, 16, 16), (2, 33, 37, 17, 17, 5)]
+              (32, 49, 64, 49, 16, 16), (2, 33, 37, 17, 17, 5), (2, 97, 37, 83, 16, 16)]
     for dtype, tol in ((np.float32, 1e-4), (np.float64, 1e-12)):
         item = np.dtype(dtype).itemsize
         for shape in shapes:

@@ -33,7 +33,7 @@ def _smallest_at_least(r, sizes):
 @pytest.mark.parametrize("itemsize", [4, 8])
 @pytest.mark.parametrize("R", RANKS)
 def test_gram_tile_is_the_smallest_covering_instance(R, itemsize):
-    tiles = {4: (32, 64, 128), 8: (32, 64)}[itemsize]
+    tiles = {4: (32, 64, 128), 8: (32, 64, 128)}[itemsize]
     want = _smallest_at_least(R, tiles)
     for Rl, Rr in ((R, R), (R, 1), (1, R), (R, max(1, R - 1))):
         assert gk._gram_tile(Rl, Rr, itemsize) == want
@@ -211,3 +211,129 @@ def test_proj2_tile_blocking_matches_jax(p13, itemsize):
         got = _emulate_proj2(a["Y"], a["C"], a["X"], tile, itemsize)
         assert _rel(got.numpy(), want["proj2"]) <= 1e-12, tile
 
+
+
+# ---------------------------------------------------------------------------
+# CPU emulation of float64's cluster instance at ranks 65-128 against JAX
+# ---------------------------------------------------------------------------
+
+PAIR_SHAPES = [(3, 97, 37, 83), (2, 128, 5, 128), (2, 65, 7, 128)]
+
+
+def test_pair_instance_is_a_cluster_that_fits_shared_memory():
+    # Float64 at 128 runs as a cluster: each CTA holds its share of G or W
+    # (64 x 136 doubles) and two unit buffers of its share of C_i (128 x 72)
+    assert gk._gram_ctas(128, 8) == gk._PAIR_CTAS == 2
+    assert gk._gram_smem(128, 8) == 8 * (64 * 136 + 2 * 128 * 72) <= gk._SMEM_MAX
+    assert [gk._gram_ctas(t, 8) for t in (32, 64)] == [1, 1]
+    assert [gk._gram_ctas(t, 4) for t in (32, 64, 128)] == [1, 1, 1]
+
+
+def _pair_shares(K, ctas):
+    """Each CTA's share of the contracted rank K padded to 8, as csrc's
+    Pair::start splits it: whole blocks of 8, as evenly as they go."""
+    nb = -(-K // 8)
+    starts = [8 * (nb * q // ctas) for q in range(ctas + 1)]
+    return list(zip(starts, starts[1:]))
+
+
+def _k_order():
+    """The order in which the cluster instance's two stages read each block
+    of 8 of the contracted index, from the m16n8k8 DMMA register layouts:
+    lane (g, t) holds the accumulators c0..c3 = T[g][2t], T[g][2t+1],
+    T[g+8][2t], T[g+8][2t+1] and passes (c0, c2, c1, c3) as stage 2's A
+    fragment, which the instruction reads as A[g][t], A[g+8][t], A[g][t+4],
+    A[g+8][t+4]. Returns order[slot], the column of the block in k-slot
+    `slot`."""
+    def acc(t):  # (row, column) of c0..c3
+        return [(0, 2 * t), (0, 2 * t + 1), (8, 2 * t), (8, 2 * t + 1)]
+
+    def a_slot(t):  # (row, k-slot) the instruction reads a0..a3 as
+        return [(0, t), (8, t), (0, t + 4), (8, t + 4)]
+
+    order = [None] * 8
+    for t in range(4):
+        for e, c in enumerate((0, 2, 1, 3)):
+            (row_c, col), (row_a, slot) = acc(t)[c], a_slot(t)[e]
+            assert row_c == row_a  # the register holds the row of T the slot wants
+            assert order[slot] in (None, col)
+            order[slot] = col
+        # B fragment (B[t][g], B[t+4][g]): columns 2t, 2t + 1 of one row of
+        # C_i (or G, W), one 16-byte load in the same order
+        assert (order[t], order[t + 4]) == (2 * t, 2 * t + 1)
+    return order
+
+
+def test_pair_k_order_is_a_permutation_of_each_block():
+    assert _k_order() == [0, 2, 4, 6, 1, 3, 5, 7]
+    for K in (65, 83, 97, 128):
+        shares = _pair_shares(K, 2)
+        assert shares[0][0] == 0 and shares[-1][1] == -(-K // 8) * 8
+        assert all(s0 % 8 == 0 and s1 % 8 == 0 and s1 - s0 <= 64 for s0, s1 in shares)
+
+
+def _emulate_pair(edge, C, Q, blocks, ctas):
+    """The cluster instance's blocking: the plan's runs go to clusters; CTA
+    r of a cluster owns share r of the contracted rank K (padded to 8). Per
+    unit it computes its columns of T over every share of k in turn (its
+    peers' shares of C_i too), blocks of 8 in the k order above, then adds
+    T's share by its own share of C_i, block by block in the same order, to
+    its partial; each CTA writes its own slot, the plan's slots doubled, and
+    each sample's slots are summed in slot order."""
+    B, Rl, I, Rr = C.shape
+    ge = edge == "gram_edge"
+    K, M = (Rr, Rl) if ge else (Rl, Rr)
+    kp = -(-K // 8) * 8
+    order = torch.tensor(_k_order())
+    # Cx[z, i][x][k]: C_i with the contracted index along its columns (C_i^T
+    # for wgram); Qk[z][k][h]: stage 1's B (G, or W^T)
+    Cx = _pad(C.permute(0, 2, 1, 3) if ge else C.permute(0, 2, 3, 1), (B, I, M, kp))
+    Qk = _pad(Q if ge else Q.transpose(1, 2), (B, kp, kp))
+    shares = _pair_shares(K, ctas)
+    run, first, sample = gk._gram_plan(B, I, blocks)
+    part = [None] * (ctas * sample[B])
+    for j in range(blocks):
+        z0 = run[j] // I
+        for r, (s0, s1) in enumerate(shares):
+            o = torch.zeros((M, M), dtype=C.dtype)
+            for u in range(run[j], run[j + 1]):
+                z, i = divmod(u, I)
+                A = Cx[z, i]
+                T = torch.zeros((M, s1 - s0), dtype=C.dtype)
+                for q0, q1 in shares:
+                    for k in range(q0, q1, 8):
+                        ks = k + order
+                        T = T + A[:, ks] @ Qk[z][ks][:, s0:s1]
+                for h in range(0, s1 - s0, 8):
+                    hs = h + order
+                    o = o + T[:, hs] @ A[:, s0 + hs].T
+                if i + 1 == I or u + 1 == run[j + 1]:
+                    part[ctas * (first[j] + z - z0) + r] = o if ge else o.T
+                    o = torch.zeros_like(o)
+    out = []
+    for z in range(B):
+        slots = range(ctas * sample[z], ctas * sample[z + 1])
+        s = part[slots[0]]
+        for q in slots[1:]:
+            s = s + part[q]
+        out.append(s)
+    return torch.stack(out)
+
+
+@pytest.mark.parametrize("edge", ["gram_edge", "wgram"])
+@pytest.mark.parametrize("shape", PAIR_SHAPES)
+def test_pair_instance_blocking_matches_jax(shape, edge):
+    rng = np.random.default_rng(24)
+    B, Rl, I, Rr = shape
+    n = Rr if edge == "gram_edge" else Rl
+    A = rng.standard_normal((B, n, n))
+    C, Q = rng.standard_normal(shape), A @ np.swapaxes(A, -1, -2) / n
+    assert gk._gram_tile(Rl, Rr, 8) == 128
+    Cj, Qj = jnp.asarray(C), jnp.asarray(Q)
+    if edge == "gram_edge":  # as the einsum branch of tntorch_tpu/ops/rounding.py
+        want = jnp.einsum("zaic,zdic->zad", jnp.einsum("zaib,zbc->zaic", Cj, Qj), Cj)
+    else:
+        want = jnp.einsum("zaib,zad,zdic->zbc", Cj, Qj, Cj)
+    got = _emulate_pair(edge, torch.from_numpy(C), torch.from_numpy(Q), blocks=7,
+                        ctas=gk._gram_ctas(128, 8))
+    assert _rel(got.numpy(), np.asarray(want)) <= 1e-12

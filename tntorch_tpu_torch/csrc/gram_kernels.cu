@@ -15,10 +15,10 @@
 // the ranks; ranks beyond every instance take two_stage_kernel:
 //   gram_edge, wgram  f32: gram_tile_kernel<float, GE, 32 | 64>, then
 //                          gram_resident_kernel (GR = 128);
-//                     f64: gram_tile_kernel<double, GE, 32 | 64> (DMMA);
-//                          65-128 stays on two_stage_kernel (G or W, T and a
-//                          C_i tile at 128 x 132 doubles each, 135 KB, would
-//                          not fit a block's 227 KB twice over).
+//                     f64: gram_tile_kernel<double, GE, 32 | 64> (DMMA),
+//                          then gram_pair_kernel<GE> (128: DMMA on a
+//                          cluster of two CTAs), which replaces
+//                          two_stage_kernel there;
 //   proj2             f32: proj2_tile_kernel<float, 16 | 32, 256>, then
 //                          proj2_resident_kernel (r <= 64, Rr <= 128);
 //                     f64: proj2_tile_kernel<double, 16, 256 | 32, 128 |
@@ -54,6 +54,39 @@
 // - float32: a lane holds 4 x 4 of its warp's region, 16-byte loads, exact
 //   FFMA; float64: four m16n8k8 DMMA fragments a warp.
 // At rank 49 the tile is 64: the padding costs (64 / 49)^2 in operations.
+//
+// gram_pair_kernel (float64, 64 < max(Rl, Rr) <= 128): a call at the
+// rounding shape (B=32, Rl=Rr=128, I=256) is 68.7 GFLOP, ~64 FLOP per byte
+// of C: compute-bound against the FP64 tensor peak (1.03 ms), which only
+// DMMA reaches. But G (or W), T and C_i at 128 x 132 doubles
+// are 135 KB each against a block's 227 KB, so one block cannot hold a unit.
+// - A thread block cluster of two CTAs splits the contracted rank K (Rr for
+//   gram_edge, Rl for wgram), padded to 8, into two shares of whole blocks
+//   of 8. Each CTA holds its share of G (or W), 64 x 136 doubles, and its
+//   share of C_i in two unit buffers of 128 x 72, 212 KB in all: the next
+//   unit's share loads while this one's is multiplied, and each pair reads
+//   C_i from device memory once.
+// - Stage 1, T = C_i G (gram_edge) or U^T = C_i^T W^T (wgram) restricted to
+//   the CTA's share of columns, contracts over all of K: its own share of
+//   C_i from its shared memory, the peer's share through distributed shared
+//   memory (cg::this_cluster().map_shared_rank). Stage 2 adds T's share
+//   times the CTA's share of C_i to the CTA's partial: the two partials sum
+//   to the output.
+// - T never goes to shared memory: a warp owns a 16-row strip of the
+//   output (64 doubles a lane) and computes its strip of T in two passes of
+//   half the share (16 doubles a lane each; the whole strip at once spilled
+//   registers). Both stages read each block of 8 of k in the order 0 2 4 6
+//   1 3 5 7, so that the stage-1 accumulators are stage 2's A fragment as
+//   they stand, and every other fragment is a 16-byte load (row strides 8
+//   mod 16 doubles: four wavefronts a warp, the least). No barrier or
+//   transposing store between the stages; one cluster barrier a unit.
+// - A cluster of two, not four: four CTAs (a quarter of K each) hold fewer
+//   registers but read three quarters of C_i remotely and leave more SMs
+//   out of whole clusters; on the H100 they ran slower.
+// - The sum over i as in gram_tile_kernel: persistent clusters, one wave
+//   (cudaOccupancyMaxActiveClusters), each walking _gram_plan's run; each
+//   CTA writes its own partial per sample, the plan's slots doubled, and
+//   sum_slots_kernel adds them in slot order.
 //
 // proj2_tile_kernel (r1, r2 <= RT, Rr <= NSEG): a unit is a sample z and
 // NSEG / Rr consecutive mode indices, so that each row a of C_z over them
@@ -116,8 +149,11 @@
 //   2) per thread, fed by 16-byte shared loads; exact FP32 FMAs (no TF32).
 // Shapes outside every instance take two_stage_kernel<T, 4, true> unchanged.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -891,26 +927,27 @@ __global__ void __launch_bounds__(NT, 1) gram_resident_kernel(const GramArgs<flo
   cp_async_wait<0>();  // only empty groups remain; leave none in flight
 }
 
-// out[z][j] = the sum of part[s][j] over sample z's slots, in slot order.
+// out[z][j] = the sum of part[s][j] over sample z's slots, in slot order;
+// each slot of the plan is `per` slots here (one a CTA of a cluster).
 template <typename T>
 __global__ void sum_slots_kernel(const T* __restrict__ part, const int64_t* __restrict__ sample,
-                                 T* __restrict__ out, int B, int64_t n) {
+                                 T* __restrict__ out, int B, int64_t n, int per) {
   for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; e < B * n;
        e += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t z = e / n, j = e % n, s1 = sample[z + 1];
-    T s = part[sample[z] * n + j];
-    for (int64_t q = sample[z] + 1; q < s1; ++q) s += part[q * n + j];
+    const int64_t z = e / n, j = e % n, s0 = sample[z] * per, s1 = sample[z + 1] * per;
+    T s = part[s0 * n + j];
+    for (int64_t q = s0 + 1; q < s1; ++q) s += part[q * n + j];
     out[e] = s;
   }
 }
 
 // The second pass of a Gram kernel with a plan: each sample's slots summed
 template <typename T, bool GE>
-int sum_slots(const GramArgs<T>& p, cudaStream_t stream) {
+int sum_slots(const GramArgs<T>& p, int per, cudaStream_t stream) {
   const int64_t n = GE ? (int64_t)p.Rl * p.Rl : (int64_t)p.Rr * p.Rr;
   const int64_t grid = (p.B * n + 255) / 256;
   sum_slots_kernel<T><<<(unsigned)(grid < 4096 ? grid : 4096), 256, 0, stream>>>(p.part, p.sample,
-                                                                                p.out, p.B, n);
+                                                                                p.out, p.B, n, per);
   return (int)cudaGetLastError();
 }
 
@@ -935,7 +972,7 @@ int gram_resident(const GramArgs<float>& p, int blocks, cudaStream_t stream) {
   if (e != cudaSuccess) return (int)e;
   gram_resident_kernel<GE><<<blocks, NT, GRAM_SMEM, stream>>>(p);
   e = cudaGetLastError();
-  return e != cudaSuccess ? (int)e : sum_slots<float, GE>(p, stream);
+  return e != cudaSuccess ? (int)e : sum_slots<float, GE>(p, 1, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1161,7 +1198,240 @@ int gram_tile(const GramArgs<T>& p, int blocks, cudaStream_t stream) {
   gram_tile_kernel<T, GE, GR>
       <<<blocks, gram_tile_threads<GR>(), gram_tile_smem<T, GR>(), stream>>>(p);
   e = cudaGetLastError();
-  return e != cudaSuccess ? (int)e : sum_slots<T, GE>(p, stream);
+  return e != cudaSuccess ? (int)e : sum_slots<T, GE>(p, 1, stream);
+}
+
+// ---------------------------------------------------------------------------
+// float64 gram_edge and wgram at 64 < max(Rl, Rr) <= 128: a cluster of PCL
+// CTAs that splits the contracted rank, T in the DMMA accumulators (see the
+// design notes at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int PCL = 2;                            // CTAs a cluster
+constexpr int PX = 128;                           // the tile: Rl, Rr <= 128
+constexpr int PH = PX / PCL;                      // a CTA's share of the contracted rank, at most
+constexpr int PLDQ = PX + 8, PLDC = PH + 8;       // row strides, 8 mod 16 doubles
+constexpr size_t PAIR_SMEM = sizeof(double) * ((size_t)PH * PLDQ + 2 * (size_t)PX * PLDC);
+static_assert(PAIR_SMEM <= SMEM_MAX, "the pair instance fits a block");
+
+// The first column of CTA q's share of the contracted rank padded to kp (a
+// multiple of 8): whole blocks of 8, split as evenly as they go
+__device__ __forceinline__ int pair_start(int q, int kp) { return 8 * ((kp / 8) * q / PCL); }
+
+__device__ __forceinline__ void ld2(double& x, double& y, const double* p) {
+  const double2 v = *reinterpret_cast<const double2*>(p);
+  x = v.x, y = v.y;
+}
+
+// CTA r of cluster c walks the units [run[c], run[c + 1]) with K the
+// contracted rank (Rr for gram_edge, Rl for wgram), M the other one, and
+// its share S_r of K; every operand has the contracted index along its rows:
+//   gram_edge: Qs[h][b] = G[b][c], Cs[a][h] = C[a, i, c]  (c = S_r's h-th)
+//   wgram:     Qs[h][a'] = W[a][a'], Cs[d][h] = C[a, i, d]  (a = S_r's h-th)
+//   stage 1  T[x][h] = sum_k Cs_q[x][k] Qs[h][k] over every CTA q's share of
+//            k, the peers' Cs through distributed shared memory;
+//   stage 2  o[x][y] += sum_h T[x][h] Cs[y][h] over S_r
+// which is out[a][d] (gram_edge) or out[d][b] transposed (wgram), summed
+// over the cluster's CTAs. A warp owns rows 16w.. of T and of o: T stays in
+// its stage-1 accumulators and is stage 2's A fragment as it is. Both stages
+// read each block of 8 in the k order 0 2 4 6 1 3 5 7 (slot t holds column
+// 2t, slot t + 4 column 2t + 1), in A and in B alike: lane (g, t)'s
+// accumulators {c0, c1, c2, c3} = T[g][2t], T[g][2t+1], T[g+8][2t],
+// T[g+8][2t+1] are then the A fragment {c0, c2, c1, c3}, and every B
+// fragment, like every stage-1 A fragment, is two adjacent doubles of a row:
+// one 16-byte load.
+template <bool GE>
+__global__ void __launch_bounds__(NT, 1) gram_pair_kernel(const GramArgs<double> p) {
+  constexpr int X = PX, LDQ = PLDQ, LDC = PLDC, NJ = PH / 8, CB = X * LDC;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), cid = blockIdx.x / PCL;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* Qs = reinterpret_cast<double*>(smem_raw);  // PH x LDQ
+  double* Cs = Qs + PH * LDQ;                         // 2 unit buffers, X x LDC each
+
+  const int tid = threadIdx.x, w = tid / 32, l = tid % 32, g = l / 4, t = l % 4;
+  const int K = GE ? p.Rr : p.Rl, M = GE ? p.Rl : p.Rr;
+  const int kp = (K + 7) / 8 * 8;
+  const int k0 = pair_start(rank, kp), nj = (pair_start(rank + 1, kp) - k0) / 8;
+  const int kr = max(0, min(K - k0, 8 * nj));  // the share's columns within K
+  const int m0 = 16 * w, ny = (M + 7) / 8;
+  const int64_t sA = (int64_t)p.I * p.Rr;  // stride of C's left-rank index
+  const int64_t u0 = p.run[cid], u1 = p.run[cid + 1];
+  const int z0 = (int)(u0 / p.I);
+  double* part = p.part + (p.first[cid] * PCL + rank) * M * M;
+
+  for (int e = tid; e < PH * LDQ + 2 * CB; e += NT) Qs[e] = 0.0;
+
+  // Unit u's share of C_i into buffer (u - u0) % 2, one group of element
+  // copies (empty past the run); wgram's transposing copies walk 8 a by 4 d
+  // a warp, so that their stores hit distinct banks
+  auto issue = [&](int64_t u) {
+    if (u < u1) {
+      const int z = (int)(u / p.I), i = (int)(u % p.I);
+      double* dst = Cs + (int)((u - u0) % 2) * CB;
+      const double* src = p.C + (int64_t)z * p.Rl * sA + (int64_t)i * p.Rr;
+      if (GE) {  // a warp copies a row
+        for (int a = w; a < M; a += NT / 32)
+          for (int h = l; h < kr; h += 32) cp_async<8>(dst + a * LDC + h, src + a * sA + k0 + h, 8);
+      } else {
+        for (int q = w; q < NJ * (X / 4); q += NT / 32) {
+          const int h = 8 * (q % NJ) + l % 8, d = 4 * (q / NJ) + l / 8;
+          if (h < kr && d < M) cp_async<8>(dst + d * LDC + h, src + (k0 + h) * sA + d, 8);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  double o[16][4];
+#pragma unroll
+  for (int n = 0; n < 16; ++n)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) o[n][q] = 0.0;
+  cluster.sync();  // every CTA's shared memory is zeroed before copies land in it
+  issue(u0);
+  int zq = -1;
+  for (int64_t u = u0; u < u1; ++u) {
+    const int z = (int)(u / p.I), i = (int)(u % p.I);
+    cp_async_wait<0>();  // this thread's copies of unit u landed
+    cluster.sync();      // every CTA's have, and every CTA is past unit u - 1
+    issue(u + 1);        // into unit u - 1's buffer
+    if (z != zq) {
+      // The share of G or W of sample z (only this CTA reads its Qs, and
+      // all its threads are past unit u - 1)
+      if (GE) {  // Qs[h][b] = G[z, b, k0 + h]: a warp copies 8 b by 4 h
+        const double* G = p.Q + (int64_t)z * p.Rr * p.Rr;
+        for (int q = w; q < (X / 8) * (PH / 4); q += NT / 32) {
+          const int b = 8 * (q % (X / 8)) + l % 8, h = 4 * (q / (X / 8)) + l / 8;
+          if (b < K && h < kr) Qs[h * LDQ + b] = G[(int64_t)b * p.Rr + k0 + h];
+        }
+      } else {  // Qs[h][a'] = W[z, k0 + h, a']
+        const double* W = p.Q + (int64_t)z * p.Rl * p.Rl;
+        for (int h = w; h < kr; h += NT / 32)
+          for (int a = l; a < K; a += 32) Qs[h * LDQ + a] = W[(int64_t)(k0 + h) * K + a];
+      }
+      zq = z;
+      __syncthreads();
+    }
+    const double* Cb = Cs + (int)((u - u0) % 2) * CB;
+
+    if (m0 < M) {
+      // The share's blocks of 8 in two passes of NJP: per pass, stage 1
+      // tt[j] = T's rows m0.., columns 8 (jb + j).. of the share, then stage
+      // 2. Holding half of T's strip at a time leaves ptxas the registers
+      // the loads need (with the whole strip both kernels spilled)
+      constexpr int NJP = NJ / 2;
+#pragma unroll 1
+      for (int jb = 0; jb < nj; jb += NJP) {
+        double tt[NJP][4];
+#pragma unroll
+        for (int j = 0; j < NJP; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) tt[j][q] = 0.0;
+        const double* Bq = Qs + (8 * jb + g) * LDQ + 2 * t;
+        auto stage1 = [&](const double* A, int qs, int nb) {
+#pragma unroll 2
+          for (int kb = 0; kb < nb; ++kb) {
+            double a[4];
+            ld2(a[0], a[2], A + 8 * kb);
+            ld2(a[1], a[3], A + 8 * LDC + 8 * kb);
+#pragma unroll
+            for (int j = 0; j < NJP; ++j) {
+              if (jb + j < nj) {
+                double b[2];
+                ld2(b[0], b[1], Bq + 8 * j * LDQ + qs + 8 * kb);
+                dmma(tt[j], a, b);
+              }
+            }
+          }
+        };
+        const int arow = (m0 + g) * LDC + 2 * t;
+        for (int q = 0; q < PCL; ++q) {
+          const int qs = pair_start(q, kp), nb = (pair_start(q + 1, kp) - qs) / 8;
+          if (q == rank)
+            stage1(Cb + arow, qs, nb);
+          else
+            stage1(cluster.map_shared_rank(Cb, q) + arow, qs, nb);
+        }
+        // Stage 2: o += this pass's columns of T by this CTA's Cs
+        const double* Bc = Cb + g * LDC + 8 * jb + 2 * t;
+#pragma unroll
+        for (int j = 0; j < NJP; ++j) {
+          if (jb + j < nj) {
+            const double a[4] = {tt[j][0], tt[j][2], tt[j][1], tt[j][3]};
+#pragma unroll
+            for (int n = 0; n < 16; ++n) {
+              if (n < ny) {
+                double b[2];
+                ld2(b[0], b[1], Bc + 8 * n * LDC + 8 * j);
+                dmma(o[n], a, b);
+              }
+            }
+          }
+        }
+      }
+    }
+
+    // At the end of a sample's units in this run, this CTA's partial to its
+    // slot: slot s of the plan is PCL slots here, one a CTA
+    if (i + 1 == p.I || u + 1 == u1) {
+      double* dst = part + (int64_t)(z - z0) * PCL * M * M;
+#pragma unroll
+      for (int n = 0; n < 16; ++n)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int x = m0 + g + 8 * (q / 2), y = 8 * n + 2 * t + q % 2;
+          if (x < M && y < M) dst[GE ? x * M + y : y * M + x] = o[n][q];
+          o[n][q] = 0.0;
+        }
+    }
+  }
+  cp_async_wait<0>();  // only empty groups remain; leave none in flight
+  cluster.sync();      // no CTA leaves while a peer may still read its shared memory
+}
+
+cudaLaunchConfig_t pair_config(int clusters, cudaLaunchAttribute* attr, cudaStream_t stream) {
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = PCL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)clusters * PCL);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = PAIR_SMEM;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <bool GE>
+cudaError_t allow_gram_pair() {
+  return cudaFuncSetAttribute(gram_pair_kernel<GE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)PAIR_SMEM);
+}
+
+// Clusters of the pair instance that the card holds at once, or -cudaError_t
+template <bool GE>
+int gram_pair_clusters() {
+  cudaError_t e = allow_gram_pair<GE>();
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = pair_config(1, attr, 0);
+  int n = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&n, gram_pair_kernel<GE>, &cfg);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+template <bool GE>
+int gram_pair(const GramArgs<double>& p, int clusters, cudaStream_t stream) {
+  if (p.Rl > PX || p.Rr > PX) return (int)cudaErrorInvalidValue;
+  cudaError_t e = allow_gram_pair<GE>();
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = pair_config(clusters, attr, stream);
+  e = cudaLaunchKernelEx(&cfg, gram_pair_kernel<GE>, p);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  return e != cudaSuccess ? (int)e : sum_slots<double, GE>(p, PCL, stream);
 }
 
 // proj2 at r1, r2 <= RT and Rr <= NSEG. A unit is (z, ip consecutive mode
@@ -1454,9 +1724,10 @@ int tnt_occupancy(int dtype, int kernel) {
 }
 
 // Resident blocks per SM of a tile instance (kind 0: gram_edge, 1: wgram,
-// 2: proj2) at these ranks (proj2's shared memory grows with Rl and Rr),
-// or -cudaError_t; -cudaErrorInvalidValue for an instance that does not
-// exist or does not fit.
+// 2: proj2) at these ranks (proj2's shared memory grows with Rl and Rr);
+// for float64 gram_edge and wgram at tile 128, the cluster instance, the
+// clusters the whole card holds at once. A negative value is -cudaError_t;
+// -cudaErrorInvalidValue for an instance that does not exist or does not fit.
 int tnt_tile_occupancy(int dtype, int kind, int tile, int Rl, int Rr) {
   const int bad = -(int)cudaErrorInvalidValue;
   if (kind == 2) {
@@ -1469,6 +1740,7 @@ int tnt_tile_occupancy(int dtype, int kind, int tile, int Rl, int Rr) {
          : tile == 64 ? proj2_tile_occupancy<double, 64, 128>(Rl, Rr) : bad;
   }
   if (dtype == 0 && tile == 128) return gram_resident_occupancy();
+  if (tile == 128) return kind == 0 ? gram_pair_clusters<true>() : gram_pair_clusters<false>();
   if (kind == 0)
     return dtype == 0 ? (tile == 32 ? gram_tile_occupancy<float, true, 32>()
                          : tile == 64 ? gram_tile_occupancy<float, true, 64>() : bad)
@@ -1504,11 +1776,14 @@ int tnt_proj2_tile(int dtype, int tile, const void* Y, const void* C, const void
 }
 
 // gram_edge (edge 0: Q = G) or wgram (edge 1: Q = W) on the tile instance
-// for Rl, Rr <= tile (32 or 64; 128 in float32: the resident-Gram kernel)
-// on `blocks` persistent blocks, then the sum of each sample's partials.
+// for Rl, Rr <= tile (32, 64 or 128: in float32 the resident-Gram kernel,
+// in float64 the cluster instance) on `blocks` persistent blocks (clusters
+// on the cluster instance), then the sum of each sample's partials.
 // plan: run (blocks + 1), first (blocks), sample (B + 1), int64, on the
-// card; part: the plan's slots of M x M elements. cudaErrorInvalidValue for
-// a rank above the tile or an instance that does not exist.
+// card; part: the plan's slots of M x M elements, times the CTAs of a
+// cluster on the cluster instance. cudaErrorInvalidValue for a rank above
+// the tile or an instance that does not exist; a cluster launch the card
+// refuses returns its error.
 int tnt_gram_tile(int dtype, int edge, int tile, const void* C, const void* Q, void* out,
                   void* part, const void* plan, int B, int Rl, int I, int Rr, int blocks,
                   void* stream) {
@@ -1527,6 +1802,7 @@ int tnt_gram_tile(int dtype, int edge, int tile, const void* C, const void* Q, v
   }
   const GramArgs<double> p{(const double*)C, (const double*)Q, (double*)part, (double*)out,
                            run, first, sample, B, Rl, I, Rr, 0};
+  if (tile == 128) return edge == 0 ? gram_pair<true>(p, blocks, s) : gram_pair<false>(p, blocks, s);
   if (tile == 64) return edge == 0 ? gram_tile<double, true, 64>(p, blocks, s) : gram_tile<double, false, 64>(p, blocks, s);
   if (tile == 32) return edge == 0 ? gram_tile<double, true, 32>(p, blocks, s) : gram_tile<double, false, 32>(p, blocks, s);
   return (int)cudaErrorInvalidValue;

@@ -31,8 +31,18 @@ full, the splits summed in a fixed order):
   G (or W) loaded once per sample, C_i brought on chip once per i, the sum
   over i held in registers; each block writes one partial per sample its
   run touches, and a second pass sums each sample's partials in a fixed
-  order (no atomics, deterministic). Float64 above 64 stays on the
-  two-stage kernel.
+  order (no atomics, deterministic).
+- Float64 ``gram_edge`` and ``wgram`` at 64 < max(Rl, Rr) <= 128 (tile
+  128) on ``gram_pair_kernel``, in place of the two-stage kernel: G (or W),
+  T and C_i at 128 x 132 doubles do not fit one block twice over, so a
+  cluster of `_PAIR_CTAS` CTAs splits the contracted rank. Each CTA holds
+  its share of G (or W) and of C_i, reads its peer's share of C_i through
+  distributed shared memory for stage 1, keeps its share of T = C_i G in
+  the DMMA accumulators as stage 2's operand (no trip through shared
+  memory), and writes its own partial per sample: the plan's runs go to
+  clusters and its slots are doubled. At the rounding shape this is 68.7
+  GFLOP against the FP64 tensor peak: compute-bound. Ranks above 128 take
+  the two-stage kernel.
 - ``proj2`` (`_proj2_tile`): r1, r2 <= RT = 16 or 32 with Rr <= NSEG on
   ``proj2_tile_kernel`` (a work unit is NSEG // Rr consecutive mode indices,
   one contiguous segment per row of C, streamed once through a
@@ -68,10 +78,14 @@ _SMEM_MAX = 232448  # the shared memory a block may use
 
 # The Gram kernels' tile instances per item size, smallest first: a tile
 # serves Rl, Rr <= tile. Float32 at 128 is the resident-Gram kernel (fixed
-# 224 KB); the others are gram_tile_kernel (G or W, T and 3 buffers of C_i,
-# each tile x (tile + 4))
-_GRAM_TILES = {4: (32, 64, 128), 8: (32, 64)}
+# 224 KB); float64 at 128 the cluster instance gram_pair_kernel, whose
+# _PAIR_CTAS CTAs each hold their share of the contracted rank: of G or W
+# (share x 136 doubles) and of C_i in two unit buffers (128 x (share + 8));
+# the others are gram_tile_kernel (G or W, T and 3 buffers of C_i, each
+# tile x (tile + 4))
+_GRAM_TILES = {4: (32, 64, 128), 8: (32, 64, 128)}
 _GRAM_RESIDENT_SMEM = 4 * (2 * 128 * 128 + 12 * 16 * 128)
+_PAIR_CTAS = 2
 _UNIT_BUFFERS = 3
 
 # proj2's tile instances per item size, smallest first, as (RT, NSEG): an
@@ -87,10 +101,20 @@ _RING_ROWS = {4: 16, 8: 8}
 _RES_UNIT = (2, 16)
 
 
+def _gram_ctas(tile: int, itemsize: int) -> int:
+    """CTAs a Gram tile instance runs as one cluster: _PAIR_CTAS on the
+    float64 instance at 128, one elsewhere."""
+    return _PAIR_CTAS if itemsize == 8 and tile == 128 else 1
+
+
 def _gram_smem(tile: int, itemsize: int) -> int:
-    """Shared bytes of a Gram tile instance."""
+    """Shared bytes of a Gram tile instance (a CTA's, on a cluster)."""
     if itemsize == 4 and tile == 128:
         return _GRAM_RESIDENT_SMEM
+    ctas = _gram_ctas(tile, itemsize)
+    if ctas > 1:
+        share = tile // ctas
+        return itemsize * (share * (tile + 8) + 2 * tile * (share + 8))
     return itemsize * (2 + _UNIT_BUFFERS) * tile * (tile + 4)
 
 
@@ -177,12 +201,15 @@ def _plan_on(B: int, I: int, blocks: int, device_index: int):
 
 
 def _gram_tile_launch(code: int, edge: int, tile: int, C, Q, out):
-    """gram_edge (edge 0) or wgram (edge 1) on a Gram tile instance."""
+    """gram_edge (edge 0) or wgram (edge 1) on a Gram tile instance: the
+    plan's runs go to blocks, or to clusters, each CTA of which writes its
+    own slots."""
     B, Rl, I, Rr = C.shape
     M = out.shape[-1]
     blocks = min(B * I, _tile_wave(code, edge, tile, C.device.index))
     plan, slots = _plan_on(B, I, blocks, C.device.index)
-    part = torch.empty((slots, M, M), dtype=C.dtype, device=C.device)
+    part = torch.empty((slots * _gram_ctas(tile, C.element_size()), M, M), dtype=C.dtype,
+                       device=C.device)
     _launch("tnt_gram_tile", code, edge, tile, _ptr(C), _ptr(Q), _ptr(out), _ptr(part), _ptr(plan),
             B, Rl, I, Rr, blocks)
 
@@ -242,10 +269,14 @@ def _check(name, ts, shapes):
     return _DTYPES[dtype]
 
 
+def _resident(n: int, fn: str) -> int:
+    if n <= 0:
+        raise RuntimeError(f"{fn}: CUDA error {-n}" if n else f"{fn}: the kernel fits no SM")
+    return n
+
+
 def _per_sm(per_sm: int, fn: str, device_index: int) -> int:
-    if per_sm <= 0:
-        raise RuntimeError(f"{fn}: CUDA error {-per_sm}" if per_sm else f"{fn}: the kernel fits no SM")
-    return per_sm * torch.cuda.get_device_properties(device_index).multi_processor_count
+    return _resident(per_sm, fn) * torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)
@@ -260,12 +291,15 @@ def _wave(code: int, kernel: int, device_index: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _tile_wave(code: int, kind: int, tile: int, device_index: int, Rl: int = 0, Rr: int = 0) -> int:
-    """Blocks of a tile instance that the card holds at once. Kinds: 0
-    gram_edge, 1 wgram, 2 proj2 (sized for its shared memory at Rl, Rr)."""
+    """Blocks of a tile instance that the card holds at once, or clusters on
+    a cluster instance. Kinds: 0 gram_edge, 1 wgram, 2 proj2 (sized for its
+    shared memory at Rl, Rr)."""
     from tntorch_tpu_torch._build import library
 
-    return _per_sm(library("gram_kernels").tnt_tile_occupancy(code, kind, tile, Rl, Rr),
-                   "tnt_tile_occupancy", device_index)
+    n = library("gram_kernels").tnt_tile_occupancy(code, kind, tile, Rl, Rr)
+    if kind < 2 and _gram_ctas(tile, 8 if code else 4) > 1:  # clusters, not blocks per SM
+        return _resident(n, "tnt_tile_occupancy")
+    return _per_sm(n, "tnt_tile_occupancy", device_index)
 
 
 def _pieces(code: int, kernel: int, blocks: int, I: int, device) -> int:
