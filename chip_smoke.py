@@ -9,7 +9,9 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
 
 1. device probe: a CUDA card must be present (no CPU fallback);
 2. build the hand-written kernels from ``tntorch_tpu_torch/csrc``, one
-   ``nvcc`` per source, all started together;
+   ``nvcc`` per source, and the host maxvol library
+   (``csrc/maxvol_host.cpp``) with the host C++ compiler, all started
+   together;
 3. each kernel against its plain PyTorch version on the card, float32 and
    float64: the Gram kernels at the bench cell's shapes and at ragged
    shapes, the evaluation kernels (``tt_eval`` on both its kernels and
@@ -209,9 +211,18 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    CPU's float64 rounding and to the float32 sweep, two samples against
    the port's bf16 body on the CPU (``BF16_CPU_TOL``), and both sweeps
    timed in turns; (14d) BASELINE config 3 by ``cross(fuse='host')`` with
-   a NumPy function and by the eager device sweep, in turns: equal ranks,
-   val_eps and 10^5 held-out points (``t[X]`` on the card) within 1e-6,
-   f-evals/s of both and the host sweep's share in maxvol. Then the
+   a NumPy function, pivoting on the host maxvol library and on the NumPy
+   loop (``maxvol._maxvol_plain``), and by the eager device sweep, in
+   turns: equal ranks, val_eps and 10^5 held-out points (``t[X]`` on the
+   card) within 1e-6, f-evals/s of each, the host sweeps' share in maxvol
+   and maxvol's time a call at each shape, the library's calls (none of
+   the NumPy loop in its run); the same at 10c's fixed-rank 256^5 cross
+   at ranks 100 (the host sweeps within ``HOST_FIXED_TOL``, the device
+   sweep within ``CROSS_FIXED_F64_TOL``); ``maxvol`` alone at 25600 x 100
+   in float64 and float32 and at config 3's largest pivot matrix, the
+   library against the NumPy loop in turns (median of 5), rows equal and C
+   within ``MAXVOL_TOL`` (also ``rect_maxvol(maxK=r)``), beside the host
+   CPU's model (``lscpu``; ``--only 14d`` runs 14d alone). Then the
    launches are read, and ``tt_eval`` (both routes) and each Gram call of
    14b's path (recorded by ``recording_gram``) are held to their plain
    versions. ``--only 14`` runs it alone;
@@ -455,6 +466,15 @@ FAMILY_TOL, KURTOSIS_TOL = 1e-4, 1e-3
 MIN_OPT_TOL, MIN_CPU_TOL = 1e-10, 1e-12
 FORWARD_TOL, GRAD_TOL = 1e-5, 1e-8
 MAXVOL_TOL = {"float32": 1e-4, "float64": 1e-12}
+# - the host sweep at the fixed rank 100 on 256^5 (14d), float64, both of
+#   its pivots: HOST_FIXED_TOL on val_eps and at the held-out points. Rank
+#   100 is far past the function's numerical rank, and the host sweep's
+#   Gram-eigh basis (the JAX package's algorithm, which the port's equals
+#   index set for index set) squares the condition number, so its
+#   interpolation past that rank loses accuracy where the device sweep's QR
+#   does not: on the CPU, on 128^5, both packages read val_eps 8.7e-6 after
+#   the first iteration and 9.4e-5 after the second, held-out 1.1e-4.
+HOST_FIXED_TOL = 1e-3
 
 BENCH = dict(B=32, N=4, I=256, R=128, rmax=64)
 # The evaluation kernel's design shape (the TPU kernel's stated regime,
@@ -671,7 +691,7 @@ def build():
         _build.library(name)
     seconds = getattr(_build, "BUILD_SECONDS", {})  # an older tree's _build has none
     print(f"built {', '.join(so.name for so in paths.values())} in {time.time() - t0:.1f} s; "
-          "nvcc by source (s): " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+          "compiler by source (s): " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     for name, so in paths.items():
         for line in so.with_suffix(".log").read_text().splitlines():
             if "Function properties for" in line:  # the mangled name, past its namespace
@@ -4476,68 +4496,301 @@ def _np_sines(*xs):
     return sum(np.sin(x) for x in xs)
 
 
-def host_cross_checks(device=None, cfg=CROSS3, rounds=2):
-    """14d: ``tn.cross(fuse='host')`` of config 3 with a NumPy function, and
-    the same cross on the eager device sweep with the torch function, in
-    float64, timed in turns: equal ranks, val_eps below eps and 10^5
-    held-out points (``t[X]``, on the tt_eval kernel on the card) within
-    eps; f-evals/s of both and the host sweep's time in maxvol. Returns the
-    (tag, cores, X) to hold and the failures."""
+def host_cpu():
+    """The host CPU: ``lscpu``'s model name (``/proc/cpuinfo``'s where there
+    is no ``lscpu``), its vendor, family and model numbers where the name is
+    not known (a kernel may report it as unknown), the architecture that the
+    host library's ``-march=native`` compiles for, the count of CPUs, and
+    NumPy's and SciPy's versions. The host sweep's and maxvol's times are
+    this CPU's."""
+    import numpy as np
+    import scipy
+
+    from tntorch_tpu_torch import _build
+
+    fields = {}
+    for cmd in (["lscpu"], ["cat", "/proc/cpuinfo"]):
+        try:
+            out = subprocess.run(cmd, capture_output=True, text=True, timeout=30).stdout
+        except OSError:
+            continue
+        for line in out.splitlines():
+            if ":" in line:
+                key, value = line.split(":", 1)
+                fields.setdefault(key.strip().lower().replace("_", " "), value.strip())
+    model = fields.get("model name", "unknown")
+    if model == "unknown":
+        model = "model name unknown, " + ", ".join(
+            f"{k} {fields[k]}" for k in ("vendor id", "cpu family", "model") if k in fields)
+    march = re.search(r"-march=\s+(\S+)", _build._host_target(_build.CXX, tuple(_build.CXX_FLAGS)))
+    return (f"{model}; -march=native is {march.group(1) if march else 'unknown'}; "
+            f"{os.cpu_count()} CPUs; numpy {np.__version__}, scipy {scipy.__version__}")
+
+
+@contextlib.contextmanager
+def host_pivots(plain, spent, shapes, counts, keep=None):
+    """Within the block the host sweep pivots (``cross_host._host_maxvol``)
+    with the host `maxvol` (on the host library) or, with ``plain``, with
+    the NumPy loop `maxvol._maxvol_plain`: each call's time goes into
+    ``spent`` and into ``shapes`` by (rows, columns, dtype), ``keep`` (a
+    dict) keeps the first matrix met of each (rows, columns, dtype), and
+    ``counts`` gets, after the block, the library's calls and the NumPy
+    loop's."""
     import importlib
 
-    import torch
-
     host = importlib.import_module("tntorch_tpu_torch.cross_host")
-    where = device or "cuda"
-    X = _held_out(cfg, HELD_OUT, where)
-    want = torch.sin(torch.tensor(_axes(cfg)[0], device=where)[X]).sum(1)
-    spent = []
-    maxvol = host._host_maxvol
+    mv = importlib.import_module("tntorch_tpu_torch.maxvol")
+    from tntorch_tpu_torch import _native
 
-    def timed_maxvol(*args):
+    real_pivot, real_plain = host._host_maxvol, mv._maxvol_plain
+    ran_plain = [0]
+
+    def counted_plain(*args, **kw):
+        ran_plain[0] += 1
+        return real_plain(*args, **kw)
+
+    base = counted_plain if plain else mv.maxvol
+
+    def timed(A, *args):
         t0 = time.perf_counter()
-        out = maxvol(*args)
-        spent.append(time.perf_counter() - t0)
+        out = base(A, *args)
+        sec = time.perf_counter() - t0
+        spent.append(sec)
+        shapes.setdefault((*A.shape, A.dtype.name), []).append(sec)
+        if keep is not None:
+            keep.setdefault((*A.shape, A.dtype.name), A.copy())
         return out
 
-    runs = {"host": [], "device": []}
-    results = {}
-    host._host_maxvol = timed_maxvol
+    _native.reset_calls()
+    host._host_maxvol, mv._maxvol_plain = timed, counted_plain
     try:
-        for _ in range(rounds):
-            for sweep in ("host", "device", "device", "host"):
-                spent.clear()
-                if sweep == "host":
-                    t, info, sec = _cross(cfg, _np_sines, torch.float64, device, fuse="host")
-                else:
-                    t, info, sec = _cross(cfg, _sines, torch.float64, device)
-                runs[sweep].append((sec, info["nsamples"] / sec, sum(spent) / sec))
-                results[sweep] = (t, info)
+        yield
     finally:
-        host._host_maxvol = maxvol
+        host._host_maxvol, mv._maxvol_plain = real_pivot, real_plain
+        counts.update(library=sum(_native.calls.values()), plain=ran_plain[0])
+
+
+def host_sweep_turns(tag, cfg, f_np, f_torch, order, X, want, tols, keep, device=None):
+    """The host sweep, ``cross(fuse='host')`` of the NumPy ``f_np``, pivoting
+    on the host library ("library") and on `maxvol._maxvol_plain` ("plain"),
+    and the eager device sweep of ``f_torch`` ("device"), all in float64,
+    run in the turns ``order``: walls, f-evals/s, maxvol's share of each
+    host sweep and its time per call at each shape. Each sweep is held to
+    ``tols[sweep]`` on val_eps and on the held-out points X (``t[X]`` on the
+    card against ``want``), the three to equal ranks, the library run to
+    pivots on the library only and the plain run to NumPy only; ``keep``
+    gets the library run's first pivot matrix of each shape. ``device``
+    None is the card. Returns the (tag, cores, X) to hold, the failures and
+    the least wall of each sweep."""
+    import torch
+
+    runs = {sweep: [] for sweep in order}
+    results, counts = {}, {}
+    shapes = {"library": {}, "plain": {}}
+    for sweep in order:
+        spent = []
+        if sweep == "device":
+            t, info, sec = _cross(cfg, f_torch, torch.float64, device)
+        else:
+            with host_pivots(sweep == "plain", spent, shapes[sweep], counts.setdefault(sweep, {}),
+                             keep if sweep == "library" else None):
+                t, info, sec = _cross(cfg, f_np, torch.float64, device, fuse="host")
+        runs[sweep].append((sec, info["nsamples"] / sec, sum(spent) / sec))
+        results[sweep] = (t, info)
     failed, holds = [], []
     for sweep, (t, info) in results.items():
         err = rel(t[X].full(), want)
         Rs = [int(r) for r in info["Rs"]]
         best = min(runs[sweep])
-        print(f"14d config 3, {sweep} sweep (host_sweep {info['host_sweep']}): "
-              f"{len(info['val_epss'])} iterations, ranks {Rs}, {info['nsamples']} f-evals, "
-              f"val_eps {info['val_eps']:.3e}, held-out rel err at {HELD_OUT} points {err:.3e} "
-              f"(tol {cfg['eps']}); on {t.device}, {t.dtype}; in turns (s, f-evals/s"
-              + (", maxvol share" if sweep == "host" else "") + "): "
-              + "; ".join(f"{r[0]:.4f} s {r[1]:.4g}" + (f" {r[2]:.3f}" if sweep == "host"
-                                                         else "") for r in runs[sweep])
-              + f"; best {best[1]:.4g} f-evals/s")
-        if not (info["val_eps"] < cfg["eps"] and err <= cfg["eps"]):
-            failed.append(f"14d {sweep}: val_eps {info['val_eps']:.3e}, held-out {err:.3e}")
-        if t.device.type != torch.device(where).type or t.dtype != torch.float64:
-            failed.append(f"14d {sweep}: the result is on {t.device}, {t.dtype}")
-        holds.append((f"config 3 {sweep} sweep", t.cores, X))
-    if [int(r) for r in results["host"][1]["Rs"]] != [int(r) for r in results["device"][1]["Rs"]]:
-        failed.append("14d: the host and device sweeps reach other ranks")
-    if not results["host"][1]["host_sweep"] or results["device"][1]["host_sweep"]:
-        failed.append("14d: a sweep ran on the other path")
+        print(f"14d {tag}, {sweep} {'sweep' if sweep == 'device' else 'host sweep'} (host_sweep "
+              f"{info['host_sweep']}): {len(info['val_epss'])} iterations, ranks {Rs}, "
+              f"{info['nsamples']} f-evals, val_eps {info['val_eps']:.3e}, held-out rel err at "
+              f"{X.shape[0]} points {err:.3e} (tol {tols[sweep]}); on {t.device}, {t.dtype}; in "
+              f"turns (s, f-evals/s" + (")" if sweep == "device" else ", maxvol share)") + ": "
+              + "; ".join(f"{r[0]:.4f} s {r[1]:.4g}" + ("" if sweep == "device" else f" {r[2]:.3f}")
+                          for r in runs[sweep])
+              + f"; best {best[0]:.4f} s, {best[1]:.4g} f-evals/s"
+              + (f"; pivots: {counts[sweep]['library']} library calls, {counts[sweep]['plain']} "
+                 "of the NumPy loop" if sweep != "device" else ""))
+        if not (info["val_eps"] <= tols[sweep] and err <= tols[sweep]):
+            failed.append(f"14d {tag} {sweep}: val_eps {info['val_eps']:.3e}, held-out {err:.3e}")
+        if t.device.type != (device or "cuda") or t.dtype != torch.float64:
+            failed.append(f"14d {tag} {sweep}: the result is on {t.device}, {t.dtype}")
+        if info["host_sweep"] != (sweep != "device"):
+            failed.append(f"14d {tag}: the {sweep} sweep ran on the other path")
+        holds.append((f"{tag} {sweep} sweep", t.cores, X))
+    if len({tuple(int(r) for r in info["Rs"]) for _, info in results.values()}) != 1:
+        failed.append(f"14d {tag}: the sweeps reach other ranks")
+    if not (counts["library"]["library"] > 0 and counts["library"]["plain"] == 0):
+        failed.append(f"14d {tag}: the library sweep's pivots {counts['library']}")
+    if not (counts["plain"]["library"] == 0 and counts["plain"]["plain"] > 0):
+        failed.append(f"14d {tag}: the plain sweep's pivots {counts['plain']}")
+    walls = {sweep: min(r[0] for r in runs[sweep]) for sweep in runs}
+    print(f"14d {tag}: host sweep wall, library over the NumPy loop (least of the turns) "
+          f"{walls['library'] / walls['plain']:.3f}; maxvol by shape (rows, columns, dtype: "
+          "calls, median ms a call, library / NumPy loop): "
+          + "; ".join(f"{k}: {len(v)}, {1e3 * sorted(v)[len(v) // 2]:.3f} / "
+                      + (f"{1e3 * sorted(shapes['plain'][k])[len(shapes['plain'][k]) // 2]:.3f}"
+                         if k in shapes["plain"] else "none")
+                      for k, v in sorted(shapes["library"].items())))
+    return holds, failed, walls
+
+
+def maxvol_parts(A, iters=100):
+    """The host `maxvol`'s library path on A taken apart, as it runs there
+    (the LU start, inv(A[rows]), the product A inv(A[rows]), the C++ swap
+    loop), and the NumPy loop's coefficients by a solve
+    (`maxvol._coefficients`) at the same rows: the seconds of each."""
+    import importlib
+    import warnings
+
+    import scipy.linalg
+
+    mv = importlib.import_module("tntorch_tpu_torch.maxvol")
+    from tntorch_tpu_torch import _native
+
+    t0 = time.perf_counter()
+    rows = mv._initial_pivots(A, A.shape[0])[:A.shape[1]].copy()
+    t1 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", scipy.linalg.LinAlgWarning)
+        inv = scipy.linalg.inv(A[rows], check_finite=False)
+    t2 = time.perf_counter()
+    C = A @ inv
+    t3 = time.perf_counter()
+    _native.native_maxvol_iterate(C, rows, 1.05, iters)
+    t4 = time.perf_counter()
+    mv._coefficients(A, rows)
+    return t1 - t0, t2 - t1, t3 - t2, t4 - t3, time.perf_counter() - t4
+
+
+def time_host_maxvol(cases, turns=5):
+    """Each (tag, A, hold) of ``cases``: the host `maxvol` (on the host
+    library) against `maxvol._maxvol_plain` on A, one call each in turns
+    (the order alternating), ``turns`` times: the median ms a call of each,
+    and of the library path's parts (`maxvol_parts`, in the same turns).
+    Where ``hold``, both give the same rows and C within MAXVOL_TOL of each
+    other (both keep |C| <= 1.05); so does the host `rect_maxvol` with maxK
+    = r (the host pivots of a minimizing cross with ``record_samples``)
+    against `maxvol._rect_maxvol_plain`. Returns the failures."""
+    import importlib
+
+    import numpy as np
+
+    mv = importlib.import_module("tntorch_tpu_torch.maxvol")
+    from tntorch_tpu_torch import _native
+
+    failed = []
+    for tag, A, hold in cases:
+        times = {"library": [], "plain": []}
+        fns = {"library": mv.maxvol, "plain": mv._maxvol_plain}
+        parts = []
+        _native.reset_calls()
+        for k in range(turns):
+            for name in (("library", "plain") if k % 2 == 0 else ("plain", "library")):
+                t0 = time.perf_counter()
+                out = fns[name](A, 1.05, 100)
+                times[name].append(time.perf_counter() - t0)
+                if name == "library":
+                    rows, C = out
+                else:
+                    prows, pC = out
+        calls = dict(_native.calls)
+        for _ in range(turns):
+            parts.append(maxvol_parts(A))
+        med = {k: 1e3 * sorted(v)[len(v) // 2] for k, v in times.items()}
+        split = [1e3 * sorted(p[i] for p in parts)[turns // 2] for i in range(5)]
+        tol = MAXVOL_TOL[A.dtype.name]
+        same = bool(np.array_equal(rows, prows))
+        diff = float(np.abs(C.astype(np.float64) - pC).max())
+        line = (f"14d maxvol alone, {tag} ({A.shape[0]} x {A.shape[1]} {A.dtype.name}): library "
+                f"{med['library']:.3f} ms a call, NumPy loop {med['plain']:.3f} ms (median of "
+                f"{turns}, in turns), {med['plain'] / med['library']:.2f}x; rows equal {same}, "
+                f"max |C - C_plain| {diff:.2e}, max |C| {float(np.abs(C).max()):.6f}; the "
+                f"library path's parts (median ms): LU start {split[0]:.3f}, inv(A[rows]) "
+                f"{split[1]:.3f}, A inv(A[rows]) {split[2]:.3f}, C++ swap loop {split[3]:.3f} "
+                f"(the NumPy loop's solve for C {split[4]:.3f}); library calls {calls}")
+        if hold:
+            krows, KC = mv.rect_maxvol(A, maxK=A.shape[1])
+            prow2, pKC = mv._rect_maxvol_plain(A, maxK=A.shape[1])
+            kdiff = float(np.abs(KC.astype(np.float64) - pKC).max())
+            line += (f"; rect_maxvol(maxK=r) rows equal {bool(np.array_equal(krows, prow2))}, "
+                     f"max |C - C_plain| {kdiff:.2e} (tol {tol})")
+            if not (same and diff <= tol and np.array_equal(krows, prow2) and kdiff <= tol):
+                failed.append(f"14d maxvol alone {tag}: the library and the NumPy loop part")
+            if _native.calls["rect_maxvol"] != 1:
+                failed.append(f"14d maxvol alone {tag}: rect_maxvol missed the library")
+        if calls["maxvol_iterate"] != turns:
+            failed.append(f"14d maxvol alone {tag}: {calls} library calls in {turns} turns")
+        print(line)
+    return failed
+
+
+def host_cross_checks(device=None, cfg=CROSS3, rounds=2, fixed=CROSS_FIXED, turns=5):
+    """14d: ``tn.cross(fuse='host')`` of config 3 with a NumPy function,
+    pivoting on the host library and on the NumPy loop, and the same cross
+    on the eager device sweep with the torch function, in float64, timed in
+    turns: equal ranks, val_eps below eps and 10^5 held-out points
+    (``t[X]``, on the tt_eval kernel on the card) within eps; f-evals/s of
+    each and the host sweeps' time in maxvol. Then the fixed-rank 256^5
+    cross at ranks 100 (``fixed``, where maxvol meets 25600 x 100) the same
+    way, and maxvol alone at 25600 x 100 (float64 and float32) and at config
+    3's largest pivot matrix, the library against the NumPy loop
+    (`time_host_maxvol`). ``device`` None is the card; the CPU rehearses
+    at small sizes. Returns the (tag, cores, X) to hold and the failures."""
+    import numpy as np
+    import torch
+
+    where = device or "cuda"
+    print(f"14d host CPU: {host_cpu()}; card: {_smi_line() if where == 'cuda' else 'none'}")
+    X = _held_out(cfg, HELD_OUT, where)
+    want = torch.sin(torch.tensor(_axes(cfg)[0], device=where)[X]).sum(1)
+    met = {}
+    order = ("library", "plain", "device", "device", "plain", "library") * rounds
+    holds, failed, walls = host_sweep_turns("config 3", cfg, _np_sines, _sines, order, X, want,
+                                            dict.fromkeys(order, cfg["eps"]), met, device)
+    largest = max(met.values(), key=lambda A: A.size)
+    met = {}
+    Xf = _held_out(fixed, HELD_OUT, where)
+    wantf = 1 / torch.tensor(_axes(fixed)[0], device=where)[Xf].sum(1)
+    tols = {"library": HOST_FIXED_TOL, "plain": HOST_FIXED_TOL, "device": CROSS_FIXED_F64_TOL}
+    order = ("device", "library", "plain", "library")
+    more, bad, fixed_walls = host_sweep_turns("256^5 ranks 100", fixed, _hilbert, _hilbert, order,
+                                              Xf, wantf, tols, met, device)
+    holds += more
+    failed += bad
+    print(f"14d the library's gain on the host sweep's wall: config 3 "
+          f"{1 - walls['library'] / walls['plain']:.3f}, 256^5 ranks 100 "
+          f"{1 - fixed_walls['library'] / fixed_walls['plain']:.3f} (least walls of the turns)")
+    n, r = fixed["I"] * fixed["ranks_tt"], fixed["ranks_tt"]
+    Q = np.linalg.qr(np.random.default_rng(13).standard_normal((n, r)))[0]
+    swept = [("the 256^5 sweep's first pivot matrix of its shape", A, False)
+             for key, A in sorted(met.items()) if key[0] in (fixed["I"], n) and key[1] == r]
+    failed += time_host_maxvol([("an orthonormal Q", Q, True),
+                                ("an orthonormal Q", Q.astype(np.float32), True),
+                                ("config 3's largest pivot matrix", largest, False)] + swept,
+                               turns)
     return holds, failed
+
+
+def _smi_line():
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def host_sweep_path():
+    """Phase 14d alone: the host sweeps and maxvol (`host_cross_checks`),
+    then ``tt_eval`` (both routes) held at their shapes."""
+    import tntorch_tpu_torch as tn
+
+    tn.set_policy("highest")
+    phase("14d. the host sweep, cross(fuse='host'), on the host library and on the NumPy loop, "
+          "at BASELINE config 3 (32^10) and 256^5 ranks 100, float64, and the eager device sweep")
+    holds, failed = host_cross_checks()
+    hold_tt_eval("14d", holds)
+    if failed:
+        raise AssertionError("phase 14d: " + "; ".join(failed))
 
 
 def missing_modules_path():
@@ -4566,8 +4819,8 @@ def missing_modules_path():
     phase("14c. the bf16 Gram variant at the rounding shape (B=32, N=4, I=256, 128 -> 64)")
     bad, bf16_timing = bf16_checks(cores=cores)
     failed += bad
-    phase("14d. the host sweep, cross(fuse='host'), on BASELINE config 3 (32^10, float64), "
-          "and the eager device sweep")
+    phase("14d. the host sweep, cross(fuse='host'), on the host library and on the NumPy loop, "
+          "at BASELINE config 3 (32^10) and 256^5 ranks 100, float64, and the eager device sweep")
     tn.set_policy("highest")
     cross_holds, bad = host_cross_checks()
     failed += bad
@@ -6719,6 +6972,7 @@ PHASES = {"3": "check_kernels", "3g": "time_gram_routes", "3b": "check_tt_kernel
           "5": "nonbatch_pass", "6": "eval_path", "7": "train_path", "8": "train_design_path",
           "9": "baseline_path", "10": "cross_path", "11": "elementwise_path",
           "12": "config4_path", "13": "config5_path", "14": "missing_modules_path",
+          "14d": "host_sweep_path",
           "15": "tutorials_path", "16": "parallel_path", "17": "mesh_paths_path",
           "18": "fused_path", "18x": "swap_crossover", "18p": "maxvol_profiles",
           "19": "one_stream_path"}

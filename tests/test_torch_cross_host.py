@@ -2,16 +2,22 @@
 (tntorch_tpu_torch/cross_host.py), against the JAX package's
 (tntorch_tpu/cross_host.py), on the same NumPy function, grid and seed in
 float64: a reduced BASELINE config 3 (the sum of sines, on 16^6 here), in
-both ``function_arg`` modes and with ``record_samples``.
+both ``function_arg`` modes and with ``record_samples``, in two modes:
 
-Both sweeps run the same NumPy and SciPy calls on bitwise equal inputs
-(meshgrid cores are ones and grid values), once the JAX package's native
-maxvol is patched out (``tntorch_tpu._native.get_lib`` -> None) so that
-both pivot with the NumPy swap loop. So the rank schedule ``Rs``, the
-sample count, the iterations, the index sets (``lsets``, ``rsets``,
-``left_locals``) and the recorded samples are equal, even past the
-function's rank of 2, and ``full()`` is within 1e-10 of JAX's. JAX results
-are computed once per module.
+- ``native``: both sweeps pivot on their host maxvol libraries, the C++
+  swap loop on C = Q inv(Q[rows]) (the port's csrc/maxvol_host.cpp, the JAX
+  package's csrc/maxvol.cpp), as users run them;
+- ``plain``: the port's NumPy loop (`maxvol._maxvol_plain`, patched into
+  ``cross_host._host_maxvol``) against the JAX package with its library
+  patched out (``tntorch_tpu._native.get_lib`` -> None), so that both pivot
+  with NumPy.
+
+In each mode both sweeps run the same NumPy, SciPy and C++ calls on
+bitwise equal inputs (meshgrid cores are ones and grid values). So the
+rank schedule ``Rs``, the sample count, the iterations, the index sets
+(``lsets``, ``rsets``, ``left_locals``) and the recorded samples are
+equal, even past the function's rank of 2, and ``full()`` is within 1e-10
+of JAX's. JAX results are computed once per module.
 """
 
 import importlib
@@ -57,6 +63,10 @@ CASES = {
 }
 
 
+MODES = ["native", "plain"]
+NATIVE = importlib.import_module("tntorch_tpu_torch._native")
+
+
 def _run(package, case, **extra):
     function, kw = CASES[case]
     return package.cross(function=function, domain=AXES, fuse="host", seed=3, eps=1e-6,
@@ -66,15 +76,25 @@ def _run(package, case, **extra):
 @pytest.fixture(scope="module")
 def jax_runs():
     native = importlib.import_module("tntorch_tpu._native")
+    assert native.get_lib() is not None
+    runs = {("native", case): _run(jtn, case) for case in CASES}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(native, "get_lib", lambda: None)
-        return {case: _run(jtn, case) for case in CASES}
+        runs.update({("plain", case): _run(jtn, case) for case in CASES})
+    return runs
 
 
 @pytest.mark.parametrize("case", CASES, ids=list(CASES))
-def test_host_sweep_matches_jax(case, jax_runs):
-    jt, jinfo = jax_runs[case]
+@pytest.mark.parametrize("mode", MODES)
+def test_host_sweep_matches_jax(mode, case, jax_runs, monkeypatch):
+    jt, jinfo = jax_runs[mode, case]
+    if mode == "plain":
+        monkeypatch.setattr(HOST, "_host_maxvol", importlib.import_module(
+            "tntorch_tpu_torch.maxvol")._maxvol_plain)
+    NATIVE.reset_calls()
     t, info = _run(tn, case, device="cpu")
+    # the pivots ran where the mode says: on the library, or on NumPy only
+    assert (sum(NATIVE.calls.values()) > 0) == (mode == "native")
     assert jinfo["host_sweep"] and info["host_sweep"] and not info["fused"]
     assert t.device.type == "cpu" and t.dtype == torch.float64
     assert [int(r) for r in info["Rs"]] == [int(r) for r in jinfo["Rs"]]

@@ -2,11 +2,11 @@
 (tntorch_tpu/maxvol.py), and the two tools cross approximation builds on,
 ``meshgrid`` and ``stack``, on the same NumPy inputs in float64.
 
-Pivot rows must be equal. The coefficient matrices C agree to 1e-12: the
-two packages reach them by other sequences of solves and rank-1 updates
-(the JAX package's host maxvol runs its native C++ swap loop on C = A @
-inv(A[rows]); the port's runs NumPy's on a solve), which differ by
-roundoff only."""
+Pivot rows must be equal. The coefficient matrices C agree to 1e-12 (both
+host maxvols run their C++ swap loops on C = A @ inv(A[rows]), bitwise equal
+where both take them, tests/test_torch_native.py; the device maxvols reach
+C by other sequences of solves and rank-1 updates, which differ by roundoff
+only)."""
 
 import importlib
 

@@ -50,7 +50,8 @@ coordinates stay on the device and are read with the iteration's (or the
 chunk's) one read. ``record_samples`` keeps every step's fibers and
 values on the device and drains them to NumPy at that read, on the eager
 sweep; with ``_minimize`` it takes the JAX package's host path (pivots by
-NumPy `maxvol.rect_maxvol`, the best value tracked on the host).
+the host `maxvol.rect_maxvol`, which runs in the C++ host library, the best
+value tracked on the host).
 `cross_forward` replays a run's index sets with fresh evaluations, so
 autograd flows through the cores.
 
@@ -570,8 +571,8 @@ def cross(
 
     def pivots(Q):
         """Rows of Q (n x r) to interpolate at: all of them when n <= r;
-        maxvol's at 10 iterations in the minimizing mode, NumPy's
-        `rect_maxvol` on the host path."""
+        maxvol's at 10 iterations in the minimizing mode, the host
+        `rect_maxvol` (the C++ host library) on the host path."""
         if host_pivots:
             return _index(rect_maxvol(Q.detach().cpu().numpy(), maxK=Q.shape[1])[0], dev)
         if Q.shape[0] <= Q.shape[1]:

@@ -10,10 +10,10 @@ one read (`download_cores`) and the result cores go up in one copy
 - orthogonalization is a Gram-eigh basis in float64 (`_gram_orth_q`): one
   syrk, a small eigh and one GEMM, robust to the rank deficiency smooth
   functions produce;
-- pivoting is the host `maxvol.maxvol` (the NumPy swap loop; the JAX
-  package's native C++ hybrid is not ported), whose coefficient matrix C =
-  Q inv(Q[rows]) is the interpolation core itself (A = QR gives A inv(A[rows])
-  = Q inv(Q[rows])), so no separate solve is needed.
+- pivoting is the host `maxvol.maxvol`, the JAX package's hybrid: C =
+  Q inv(Q[rows]) by BLAS, then the C++ swap loop of the host library
+  (``csrc/maxvol_host.cpp``). C is the interpolation core itself (A = QR
+  gives A inv(A[rows]) = Q inv(Q[rows])), so no separate solve is needed.
 
 The rank schedule, the random stream, the validation error, the info dict
 and the error messages are the eager sweep's (`cross.cross`). The inputs

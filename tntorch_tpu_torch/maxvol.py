@@ -4,12 +4,18 @@ Counterpart of ``tntorch_tpu/maxvol.py`` (maxvol: Goreinov et al., "How to
 find a good submatrix", 2010; rectangular maxvol: Mikhalev & Oseledets,
 2018), in two parts:
 
-- the host API, `maxvol` and `rect_maxvol` (and their ``py_*`` aliases), in
-  NumPy and SciPy: the JAX package's NumPy algorithm. Its hybrid of a BLAS
-  start and the native C++ swap loop (``csrc/maxvol.cpp``) is not ported: it
-  loads through the JAX package, and falls back to the NumPy loop when its
-  library is missing, which would hide what ran. A warm start
-  (``init_rows=``) is read from a copy: the caller's array is never written.
+- the host API, `maxvol` and `rect_maxvol` (and their ``py_*`` aliases), on
+  NumPy matrices, dispatched as the JAX package dispatches them. Real
+  floating input with every row a candidate takes the host library
+  (``csrc/maxvol_host.cpp``, loaded by `_native`): `maxvol` computes
+  C = A inv(A[rows]) with BLAS, from the warm rows (``init_rows=``) or the
+  LU start, and runs the C++ swap loop on it; `rect_maxvol` (without
+  ``min_add_K``) runs wholly in C++. Complex input, ``top_k_index`` and
+  ``min_add_K`` take the NumPy loops, `_maxvol_plain` and the growth of
+  `_rect_maxvol_plain`, as in the JAX package. The library is built at
+  first use; a failed build raises, with no fallback to NumPy. The
+  caller's ``init_rows`` is never written. The host cross sweep
+  (`cross_host`) and the host pivots of the minimizing cross pivot here.
 - the device path, `maxvol_device` and `rect_maxvol_device`, in torch on the
   input's device: the pivots that cross approximation uses. The initial rows
   are the pivots of a partially pivoted LU (``torch.linalg.lu_factor_ex``
@@ -33,6 +39,7 @@ import numpy as np
 import scipy.linalg
 import torch
 
+from tntorch_tpu_torch import _native
 from tntorch_tpu_torch.ops.maxvol_kernels import lu_rows, maxvol_swaps
 from tntorch_tpu_torch.utils import asarray, policy_precision, trace_annotation
 
@@ -71,6 +78,10 @@ def maxvol(A, tol: float = 1.05, max_iters: int = 100, top_k_index: int = -1,
 
     Returns (row indices [r], C = A @ inv(A[rows]) [N x r]).
 
+    Real floating input with ``top_k_index`` -1 (or at least N) runs the
+    host library's swap loop on C = A @ inv(A[rows]) from BLAS; other input
+    takes the NumPy loop, `_maxvol_plain`.
+
     :param top_k_index: only the first ``top_k_index`` rows may be picked;
         -1 means all rows.
     :param init_rows: optional warm start, r distinct rows among the
@@ -78,6 +89,37 @@ def maxvol(A, tol: float = 1.05, max_iters: int = 100, top_k_index: int = -1,
         matrix). It is copied, never written. A singular or otherwise
         unusable warm block falls back to the LU start.
     """
+    A = np.asarray(A)
+    tol = max(tol, 1.0)
+    N, r = A.shape
+    if N <= r:
+        return np.arange(N, dtype=np.int64), np.eye(N, dtype=A.dtype)
+    top = N if top_k_index == -1 or top_k_index > N else max(top_k_index, r)
+    if A.dtype.kind == "f" and top == N:
+        starts = []
+        if init_rows is not None and len(init_rows) == r and int(np.max(init_rows)) < N:
+            starts.append(np.array(init_rows, dtype=np.int64))  # a copy
+        starts.append(None)  # the LU start, always valid
+        for warm in starts:
+            rows = warm if warm is not None else _initial_pivots(A, top)[:r].copy()
+            try:
+                with warnings.catch_warnings():
+                    # A near-singular start is what the swaps repair
+                    warnings.simplefilter("ignore", scipy.linalg.LinAlgWarning)
+                    C = A @ scipy.linalg.inv(A[rows], check_finite=False)
+            except scipy.linalg.LinAlgError:
+                continue  # an exactly singular block: the next start
+            if warm is not None and not np.all(np.isfinite(C)):
+                continue  # stale warm rows: the LU start
+            C = np.ascontiguousarray(C)
+            return _native.native_maxvol_iterate(C, rows, tol, max_iters), C
+    return _maxvol_plain(A, tol, max_iters, top_k_index, init_rows)
+
+
+def _maxvol_plain(A, tol: float = 1.05, max_iters: int = 100, top_k_index: int = -1,
+                  init_rows=None):
+    """`maxvol` in NumPy: the warm rows or the LU start, C by a solve, then
+    the swap loop, one argmax and one rank-1 update of C a swap."""
     A = np.asarray(A)
     tol = max(tol, 1.0)
     N, r = A.shape
@@ -120,9 +162,38 @@ def rect_maxvol(A, tol: float = 1.0, maxK: int = None, min_add_K: int = None,
     the row of largest coefficient norm while it exceeds ``tol`` (within the
     bounds on K). Returns (row indices [K], C [N x K]).
 
+    Real floating input without ``min_add_K`` and with ``top_k_index`` -1
+    (or at least N) runs wholly in the host library; other input grows the
+    rows in NumPy from `maxvol`'s.
+
     :param top_k_index: only the first ``top_k_index`` rows may be picked;
         -1 means all rows."""
     A = np.asarray(A)
+    N, r = A.shape
+    if N <= r:
+        return np.arange(N, dtype=np.int64), np.eye(N, dtype=A.dtype)
+    top = N if top_k_index == -1 or top_k_index > N else max(top_k_index, r)
+    if A.dtype.kind == "f" and min_add_K is None and top == N:
+        out = _native.native_rect_maxvol(A, tol, maxK, minK, start_maxvol_iters,
+                                         identity_submatrix)
+        if out is not None:  # None: an exactly singular start, as NumPy meets it
+            return out
+    return _rect_grow(maxvol, A, tol, maxK, min_add_K, minK, start_maxvol_iters,
+                      identity_submatrix, top_k_index)
+
+
+def _rect_maxvol_plain(A, tol: float = 1.0, maxK: int = None, min_add_K: int = None,
+                       minK: int = None, start_maxvol_iters: int = 10,
+                       identity_submatrix: bool = True, top_k_index: int = -1):
+    """`rect_maxvol` in NumPy, from `_maxvol_plain`'s rows."""
+    return _rect_grow(_maxvol_plain, np.asarray(A), tol, maxK, min_add_K, minK,
+                      start_maxvol_iters, identity_submatrix, top_k_index)
+
+
+def _rect_grow(square, A, tol, maxK, min_add_K, minK, start_maxvol_iters,
+               identity_submatrix, top_k_index):
+    """Rectangular maxvol's growth in NumPy from the square rows of
+    ``square`` (`maxvol` or `_maxvol_plain`)."""
     tol2 = tol**2
     N, r = A.shape
     if N <= r:
@@ -136,7 +207,7 @@ def rect_maxvol(A, tol: float = 1.0, maxK: int = None, min_add_K: int = None,
 
     index = np.zeros(N, dtype=np.int64)
     chosen = np.ones(top)
-    tmp_index, C = maxvol(A, 1.05, start_maxvol_iters, top_k_index=top)
+    tmp_index, C = square(A, 1.05, start_maxvol_iters, top_k_index=top)
     index[:r] = tmp_index
     chosen[tmp_index] = 0
 
