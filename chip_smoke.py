@@ -37,7 +37,11 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    (``--only 3t``, which runs on the parent commit's tree too; at the
    training shape also each wrapper's host time per call). Off by default,
    ``--only 3x`` times each choice of the per-sample plan forced both ways
-   (`plan_choices`).
+   (`plan_choices`). The per-sample kernels' bfloat16 and float16
+   instances are held at the design shape and in 20 steps of phase 7's
+   training, and chains past 128 modes at 200 and 512 modes, each counted
+   through ``tn.tt_eval`` and autograd and timed (`check_half_and_long`,
+   ``--only 3n``); every forced plan is held in all four dtypes.
    ``gram_edge``, ``wgram`` and ``proj2`` are each held on both of their
    kernels (the resident one: G or W, or the projectors, in shared memory;
    and the two-stage kernel, which also serves the shapes beyond the
@@ -220,7 +224,7 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    at ranks 100 (the host sweeps within ``HOST_FIXED_TOL``, the device
    sweep within ``CROSS_FIXED_F64_TOL``); ``maxvol`` alone at 25600 x 100
    in float64 and float32 and at config 3's largest pivot matrix, the
-   library against the NumPy loop in turns (median of 5), rows equal and C
+   library against the NumPy loop in turns (median of 3), rows equal and C
    within ``MAXVOL_TOL`` (also ``rect_maxvol(maxK=r)``), beside the host
    CPU's model (``lscpu``; ``--only 14d`` runs 14d alone). Then the
    launches are read, and ``tt_eval`` (both routes) and each Gram call of
@@ -509,8 +513,24 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+_START = time.perf_counter()
+_PHASES = []  # (name, seconds since the start when it began)
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    """Announces a phase with the seconds since the script started."""
+    _PHASES.append((name, time.perf_counter() - _START))
+    print(f"== {name} [{_PHASES[-1][1]:.1f} s]", flush=True)
+
+
+def phase_times():
+    """A line on where the run's time went: each phase's seconds, the
+    longest first, and the total."""
+    ends = [t for _, t in _PHASES[1:]] + [time.perf_counter() - _START]
+    spans = sorted(((e - t, n.split(":")[0][:40]) for (n, t), e in zip(_PHASES, ends)),
+                   reverse=True)
+    return (f"phase times (s), longest first: "
+            + "; ".join(f"{n} {d:.1f}" for d, n in spans) + f"; total {ends[-1]:.1f}")
 
 
 def cuda_time(fn, reps=5, inner=5):
@@ -1079,6 +1099,8 @@ def check_tt_kernels():
             f"{tag} {dname}": {"ms": t[f"{key}_dev"], "call_ms": t[f"{key}_call"],
                                "bound_ms": t[f"{key}_bound"], "bound_by": t[f"{key}_by"]}
             for tag, by_dtype in times.items() for dname, t in by_dtype.items()}
+    for name, by_tag in check_half_and_long().items():
+        report[name]["half_and_long"] = by_tag
     tt_crossover()
     tt_bwd_crossover()
     return report
@@ -1215,21 +1237,27 @@ def hold_out_of_range(tag, cores, X, g):
 def hold_per_sample_plans():
     """3s: both per-sample kernels against their plain versions on
     PLAN_SHAPES under every plan the wrapper can be forced into (f32 and
-    f64, int64 and int32 coordinates), the forward bitwise equal on two
-    calls, out-of-range coordinates raising; prints the count of plans held
-    and the largest error per dtype."""
+    f64 within KERNEL_TOL; bf16 and f16 against `half_plain`, output by
+    output, `hold_half`; int64 and int32 coordinates), the forward bitwise equal
+    on two calls, out-of-range coordinates raising (f32 and f64: the
+    coordinates' code is the same in every type); prints the count of plans
+    held and the largest error per dtype."""
     import torch
 
     from tntorch_tpu_torch.ops import tt_eval as te
 
     start, held, worst = time.perf_counter(), 0, {}
-    for dtype in (torch.float32, torch.float64):
+    for dtype in (torch.float32, torch.float64, torch.bfloat16, torch.float16):
         dname = str(dtype)[6:]
         for ranks, I, B, negative in PLAN_SHAPES:
             cores, X, g = tt_problem(ranks, I, B, dtype, seed=11, negative=negative)
             dims = [I] * (len(ranks) - 1)
             want = te.tt_eval_plain(cores, X)
             want_grads = te.tt_eval_backward_plain(cores, X, g)
+            rc = [c.double() for c in cores]
+            ref = te.tt_eval_plain(rc, X), te.tt_eval_backward_plain(rc, X, g.double())
+            if dname in HALF:  # the half types against the plain version of their arithmetic
+                want, want_grads = half_plain(cores, X, g)
             need = te._per_sample_plan(tuple(ranks), tuple(dims), B, dtype.itemsize).W
             for W in (1, 2, 4, 8, 16, 32):
                 # each choice both ways; private None: the plan's own choice per core
@@ -1251,17 +1279,23 @@ def hold_per_sample_plans():
                         torch.cuda.synchronize()
                         if not torch.equal(got, again):
                             raise AssertionError(f"3s {tag}: two forward calls differ")
-                        for name, a, b in (("tt_eval", [got], [want]),
-                                           ("tt_eval_backward", grads, want_grads)):
-                            rel = _rel_all(a, b)
+                        for name, a, b, r in (("tt_eval", [got], [want], [ref[0]]),
+                                              ("tt_eval_backward", grads, want_grads, ref[1])):
+                            if dname in KERNEL_TOL:
+                                rel = _rel_all(a, b)
+                                if not (all(bool(torch.isfinite(t).all()) for t in a)
+                                        and rel <= KERNEL_TOL[dname]):
+                                    raise AssertionError(f"3s {name} {tag}: rel {rel:.3e}")
+                            else:
+                                rel = hold_half(f"3s {name} {tag}", a, b, r, dname)[0]
                             worst[dname] = max(worst.get(dname, 0.0), rel)
-                            if not (all(bool(torch.isfinite(t).all()) for t in a)
-                                    and rel <= KERNEL_TOL[dname]):
-                                raise AssertionError(f"3s {name} {tag}: rel {rel:.3e}")
                         held += 1
-            hold_out_of_range(f"3s {dname} ranks {ranks}", cores, X, g)
-    print(f"3s per-sample plans: {held} forced plans held on {len(PLAN_SHAPES)} shapes x 2 "
-          f"dtypes; largest rel error {worst} (tol {KERNEL_TOL}); "
+            if dname in KERNEL_TOL:
+                hold_out_of_range(f"3s {dname} ranks {ranks}", cores, X, g)
+    print(f"3s per-sample plans: {held} forced plans held on {len(PLAN_SHAPES)} shapes x 4 "
+          f"dtypes; largest rel error (bf16/f16: error over max |value| against the float64 "
+          f"reference, each output over its own) {worst} (tol {KERNEL_TOL}; bf16/f16 hold_half: "
+          f"slack {HALF_SLACK} u, agreement {HALF_AGREE}); "
           f"{time.perf_counter() - start:.1f} s", flush=True)
 
 
@@ -1464,8 +1498,9 @@ def hold_per_sample_edges():
     """3b's edge cases of the per-sample kernels, f32 and f64: (1) a shape
     whose forward fits a block but whose backward's left interfaces do not
     (f64: N=120 at rank 250): the forward within KERNEL_TOL of its plain
-    version and bitwise on two calls, the backward refused with ValueError
-    (in f32 it fits and is held too); (2) an infinite core entry in the last
+    version and bitwise on two calls, the backward too, its left interfaces
+    spilled to device memory in f64 (in f32 they fit a block at one warp);
+    (2) an infinite core entry in the last
     column of a middle mode whose rank is not a multiple of the lane width
     (ranks 5, W=8), with gradients privatized (B=4096) and not (B=256): the
     kernels' infinite and NaN entries where the plain versions have them,
@@ -1485,19 +1520,16 @@ def hold_per_sample_edges():
         rel = _rel_all([got], [want])
         if not (torch.equal(got, again) and rel <= KERNEL_TOL[dname]):
             raise AssertionError(f"3b N=120 rank 250 {dname}: forward rel {rel:.2e}")
-        try:
-            grads = tt_bwd_path(False, lambda: te.tt_eval_backward_kernel(cores, X, g))
-        except ValueError:
-            if dtype == torch.float32:
-                raise
-            parts.append(f"N=120 rank 250 {dname}: forward rel {rel:.1e}, backward refused")
-        else:
-            if dtype == torch.float64:
-                raise AssertionError("3b N=120 rank 250 float64: the backward should not fit")
-            brel = _rel_all(grads, te.tt_eval_backward_plain(cores, X, g))
-            if not brel <= KERNEL_TOL[dname]:
-                raise AssertionError(f"3b N=120 rank 250 {dname}: backward rel {brel:.2e}")
-            parts.append(f"N=120 rank 250 {dname}: forward rel {rel:.1e}, backward {brel:.1e}")
+        spill = te._per_sample_plan(tuple(t.shape[0] for t in cores) + (1,), (2,) * 120, 64,
+                                    dtype.itemsize).bwd_spill
+        if spill != (dtype == torch.float64):
+            raise AssertionError(f"3b N=120 rank 250 {dname}: the plan's spill is {spill}")
+        grads = tt_bwd_path(False, lambda: te.tt_eval_backward_kernel(cores, X, g))
+        brel = _rel_all(grads, te.tt_eval_backward_plain(cores, X, g))
+        if not brel <= KERNEL_TOL[dname]:
+            raise AssertionError(f"3b N=120 rank 250 {dname}: backward rel {brel:.2e}")
+        parts.append(f"N=120 rank 250 {dname}: forward rel {rel:.1e}, backward {brel:.1e}"
+                     f"{' (left interfaces spilled to device memory)' if spill else ''}")
         del cores
         for B in (256, 4096):
             cores, X, g = tt_problem([1, 5, 5, 5, 1], 4, B, dtype, seed=14)
@@ -1518,6 +1550,377 @@ def hold_per_sample_edges():
                          f"{int(sum(int((~torch.isfinite(d)).sum()) for d in grads))} "
                          "non-finite gradient entries, as the plain version")
     print("3b per-sample edges: " + "; ".join(parts), flush=True)
+
+
+# Phase 3b's half-precision and long-chain instances of the per-sample
+# kernels: each half type's unit roundoff; the chains past MAX_MODES, (tag,
+# ranks, I, B, dtypes): 200 modes of rank 8, and 512 modes of rank 64 in
+# float64, whose backward keeps its left interfaces in device memory
+UNIT = {"bfloat16": 2.0**-8, "float16": 2.0**-11, "float32": 2.0**-24}
+LONG_CHAINS = [("N200", [1] + [8] * 199 + [1], 2, 1 << 16, ("float32", "bfloat16")),
+               ("N512", [1] + [64] * 511 + [1], 2, 1 << 16, ("float64",))]
+# - bfloat16 training (phase 7's shape), kernels vs the plain versions, 20
+#   losses: each loss is a bfloat16 mean (a relative step of 2^-7 near
+#   1000), and an entry whose gradient's sign differs between the two
+#   (float32 sums against bfloat16 ones) moves by Adam's 1e-3 the other way:
+#   two steps of bfloat16
+BF16_TRAIN_TOL = 2.0**-6
+
+
+def plain_grads(cores, X, g):
+    """``tt_eval_backward_plain`` summed over chunks of X whose gathered
+    slices stay within 8 GiB (the float64 reference at 2^20 samples)."""
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    per = max(int(c.shape[0] * c.shape[2]) for c in cores) * cores[0].element_size()
+    step = max(1, (8 << 30) // per)
+    parts = [te.tt_eval_backward_plain(cores, X[i:i + step], g[i:i + step])
+             for i in range(0, X.shape[0], step)]
+    return [sum(ds) for ds in zip(*parts)]
+
+
+def half_plain(cores, X, g, rounded=True):
+    """The plain PyTorch version of the per-sample kernels' half-precision
+    arithmetic (tests/test_torch_tt_eval_half.py: `_kernel_arithmetic`):
+    products and sums in float32 inside a mode, each left and right
+    interface rounded to the cores' dtype after its mode (not with
+    ``rounded=False``, the chain a kernel that skipped those roundings would
+    compute), the value rounded to it; the gradients' terms g_b L_k[b]
+    (outer) Rt_{k+1}[b] summed in float32 and rounded once. float32 matmuls
+    at full precision; chunks of samples keep each gathered slice within
+    1 GiB. Returns (values, gradients) in the cores' dtype."""
+    import torch
+
+    td = cores[0].dtype
+    cs = [c.float() for c in cores]
+    B, N = X.shape
+    dims = torch.tensor([c.shape[1] for c in cores], device=X.device)
+    Xw = torch.where(X < 0, X + dims, X)
+
+    def rnd(t):
+        return t.to(td).float() if rounded else t
+
+    def chunks(k):
+        step = max(1, (1 << 28) // (cs[k].shape[0] * cs[k].shape[2]))
+        return [slice(b, b + step) for b in range(0, B, step)]
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        lefts = [torch.ones((B, cs[0].shape[0]), device=X.device)]
+        for k in range(N - 1):
+            lefts.append(rnd(torch.cat([torch.einsum("br,rbs->bs", lefts[-1][p],
+                                                     cs[k][:, Xw[p, k], :]) for p in chunks(k)])))
+        values = torch.einsum("br,rb->b", lefts[-1], cs[-1][:, Xw[:, -1], 0]).to(td)
+        gf = g.float()
+        grads = [torch.zeros_like(c) for c in cs]
+        right = torch.zeros((B, cs[-1].shape[-1]), device=X.device)
+        right[:, 0] = 1
+        for k in reversed(range(N)):
+            parts = chunks(k)
+            for p in parts:
+                outer = (gf[p, None] * lefts[k][p])[:, :, None] * right[p, None, :]
+                grads[k].index_add_(1, Xw[p, k], outer.permute(1, 0, 2))
+            if k:  # Rt_{N-1} = C_{N-1}[:, x, 0] is a core's entries: rounding keeps it
+                right = rnd(torch.cat([torch.einsum("rbs,bs->br", cs[k][:, Xw[p, k], :], right[p])
+                                       for p in parts]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return values, [d.to(td) for d in grads]
+
+
+# The half-precision checks (`hold_half`): each output (the values, or one
+# core's gradient) of a kernel against `half_plain` on the same inputs, both
+# measured against the float64 evaluation of those inputs: the kernel's
+# error at most `half_plain`'s plus HALF_SLACK u max|ref| of that output
+# alone; and at least HALF_AGREE of the output's entries bitwise equal to
+# `half_plain`'s (the two sum in different orders, so a float32 sum near a
+# rounding boundary of the half type may round the other way). A CPU model
+# of a kernel that sums in another order (float64 sums rounded to float32)
+# agreed on 0.974 or more of every output at PLAN_SHAPES, 32768 samples of
+# 256^4 rank 64 and 200 modes of rank 8 in bfloat16; the chain without the
+# roundings between modes on 0.632 or fewer where N >= 3 (at N <= 2 every
+# interface is a core's entries, so there is nothing to round). Phase 3b
+# shows such a chain, and a zeroed gradient, refused (`refuse_broken_half`).
+HALF = ("bfloat16", "float16")
+HALF_SLACK, HALF_AGREE = 2, 0.8
+
+
+def hold_half(tag, got, want, ref, dname):
+    """Holds a kernel's bfloat16/float16 outputs ``got`` (a list: the values,
+    or one gradient a core) against `half_plain`'s ``want``, with ``ref``
+    the float64 evaluation of the same rounded inputs, as HALF_SLACK and
+    HALF_AGREE say, output by output. Raises AssertionError naming the
+    output; returns the largest error over max|ref| of the kernel and of
+    `half_plain`, and the least share of entries that agree."""
+    import torch
+
+    worst = [0.0, 0.0, 1.0]
+    for k, (a, w, r) in enumerate(zip(got, want, ref)):
+        name = f"{tag} output {k}"
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{name}: non-finite output")
+        scale = max(float(r.abs().max()), 1e-300)
+        err = float((a.double() - r).abs().max())
+        werr = float((w.double() - r).abs().max())
+        touched = (a != 0) | (w != 0)
+        agree = float((a == w)[touched].float().mean()) if bool(touched.any()) else 1.0
+        if not (err <= werr + HALF_SLACK * UNIT[dname] * scale and agree >= HALF_AGREE):
+            raise AssertionError(f"{name} disagrees with the plain version of the kernels' "
+                                 f"arithmetic: error {err:.3e} against {werr:.3e} (max |value| "
+                                 f"{scale:.3e}), {agree:.3f} of the entries equal")
+        worst = [max(worst[0], err / scale), max(worst[1], werr / scale), min(worst[2], agree)]
+    return worst
+
+
+def refuse_broken_half(tag, grads, want, ref, cores, X, g, dname):
+    """`hold_half` refuses what a broken kernel would give at this shape:
+    the kernel's gradients with core 0's zeroed, and the values and
+    gradients of the chain without the roundings between modes
+    (`half_plain` with ``rounded=False``). Raises if either passes."""
+    zeroed = [d.clone() for d in grads]
+    zeroed[0].zero_()
+    unrounded = half_plain(cores, X, g, rounded=False)
+    for what, got, wants, refs in (("core 0's gradient zeroed", zeroed, want[1], ref[1]),
+                                   ("the values without rounding", [unrounded[0]], [want[0]],
+                                    [ref[0]]),
+                                   ("the gradients without rounding", unrounded[1], want[1],
+                                    ref[1])):
+        try:
+            hold_half(f"3b {tag} {what}", got, wants, refs, dname)
+        except AssertionError as e:
+            print(f"3b refused as it should be: {e}", flush=True)
+        else:
+            raise AssertionError(f"3b {tag}: the half check passed {what}")
+
+
+def within_plain(tag, got, plain, ref, dname, factor):
+    """The CPU tests' 130-mode tolerance (tests/test_torch_tt_eval_half.py):
+    |got - ref| <= factor |plain - ref| + 2 u max|ref| over the lists, ref the plain
+    version in float64 on the same rounded inputs; float64 within
+    KERNEL_TOL of the plain version. Raises; returns the kernel's error and
+    the plain version's."""
+    import torch
+
+    if not all(bool(torch.isfinite(t).all()) for t in got):
+        raise AssertionError(f"{tag}: non-finite output")
+    if dname == "float64":
+        rel = _rel_all(got, plain)
+        if not rel <= KERNEL_TOL[dname]:
+            raise AssertionError(f"{tag} disagrees with its plain version: rel {rel:.3e}")
+        return rel, 0.0
+    err = max(float((a.double() - r).abs().max()) for a, r in zip(got, ref))
+    perr = max(float((p.double() - r).abs().max()) for p, r in zip(plain, ref))
+    scale = max(float(r.abs().max()) for r in ref)
+    if not err <= factor * perr + 2 * UNIT[dname] * scale:
+        raise AssertionError(f"{tag} disagrees with its plain version: error {err:.3e} against "
+                             f"{perr:.3e} (max |value| {scale:.3e})")
+    return err / scale, perr / scale
+
+
+def _drive_counted(cores, X, g):
+    """``tn.tt_eval`` and its gradient through autograd, the user's path,
+    with the launch counts set to 0 before and read after: (values,
+    gradients, {kernel: (launches, grouped)})."""
+    import torch
+
+    import tntorch_tpu_torch as tn
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    params = [c.clone().requires_grad_() for c in cores]
+    te.reset_launches()
+    values = tn.tt_eval(params, X)
+    (g * values).sum().backward()
+    torch.cuda.synchronize()
+    counts = {k.__name__: (k.launches, k.grouped) for k in te.KERNELS}
+    return values.detach(), [p.grad for p in params], counts
+
+
+def check_half_and_long():
+    """3b (``--only 3n`` alone): the per-sample kernels' half-precision and
+    long-chain instances on the card: bfloat16 and float16 output by output
+    against `half_plain`, the plain version of their arithmetic
+    (`hold_half`); float32 against the plain versions to the CPU tests'
+    130-mode tolerance (`within_plain`); float64 within KERNEL_TOL of them.
+    (1) bfloat16 and float16 at the evaluation design shape through
+    ``tn.tt_eval`` and autograd, counted (the grouped kernels refuse half
+    cores: per sample, one launch each), timed beside the plain version and
+    the bound, and the check shown to refuse a zeroed gradient and the chain
+    without its roundings (`refuse_broken_half`); (2) ``tn.optimize`` at
+    phase 7's shape in bfloat16, 20 steps, counted, its losses against the
+    plain versions' (BF16_TRAIN_TOL); (3) LONG_CHAINS at 2^16 samples on
+    the per-sample kernels, counted and timed (the 512-mode backward
+    spills its left interfaces), the float32 and float64 chains also on the
+    grouped kernels, forced, both routes timed in turns. Returns {kernel:
+    {tag: numbers}}."""
+    import numpy as np
+    import torch
+
+    import tntorch_tpu_torch as tn
+    from tntorch_tpu_torch.ops import tt_eval as te
+
+    start = time.perf_counter()
+    out = {"tt_eval": {}, "tt_eval_backward": {}}
+
+    def held(tag, dname, cores, X, g, peak, reps):
+        """The user's path counted (forced per sample by the caller where
+        the dispatch would group), the kernels against the plain versions
+        and the float64 reference, then the kernels timed (`cuda_time`,
+        warm, `reps` of one call) and the plain versions by CUDA events: a
+        second, warm call each where ``reps`` > 1, else the first (the
+        512-mode chain's plain backward takes seconds); records the numbers
+        under ``tag`` and returns a line on them."""
+        values, grads, counts = _drive_counted(cores, X, g)
+        want = (1, 0)
+        if counts != {"tt_eval_kernel": want, "tt_eval_backward_kernel": want}:
+            raise AssertionError(f"3b {tag}: expected one per-sample launch of each kernel, "
+                                 f"got {counts}")
+        if not (values.dtype == cores[0].dtype and all(d.dtype == cores[0].dtype for d in grads)):
+            raise AssertionError(f"3b {tag}: values or gradients left the cores' dtype")
+        plain_f, pf = event_ms(lambda: te.tt_eval_plain(cores, X))
+        plain_b, pb = event_ms(lambda: te.tt_eval_backward_plain(cores, X, g))
+        if dname == "float64":
+            ref = plain_f, plain_b
+        else:
+            rc = [c.double() for c in cores]
+            ref = plain_values(rc, X), plain_grads(rc, X, g.double())
+        if dname in HALF:
+            want = half_plain(cores, X, g)
+            errs = (hold_half(f"3b tt_eval {tag}", [values], [want[0]], [ref[0]], dname),
+                    hold_half(f"3b tt_eval_backward {tag}", grads, want[1], ref[1], dname))
+            if tag.startswith("design"):
+                refuse_broken_half(tag, grads, want, ref, cores, X, g, dname)
+            # the plain versions' own error, for the record (their backward sums in the half type)
+            plain_errs = [max(float((p.double() - r).abs().max()) / float(r.abs().max())
+                              for p, r in zip(ps, rs))
+                          for ps, rs in (([plain_f], [ref[0]]), (plain_b, ref[1]))]
+            errs = tuple((e[0], pe, e[2]) for e, pe in zip(errs, plain_errs))
+            del want
+        else:
+            errs = (within_plain(f"3b tt_eval {tag}", [values], [plain_f], [ref[0]], dname, 1),
+                    within_plain(f"3b tt_eval_backward {tag}", grads, plain_b, ref[1], dname, 2))
+            errs = tuple((*e, None) for e in errs)
+        del plain_f, plain_b, ref
+        if reps > 1:
+            pf = event_ms(lambda: te.tt_eval_plain(cores, X))[1]
+            pb = event_ms(lambda: te.tt_eval_backward_plain(cores, X, g))[1]
+        fwd = cuda_time(lambda: te.tt_eval_kernel(cores, X, True), reps=reps, inner=1)
+        bwd = cuda_time(lambda: te.tt_eval_backward_kernel(cores, X, g, True), reps=reps, inner=1)
+        fwd_flops, bwd_flops = tt_work(cores, X)
+        fb = bound_ms(fwd_flops, nbytes(*cores, X, values), peak)
+        bb = bound_ms(bwd_flops, nbytes(*cores, X, g, *grads), peak)
+        for name, ms, plain_ms, bound, err in (("tt_eval", fwd, pf, fb, errs[0]),
+                                               ("tt_eval_backward", bwd, pb, bb, errs[1])):
+            out[name][tag] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                                  rel_err=err[0], plain_rel_err=err[1])
+            if err[2] is not None:
+                out[name][tag]["agree"] = err[2]
+        agree = ("" if errs[0][2] is None else
+                 f"; entries equal to the plain version of the kernels' arithmetic: values "
+                 f"{errs[0][2]:.4f}, gradients (least over cores) {errs[1][2]:.4f}")
+        return values, grads, (f"one launch each: error/max |value| {errs[0][0]:.2e} (plain {errs[0][1]:.2e}), "
+                f"gradient (largest over cores, each over its own max |value|) {errs[1][0]:.2e} "
+                f"(plain {errs[1][1]:.2e}){agree}; tt_eval {fwd:.4f} ms "
+                f"(plain {pf:.3f}{'' if reps > 1 else ', its first call'}, bound {fb[0]:.5f} "
+                f"{fb[1]}), backward {bwd:.4f} ms (plain {pb:.3f}, bound {bb[0]:.5f} {bb[1]})")
+
+    E = EVAL
+    design = [1] + [E["R"]] * (E["N"] - 1) + [1]
+    for dname in ("bfloat16", "float16"):
+        dtype = getattr(torch, dname)
+        cores, X, g = tt_problem(design, E["I"], E["B"], dtype, seed=21)
+        tag = f"design {dname}"
+        line = held(tag, dname, cores, X, g, PEAK_FP32, 3)[2]
+        print(f"3b {tag} N={E['N']} I={E['I']} R={E['R']} B={E['B']}, per sample: {line}",
+              flush=True)
+        del cores, X, g
+
+    # (2) training in bfloat16 at phase 7's shape, counted, against the plain versions
+    T = TRAIN
+    steps = T["steps"]
+    cores_np, X_np, y_np = train_data(T)
+    X = torch.from_numpy(X_np).cuda()
+    y = torch.from_numpy(y_np).to("cuda", torch.bfloat16)
+
+    def fit():
+        t = tn.Tensor([torch.from_numpy(c).to("cuda", torch.bfloat16) for c in cores_np],
+                      requires_grad=True)
+        return tn.optimize([t], lambda t: torch.mean((t[X].full() - y) ** 2), tol=None,
+                           max_iter=steps - 1, verbose=False)
+
+    te.reset_launches()
+    hist = fit()
+    torch.cuda.synchronize()
+    counts = {k.__name__: (k.launches, k.grouped) for k in te.KERNELS}
+    ref = plain_versions(fit)
+    err = float(np.max(np.abs(np.array(hist) - np.array(ref)) / np.abs(np.array(ref))))
+    print(f"3b training bfloat16 {T['I']}^{T['N']} rank {T['R']} B={T['B']}: {len(hist)} steps, "
+          f"launches (calls, grouped) {counts}; loss {hist[0]:.2f} -> {hist[-1]:.2f}, kernels "
+          f"against the plain versions: max rel {err:.3e} (tol {BF16_TRAIN_TOL})", flush=True)
+    if counts != {"tt_eval_kernel": (steps, 0), "tt_eval_backward_kernel": (steps, 0)}:
+        raise AssertionError("3b bfloat16 training: expected one per-sample launch of each "
+                             "kernel a step")
+    if not (np.isfinite(hist).all() and hist[-1] < hist[0] and err <= BF16_TRAIN_TOL):
+        raise AssertionError("3b bfloat16 training: the loss did not fall, or it disagrees with "
+                             "the plain versions")
+
+    # (3) chains past MAX_MODES on the per-sample kernels
+    for tag, ranks, I, B, dnames in LONG_CHAINS:
+        for dname in dnames:
+            dtype = getattr(torch, dname)
+            cores, X, g = tt_problem(ranks, I, B, dtype, seed=22)
+            dims = (I,) * (len(ranks) - 1)
+            plan = te._per_sample_plan(tuple(ranks), dims, B, dtype.itemsize)
+            peak = PEAK_FP64 if dname == "float64" else PEAK_FP32
+            values, grads, line = tt_path(False, lambda: tt_bwd_path(False, lambda: held(
+                f"{tag} {dname}", dname, cores, X, g, peak, 3 if tag == "N200" else 1)))
+            routes = "/".join("grouped" if pick(ranks, dims, B, dtype.itemsize) else "per-sample"
+                              for pick in (te._grouped, te._grouped_backward))
+            print(f"3b {tag} {dname}: {len(ranks) - 1} modes I={I} ranks {max(ranks)} B={B}, "
+                  f"forced per sample (the dispatch takes {routes}; plan W={plan.W} cols "
+                  f"{plan.fwd_cols}/{plan.bwd_cols}, left interfaces "
+                  f"{'spilled' if plan.bwd_spill else 'shared'}): {line}", flush=True)
+            if dname != "bfloat16":  # the grouped route too, forced, timed in turns
+                te.reset_launches()
+                grouped = tt_path(True, lambda: te.tt_eval_kernel(cores, X))
+                ggrads = tt_bwd_path(True, lambda: te.tt_eval_backward_kernel(cores, X, g))
+                if (te.tt_eval_kernel.grouped, te.tt_eval_backward_kernel.grouped) != (1, 1):
+                    raise AssertionError(f"3b {tag} {dname}: the grouped route was not taken")
+                if dname == "float32":
+                    rc = [c.double() for c in cores]
+                    ref = plain_values(rc, X), plain_grads(rc, X, g.double())
+                    plain = te.tt_eval_plain(cores, X), te.tt_eval_backward_plain(cores, X, g)
+                    within_plain(f"3b grouped tt_eval {tag}", [grouped], [plain[0]], [ref[0]],
+                                 dname, 1)
+                    within_plain(f"3b grouped tt_eval_backward {tag}", ggrads, plain[1], ref[1],
+                                 dname, 2)
+                    held_as = "held to the same tolerance"
+                else:  # against the per-sample kernels' outputs, just held to the plain versions
+                    rel = _rel_all([grouped, *ggrads], [values, *grads])
+                    if not rel <= KERNEL_TOL[dname]:
+                        raise AssertionError(f"3b grouped {tag} {dname}: rel {rel:.3e} against "
+                                             "the per-sample kernels")
+                    held_as = f"within {rel:.1e} of the per-sample kernels"
+                # in turns; the 512-mode per-sample calls (~1.2 s) are timed once, above
+                turns = {p: [] for p in ("grouped", "per-sample")}
+                for p in (("grouped", "per-sample", "per-sample", "grouped") if tag == "N200"
+                          else ("grouped", "grouped")):
+                    turns[p].append(tt_path(p == "grouped", lambda: tt_bwd_path(
+                        p == "grouped", lambda: cuda_time(lambda: (
+                            te.tt_eval_kernel(cores, X, True),
+                            te.tt_eval_backward_kernel(cores, X, g, True)),
+                            reps=3 if tag == "N200" else 1, inner=1))))
+                if not turns["per-sample"]:
+                    turns["per-sample"] = [sum(out[name][f"{tag} {dname}"]["ms"]
+                                               for name in ("tt_eval", "tt_eval_backward"))]
+                for name in ("tt_eval", "tt_eval_backward"):
+                    out[name][f"{tag} {dname}"]["turns_fwd_bwd_ms"] = turns
+                print(f"3b {tag} {dname} on the grouped kernels, forced: {held_as}; forward + "
+                      f"backward, ms: grouped {turns['grouped']}, per-sample "
+                      f"{turns['per-sample']}{' in turns' if tag == 'N200' else ''}", flush=True)
+            del cores, X, g, values, grads
+    print(f"3b half and long chains: {time.perf_counter() - start:.1f} s", flush=True)
+    return out
 
 
 def bench_cores(cfg=BENCH):
@@ -4664,7 +5067,7 @@ def maxvol_parts(A, iters=100):
     return t1 - t0, t2 - t1, t3 - t2, t4 - t3, time.perf_counter() - t4
 
 
-def time_host_maxvol(cases, turns=5):
+def time_host_maxvol(cases, turns=3):
     """Each (tag, A, hold) of ``cases``: the host `maxvol` (on the host
     library) against `maxvol._maxvol_plain` on A, one call each in turns
     (the order alternating), ``turns`` times: the median ms a call of each,
@@ -4726,7 +5129,7 @@ def time_host_maxvol(cases, turns=5):
     return failed
 
 
-def host_cross_checks(device=None, cfg=CROSS3, rounds=2, fixed=CROSS_FIXED, turns=5):
+def host_cross_checks(device=None, cfg=CROSS3, rounds=2, fixed=CROSS_FIXED, turns=3):
     """14d: ``tn.cross(fuse='host')`` of config 3 with a NumPy function,
     pivoting on the host library and on the NumPy loop, and the same cross
     on the eager device sweep with the torch function, in float64, timed in
@@ -6968,6 +7371,7 @@ def one_stream_path(device="cuda", cfg=SIZES19):
 
 
 PHASES = {"3": "check_kernels", "3g": "time_gram_routes", "3b": "check_tt_kernels", "3s": "hold_per_sample_plans",
+          "3n": "check_half_and_long",
           "3t": "time_per_sample", "3h": "time_host", "3x": "plan_choices", "4": "main_path",
           "5": "nonbatch_pass", "6": "eval_path", "7": "train_path", "8": "train_design_path",
           "9": "baseline_path", "10": "cross_path", "11": "elementwise_path",
@@ -7040,6 +7444,7 @@ def main():
          "replaces": replaces[name], "launches": launches[name], **report[name]}
         for name in replaces
     ]
+    print(phase_times())
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -64,6 +64,25 @@ def _torch(cores):
 F64_TOL = 1e-10
 
 
+# round_tt_flops' chains: the batched rounding's sample (N=4, I=256, ranks
+# 128 -> 64), phase 13's divergence fields (256^3 at rank 49 -> 16), and a
+# ragged six-mode chain with R_0, R_N > 1 and ranks above and below rmax
+FLOP_CHAINS = {
+    "rounding_B32": ([(1, 256, 128), (128, 256, 128), (128, 256, 128), (128, 256, 1)], 64),
+    "P13": ([(1, 256, 49), (49, 256, 49), (49, 256, 1)], 16),
+    "ragged6": ([(2, 5, 3), (3, 7, 6), (6, 4, 5), (5, 9, 2), (2, 3, 4), (4, 6, 3)], 3),
+}
+
+
+@pytest.mark.parametrize("chain", list(FLOP_CHAINS))
+def test_round_tt_flops_equals_jax(chain):
+    shapes, rmax = FLOP_CHAINS[chain]
+    want = jr.round_tt_flops(shapes, rmax)
+    assert tr.round_tt_flops(shapes, rmax) == want
+    assert tr.round_tt_flops([np.empty(s).shape for s in shapes], rmax) == want  # any sequence
+    assert isinstance(tr.round_tt_flops(shapes, rmax), float)
+
+
 @pytest.mark.parametrize("fn", ["round_tt_gram", "round_tt_fixed"])
 def test_fixed_rank_sweeps_match_jax(fn):
     cores = _tt((9, 10, 11, 12), (6, 7, 6), seed=1)

@@ -151,18 +151,23 @@ def test_plan_left_interfaces_and_warps():
 @pytest.mark.parametrize("itemsize", [4, 8], ids=["f32", "f64"])
 def test_plan_refuses_only_the_kernel_that_does_not_fit(itemsize):
     # N = 120 at rank 250: one warp's left interfaces (29751 values) and two
-    # interfaces fit a block in float32 (121 KB), not in float64 (242 KB);
-    # the forward's two interfaces (4 KB) fit in both, so t[X] is served
+    # interfaces fit a block in float32 (121 KB), not in float64 (242 KB),
+    # where the backward keeps the left interfaces in device memory
+    # (bwd_spill) and a block holds 8 warps' two interfaces; the forward's
+    # two interfaces (4 KB) fit in both, so t[X] and its gradient are served
     ranks, dims = (1,) + (250,) * 119 + (1,), (2,) * 120
     fwd = te._plan_for("tt_eval", ranks, dims, 64, itemsize, False)
     assert (fwd.W, fwd.fwd_cols, fwd.fwd_warps, fwd.fwd_smem) == (32, 0, 8, 8 * 500 * itemsize)
+    bwd = te._plan_for("tt_eval_backward", ranks, dims, 64, itemsize, True)
     if itemsize == 4:
-        bwd = te._plan_for("tt_eval_backward", ranks, dims, 64, itemsize, True)
-        assert (bwd.bwd_warps, bwd.bwd_smem) == (1, (29751 + 500) * 4)
+        assert (bwd.bwd_warps, bwd.bwd_smem, bwd.bwd_spill) == (1, (29751 + 500) * 4, False)
     else:
-        assert fwd.bwd_warps == 0
-        with pytest.raises(ValueError, match="tt_eval_backward: .* exceed a block's shared"):
-            te._plan_for("tt_eval_backward", ranks, dims, 64, itemsize, True)
+        assert (bwd.bwd_warps, bwd.bwd_smem, bwd.bwd_spill) == (8, 8 * 500 * 8, True)
+    # a kernel whose own buffers exceed a block is still refused: one warp's
+    # two interfaces at rank 15000 in float64 (240 KB), spilled or not
+    for backward in (False, True):
+        with pytest.raises(ValueError, match="exceed a block's shared"):
+            te._plan_for("tt_eval", (1, 15000, 1), (2, 2), 64, 8, backward)
 
 
 # ---------------------------------------------------------------------------

@@ -34,9 +34,12 @@ BUILD_DIR = _HERE / "_build"
 # (tntorch_tpu/_native): the same code, so the same roundoff
 CXX = "g++"
 CXX_FLAGS = ["-O3", "-march=native", "-fPIC", "-shared", "-std=c++17"]
+# --split-compile=0: nvcc optimizes a source's kernels on all the host's
+# cores at once (the tt_eval source holds 188 instances; its build times
+# with and without it are in PERF.md)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0",
 ]
 
 _P = ctypes.c_void_p
@@ -62,9 +65,9 @@ SIGNATURES = {
         "tnt_tile_occupancy": [_I, _I, _I, _I, _I],
     },
     "tt_eval": {
-        "tnt_tt_eval": [_I, _I, _I, _PP, _PI, _PI, _P, _L, _P, _P, _I, _I, _I, _I, _P],
-        "tnt_tt_eval_backward": [_I, _I, _I, _PP, _PP, _PI, _PI, _P, _P, _L, _P, _I, _I, _PI, _I,
-                                 _P],
+        "tnt_tt_eval": [_I, _I, _I, _PP, _PI, _PI, _P, _P, _L, _P, _P, _I, _I, _I, _I, _P],
+        "tnt_tt_eval_backward": [_I, _I, _I, _PP, _PP, _PI, _PI, _P, _P, _P, _L, _P, _I, _I, _PI,
+                                 _I, _P, _L, _P],
         "tnt_tt_eval_grouped": [_I, _P, _I, _I, _I, _P, _P, _L, _P, _P, _P, _P, _P, _I, _P, _P],
         "tnt_tt_eval_slice_grad": [_I, _I, _I, _I, _P, _P, _P, _P, _L, _I, _P, _P, _P, _P, _I,
                                    _P, _L, _L, _L, _P, _P],

@@ -81,8 +81,9 @@
 // memory, and the row loop where it is staged (its reads are then
 // broadcasts). The plan (W, columns, staging, warps, shared memory) is
 // ops/tt_eval.py: _per_sample_plan, which the wrapper passes in. Any B, any
-// ranks including R_0 and R_N > 1, any I, float32 and float64, int32 and
-// int64 coordinates; negative coordinates wrap as in NumPy, and an
+// ranks including R_0 and R_N > 1, any I, any N, float32, float64,
+// bfloat16 and float16 cores (see "Half precision" and "Long chains"
+// below), int32 and int64 coordinates; negative coordinates wrap as in NumPy, and an
 // out-of-range one sets *flag (the caller raises IndexError), writes NaN and
 // reads no memory out of bounds. Only column 0 of the last mode is computed;
 // each value is summed in a fixed order, so the forward is bitwise
@@ -139,49 +140,165 @@
 // samples of a block share a slice. The order of the atomics changes from run
 // to run, so it is not bitwise reproducible (float32 agrees with the plain
 // version to ~1e-6 of its largest entry, float64 to ~1e-15).
+//
+// Half precision. The per-sample kernels take bfloat16 and float16
+// cores as well: a storage type S (the cores', the values', g's) and an
+// arithmetic type acc_t<S> (float for the half types, S itself otherwise).
+// Inside a mode every product and sum is in float32; after each mode the
+// interface, left or right, is rounded to S, as each einsum of the chain
+// both packages run (ops/tt_eval.py: tt_eval_plain; the JAX package's
+// tt_batch_forward) rounds its output, and the value is S. The backward
+// sums its gradients in float32, privatized copies and global atomics
+// alike (no half-precision atomics), into a float32 scratch that the
+// wrapper rounds to S once, at the end. A staged core is held in S (2
+// bytes), the interfaces in float32 (4): the plan gives the held copy and
+// the per-warp buffers each their own item size. What bounds the half
+// instances is what bounds float32's: each mode's instructions, then the
+// gathers, which move half the bytes. The grouped kernel and
+// slice_grad_kernel take float32 and float64 only (ops/tt_eval.py:
+// _grouped), so half cores take these kernels at every shape.
+//
+// Long chains. Up to MAX_MODES modes the mode table (each core's
+// pointer, ranks, size, place in the shared copy) travels in the kernel's
+// parameter struct TT<S>; a longer chain's table is read from device
+// memory (Mode<S>, one row of 32 bytes a mode, written by the wrapper:
+// ops/tt_eval.py: _mode_table), so a chain may have any number of modes. A
+// chain's left interfaces grow with N (sum of R_k a sample); where the
+// backward's do not fit a block's shared memory even at one warp, the plan
+// keeps them in a device-memory scratch, one slot a warp of the persistent
+// grid (`spill`; ops/tt_eval.py: Plan.bwd_spill), so its size is bounded
+// by the grid, not by B. Both take the kernels' GENERAL instances (a
+// template parameter: the table, and the left interfaces through a generic
+// pointer), which the wrapper picks only for such chains: checking for a
+// table at every mode, or reaching shared memory through a generic
+// pointer, cost the other instances registers and 5-20% of their time on
+// the card (PERF.md). The general instances stage no cores and privatize
+// no last core, so there are 7 forward and 9 backward ones a type.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <mutex>
+#include <type_traits>
 #include <vector>
 
 namespace {
 
-constexpr int MAX_MODES = 128;  // ops/tt_eval.py: MAX_MODES
+constexpr int MAX_MODES = 128;  // ops/tt_eval.py: MAX_MODES, the modes the parameter struct holds
 constexpr int WARPS = 8;        // per-sample warps per block, fewer where buffers need it (_WARPS)
 constexpr unsigned FULL = 0xffffffffu;
 
-template <typename T>
+// The arithmetic type of a storage type: float for the half types
+template <typename S>
+struct Acc {
+  using type = S;
+};
+template <>
+struct Acc<__nv_bfloat16> {
+  using type = float;
+};
+template <>
+struct Acc<__half> {
+  using type = float;
+};
+template <typename S>
+using acc_t = typename Acc<S>::type;
+
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float widen(__half x) { return __half2float(x); }
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ double widen(double x) { return x; }
+
+// acc_t<S> rounded to the nearest S
+template <typename S>
+__device__ __forceinline__ S narrow(acc_t<S> x) {
+  if constexpr (std::is_same_v<S, acc_t<S>>) return x;
+  else if constexpr (std::is_same_v<S, __half>) return __float2half_rn(x);
+  else return __float2bfloat16_rn(x);
+}
+
+// An interface entry rounded to the cores' dtype after its mode, as the
+// chain's einsums round their outputs (no-op for float32 and float64)
+template <typename S>
+__device__ __forceinline__ acc_t<S> round_to(acc_t<S> x) {
+  if constexpr (std::is_same_v<S, acc_t<S>>) return x;
+  else return widen(narrow<S>(x));
+}
+
+// A core element through L1, as its arithmetic type
+template <typename S>
+__device__ __forceinline__ acc_t<S> ldg(const S* p) {
+  return widen(__ldg(p));
+}
+
+// One mode of a chain, as the kernels see it: the core, the gradient
+// (backward), R_k, R_{k+1}, I_k, and the core's place in the block's shared
+// copy (elements, -1 if not held). The row layout of a long chain's table
+// in device memory (ops/tt_eval.py: _mode_table writes it).
+template <typename S>
+struct alignas(16) Mode {
+  const S* core;
+  acc_t<S>* grad;
+  int Rl, Rr, dim, at;
+};
+static_assert(sizeof(Mode<float>) == 32, "ops/tt_eval.py: _mode_table writes 32-byte rows");
+
+template <typename S>
 struct TT {
-  const T* core[MAX_MODES];
-  T* grad[MAX_MODES];  // backward only
+  const S* core[MAX_MODES];
+  acc_t<S>* grad[MAX_MODES];  // backward only
   int rank[MAX_MODES + 1];
   int dim[MAX_MODES];
   int at[MAX_MODES];   // core k's place in the block's shared copy (elements), -1 if not held
+  const Mode<S>* table;  // N > MAX_MODES: the modes in device memory, the arrays above unused
   int N;
   int maxr;            // max of rank[0..N-1]: the widest interface a sample carries
   int lsize;           // rank[0] + ... + rank[N-1]: one sample's left interfaces
   int held;            // elements of the shared copy, rounded up to 4
+
+  // Mode k from the device-memory table (GENERAL) or the arrays above
+  template <bool GENERAL>
+  __device__ __forceinline__ Mode<S> mode(int k) const {
+    if constexpr (GENERAL) return table[k];
+    else return Mode<S>{core[k], grad[k], rank[k], rank[k + 1], dim[k], at[k]};
+  }
+  template <bool GENERAL>
+  __device__ __forceinline__ int dim_of(int k) const {
+    if constexpr (GENERAL) return table[k].dim;
+    else return dim[k];
+  }
+  template <bool GENERAL>
+  __device__ __forceinline__ int rank_of(int k) const {
+    if constexpr (GENERAL) return table[k].Rl;
+    else return rank[k];
+  }
 };
 
 // The per-sample kernels' shared memory (ops/tt_eval.py: _per_sample_smem):
-// the held copy (staged cores, or privatized gradients, each rounded up to 4
-// elements), then `warps` per-warp buffers of `per_warp` elements.
+// the held copy (staged cores in S, or privatized gradients in acc_t<S>,
+// each rounded up to 4 elements), then `warps` per-warp buffers of
+// `per_warp` elements of acc_t<S>.
 __host__ __device__ constexpr int64_t round4(int64_t n) { return (n + 3) & ~(int64_t)3; }
-__host__ __device__ constexpr size_t per_sample_smem(int64_t held, int warps, int64_t per_warp,
-                                                     size_t itemsize) {
-  return (size_t)(held + warps * per_warp) * itemsize;
+__host__ __device__ constexpr size_t per_sample_smem(int64_t held, size_t held_size, int warps,
+                                                     int64_t per_warp, size_t warp_size) {
+  return (size_t)held * held_size + (size_t)(warps * per_warp) * warp_size;
 }
-// Elements of one warp's buffers (ops/tt_eval.py: _warp_elems): with the
-// interface in shared memory (cols 0, one sample a warp) two interfaces and,
-// backward, the left ones; else, backward, the left interfaces of each of
-// the warp's 32 / W samples.
+// Elements of one sample's left interfaces kept by one warp: those of its
+// 32 / W samples, or of its one sample with the interface in shared memory
+__host__ __device__ constexpr int64_t lefts_elems(int W, int cols, int lsize) {
+  return (cols == 0 ? 1 : (int64_t)(32 / W)) * lsize;
+}
+// Elements of one warp's shared buffers (ops/tt_eval.py: _warp_elems):
+// with the interface in shared memory (cols 0, one sample a warp) two
+// interfaces; backward, the left interfaces too, unless they are spilled to
+// device memory.
 __host__ __device__ constexpr int64_t warp_elems(bool backward, int W, int cols, int maxr,
-                                                 int lsize) {
-  return cols == 0 ? (backward ? lsize : 0) + 2 * (int64_t)maxr
-                   : (backward ? (int64_t)(32 / W) * lsize : 0);
+                                                 int lsize, bool spill) {
+  return (cols == 0 ? 2 * (int64_t)maxr : 0) +
+         (backward && !spill ? lefts_elems(W, cols, lsize) : 0);
 }
 
 template <typename T>
@@ -194,9 +311,9 @@ __device__ __forceinline__ T nan_of() {
 // loaded W modes at a time: the warp's lanes read neighbouring addresses of
 // their samples' rows of X. at(k) hands the group mode k's by shuffle; the
 // window moves with k (forwards or backwards), the same for every lane.
-template <typename T>
+template <typename S, bool GENERAL>
 struct Coords {
-  const TT<T>& tt;
+  const TT<S>& tt;
   const void* X;
   int64_t row;  // b * N
   bool wide, live;
@@ -210,7 +327,7 @@ struct Coords {
       if (live && m < tt.N) {
         const int64_t x = wide ? __ldg((const long long*)X + row + m)
                                : (int64_t)__ldg((const int*)X + row + m);
-        const int I = tt.dim[m];
+        const int I = tt.template dim_of<GENERAL>(m);
         xw = x < -(int64_t)I || x >= I ? -1 : (int)(x < 0 ? x + I : x);
       }
     }
@@ -218,32 +335,46 @@ struct Coords {
   }
 };
 
-// A load of element o of a slice: from shared memory (SH) or through L1.
-template <typename T, bool SH>
-__device__ __forceinline__ T load(const T* p, int64_t o) {
-  if constexpr (SH) return p[o];
-  else return __ldg(p + o);
+// A load of element o of a slice, as its arithmetic type: from shared
+// memory (SH) or through L1.
+template <typename S, bool SH>
+__device__ __forceinline__ acc_t<S> load(const S* p, int64_t o) {
+  if constexpr (SH) return widen(p[o]);
+  else return ldg(p + o);
 }
 
 // Mode k's slice at coordinate x: of the core, of the block's shared copy
-// (the staged core, or the privatized gradient) and of the gradient.
-template <typename T>
+// of type H (the staged core, S, or the privatized gradient, acc_t<S>) and
+// of the gradient.
+template <typename S, typename H, bool GENERAL>
 struct Slice {
-  const T* C;
-  T* sh;
-  T* dC;
+  const S* C;
+  H* sh;
+  acc_t<S>* dC;
   int64_t rs;  // stride of r
   int Rl, Rr;
   bool held;
-  __device__ __forceinline__ Slice(const TT<T>& tt, T* copy, int k, int x) {
-    Rl = tt.rank[k];
-    Rr = tt.rank[k + 1];
-    rs = (int64_t)tt.dim[k] * Rr;
-    const int64_t o = (int64_t)x * Rr;
-    C = tt.core[k] + o;
-    sh = copy + tt.at[k] + o;
-    dC = tt.grad[k] ? tt.grad[k] + o : nullptr;
-    held = tt.at[k] >= 0;
+  __device__ __forceinline__ Slice(const TT<S>& tt, H* copy, int k, int x) {
+    if constexpr (GENERAL) {
+      const Mode<S> m = tt.table[k];
+      Rl = m.Rl;
+      Rr = m.Rr;
+      rs = (int64_t)m.dim * Rr;
+      const int64_t o = (int64_t)x * Rr;
+      C = m.core + o;
+      sh = copy + m.at + o;
+      dC = m.grad ? m.grad + o : nullptr;
+      held = m.at >= 0;
+    } else {  // the fields read one by one from the parameter struct
+      Rl = tt.rank[k];
+      Rr = tt.rank[k + 1];
+      rs = (int64_t)tt.dim[k] * Rr;
+      const int64_t o = (int64_t)x * Rr;
+      C = tt.core[k] + o;
+      sh = copy + tt.at[k] + o;
+      dC = tt.grad[k] ? tt.grad[k] + o : nullptr;
+      held = tt.at[k] >= 0;
+    }
   }
 };
 
@@ -254,8 +385,8 @@ struct Slice {
 // r, and no load waits on another. A lane past Rr reads column Rr - 1 and
 // computes a value that no one reads, so the loop has no branch. Each
 // out[s] sums r in increasing order. C in shared memory when SH.
-template <typename T, int W, int CPL, bool SH>
-__device__ __forceinline__ void step(const T (&in)[CPL], T (&out)[CPL], const T* C, int64_t rs,
+template <typename S, int W, int CPL, bool SH, typename T = acc_t<S>>
+__device__ __forceinline__ void step(const T (&in)[CPL], T (&out)[CPL], const S* C, int64_t rs,
                                      int Rl, int Rr, int w) {
   int col[CPL];
 #pragma unroll
@@ -265,14 +396,14 @@ __device__ __forceinline__ void step(const T (&in)[CPL], T (&out)[CPL], const T*
   }
 #pragma unroll
   for (int jr = 0; jr < CPL; ++jr) {
-    const T* p = C + (int64_t)jr * W * rs;
+    const S* p = C + (int64_t)jr * W * rs;
 #pragma unroll 4  // fully unrolled, the hoisted loads take twice the registers
     for (int src = 0; src < W; ++src, p += rs) {
       if (jr * W + src >= Rl) break;  // the same for every lane
       const T a = __shfl_sync(FULL, in[jr], src, W);
 #pragma unroll
       for (int jc = 0; jc < CPL; ++jc)
-        if (jc == 0 || jc * W < Rr) out[jc] = fma(a, load<T, SH>(p, col[jc]), out[jc]);
+        if (jc == 0 || jc * W < Rr) out[jc] = fma(a, load<S, SH>(p, col[jc]), out[jc]);
     }
   }
 }
@@ -282,15 +413,15 @@ __device__ __forceinline__ void step(const T (&in)[CPL], T (&out)[CPL], const T*
 // every lane ends with it. (From shared memory the row loop of `step` is
 // faster: its reads are broadcasts and its shuffles do not wait on each
 // other; PERF.md.)
-template <typename T, int W, int CPL>
-__device__ __forceinline__ T last_step(const T (&in)[CPL], const T* __restrict__ C, int64_t rs,
+template <typename S, int W, int CPL, typename T = acc_t<S>>
+__device__ __forceinline__ T last_step(const T (&in)[CPL], const S* __restrict__ C, int64_t rs,
                                        int Rl, int w) {
   T part = T(0);
 #pragma unroll
   for (int j = 0; j < CPL; ++j) {
     const int r = w + j * W;
     if (j == 0 || j * W < Rl) {
-      const T c = __ldg(C + (int64_t)min(r, Rl - 1) * rs);
+      const T c = ldg(C + (int64_t)min(r, Rl - 1) * rs);
       if (r < Rl) part = fma(in[j], c, part);
     }
   }
@@ -300,26 +431,27 @@ __device__ __forceinline__ T last_step(const T (&in)[CPL], const T* __restrict__
 }
 
 // The same with the interface in shared memory, one warp a sample (ranks
-// beyond the register template): lane s computes columns s, s + 32, ...
-template <typename T>
-__device__ __forceinline__ void step_shared(const T* in, T* out, const T* __restrict__ C,
+// beyond the register template): lane s computes columns s, s + 32, ...,
+// each rounded to S
+template <typename S, typename T = acc_t<S>>
+__device__ __forceinline__ void step_shared(const T* in, T* out, const S* __restrict__ C,
                                             int64_t rs, int Rl, int Rr, int lane) {
   for (int s = lane; s < Rr; s += 32) {
     T acc = T(0);
 #pragma unroll 4
-    for (int r = 0; r < Rl; ++r) acc = fma(in[r], __ldg(C + r * rs + s), acc);
-    out[s] = acc;
+    for (int r = 0; r < Rl; ++r) acc = fma(in[r], ldg(C + r * rs + s), acc);
+    out[s] = round_to<S>(acc);
   }
   __syncwarp();
 }
 
 // last_step with the interface in shared memory: the warp's lanes take
 // rows lane, lane + 32, ..., then sum by a butterfly.
-template <typename T>
-__device__ __forceinline__ T last_shared(const T* in, const T* __restrict__ C, int64_t rs, int Rl,
+template <typename S, typename T = acc_t<S>>
+__device__ __forceinline__ T last_shared(const T* in, const S* __restrict__ C, int64_t rs, int Rl,
                                          int lane) {
   T part = T(0);
-  for (int r = lane; r < Rl; r += 32) part = fma(in[r], __ldg(C + r * rs), part);
+  for (int r = lane; r < Rl; r += 32) part = fma(in[r], ldg(C + r * rs), part);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(FULL, part, off);
   return part;
@@ -335,9 +467,10 @@ __device__ __forceinline__ T last_shared(const T* in, const T* __restrict__ C, i
 // each row summed across the group by a butterfly and kept by lane r % W.
 // A lane past ncols reads column ncols - 1 and leaves it out of its part
 // (its zero times an infinite entry would put a NaN in the row's sum).
-template <typename T, int W, int CPL, bool PRIV, typename Left>
+// T: the arithmetic type of the cores' type S.
+template <typename S, int W, int CPL, bool PRIV, typename Left, typename T = acc_t<S>>
 __device__ __forceinline__ void right_step(const Left& left, T g, const T (&rt)[CPL],
-                                           T (&rn)[CPL], const T* __restrict__ C, T* dst,
+                                           T (&rn)[CPL], const S* __restrict__ C, T* dst,
                                            int64_t rs, int Rl, int ncols, bool next, bool active,
                                            int w) {
   int col[CPL];
@@ -360,7 +493,7 @@ __device__ __forceinline__ void right_step(const Left& left, T g, const T (&rt)[
       for (int jc = 0; jc < CPL; ++jc) {
         if (jc > 0 && jc * W >= ncols) break;  // the same for every lane; slot 0 always is
         if (active && in[jc]) atomicAdd(dst + o + col[jc], a * rt[jc]);
-        const T c = __ldg(C + o + col[jc]);
+        const T c = ldg(C + o + col[jc]);
         part = in[jc] ? fma(c, rt[jc], part) : part;
       }
       if (next) {
@@ -373,7 +506,7 @@ __device__ __forceinline__ void right_step(const Left& left, T g, const T (&rt)[
 }
 
 template <typename T, int W>
-struct SharedLeft {  // L[r] of a left interface in shared memory
+struct SharedLeft {  // L[r] of a left interface (in shared memory, or spilled to device memory)
   const T* L;
   __device__ __forceinline__ T operator()(int jr, int src) const { return L[jr * W + src]; }
 };
@@ -383,8 +516,8 @@ struct SharedLeft {  // L[r] of a left interface in shared memory
 // Rt_{N-1}; lane w takes rows w + W j, with no shuffle. (Into a privatized
 // copy, right_step's one row at a time is faster: the rows' shared atomics
 // then meet fewer others; PERF.md.)
-template <typename T, int W, int CPL>
-__device__ __forceinline__ void right_last(const T* L, T g, T (&rn)[CPL], const T* __restrict__ C,
+template <typename S, int W, int CPL, typename T = acc_t<S>>
+__device__ __forceinline__ void right_last(const T* L, T g, T (&rn)[CPL], const S* __restrict__ C,
                                            T* dC, int64_t rs, int Rl, bool next, bool active,
                                            int w) {
 #pragma unroll
@@ -393,7 +526,7 @@ __device__ __forceinline__ void right_last(const T* L, T g, T (&rn)[CPL], const 
     rn[j] = T(0);
     if (j == 0 || j * W < Rl) {
       if (active && r < Rl) atomicAdd(dC + rc * rs, g * L[rc]);
-      if (next && r < Rl) rn[j] = __ldg(C + rc * rs);
+      if (next && r < Rl) rn[j] = ldg(C + rc * rs);
     }
   }
 }
@@ -401,26 +534,33 @@ __device__ __forceinline__ void right_last(const T* L, T g, T (&rn)[CPL], const 
 // Mode k of the right sweep, into the slice's shared copy where it is held,
 // else into the gradient; the last mode by right_last in the instances
 // whose last core is not held (LAST)
-template <typename T, int W, int CPL, bool LAST>
+template <typename S, int W, int CPL, bool LAST, bool GENERAL, typename T = acc_t<S>>
 __device__ __forceinline__ void right_mode(const T* L, T g, const T (&rt)[CPL], T (&rn)[CPL],
-                                           const Slice<T>& sl, bool last, bool next, bool active,
-                                           int w) {
+                                           const Slice<S, T, GENERAL>& sl, bool last, bool next,
+                                           bool active, int w) {
   const SharedLeft<T, W> left{L};
   const int ncols = last ? 1 : sl.Rr;
   if (LAST && last)
-    right_last<T, W, CPL>(L, g, rn, sl.C, sl.dC, sl.rs, sl.Rl, next, active, w);
+    right_last<S, W, CPL>(L, g, rn, sl.C, sl.dC, sl.rs, sl.Rl, next, active, w);
   else if (sl.held)
-    right_step<T, W, CPL, true>(left, g, rt, rn, sl.C, sl.sh, sl.rs, sl.Rl, ncols, next, active,
+    right_step<S, W, CPL, true>(left, g, rt, rn, sl.C, sl.sh, sl.rs, sl.Rl, ncols, next, active,
                                 w);
   else
-    right_step<T, W, CPL, false>(left, g, rt, rn, sl.C, sl.dC, sl.rs, sl.Rl, ncols, next, active,
+    right_step<S, W, CPL, false>(left, g, rt, rn, sl.C, sl.dC, sl.rs, sl.Rl, ncols, next, active,
                                  w);
 }
 
-template <typename T>
-__device__ __forceinline__ void cp_async_elem(T* dst, const T* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src), "n"(sizeof(T)));
+// One element of a core into the block's shared copy: by cp.async where
+// the element is 4 bytes or more, else (the half types, whose cores need
+// not be 4-byte aligned) by a load and a store
+template <typename S>
+__device__ __forceinline__ void stage_elem(S* dst, const S* src) {
+  if constexpr (sizeof(S) >= 4) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src), "n"(sizeof(S)));
+  } else {
+    *dst = __ldg(src);
+  }
 }
 
 // The value of the TT at each row of X: a lane group of W lanes per sample,
@@ -428,15 +568,19 @@ __device__ __forceinline__ void cp_async_elem(T* dst, const T* src) {
 // CPL = 1: the interface in registers, a column a lane; CPL = 0: in shared
 // memory, one warp a sample. STAGED (CPL = 1 only): the block first copies
 // every core into shared memory (cp.async) and reads the slices there;
-// else through L1, the last mode by last_step.
-template <typename T, int W, int CPL, bool STAGED>
+// else through L1, the last mode by last_step. S: the cores' type; the
+// interface is acc_t<S>, rounded to S after each mode. GENERAL: the modes
+// from the device-memory table (a chain past MAX_MODES).
+template <typename S, int W, int CPL, bool STAGED, bool GENERAL>
 __global__ void __launch_bounds__(WARPS * 32)
-    tt_eval_kernel(const __grid_constant__ TT<T> tt, const void* __restrict__ X, int wide,
-                   int64_t B, T* __restrict__ out, int* flag) {
+    tt_eval_kernel(const __grid_constant__ TT<S> tt, const void* __restrict__ X, int wide,
+                   int64_t B, S* __restrict__ out, int* flag) {
   static_assert(CPL == 0 || CPL == 1, "the forward keeps at most a column a lane");
   static_assert(!STAGED || CPL == 1, "staged cores go with the interface in registers");
+  static_assert(!(STAGED && GENERAL), "the general instances stage no cores");
+  using T = acc_t<S>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const held = reinterpret_cast<T*>(smem_raw);
+  S* const held = reinterpret_cast<S*>(smem_raw);
   constexpr int G = 32 / W;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
   const int w = lane & (W - 1), N = tt.N;
@@ -444,19 +588,20 @@ __global__ void __launch_bounds__(WARPS * 32)
     for (int k = 0; k < N; ++k) {
       const int64_t n = (int64_t)tt.rank[k] * tt.dim[k] * tt.rank[k + 1];
       for (int64_t e = threadIdx.x; e < n; e += blockDim.x)
-        cp_async_elem(held + tt.at[k] + e, tt.core[k] + e);
+        stage_elem(held + tt.at[k] + e, tt.core[k] + e);
     }
     asm volatile("cp.async.commit_group;\n" ::);
     asm volatile("cp.async.wait_group 0;\n" ::);
     __syncthreads();
   }
-  T* const va = held + tt.held + (int64_t)warp * 2 * tt.maxr;  // CPL == 0
+  // CPL == 0: two interfaces a warp, after the held copy
+  T* const va = reinterpret_cast<T*>(held + tt.held) + (int64_t)warp * 2 * tt.maxr;
   T* const vb = va + tt.maxr;
   const int64_t units = (B + G - 1) / G;
   for (int64_t u = (int64_t)blockIdx.x * warps + warp; u < units;
        u += (int64_t)gridDim.x * warps) {
     const int64_t b = u * G + lane / W;
-    Coords<T> cx{tt, X, b * N, wide != 0, b < B, w, W, -W, 0};
+    Coords<S, GENERAL> cx{tt, X, b * N, wide != 0, b < B, w, W, -W, 0};
     bool ok = true;
     T value;
     if constexpr (CPL > 0) {
@@ -466,27 +611,27 @@ __global__ void __launch_bounds__(WARPS * 32)
       for (int k = 0; k < N; ++k) {
         const int x = cx.at(k);  // the same for the group's lanes
         ok = ok && x >= 0;
-        const Slice<T> sl(tt, held, k, max(x, 0));
+        const Slice<S, S, GENERAL> sl(tt, held, k, max(x, 0));
         if (!STAGED && k == N - 1) {
-          v[0] = last_step<T, W, CPL>(v, sl.C, sl.rs, sl.Rl, w);
+          v[0] = last_step<S, W, CPL>(v, sl.C, sl.rs, sl.Rl, w);
           break;
         }
         const int Rr = k == N - 1 ? 1 : sl.Rr;
-        if constexpr (STAGED) step<T, W, CPL, true>(v, nv, sl.sh, sl.rs, sl.Rl, Rr, w);
-        else step<T, W, CPL, false>(v, nv, sl.C, sl.rs, sl.Rl, Rr, w);
+        if constexpr (STAGED) step<S, W, CPL, true>(v, nv, sl.sh, sl.rs, sl.Rl, Rr, w);
+        else step<S, W, CPL, false>(v, nv, sl.C, sl.rs, sl.Rl, Rr, w);
 #pragma unroll
-        for (int j = 0; j < CPL; ++j) v[j] = nv[j];
+        for (int j = 0; j < CPL; ++j) v[j] = round_to<S>(nv[j]);
       }
       value = v[0];
     } else {
       T* v = va;
       T* nv = vb;
-      for (int r = lane; r < tt.rank[0]; r += 32) v[r] = T(1);
+      for (int r = lane; r < tt.template rank_of<GENERAL>(0); r += 32) v[r] = T(1);
       __syncwarp();
       for (int k = 0; k < N; ++k) {
         const int x = cx.at(k);
         ok = ok && x >= 0;
-        const Slice<T> sl(tt, held, k, max(x, 0));
+        const Slice<S, S, GENERAL> sl(tt, held, k, max(x, 0));
         if (k == N - 1) {
           value = last_shared(v, sl.C, sl.rs, sl.Rl, lane);
           break;
@@ -499,7 +644,7 @@ __global__ void __launch_bounds__(WARPS * 32)
       __syncwarp();  // every lane has read v before the next sample writes
     }
     if (b < B && w == 0) {
-      out[b] = ok ? value : nan_of<T>();
+      out[b] = narrow<S>(ok ? value : nan_of<T>());
       if (!ok) atomicOr(flag, 1);
     }
   }
@@ -508,16 +653,22 @@ __global__ void __launch_bounds__(WARPS * 32)
 // The cores' gradient of sum_b g_b value_b, with the lane groups of the
 // forward. A sample first checks all its coordinates (one with any out of
 // range sets *flag and adds nothing), sweeps left to right for L_0..L_{N-1},
-// kept in the group's slice of shared memory, then right to left
-// (right_step) with Rt in registers. A core with tt.at[k] >= 0 sums into
-// the block's shared copy, zeroed first and added once to the gradient at
-// the end; the others take global atomics. LAST: the last core is not
-// held, and its mode takes right_last. CPL = 0: every interface in shared
-// memory, one warp a sample.
-template <typename T, int W, int CPL, bool LAST>
+// kept in the group's slice of shared memory (or, where the plan spills
+// them, of the warp's slot of `spill` in device memory), then right to left
+// (right_step) with Rt in registers. A core with at >= 0 sums into the
+// block's shared copy, zeroed first and added once to the gradient at the
+// end; the others take global atomics. LAST: the last core is not held, and
+// its mode takes right_last. CPL = 0: every interface in shared memory, one
+// warp a sample. Left and right interfaces are rounded to S after each
+// mode; the gradients are summed in acc_t<S>. GENERAL: the modes from the
+// device-memory table, and the left interfaces in `spill` where it is set.
+template <typename S, int W, int CPL, bool LAST, bool GENERAL>
 __global__ void __launch_bounds__(WARPS * 32)
-    tt_eval_backward_kernel(const __grid_constant__ TT<T> tt, const void* __restrict__ X,
-                            int wide, const T* __restrict__ g, int64_t B, int* flag) {
+    tt_eval_backward_kernel(const __grid_constant__ TT<S> tt, const void* __restrict__ X,
+                            int wide, const S* __restrict__ g, int64_t B, int* flag,
+                            acc_t<S>* __restrict__ spill) {
+  static_assert(LAST || !GENERAL, "the general instances privatize no last core");
+  using T = acc_t<S>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const held = reinterpret_cast<T*>(smem_raw);
   constexpr int G = 32 / W;
@@ -525,17 +676,24 @@ __global__ void __launch_bounds__(WARPS * 32)
   const int w = lane & (W - 1), N = tt.N;
   for (int e = threadIdx.x; e < tt.held; e += blockDim.x) held[e] = T(0);
   __syncthreads();
-  T* const wbuf = held + tt.held + (int64_t)warp * warp_elems(true, W, CPL, tt.maxr, tt.lsize);
+  const bool spilled = GENERAL && spill;
+  T* const wbuf =
+      held + tt.held + (int64_t)warp * warp_elems(true, W, CPL, tt.maxr, tt.lsize, spilled);
+  // The warp's left interfaces: after its shared buffer's two interfaces
+  // (CPL = 0) in shared memory, or in its slot of the device-memory spill
+  T* const lefts = spilled ? spill + ((int64_t)blockIdx.x * warps + warp) *
+                                         lefts_elems(W, CPL, tt.lsize)
+                           : wbuf + (CPL == 0 ? 2 * tt.maxr : 0);
   const int64_t units = (B + G - 1) / G;
   for (int64_t u = (int64_t)blockIdx.x * warps + warp; u < units;
        u += (int64_t)gridDim.x * warps) {
     const int64_t b = u * G + lane / W;
     const bool live = b < B;
-    Coords<T> cx{tt, X, b * N, wide != 0, live, w, W, -W, 0};
+    Coords<S, GENERAL> cx{tt, X, b * N, wide != 0, live, w, W, -W, 0};
     bool ok = live;
     for (int k = 0; k < N; ++k) ok = (cx.at(k) >= 0) && ok;
     if (live && !ok && w == 0) atomicOr(flag, 1);
-    const T gb = live ? g[b] : T(0);
+    const T gb = live ? widen(g[b]) : T(0);
     if constexpr (CPL > 0) {
       T v[CPL], nv[CPL], rt[CPL], rn[CPL];
 #pragma unroll
@@ -543,56 +701,57 @@ __global__ void __launch_bounds__(WARPS * 32)
         v[j] = T(1);
         rt[j] = w + j * W == 0 ? T(1) : T(0);  // Rt_N = e_0: only column 0 of the last mode
       }
-      T* const Lg = wbuf + (int64_t)(lane / W) * tt.lsize;  // L_k at rank[0] + .. + rank[k-1]
+      T* const Lg = lefts + (int64_t)(lane / W) * tt.lsize;  // L_k at rank[0] + .. + rank[k-1]
+      const int R0 = tt.template rank_of<GENERAL>(0);
 #pragma unroll
       for (int j = 0; j < CPL; ++j)
-        if (w + j * W < tt.rank[0]) Lg[w + j * W] = v[j];
+        if (w + j * W < R0) Lg[w + j * W] = v[j];
       int off = 0;
       for (int k = 0; k + 1 < N; ++k) {
-        const Slice<T> sl(tt, held, k, max(cx.at(k), 0));
-        step<T, W, CPL, false>(v, nv, sl.C, sl.rs, sl.Rl, sl.Rr, w);
+        const Slice<S, T, GENERAL> sl(tt, held, k, max(cx.at(k), 0));
+        step<S, W, CPL, false>(v, nv, sl.C, sl.rs, sl.Rl, sl.Rr, w);
         off += sl.Rl;
 #pragma unroll
         for (int j = 0; j < CPL; ++j) {
-          v[j] = nv[j];
+          v[j] = round_to<S>(nv[j]);
           if (w + j * W < sl.Rr) Lg[off + w + j * W] = v[j];
         }
       }
       __syncwarp();
       for (int k = N - 1; k >= 0; --k) {
-        const Slice<T> sl(tt, held, k, max(cx.at(k), 0));
-        right_mode<T, W, CPL, LAST>(Lg + off, gb, rt, rn, sl, k == N - 1, k > 0, ok, w);
+        const Slice<S, T, GENERAL> sl(tt, held, k, max(cx.at(k), 0));
+        right_mode<S, W, CPL, LAST>(Lg + off, gb, rt, rn, sl, k == N - 1, k > 0, ok, w);
 #pragma unroll
-        for (int j = 0; j < CPL; ++j) rt[j] = rn[j];
-        if (k > 0) off -= tt.rank[k - 1];
+        for (int j = 0; j < CPL; ++j) rt[j] = round_to<S>(rn[j]);
+        if (k > 0) off -= tt.template rank_of<GENERAL>(k - 1);
       }
       __syncwarp();  // the group's reads of Lg are done before the next sample writes
     } else {
-      T* const Lb = wbuf;  // L_k at rank[0] + .. + rank[k-1]
-      T* ra = Lb + tt.lsize;
+      T* const Lb = lefts;  // L_k at rank[0] + .. + rank[k-1]
+      T* ra = wbuf;
       T* rb = ra + tt.maxr;
-      for (int r = lane; r < tt.rank[0]; r += 32) Lb[r] = T(1);
+      for (int r = lane; r < tt.template rank_of<GENERAL>(0); r += 32) Lb[r] = T(1);
       __syncwarp();
       int off = 0;
       for (int k = 0; k + 1 < N; ++k) {
-        const Slice<T> sl(tt, held, k, max(cx.at(k), 0));
+        const Slice<S, T, GENERAL> sl(tt, held, k, max(cx.at(k), 0));
         step_shared(Lb + off, Lb + off + sl.Rl, sl.C, sl.rs, sl.Rl, sl.Rr, lane);
         off += sl.Rl;
       }
       if (lane == 0) ra[0] = T(1);  // Rt_N = e_0: only column 0 of the last mode
       __syncwarp();
       for (int k = N - 1; k >= 0; --k) {
-        const Slice<T> sl(tt, held, k, max(cx.at(k), 0));
+        const Slice<S, T, GENERAL> sl(tt, held, k, max(cx.at(k), 0));
         if (LAST && k == N - 1) {  // as right_last: a row a lane
           for (int r = lane; r < sl.Rl; r += 32) {
             if (ok) atomicAdd(sl.dC + r * sl.rs, gb * Lb[off + r]);
-            rb[r] = __ldg(sl.C + r * sl.rs);
+            rb[r] = ldg(sl.C + r * sl.rs);
           }
           __syncwarp();
           T* t = ra;
           ra = rb;
           rb = t;
-          if (k > 0) off -= tt.rank[k - 1];
+          if (k > 0) off -= tt.template rank_of<GENERAL>(k - 1);
           continue;
         }
         const int ncols = k == N - 1 ? 1 : sl.Rr;
@@ -606,28 +765,29 @@ __global__ void __launch_bounds__(WARPS * 32)
               if (sl.held) atomicAdd(sl.sh + o, a * t);
               else atomicAdd(sl.dC + o, a * t);
             }
-            part = fma(__ldg(sl.C + o), t, part);
+            part = fma(ldg(sl.C + o), t, part);
           }
           if (k > 0) {
             for (int d = 16; d > 0; d >>= 1) part += __shfl_xor_sync(FULL, part, d);
-            if (lane == 0) rb[r] = part;
+            if (lane == 0) rb[r] = round_to<S>(part);
           }
         }
         __syncwarp();
         T* t = ra;
         ra = rb;
         rb = t;
-        if (k > 0) off -= tt.rank[k - 1];
+        if (k > 0) off -= tt.template rank_of<GENERAL>(k - 1);
       }
     }
   }
   __syncthreads();
   for (int k = 0; k < N; ++k) {  // the block's sums, once into each privatized gradient
-    if (tt.at[k] < 0) continue;
-    const int64_t n = (int64_t)tt.rank[k] * tt.dim[k] * tt.rank[k + 1];
+    const Mode<S> m = tt.template mode<GENERAL>(k);  // GENERAL: one read of the table's row
+    if (m.at < 0) continue;
+    const int64_t n = (int64_t)m.Rl * m.dim * m.Rr;
     for (int64_t e = threadIdx.x; e < n; e += blockDim.x) {
-      const T v = held[tt.at[k] + e];
-      if (v != T(0)) atomicAdd(tt.grad[k] + e, v);
+      const T v = held[m.at + e];
+      if (v != T(0)) atomicAdd(m.grad + e, v);
     }
   }
 }
@@ -1051,27 +1211,32 @@ int slice_grad(int I, int rows, int cols, const int64_t* bounds, const int* keys
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-TT<T> make_tt(int N, const void* const* cores, void* const* grads, const int* ranks,
-              const int* dims, const int* held) {
-  TT<T> tt;
+// The parameter struct of a chain: its mode table, or (the general
+// instances, `table` set) a pointer to the table the wrapper wrote to device
+// memory; the widest interface, one sample's left interfaces, and the held
+// copy (the cores or gradients with held[k], each at its place in the copy)
+template <typename S>
+TT<S> make_tt(int N, const void* const* cores, void* const* grads, const int* ranks,
+              const int* dims, const int* held, const void* table) {
+  TT<S> tt;
   tt.N = N;
   tt.maxr = 0;
   tt.lsize = 0;
   tt.held = 0;
-  for (int k = 0; k <= N; ++k) tt.rank[k] = ranks[k];
+  tt.table = (const Mode<S>*)table;
   for (int k = 0; k < N; ++k) {
-    tt.core[k] = (const T*)cores[k];
-    tt.grad[k] = grads ? (T*)grads[k] : nullptr;
-    tt.dim[k] = dims[k];
     tt.maxr = ranks[k] > tt.maxr ? ranks[k] : tt.maxr;
     tt.lsize += ranks[k];
-    tt.at[k] = -1;
-    if (held && held[k]) {
-      tt.at[k] = tt.held;
-      tt.held += (int)round4((int64_t)ranks[k] * dims[k] * ranks[k + 1]);
-    }
+    const int at = held && held[k] ? tt.held : -1;
+    if (at >= 0) tt.held += (int)round4((int64_t)ranks[k] * dims[k] * ranks[k + 1]);
+    if (table) continue;
+    tt.core[k] = (const S*)cores[k];
+    tt.grad[k] = grads ? (acc_t<S>*)grads[k] : nullptr;
+    tt.rank[k] = ranks[k];
+    tt.dim[k] = dims[k];
+    tt.at[k] = at;
   }
+  if (!table) tt.rank[N] = ranks[N];
   return tt;
 }
 
@@ -1129,10 +1294,12 @@ cudaError_t wave(K kernel, int warps, size_t smem, int64_t* blocks) {
 }
 
 // Launch `kernel` on a persistent grid: `warps` warps a block, as many
-// blocks as fit the card at once (fewer when the samples need fewer), each
-// striding over the warps' groups of 32 / W samples.
+// blocks as fit the card at once (fewer when the samples need fewer, and
+// at most `max_blocks` when it is positive), each striding over the warps'
+// groups of 32 / W samples.
 template <typename K, typename... Args>
-int launch(K kernel, int warps, size_t smem, int64_t units, cudaStream_t stream, Args... args) {
+int launch(K kernel, int warps, size_t smem, int64_t units, int64_t max_blocks,
+           cudaStream_t stream, Args... args) {
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSuccess;
   if (smem > 48 * 1024)
@@ -1140,80 +1307,115 @@ int launch(K kernel, int warps, size_t smem, int64_t units, cudaStream_t stream,
   int64_t cap = 0;
   if (e == cudaSuccess) e = wave(kernel, warps, smem, &cap);
   if (e != cudaSuccess) return (int)e;
+  if (max_blocks > 0 && max_blocks < cap) cap = max_blocks;
   const int64_t need = (units + warps - 1) / warps;
   const unsigned blocks = (unsigned)(need < cap ? need : cap);
   kernel<<<blocks, warps * 32, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename S>
 int tt_eval_launch(int itype, int N, const void* const* cores, const int* ranks, const int* dims,
-                   const void* X, int64_t B, void* out, int* flag, int W, int cols, int staged,
-                   int warps, cudaStream_t s) {
-  if (staged && cols != 1) return (int)cudaErrorInvalidValue;
+                   const void* table, const void* X, int64_t B, void* out, int* flag, int W,
+                   int cols, int staged, int warps, cudaStream_t s) {
+  if (staged && (cols != 1 || table)) return (int)cudaErrorInvalidValue;
   std::vector<int> held(N, staged ? 1 : 0);
-  const TT<T> tt = make_tt<T>(N, cores, nullptr, ranks, dims, held.data());
+  const TT<S> tt = make_tt<S>(N, cores, nullptr, ranks, dims, held.data(), table);
   if (!plan_ok(tt.maxr, W, cols, warps, false)) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      per_sample_smem(tt.held, warps, warp_elems(false, W, cols, tt.maxr, tt.lsize), sizeof(T));
-  using K = void (*)(TT<T>, const void*, int, int64_t, T*, int*);
-#define TNT_FWD(W) \
-  { tt_eval_kernel<T, W, 1, false>, tt_eval_kernel<T, W, 1, true> }
-  const K kernels[][2] = {TNT_FWD(1), TNT_FWD(2),  TNT_FWD(4),
+  const size_t smem = per_sample_smem(tt.held, sizeof(S), warps,
+                                      warp_elems(false, W, cols, tt.maxr, tt.lsize, false),
+                                      sizeof(acc_t<S>));
+  using K = void (*)(TT<S>, const void*, int, int64_t, S*, int*);
+  // [W][staged, or (cols 0 and 1 only) general]
+#define TNT_FWD(W)                                                               \
+  {                                                                              \
+    tt_eval_kernel<S, W, 1, false, false>, tt_eval_kernel<S, W, 1, true, false>, \
+        tt_eval_kernel<S, W, 1, false, true>                                     \
+  }
+  const K kernels[][3] = {TNT_FWD(1), TNT_FWD(2),  TNT_FWD(4),
                           TNT_FWD(8), TNT_FWD(16), TNT_FWD(32)};
 #undef TNT_FWD
-  const K kernel =
-      cols == 0 ? tt_eval_kernel<T, 32, 0, false> : kernels[instance(W, 1)][staged != 0];
-  return launch(kernel, warps, smem, (B + 32 / W - 1) / (32 / W), s, tt, X, (int)(itype == 1),
-                (int64_t)B, (T*)out, flag);
+  const K kernel = cols == 0 ? (table ? tt_eval_kernel<S, 32, 0, false, true>
+                                      : tt_eval_kernel<S, 32, 0, false, false>)
+                             : kernels[instance(W, 1)][table ? 2 : staged != 0];
+  return launch(kernel, warps, smem, (B + 32 / W - 1) / (32 / W), 0, s, tt, X, (int)(itype == 1),
+                (int64_t)B, (S*)out, flag);
 }
 
-template <typename T>
+template <typename S>
 int tt_eval_backward_launch(int itype, int N, const void* const* cores, void* const* grads,
-                            const int* ranks, const int* dims, const void* X, const void* g,
-                            int64_t B, int* flag, int W, int cols, const int* priv, int warps,
+                            const int* ranks, const int* dims, const void* table, const void* X,
+                            const void* g, int64_t B, int* flag, int W, int cols,
+                            const int* priv, int warps, void* spill, int64_t slots,
                             cudaStream_t s) {
-  const TT<T> tt = make_tt<T>(N, cores, grads, ranks, dims, priv);
+  const TT<S> tt = make_tt<S>(N, cores, grads, ranks, dims, priv, table);
+  const bool last_held = priv && priv[N - 1];
   if (!plan_ok(tt.maxr, W, cols, warps, true)) return (int)cudaErrorInvalidValue;
+  if (spill && (slots < warps || !table)) return (int)cudaErrorInvalidValue;
+  if (table && last_held) return (int)cudaErrorInvalidValue;
   const size_t smem =
-      per_sample_smem(tt.held, warps, warp_elems(true, W, cols, tt.maxr, tt.lsize), sizeof(T));
-  using K = void (*)(TT<T>, const void*, int, const T*, int64_t, int*);
-#define TNT_BWD(W, CPL) \
-  { tt_eval_backward_kernel<T, W, CPL, false>, tt_eval_backward_kernel<T, W, CPL, true> }
-  const K kernels[][2] = {TNT_BWD(1, 1),  TNT_BWD(2, 1),  TNT_BWD(4, 1),
+      per_sample_smem(tt.held, sizeof(acc_t<S>), warps,
+                      warp_elems(true, W, cols, tt.maxr, tt.lsize, spill != nullptr),
+                      sizeof(acc_t<S>));
+  using K = void (*)(TT<S>, const void*, int, const S*, int64_t, int*, acc_t<S>*);
+  // [lane shape][the last core held, not held, general]
+#define TNT_BWD(W, CPL)                                                                   \
+  {                                                                                       \
+    tt_eval_backward_kernel<S, W, CPL, false, false>,                                     \
+        tt_eval_backward_kernel<S, W, CPL, true, false>,                                  \
+        tt_eval_backward_kernel<S, W, CPL, true, true>                                    \
+  }
+  const K kernels[][3] = {TNT_BWD(1, 1),  TNT_BWD(2, 1),  TNT_BWD(4, 1),
                           TNT_BWD(8, 1),  TNT_BWD(16, 1), TNT_BWD(32, 1),
                           TNT_BWD(32, 2), TNT_BWD(32, 4), TNT_BWD(32, 0)};
 #undef TNT_BWD
-  return launch(kernels[instance(W, cols)][tt.at[N - 1] < 0], warps, smem,
-                (B + 32 / W - 1) / (32 / W), s, tt, X, (int)(itype == 1), (const T*)g, (int64_t)B,
-                flag);
+  return launch(kernels[instance(W, cols)][table ? 2 : !last_held], warps, smem,
+                (B + 32 / W - 1) / (32 / W), spill ? slots / warps : 0, s, tt, X,
+                (int)(itype == 1), (const S*)g, (int64_t)B, flag, (acc_t<S>*)spill);
 }
 
 }  // namespace
 
-// Plain C entry points, bound with ctypes. dtype: 0 = float32, 1 = float64;
-// itype: 0 = int32, 1 = int64 coordinates. cores/grads are N device
-// pointers to contiguous (ranks[k], dims[k], ranks[k+1]) cores, N <=
-// MAX_MODES; X is (B, N) row-major; *flag (zeroed by the caller) is set when
-// a coordinate is out of range. Each returns the cudaError_t of its launch
-// (0 on success) and neither synchronises nor allocates. The per-sample
-// entries take the plan of ops/tt_eval.py: _per_sample_plan: W lanes a
-// sample, `cols` interface columns a lane (0: in shared memory; the
-// forward keeps 1 or 0), `warps` a block; forward, `staged` cores; backward, per core, whether its
-// gradient is privatized (priv, N ints).
+// Plain C entry points, bound with ctypes. dtype: 0 = float32, 1 = float64,
+// 2 = bfloat16, 3 = float16 (the per-sample entries; the grouped ones take
+// 0 and 1); itype: 0 = int32, 1 = int64 coordinates. cores/grads are N
+// device pointers to contiguous (ranks[k], dims[k], ranks[k+1]) cores (the
+// gradients in float32 for the half types); `table`, null or the same modes
+// in device memory as Mode rows (ops/tt_eval.py: _mode_table), takes the
+// general instances, and is needed for N > MAX_MODES and with a spill (the
+// general instances stage no cores and privatize no last core). X is (B,
+// N) row-major; *flag (zeroed by
+// the caller) is set when a coordinate is out of range. Each returns the
+// cudaError_t of its launch (0 on success) and neither synchronises nor
+// allocates. The per-sample entries take the plan of ops/tt_eval.py:
+// _per_sample_plan: W lanes a sample, `cols` interface columns a lane (0:
+// in shared memory; the forward keeps 1 or 0), `warps` a block; forward,
+// `staged` cores; backward, per core, whether its gradient is privatized
+// (priv, N ints), and `spill`, null or device scratch of `slots` warps'
+// left interfaces (lefts_elems each, acc_t), which caps the grid.
 extern "C" {
 
 int tnt_tt_eval(int dtype, int itype, int N, const void* const* cores, const int* ranks,
-                const int* dims, const void* X, long long B, void* out, int* flag, int W,
-                int cols, int staged, int warps, void* stream) {
-  if (N < 1 || N > MAX_MODES) return (int)cudaErrorInvalidValue;
+                const int* dims, const void* table, const void* X, long long B, void* out,
+                int* flag, int W, int cols, int staged, int warps, void* stream) {
+  if (N < 1 || (N > MAX_MODES && !table)) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return tt_eval_launch<float>(itype, N, cores, ranks, dims, X, B, out, flag, W, cols, staged,
-                                 warps, s);
-  return tt_eval_launch<double>(itype, N, cores, ranks, dims, X, B, out, flag, W, cols, staged,
-                                warps, s);
+  switch (dtype) {
+    case 0:
+      return tt_eval_launch<float>(itype, N, cores, ranks, dims, table, X, B, out, flag, W, cols,
+                                   staged, warps, s);
+    case 1:
+      return tt_eval_launch<double>(itype, N, cores, ranks, dims, table, X, B, out, flag, W, cols,
+                                    staged, warps, s);
+    case 2:
+      return tt_eval_launch<__nv_bfloat16>(itype, N, cores, ranks, dims, table, X, B, out, flag,
+                                           W, cols, staged, warps, s);
+    case 3:
+      return tt_eval_launch<__half>(itype, N, cores, ranks, dims, table, X, B, out, flag, W,
+                                    cols, staged, warps, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // One middle mode k of the grouped forward (see tt_eval_grouped_kernel):
@@ -1225,7 +1427,8 @@ int tnt_tt_eval_grouped(int dtype, const void* core, int Rl, int I, int Rr, cons
                         const void* perm, long long B, const void* src, const void* src_idx,
                         void* dst, const void* last, const void* last_idx, int xs, void* out,
                         void* stream) {
-  if (Rl < 1 || I < 1 || Rr < 1 || (!dst && (!last || !last_idx || !out)))
+  if ((dtype != 0 && dtype != 1) || Rl < 1 || I < 1 || Rr < 1 ||
+      (!dst && (!last || !last_idx || !out)))
     return (int)cudaErrorInvalidValue;
   const size_t smem = grouped_smem(Rl, dtype == 0 ? sizeof(float) : sizeof(double));
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
@@ -1267,7 +1470,8 @@ int tnt_tt_eval_slice_grad(int dtype, int I, int rows, int cols, const void* bou
                            const void* A, const void* aidx, const void* C, const void* cidx,
                            int xs, void* out, long long os, long long orow, long long ocol,
                            void* part, void* stream) {
-  if (I < 1 || rows < 1 || cols < 1 || P < 1 || B < 0) return (int)cudaErrorInvalidValue;
+  if ((dtype != 0 && dtype != 1) || I < 1 || rows < 1 || cols < 1 || P < 1 || B < 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return slice_grad<float>(I, rows, cols, (const int64_t*)bounds, (const int*)keys,
@@ -1282,16 +1486,28 @@ int tnt_tt_eval_slice_grad(int dtype, int I, int rows, int cols, const void* bou
 
 int tnt_tt_eval_backward(int dtype, int itype, int N, const void* const* cores,
                          void* const* grads, const int* ranks, const int* dims,
-                         const void* X, const void* g, long long B, int* flag, int W, int cols,
-                         const int* priv, int warps, void* stream) {
-  if (N < 1 || N > MAX_MODES) return (int)cudaErrorInvalidValue;
+                         const void* table, const void* X, const void* g, long long B, int* flag,
+                         int W, int cols, const int* priv, int warps, void* spill,
+                         long long slots, void* stream) {
+  if (N < 1 || (N > MAX_MODES && !table)) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return tt_eval_backward_launch<float>(itype, N, cores, grads, ranks, dims, X, g, B, flag, W,
-                                          cols, priv, warps, s);
-  return tt_eval_backward_launch<double>(itype, N, cores, grads, ranks, dims, X, g, B, flag, W,
-                                         cols, priv, warps, s);
+  switch (dtype) {
+    case 0:
+      return tt_eval_backward_launch<float>(itype, N, cores, grads, ranks, dims, table, X, g, B,
+                                            flag, W, cols, priv, warps, spill, slots, s);
+    case 1:
+      return tt_eval_backward_launch<double>(itype, N, cores, grads, ranks, dims, table, X, g, B,
+                                             flag, W, cols, priv, warps, spill, slots, s);
+    case 2:
+      return tt_eval_backward_launch<__nv_bfloat16>(itype, N, cores, grads, ranks, dims, table, X,
+                                                    g, B, flag, W, cols, priv, warps, spill,
+                                                    slots, s);
+    case 3:
+      return tt_eval_backward_launch<__half>(itype, N, cores, grads, ranks, dims, table, X, g, B,
+                                             flag, W, cols, priv, warps, spill, slots, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -14,16 +14,26 @@ from tntorch_tpu_torch.tensor import Tensor
 from tntorch_tpu_torch.utils import default_device, to_numpy
 
 
+def _from_array(x) -> torch.Tensor:
+    """A CPU tensor of the array's values in its dtype: bfloat16 arrays (the
+    JAX package's, NumPy arrays of ``ml_dtypes.bfloat16``, which
+    ``torch.from_numpy`` refuses) cross bit for bit as 2-byte words."""
+    x = np.array(x)
+    if x.dtype.name == "bfloat16" and x.dtype.itemsize == 2:
+        return torch.from_numpy(x.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(x)
+
+
 def tensor_from_arrays(cores, Us=None, batch: bool = False, device=None) -> Tensor:
     """Build a `Tensor` from array cores (NumPy, or anything ``np.asarray``
-    takes), keeping their dtype, on ``device`` (default: the package's
-    default device, the CUDA card). The cores are the JAX package's: TT
-    cores (R, I, R'), CP factors (I, R), or a mix of both, with a leading
-    batch axis when ``batch``."""
+    takes), keeping their dtype (bfloat16 and float16 included), on
+    ``device`` (default: the package's default device, the CUDA card). The
+    cores are the JAX package's: TT cores (R, I, R'), CP factors (I, R), or
+    a mix of both, with a leading batch axis when ``batch``."""
     device = device or default_device()
-    cores = [torch.from_numpy(np.array(c)) for c in cores]
+    cores = [_from_array(c) for c in cores]
     if Us is not None:
-        Us = [None if U is None else torch.from_numpy(np.array(U)) for U in Us]
+        Us = [None if U is None else _from_array(U) for U in Us]
     return Tensor(cores, Us=Us, batch=batch, device=device)
 
 

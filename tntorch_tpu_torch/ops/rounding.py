@@ -92,6 +92,38 @@ def round_tt_fixed(cores, rmax: int):
     return cores
 
 
+def round_tt_flops(shapes, rmax: int) -> float:
+    """Nominal FLOP count of the fixed-rank rounding sweep of a TT whose
+    cores have ``shapes`` (R_k, I_k, R_{k+1}): a QR (2 m n^2) and the push
+    of its R factor right per left-orthogonalization, then per truncation a
+    Gram, an eigh (~9 R^3), the projection and the absorption of U left.
+    The JAX package's model (its ops/rounding.py ``round_tt_flops``), the
+    same count in the same order, so a rate quoted by either package
+    divides the same work."""
+    flops = 0.0
+    cur = [tuple(s) for s in shapes]
+    for mu in range(len(cur) - 1):  # the left-to-right QR sweep
+        Rl, I, Rr = cur[mu]
+        m, n = Rl * I, Rr
+        flops += 2.0 * m * n * n  # QR
+        k = min(m, n)
+        R2l, I2, R2r = cur[mu + 1]
+        flops += 2.0 * k * R2l * I2 * R2r  # push R right
+        cur[mu] = (Rl, I, k)
+        cur[mu + 1] = (k, I2, R2r)
+    for mu in range(len(cur) - 1, 0, -1):  # the right-to-left truncation
+        Rl, I, Rr = cur[mu]
+        r = min(rmax, Rl)
+        flops += 2.0 * Rl * Rl * I * Rr  # Gram
+        flops += 9.0 * Rl**3  # eigh (approx)
+        flops += 2.0 * r * Rl * I * Rr  # project
+        Pl, PI, PRr = cur[mu - 1]
+        flops += 2.0 * Pl * PI * PRr * r  # absorb U left
+        cur[mu] = (r, I, Rr)
+        cur[mu - 1] = (Pl, PI, r)
+    return flops
+
+
 @policy_precision
 def tt_full(cores):
     """Dense reconstruction of a pure TT (chain of matmuls)."""

@@ -68,11 +68,30 @@ dispatcher ``tt_eval``) and of ``tntorch_tpu/parallel/mesh.py``'s
 cores and X: the backward recomputes the interfaces. What bounds the kernels
 on the card, and how they are laid out, is in the source's note.
 
+Half precision and long chains. bfloat16 and float16 cores take the
+per-sample kernels at every shape (`_grouped` and `_grouped_backward`
+refuse them: the grouped kernels have float32 and float64 instances only).
+They compute in float32 and round each interface to the cores' dtype after
+its mode, as each einsum of the plain chain rounds its output; the values
+come back in the cores' dtype, and the backward sums its gradients in a
+float32 scratch that the wrapper rounds to the cores' dtype once. A chain
+of any number of modes is taken: up to ``MAX_MODES`` the kernels read the
+mode table from their parameter struct, beyond it from a copy in device
+memory (`_mode_table`); where one warp's left interfaces do not fit a
+block's shared memory, the backward keeps them in a device-memory scratch
+of one slot a warp of its grid (`Plan.bwd_spill`, at most ``_SPILL_BYTES``).
+Both take the kernels' general instances, which the others never do.
+Float32 and float64 chains take the grouped routes only where each middle
+mode brings enough slices: the byte floors grow with the middle modes past
+two (`_floor_bytes`), since the grouped routes pay their fixed cost once a
+mode.
+
 Each wrapper takes the plain version for tensors on the CPU, and only
-there. For CUDA tensors it checks device, dtype (float32 or float64
-cores, int32 or int64 coordinates), shapes and contiguity, launches its
-kernels on the current stream, and raises on any failure: it never falls
-back, neither to the plain version nor to the other kernel. Negative
+there. For CUDA tensors it checks device, dtype (float32, float64,
+bfloat16 or float16 cores, int32 or int64 coordinates), shapes and
+contiguity, launches its kernels on the current stream, and raises on any
+failure: it never falls back, neither to the plain version nor to the
+other kernel. Negative
 coordinates wrap as in NumPy; an out-of-range one raises ``IndexError``
 (the wrapper reads one flag back from the card per call). `TTEval`'s
 backward passes ``checked=True``, since its forward already raised on the
@@ -97,9 +116,11 @@ from torch.autograd.function import once_differentiable
 
 from tntorch_tpu_torch.ops.gram_kernels import _on_cpu
 
-MAX_MODES = 128  # csrc/tt_eval.cu: MAX_MODES, the modes one launch takes
+MAX_MODES = 128  # csrc/tt_eval.cu: MAX_MODES, the modes the kernels' parameter struct holds
 _SMEM = 227 * 1024  # shared memory one block may use on Hopper
-_DTYPES = {torch.float32: 0, torch.float64: 1}
+_DTYPES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2, torch.float16: 3}
+# The per-sample kernels' arithmetic type: float32 for the half types
+_ACC = {torch.bfloat16: torch.float32, torch.float16: torch.float32}
 _ITYPES = {torch.int32: 0, torch.int64: 1}
 # The grouped kernel (csrc/tt_eval.cu: GT, GCOLS, GPAD, grouped_smem): sorted
 # positions per block, output columns per pass, pad of a transposed row
@@ -120,6 +141,18 @@ _GROUP_MIN, _GROUP_MIN_BYTES = 128, 1 << 30
 # and ~30 launches, ~0.7-1 ms) is small
 _SLICE_TILE = 128
 _BWD_MIN, _BWD_MIN_BYTES = 64, 1 << 30
+# Both byte floors were set at N = 3-4, over at most two middle modes. The
+# grouped route's fixed cost is paid once a middle mode (a sort, launches),
+# so past two middle modes the floor grows with them: at 2^16 samples, 200
+# modes of rank 8 in float32 (16 MiB of slices a mode) ran 2.3-2.9x slower
+# grouped than per sample, 512 modes of rank 64 in float64 (2 GiB a mode)
+# 4.1-4.5x faster (PERF.md).
+
+
+def _floor_bytes(floor, modes):
+    """The slices' byte floor of a grouped route over ``modes`` modes: the
+    N = 3-4 floor, scaled by the middle modes past two."""
+    return floor * max(1, (modes - 2) / 2)
 # The plain backward scatters its outer products in slices of at most this
 # many elements, so that large batches stay within device memory
 _CHUNK = 1 << 26
@@ -134,6 +167,10 @@ _CHUNK = 1 << 26
 _WARPS, _COLS = 8, (1, 2, 4)
 _HELD_BYTES = 48 * 1024
 _STAGE_MIN, _PRIV_MIN = 64, 256
+# Most bytes of the backward's left interfaces kept in device memory where
+# they do not fit a block (Plan.bwd_spill): the grid is cut to as many
+# warps as this holds slots, at least one block
+_SPILL_BYTES = 1 << 30
 
 
 # ---------------------------------------------------------------------------
@@ -189,12 +226,13 @@ def _check(name, cores, X):
     ranks, mode sizes)."""
     dtype = cores[0].dtype
     if dtype not in _DTYPES:
-        raise TypeError(f"{name}: kernel takes float32 or float64 cores, got {dtype}")
+        raise TypeError(f"{name}: kernel takes float32, float64, bfloat16 or float16 cores, "
+                        f"got {dtype}")
     if X.dtype not in _ITYPES:
         raise TypeError(f"{name}: kernel takes int32 or int64 coordinates, got {X.dtype}")
     N = len(cores)
-    if not 1 <= N <= MAX_MODES:
-        raise ValueError(f"{name}: the kernel takes 1 to {MAX_MODES} modes, got {N}")
+    if N < 1:
+        raise ValueError(f"{name}: the kernel takes one mode or more, got {N}")
     if X.ndim != 2 or X.shape[1] != N or not X.is_contiguous():
         raise ValueError(f"{name}: X must be a contiguous (B, {N}) array, got {tuple(X.shape)}")
     ranks, dims = [cores[0].shape[0]], []
@@ -223,6 +261,12 @@ def _array(ctype, values):
     return (ctype * len(values))(*values)
 
 
+def _acc_itemsize(itemsize):
+    """Bytes of the per-sample kernels' arithmetic type for cores of
+    ``itemsize`` bytes: float32 for the half types."""
+    return max(itemsize, 4)
+
+
 @functools.lru_cache(maxsize=512)
 def _ints(values):
     """A tuple of ints as a ctypes array, made once and kept: the kernels
@@ -248,37 +292,52 @@ class Plan(NamedTuple):
     fwd_smem: int     # memory (bytes), forward
     bwd_warps: int    # the same, backward
     bwd_smem: int
+    bwd_spill: bool   # backward: the left interfaces in device memory, not shared
 
 
 def _round4(n):
     return -(-n // 4) * 4
 
 
-def _warp_elems(backward, W, cols, maxr, lsize):
+def _lefts_elems(W, cols, lsize):
+    """Elements of the left interfaces one warp keeps (csrc/tt_eval.cu:
+    lefts_elems): those of its 32 / W samples, or of its one sample with the
+    interface in shared memory (cols 0)."""
+    return (1 if cols == 0 else 32 // W) * lsize
+
+
+def _warp_elems(backward, W, cols, maxr, lsize, spill=False):
     """Elements of one warp's shared buffers (csrc/tt_eval.cu: warp_elems):
-    with the interface in shared memory (cols 0) two interfaces and,
-    backward, the left ones; else, backward, the left interfaces of the
-    warp's 32 / W samples."""
-    if cols == 0:
-        return (lsize if backward else 0) + 2 * maxr
-    return (32 // W) * lsize if backward else 0
+    with the interface in shared memory (cols 0) two interfaces; backward,
+    the left interfaces too (`_lefts_elems`), unless ``spill`` keeps them in
+    device memory."""
+    return (2 * maxr if cols == 0 else 0) + (
+        _lefts_elems(W, cols, lsize) if backward and not spill else 0)
 
 
-def _per_sample_smem(held, per_warp, itemsize):
+def _per_sample_smem(held, held_size, per_warp, warp_size):
     """Warps a block and its shared memory (csrc/tt_eval.cu:
-    per_sample_smem): the held copy, then one buffer a warp; _WARPS warps,
-    halved until they fit, or (0, 0) when one does not."""
+    per_sample_smem): the held copy of ``held`` elements of ``held_size``
+    bytes (staged cores in the cores' type, privatized gradients in the
+    arithmetic type), then one buffer a warp of ``per_warp`` elements of
+    ``warp_size`` bytes (the arithmetic type); _WARPS warps, halved until
+    they fit, or (0, 0) when one does not."""
+    def smem(warps):
+        return held * held_size + warps * per_warp * warp_size
+
     warps = _WARPS
-    while warps > 1 and (held + warps * per_warp) * itemsize > _SMEM:
+    while warps > 1 and smem(warps) > _SMEM:
         warps //= 2
-    smem = (held + warps * per_warp) * itemsize
-    return (warps, smem) if smem <= _SMEM else (0, 0)
+    return (warps, smem(warps)) if smem(warps) <= _SMEM else (0, 0)
 
 
 @functools.lru_cache(maxsize=256)  # a launch's host time: ~7 us a call on the card's host
 def _per_sample_plan(ranks, dims, B, itemsize, W=None, staged=None, private=None, shared=False):
     """The plan of the per-sample kernels for a chain of ranks R_0..R_N and
-    mode sizes I_k (tuples) at B samples, pure. W: the smallest power of two
+    mode sizes I_k (tuples) at B samples, cores of ``itemsize`` bytes, pure.
+    Interfaces and gradients are in the arithmetic type (float32 for 2-byte
+    cores, `_acc_itemsize`), a staged core in the cores' type. W: the
+    smallest power of two
     >= the widest interface the chain carries (max of R_0..R_{N-1}; R_N is
     never carried, only column 0 of the last mode is), at most 32. Columns a
     lane: the backward keeps ceil(max / W) rounded up to 1, 2 or 4, else 0
@@ -288,7 +347,12 @@ def _per_sample_plan(ranks, dims, B, itemsize, W=None, staged=None, private=None
     column a lane only): all the cores fit _HELD_BYTES and there are at
     least _STAGE_MIN samples per staged element. private: each core in mode
     order with at least _PRIV_MIN samples per slice whose gradient still
-    fits _HELD_BYTES with those before it. The keyword arguments force a
+    fits _HELD_BYTES with those before it. bwd_spill: one warp's left
+    interfaces (sum of R_0..R_{N-1} a sample) do not fit a block beside the
+    privatized gradients, so they go to device memory (a long chain's, or
+    ranks in the hundreds). A chain past MAX_MODES (both kernels) and a
+    spilled backward take the kernels' general instances, which stage no
+    cores and privatize no last core. The keyword arguments force a
     choice (a wider W, staging or privatizing on or off, ``shared=True``:
     the interface in shared memory), as the tests and chip_smoke.py do. A
     kernel whose buffers do not fit a block gets 0 warps (`_plan_for`
@@ -303,23 +367,31 @@ def _per_sample_plan(ranks, dims, B, itemsize, W=None, staged=None, private=None
     bwd_cols = 0 if shared else next((c for c in _COLS if c * W >= maxr), 0)
     fwd_cols = int(bwd_cols == 1)
     sizes = [_round4(ranks[k] * dims[k] * ranks[k + 1]) for k in range(N)]
-    held = _HELD_BYTES // itemsize
+    acc = _acc_itemsize(itemsize)
     if staged is None:
-        staged = sum(sizes) <= held and B >= _STAGE_MIN * sum(sizes)
-    staged = bool(staged) and fwd_cols == 1
+        staged = sum(sizes) <= _HELD_BYTES // itemsize and B >= _STAGE_MIN * sum(sizes)
+    staged = bool(staged) and fwd_cols == 1 and N <= MAX_MODES
     if private is None or isinstance(private, bool):
         chosen, used = [], 0
         for size, I in zip(sizes, dims):
-            chosen.append(private is True or (private is None and used + size <= held
-                                              and B >= _PRIV_MIN * I))
+            chosen.append(private is True or (private is None and B >= _PRIV_MIN * I
+                                              and used + size <= _HELD_BYTES // acc))
             used += size * chosen[-1]
         private = tuple(chosen)
     lsize = sum(ranks[:-1])
-    fwd = _per_sample_smem(sum(sizes) * staged, _warp_elems(False, W, fwd_cols, maxr, lsize),
-                           itemsize)
-    bwd = _per_sample_smem(sum(s for s, p in zip(sizes, private) if p),
-                           _warp_elems(True, W, bwd_cols, maxr, lsize), itemsize)
-    return Plan(W, fwd_cols, bwd_cols, staged, private, *fwd, *bwd)
+    fwd = _per_sample_smem(sum(sizes) * staged, itemsize,
+                           _warp_elems(False, W, fwd_cols, maxr, lsize), acc)
+
+    def backward(private, spill):
+        held = sum(s for s, p in zip(sizes, private) if p)
+        return _per_sample_smem(held, acc, _warp_elems(True, W, bwd_cols, maxr, lsize, spill), acc)
+
+    if N > MAX_MODES:
+        private = private[:-1] + (False,)
+    spill = not backward(private, False)[0]
+    if spill:
+        private = private[:-1] + (False,)
+    return Plan(W, fwd_cols, bwd_cols, staged, private, *fwd, *backward(private, spill), spill)
 
 
 def _plan_for(name, ranks, dims, B, itemsize, backward):
@@ -340,13 +412,18 @@ def _grouped_smem(Rl, itemsize):
 
 
 def _grouped(ranks, dims, B, itemsize):
-    """Whether `tt_eval_kernel` takes the grouped kernel: N >= 3; every
+    """Whether `tt_eval_kernel` takes the grouped kernel: float32 or float64
+    cores (``itemsize`` 4 or 8: the grouped kernel has no half-precision
+    instance, so bfloat16 and float16 cores take the per-sample kernel at
+    every shape); N >= 3; every
     middle mode k has a block that fits shared memory and at least
     ``_GROUP_MIN`` samples per slice (B >= _GROUP_MIN * I_k); and the
-    middle slices of all samples come to ``_GROUP_MIN_BYTES`` or more."""
+    middle slices of all samples come to ``_GROUP_MIN_BYTES`` or more, that
+    floor scaled by the middle modes past two (`_floor_bytes`)."""
     mids = range(1, len(dims) - 1)
-    return (len(dims) >= 3
-            and B * sum(ranks[k] * ranks[k + 1] for k in mids) * itemsize >= _GROUP_MIN_BYTES
+    return (itemsize >= 4 and len(dims) >= 3
+            and B * sum(ranks[k] * ranks[k + 1] for k in mids) * itemsize
+            >= _floor_bytes(_GROUP_MIN_BYTES, len(dims))
             and all(_grouped_smem(ranks[k], itemsize) <= _SMEM and B >= _GROUP_MIN * dims[k]
                     for k in mids))
 
@@ -414,14 +491,19 @@ def _slice_plan(bounds, B, P):
 
 
 def _grouped_backward(ranks, dims, B, itemsize):
-    """Whether `tt_eval_backward_kernel` takes the grouped path: N >= 3;
+    """Whether `tt_eval_backward_kernel` takes the grouped path: float32 or
+    float64 cores (its grouped interface launches and ``slice_grad_kernel``
+    have no half-precision instance, so bfloat16 and float16 cores take the
+    per-sample kernel at every shape); N >= 3;
     every middle mode k has grouped interface blocks that fit shared memory
     in both directions (R_k for the left sweep, R_{k+1} for the right) and
     at least ``_BWD_MIN`` samples per slice (B >= _BWD_MIN * I_k); and the
-    middle slices of all samples come to ``_BWD_MIN_BYTES`` or more."""
+    middle slices of all samples come to ``_BWD_MIN_BYTES`` or more, that
+    floor scaled by the middle modes past two (`_floor_bytes`)."""
     mids = range(1, len(dims) - 1)
-    return (len(dims) >= 3
-            and B * sum(ranks[k] * ranks[k + 1] for k in mids) * itemsize >= _BWD_MIN_BYTES
+    return (itemsize >= 4 and len(dims) >= 3
+            and B * sum(ranks[k] * ranks[k + 1] for k in mids) * itemsize
+            >= _floor_bytes(_BWD_MIN_BYTES, len(dims))
             and all(max(_grouped_smem(ranks[k], itemsize),
                         _grouped_smem(ranks[k + 1], itemsize)) <= _SMEM
                     and B >= _BWD_MIN * dims[k] for k in mids))
@@ -429,6 +511,36 @@ def _grouped_backward(ranks, dims, B, itemsize):
 
 def _ptr(t):
     return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _mode_rows(cores, grads, ranks, dims, held):
+    """A chain's mode table as the per-sample kernels read it from device
+    memory (csrc/tt_eval.cu: Mode), pure: one 32-byte row a mode, the core's
+    and the gradient's addresses (0 for none), then R_k, R_{k+1}, I_k as
+    int32 and the core's place in the block's shared copy (elements: the
+    held cores' sizes, each rounded up to 4, in mode order; -1 if not held).
+    ``cores`` and ``grads`` are addresses (ints). Returns an (N, 4) int64
+    array."""
+    N = len(dims)
+    rows = np.zeros((N, 4), np.int64)
+    rows[:, 0] = cores
+    rows[:, 1] = grads
+    ints = rows.view(np.int32).reshape(N, 8)  # little-endian, as the card reads it
+    ints[:, 4], ints[:, 5], ints[:, 6] = ranks[:-1], ranks[1:], dims
+    sizes = [_round4(ranks[k] * dims[k] * ranks[k + 1]) * bool(h) for k, h in enumerate(held)]
+    ints[:, 7] = np.where(held, np.cumsum([0] + sizes[:-1]), -1)
+    return rows
+
+
+def _mode_table(cores, grads, ranks, dims, held):
+    """A chain's mode table in device memory (`_mode_rows`, copied from
+    pinned memory without waiting for the card), for the kernels' general
+    instances: a chain past ``MAX_MODES`` (shorter ones pass theirs in the
+    parameter struct), or a backward whose left interfaces spill."""
+    rows = _mode_rows([c.data_ptr() for c in cores],
+                      [0] * len(cores) if grads is None else [d.data_ptr() for d in grads],
+                      ranks, dims, held)
+    return torch.from_numpy(rows).pin_memory().to(cores[0].device, non_blocking=True)
 
 
 def _tt_eval_grouped(dcode, cores, X, ranks, out):
@@ -525,9 +637,11 @@ def tt_eval_kernel(cores, X, checked=False):
         else:
             plan = _plan_for("tt_eval", ranks, dims, B, cores[0].element_size(), False)
             flag = torch.zeros(1, dtype=torch.int32, device=X.device)
+            table = (_mode_table(cores, None, ranks, dims, [False] * N) if N > MAX_MODES
+                     else None)
             _launch("tnt_tt_eval", dcode, icode, N,
                     _array(ctypes.c_void_p, [c.data_ptr() for c in cores]),
-                    _ints(ranks), _ints(dims), ctypes.c_void_p(X.data_ptr()), B,
+                    _ints(ranks), _ints(dims), _ptr(table), ctypes.c_void_p(X.data_ptr()), B,
                     ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(flag.data_ptr()), plan.W,
                     plan.fwd_cols, plan.staged, plan.fwd_warps)
     tt_eval_kernel.launches += 1
@@ -556,21 +670,45 @@ def tt_eval_backward_kernel(cores, X, g, checked=False):
             grads, flag = _tt_eval_backward_grouped(dcode, cores, X, g, ranks, not checked)
             tt_eval_backward_kernel.grouped += 1
         else:
-            plan = _plan_for("tt_eval_backward", ranks, dims, B, cores[0].element_size(), True)
-            flat = torch.zeros(sum(c.numel() for c in cores), dtype=g.dtype, device=g.device)
-            grads = [d.view(c.shape)
-                     for d, c in zip(torch.split(flat, [c.numel() for c in cores]), cores)]
-            flag = torch.zeros(1, dtype=torch.int32, device=X.device)
-            _launch("tnt_tt_eval_backward", dcode, icode, N,
-                    _array(ctypes.c_void_p, [c.data_ptr() for c in cores]),
-                    _array(ctypes.c_void_p, [d.data_ptr() for d in grads]),
-                    _ints(ranks), _ints(dims), ctypes.c_void_p(X.data_ptr()),
-                    ctypes.c_void_p(g.data_ptr()), B, ctypes.c_void_p(flag.data_ptr()), plan.W,
-                    plan.bwd_cols, _ints(plan.private), plan.bwd_warps)
+            grads, flag = _tt_eval_backward_per_sample(dcode, icode, cores, X, g, ranks, dims)
     tt_eval_backward_kernel.launches += 1
     if not checked:
         _raise_if_flagged(flag, "tt_eval_backward")
     return grads
+
+
+def _tt_eval_backward_per_sample(dcode, icode, cores, X, g, ranks, dims):
+    """The per-sample backward: one launch into a zeroed gradient buffer in
+    the kernel's arithmetic type (float32 for half cores, rounded to the
+    cores' dtype once, after the launch), with the left interfaces in a
+    device-memory scratch where the plan spills them. Returns the gradients
+    and the out-of-range flag."""
+    B, N = X.shape
+    plan = _plan_for("tt_eval_backward", ranks, dims, B, cores[0].element_size(), True)
+    acc = _ACC.get(g.dtype, g.dtype)
+
+    def views(flat):
+        return [d.view(c.shape) for d, c in zip(torch.split(flat, [c.numel() for c in cores]),
+                                                 cores)]
+
+    flat = torch.zeros(sum(c.numel() for c in cores), dtype=acc, device=g.device)
+    grads = views(flat)
+    flag = torch.zeros(1, dtype=torch.int32, device=X.device)
+    spill, slots = None, 0
+    if plan.bwd_spill:
+        per = _lefts_elems(plan.W, plan.bwd_cols, sum(ranks[:-1]))
+        warps = -(-B // (32 // plan.W))  # the warps the samples need
+        slots = max(plan.bwd_warps, min(warps, _SPILL_BYTES // (per * flat.element_size())))
+        spill = torch.empty(slots * per, dtype=acc, device=g.device)
+    table = (_mode_table(cores, grads, ranks, dims, plan.private)
+             if N > MAX_MODES or plan.bwd_spill else None)
+    _launch("tnt_tt_eval_backward", dcode, icode, N,
+            _array(ctypes.c_void_p, [c.data_ptr() for c in cores]),
+            _array(ctypes.c_void_p, [d.data_ptr() for d in grads]),
+            _ints(ranks), _ints(dims), _ptr(table), ctypes.c_void_p(X.data_ptr()),
+            ctypes.c_void_p(g.data_ptr()), B, ctypes.c_void_p(flag.data_ptr()), plan.W,
+            plan.bwd_cols, _ints(plan.private), plan.bwd_warps, _ptr(spill), slots)
+    return (grads if acc == g.dtype else views(flat.to(g.dtype))), flag
 
 
 tt_eval_kernel.launches = 0
@@ -654,9 +792,10 @@ def tt_eval(cores, X, use_kernel=None, use_pallas=None, checked=False):
     interface (as the JAX package's ``tt_eval``/``tt_batch_forward``).
 
     Real cores go through `TTEval`: on the card the forward and backward
-    kernels run (float32 and float64; other dtypes raise), on the CPU their
-    plain versions. Complex cores take the plain gather-and-einsum chain,
-    as the JAX dispatcher takes its XLA chain for non-float32 input.
+    kernels run (float32, float64, bfloat16 and float16, at any number of
+    modes; other dtypes raise), on the CPU their plain versions. Complex
+    cores take the plain gather-and-einsum chain, as the JAX dispatcher
+    takes its XLA chain for non-float32 input.
     ``use_kernel=False`` takes that chain for any input; ``use_pallas``,
     the JAX package's name for it, is an alias. ``checked=True`` says that
     X's coordinates are known to be in range (`CheckedTTEval`: on the card
