@@ -1,0 +1,3 @@
+"""TT values returned in the window, over the window's seconds."""
+
+from portbench.metrics import rate as read  # noqa: F401
