@@ -15,6 +15,10 @@ evaluates on each rank's rows and reduces to the global loss through
 DTensor; each rank's gradient is the part of its rows (``Partial``), which
 one all-reduce per parameter sums before the step. The loss code is the
 one written for one device; every rank keeps the same history.
+
+Under ``torch.profiler`` each step records ``tn.optimize:step`` (with
+``:loss``, ``:backward``, ``:update``) and each read of the losses
+``tn.wait:loss_read`` (`utils.trace_annotation`).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 from tntorch_tpu_torch.tensor import Tensor
+from tntorch_tpu_torch.utils import trace_annotation
 
 
 def _leaf(x):
@@ -110,16 +115,21 @@ def optimize(
     opt = optimizer(params)
 
     def step():
-        """One update; returns the total loss and its parts, on the device."""
-        opt.zero_grad(set_to_none=True)
-        loss = loss_function(*tensors)
-        parts = list(loss) if isinstance(loss, (tuple, list)) else [loss]
-        total = sum(parts[1:], parts[0])  # no 0 + loss: it would settle a partial DTensor loss
-        total.backward()
-        if mesh is not None:
-            parts = _settle(params, parts)
-            total = sum(parts[1:], parts[0])
-        opt.step()
+        """One update; returns the total loss and its parts, on the device.
+        The gradients are freed after the update, so that each step starts
+        from none."""
+        with trace_annotation("tn.optimize:loss"):
+            loss = loss_function(*tensors)
+            parts = list(loss) if isinstance(loss, (tuple, list)) else [loss]
+            total = sum(parts[1:], parts[0])  # no 0 + loss: it would settle a partial DTensor loss
+        with trace_annotation("tn.optimize:backward"):
+            total.backward()
+            if mesh is not None:
+                parts = _settle(params, parts)
+                total = sum(parts[1:], parts[0])
+        with trace_annotation("tn.optimize:update"):
+            opt.step()
+            opt.zero_grad(set_to_none=True)
         return total.detach(), [p.detach() for p in parts]
 
     losses_hist = []
@@ -129,8 +139,12 @@ def optimize(
     loss_parts = None
     if block_iters > 1:
         while True:
-            block = [step() for _ in range(block_iters)]
-            losses_hist.extend(torch.stack([tl for tl, _ in block]).tolist())  # one sync
+            block = []
+            for _ in range(block_iters):
+                with trace_annotation("tn.optimize:step"):
+                    block.append(step())
+            with trace_annotation("tn.wait:loss_read"):
+                losses_hist.extend(torch.stack([tl for tl, _ in block]).tolist())  # one sync
             loss_parts = block[-1][1]
             it += block_iters
             if len(losses_hist) >= 3 and tol is not None:
@@ -146,8 +160,10 @@ def optimize(
                 print()
     else:
         while True:
-            total, loss_parts = step()
-            losses_hist.append(float(total))
+            with trace_annotation("tn.optimize:step"):
+                total, loss_parts = step()
+                with trace_annotation("tn.wait:loss_read"):
+                    losses_hist.append(float(total))
             delta_loss = losses_hist[-1] - losses_hist[-2] if len(losses_hist) >= 2 else float("-inf")
             # A transient loss increase (delta > 0) does not count as convergence
             if (
@@ -165,7 +181,6 @@ def optimize(
                 print()
             it += 1
 
-    opt.zero_grad(set_to_none=True)  # the trained leaves stay in the Tensors; free the last grads
     if verbose:
         _print_status(it, max_iter, loss_parts, losses_hist, start)
         print(" <- converged (tol={})".format(tol) if converged

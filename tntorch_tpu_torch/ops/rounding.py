@@ -8,7 +8,10 @@ batched Gram sweep
 (`round_tt_gram_batched`) runs its three large contractions through the
 hand-written CUDA kernels of `gram_kernels` when the cores are on the card,
 and through their plain versions when they are on the CPU: the same algebra
-either way.
+either way. Under ``torch.profiler`` the sweep records
+``tn.round_tt:right_grams``, one ``tn.round_tt:edge`` an edge, and in
+`_sketch` ``tn.round_tt:sketch`` around ``tn.wait:sketch_copy``
+(`utils.trace_annotation`).
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tntorch_tpu_torch.utils import policy_precision, resolve_precision
+from tntorch_tpu_torch.utils import policy_precision, resolve_precision, trace_annotation
 
 _INT_MAX = int(np.iinfo(np.int32).max)
 
@@ -185,9 +188,12 @@ def _sketch(n: int, r: int, dtype, device):
     and distinct problem shapes draw distinct sketches. (The JAX package draws from
     ``jax.random.key(7)`` folded over (n, r), which torch cannot
     reproduce.)"""
-    g = torch.Generator().manual_seed((7 * 1_000_003 + n) * 1_000_003 + r)
-    wide = torch.complex128 if dtype.is_complex else torch.float64
-    return torch.randn((n, r), generator=g, dtype=wide).to(device=device, dtype=dtype)
+    with trace_annotation("tn.round_tt:sketch"):
+        g = torch.Generator().manual_seed((7 * 1_000_003 + n) * 1_000_003 + r)
+        wide = torch.complex128 if dtype.is_complex else torch.float64
+        draw = torch.randn((n, r), generator=g, dtype=wide)
+        with trace_annotation("tn.wait:sketch_copy"):  # pageable memory: waits for the card
+            return draw.to(device=device, dtype=dtype)
 
 
 def _subspace_topr(A, r, q=2):
@@ -530,35 +536,37 @@ def round_tt_gram_batched(cores, rmax, edge_solver: str = "eigh", reduce=None):
 
     G = [None] * (N + 1)
     G[N] = torch.ones((B, 1, 1), dtype=cores[0].dtype, device=cores[0].device)
-    for k in range(N, 1, -1):
-        C = cores[k - 1]
-        if real and C.shape[-1] == 1:
-            # One right rank: the edge is a batched product, which the JAX
-            # package leaves to XLA's einsum too (gram_edge_supported refuses
-            # Rr % 128 != 0; tntorch_tpu/ops/rounding.py:790-795)
-            Cm = C.reshape(B, C.shape[1], C.shape[2])
-            G[k - 1] = reduce((Cm * G[k]) @ Cm.mT)
-        elif real:
-            G[k - 1] = reduce(gram_edge(C, G[k]))
-        else:
-            T = torch.einsum("zaib,zbc->zaic", C, G[k])
-            G[k - 1] = reduce(torch.einsum("zaic,zdic->zad", T, C.conj()))
+    with trace_annotation("tn.round_tt:right_grams"):
+        for k in range(N, 1, -1):
+            C = cores[k - 1]
+            if real and C.shape[-1] == 1:
+                # One right rank: the edge is a batched product, which the JAX
+                # package leaves to XLA's einsum too (gram_edge_supported refuses
+                # Rr % 128 != 0; tntorch_tpu/ops/rounding.py:790-795)
+                Cm = C.reshape(B, C.shape[1], C.shape[2])
+                G[k - 1] = reduce((Cm * G[k]) @ Cm.mT)
+            elif real:
+                G[k - 1] = reduce(gram_edge(C, G[k]))
+            else:
+                T = torch.einsum("zaib,zbc->zaic", C, G[k])
+                G[k - 1] = reduce(torch.einsum("zaic,zdic->zad", T, C.conj()))
 
     if real and N >= 3:
         out = list(cores)
         Yp = None
         for k in range(1, N):
-            C = cores[k - 1]  # the original core: pushes are deferred
-            if Yp is None:
-                Lk = reduce(torch.einsum("zaib,zaid->zbd", C, C))
-            else:
-                Lk = reduce(wgram(C, (Yp.mT @ Yp).contiguous()))
-            X, Y = _factorize(G[k], Lk, _edge_rank(rmax, k, C.shape[-1]), edge_solver)
-            if Yp is None:
-                out[k - 1] = torch.einsum("zaib,zbc->zaic", C, X)
-            else:
-                out[k - 1] = proj2(Yp.contiguous(), C, X.contiguous())
-            Yp = Y
+            with trace_annotation("tn.round_tt:edge"):
+                C = cores[k - 1]  # the original core: pushes are deferred
+                if Yp is None:
+                    Lk = reduce(torch.einsum("zaib,zaid->zbd", C, C))
+                else:
+                    Lk = reduce(wgram(C, (Yp.mT @ Yp).contiguous()))
+                X, Y = _factorize(G[k], Lk, _edge_rank(rmax, k, C.shape[-1]), edge_solver)
+                if Yp is None:
+                    out[k - 1] = torch.einsum("zaib,zbc->zaic", C, X)
+                else:
+                    out[k - 1] = proj2(Yp.contiguous(), C, X.contiguous())
+                Yp = Y
         Cn = cores[N - 1]
         out[N - 1] = (Yp @ Cn.reshape(B, Cn.shape[1], -1)).reshape(
             B, Yp.shape[1], Cn.shape[2], Cn.shape[3]
@@ -566,13 +574,14 @@ def round_tt_gram_batched(cores, rmax, edge_solver: str = "eigh", reduce=None):
         return out
 
     for k in range(1, N):
-        C = cores[k - 1]
-        Lk = reduce(torch.einsum("zaib,zaid->zbd", C.conj(), C))
-        r = _edge_rank(rmax, k, C.shape[-1])
-        X, Y = _factorize(G[k], Lk, r, edge_solver)
-        cores[k - 1] = torch.einsum("zaib,zbc->zaic", C, X)
-        nxt = cores[k]
-        cores[k] = (Y @ nxt.reshape(B, nxt.shape[1], -1)).reshape(
-            B, r, nxt.shape[2], nxt.shape[3]
-        )
+        with trace_annotation("tn.round_tt:edge"):
+            C = cores[k - 1]
+            Lk = reduce(torch.einsum("zaib,zaid->zbd", C.conj(), C))
+            r = _edge_rank(rmax, k, C.shape[-1])
+            X, Y = _factorize(G[k], Lk, r, edge_solver)
+            cores[k - 1] = torch.einsum("zaib,zbc->zaic", C, X)
+            nxt = cores[k]
+            cores[k] = (Y @ nxt.reshape(B, nxt.shape[1], -1)).reshape(
+                B, r, nxt.shape[2], nxt.shape[3]
+            )
     return cores

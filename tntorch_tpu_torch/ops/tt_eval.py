@@ -100,6 +100,13 @@ forward), not twice. `CheckedTTEval`'s forward (``tt_eval(...,
 checked=True)``) reads none, for coordinates in range by construction. Each wrapper counts its calls that launched in a
 plain integer attribute (``tt_eval_kernel.launches``), which only a launch
 raises; ``.grouped`` counts those that took the grouped path.
+
+Under ``torch.profiler`` the dispatch records its spans
+(`utils.trace_annotation`): ``tn.tt_eval`` around `tt_eval`,
+``tn.tt_eval:operands`` and ``tn.tt_eval:launch`` in `tt_eval_kernel` on
+the card, ``tn.tt_eval_backward`` with its own two on autograd's thread,
+and ``tn.wait:*`` around each copy or read that waits for the card (the
+dimensions' copy, the flag's read, coordinates from the host).
 """
 
 from __future__ import annotations
@@ -115,6 +122,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from tntorch_tpu_torch.ops.gram_kernels import _on_cpu
+from tntorch_tpu_torch.utils import trace_annotation
 
 MAX_MODES = 128  # csrc/tt_eval.cu: MAX_MODES, the modes the kernels' parameter struct holds
 _SMEM = 227 * 1024  # shared memory one block may use on Hopper
@@ -275,7 +283,9 @@ def _ints(values):
 
 
 def _raise_if_flagged(flag, name):
-    if int(flag.item()):
+    with trace_annotation("tn.wait:flag"):
+        flagged = int(flag.item())
+    if flagged:
         raise IndexError(f"{name}: a coordinate is out of range for its mode "
                          "(mode k takes -I_k .. I_k - 1)")
 
@@ -440,7 +450,8 @@ def _group_operands(cores, X, modes=None, check=True):
     C_{N-1}[:, :, 0] transposed, (I_{N-1}, R_{N-1})."""
     dims = [c.shape[1] for c in cores]
     modes = range(1, len(cores) - 1) if modes is None else modes
-    hi = torch.tensor(dims, dtype=X.dtype).to(X.device)
+    with trace_annotation("tn.wait:dims_copy"):  # pageable memory: the copy waits for the card
+        hi = torch.tensor(dims, dtype=X.dtype).to(X.device)
     flag = ((X < -hi) | (X >= hi)).any() if check else None
     Xw = torch.remainder(X, hi).to(torch.int32)  # wraps, and keeps every key in range
     sorts = [torch.sort(Xw[:, k], stable=True) for k in modes]
@@ -546,15 +557,17 @@ def _mode_table(cores, grads, ranks, dims, held):
 def _tt_eval_grouped(dcode, cores, X, ranks, out):
     """One grouped launch per middle mode; returns the out-of-range flag."""
     B, N = X.shape
-    Xw, flag, sorts, first, last = _group_operands(cores, X)
-    src, src_idx = first, _col(Xw, 0)  # mode 0's rows, looked up by coordinate
-    for k in range(1, N - 2):
-        src, src_idx = _interface(dcode, cores[k], *sorts[k - 1], src, src_idx, N), _ptr(None)
-    keys, perm = sorts[-1]  # mode N-2, its epilogue dotted with C_{N-1}[:, x, 0]
-    core = cores[N - 2]
-    _launch("tnt_tt_eval_grouped", dcode, _ptr(core), ranks[N - 2], core.shape[1], ranks[N - 1],
-            _ptr(keys), _ptr(perm), B, _ptr(src), src_idx, _ptr(None), _ptr(last),
-            _col(Xw, N - 1), N, _ptr(out))
+    with trace_annotation("tn.tt_eval:operands"):
+        Xw, flag, sorts, first, last = _group_operands(cores, X)
+    with trace_annotation("tn.tt_eval:launch"):
+        src, src_idx = first, _col(Xw, 0)  # mode 0's rows, looked up by coordinate
+        for k in range(1, N - 2):
+            src, src_idx = _interface(dcode, cores[k], *sorts[k - 1], src, src_idx, N), _ptr(None)
+        keys, perm = sorts[-1]  # mode N-2, its epilogue dotted with C_{N-1}[:, x, 0]
+        core = cores[N - 2]
+        _launch("tnt_tt_eval_grouped", dcode, _ptr(core), ranks[N - 2], core.shape[1],
+                ranks[N - 1], _ptr(keys), _ptr(perm), B, _ptr(src), src_idx, _ptr(None),
+                _ptr(last), _col(Xw, N - 1), N, _ptr(out))
     return flag
 
 
@@ -581,39 +594,42 @@ def _tt_eval_backward_grouped(dcode, cores, X, g, ranks, check):
     out-of-range flag (None without `check`)."""
     B, N = X.shape
     dims = [c.shape[1] for c in cores]
-    Xw, flag, sorts, first, last = _group_operands(cores, X, range(N), check)
-    none = _ptr(None)
-    # L_k for k = 0..N-1 as (table, index): ones, then C_0's sum by x_0
-    lefts = [(None, none)] + [(first, _col(Xw, 0))] * (N > 1)
-    for k in range(1, N - 1):
-        lefts.append((_interface(dcode, cores[k], *sorts[k], *lefts[k], N), none))
-    # Rt_k for k = 1..N: e_0 (no table), then C_{N-1}[:, :, 0] by x_{N-1}
-    rights = {N: (None, none)}
-    if N > 1:
-        rights[N - 1] = (last, _col(Xw, N - 1))
-    for k in range(N - 2, 0, -1):
-        core_t = cores[k].permute(2, 1, 0).contiguous()  # (R_{k+1}, I_k, R_k)
-        rights[k] = (_interface(dcode, core_t, *sorts[k], *rights[k + 1], N), none)
-    flat = torch.empty(sum(c.numel() for c in cores), dtype=g.dtype, device=g.device)
-    grads = [d.view(c.shape) for d, c in zip(torch.split(flat, [c.numel() for c in cores]), cores)]
-    if ranks[N] > 1:
-        grads[-1].zero_()  # the last mode's reduction writes column 0 only
-    P = _slice_block(B)
-    entries = max([ranks[k] * ranks[k + 1] for k in range(N - 1)] + [ranks[N - 1]])
-    part = torch.empty(2 * -(-B // P) * entries, dtype=g.dtype, device=g.device)
-    for k in range(N):
-        keys, perm = sorts[k]
-        I, Rr = dims[k], ranks[k + 1]
-        if k < N - 1:  # rows g_b L_k[b], columns Rt_{k+1}[b]: dC_k[r, i, c]
-            rows, cols, (A, aidx), (C, cidx) = ranks[k], Rr, lefts[k], rights[k + 1]
-            strides = (Rr, I * Rr, 1)
-        else:  # one row g_b (Rt_N = e_0), columns L_{N-1}[b]: dC_{N-1}[c, i, 0]
-            rows, cols, (A, aidx), (C, cidx) = 1, ranks[k], (None, none), lefts[k]
-            strides = (Rr, 1, I * Rr)
-        bounds = _run_bounds(keys, I)
-        _launch("tnt_tt_eval_slice_grad", dcode, I, rows, cols, _ptr(bounds), _ptr(keys),
-                _ptr(perm), _ptr(g), B, P, _ptr(A), aidx, _ptr(C), cidx, N, _ptr(grads[k]),
-                *strides, _ptr(part))
+    with trace_annotation("tn.tt_eval_backward:operands"):
+        Xw, flag, sorts, first, last = _group_operands(cores, X, range(N), check)
+        bounds = [_run_bounds(keys, I) for (keys, _), I in zip(sorts, dims)]
+    with trace_annotation("tn.tt_eval_backward:launch"):
+        none = _ptr(None)
+        # L_k for k = 0..N-1 as (table, index): ones, then C_0's sum by x_0
+        lefts = [(None, none)] + [(first, _col(Xw, 0))] * (N > 1)
+        for k in range(1, N - 1):
+            lefts.append((_interface(dcode, cores[k], *sorts[k], *lefts[k], N), none))
+        # Rt_k for k = 1..N: e_0 (no table), then C_{N-1}[:, :, 0] by x_{N-1}
+        rights = {N: (None, none)}
+        if N > 1:
+            rights[N - 1] = (last, _col(Xw, N - 1))
+        for k in range(N - 2, 0, -1):
+            core_t = cores[k].permute(2, 1, 0).contiguous()  # (R_{k+1}, I_k, R_k)
+            rights[k] = (_interface(dcode, core_t, *sorts[k], *rights[k + 1], N), none)
+        flat = torch.empty(sum(c.numel() for c in cores), dtype=g.dtype, device=g.device)
+        grads = [d.view(c.shape)
+                 for d, c in zip(torch.split(flat, [c.numel() for c in cores]), cores)]
+        if ranks[N] > 1:
+            grads[-1].zero_()  # the last mode's reduction writes column 0 only
+        P = _slice_block(B)
+        entries = max([ranks[k] * ranks[k + 1] for k in range(N - 1)] + [ranks[N - 1]])
+        part = torch.empty(2 * -(-B // P) * entries, dtype=g.dtype, device=g.device)
+        for k in range(N):
+            keys, perm = sorts[k]
+            I, Rr = dims[k], ranks[k + 1]
+            if k < N - 1:  # rows g_b L_k[b], columns Rt_{k+1}[b]: dC_k[r, i, c]
+                rows, cols, (A, aidx), (C, cidx) = ranks[k], Rr, lefts[k], rights[k + 1]
+                strides = (Rr, I * Rr, 1)
+            else:  # one row g_b (Rt_N = e_0), columns L_{N-1}[b]: dC_{N-1}[c, i, 0]
+                rows, cols, (A, aidx), (C, cidx) = 1, ranks[k], (None, none), lefts[k]
+                strides = (Rr, 1, I * Rr)
+            _launch("tnt_tt_eval_slice_grad", dcode, I, rows, cols, _ptr(bounds[k]),
+                    _ptr(keys), _ptr(perm), _ptr(g), B, P, _ptr(A), aidx, _ptr(C), cidx, N,
+                    _ptr(grads[k]), *strides, _ptr(part))
     return grads, flag
 
 
@@ -635,15 +651,17 @@ def tt_eval_kernel(cores, X, checked=False):
             flag = _tt_eval_grouped(dcode, cores, X, ranks, out)
             tt_eval_kernel.grouped += 1
         else:
-            plan = _plan_for("tt_eval", ranks, dims, B, cores[0].element_size(), False)
-            flag = torch.zeros(1, dtype=torch.int32, device=X.device)
-            table = (_mode_table(cores, None, ranks, dims, [False] * N) if N > MAX_MODES
-                     else None)
-            _launch("tnt_tt_eval", dcode, icode, N,
-                    _array(ctypes.c_void_p, [c.data_ptr() for c in cores]),
-                    _ints(ranks), _ints(dims), _ptr(table), ctypes.c_void_p(X.data_ptr()), B,
-                    ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(flag.data_ptr()), plan.W,
-                    plan.fwd_cols, plan.staged, plan.fwd_warps)
+            with trace_annotation("tn.tt_eval:operands"):
+                plan = _plan_for("tt_eval", ranks, dims, B, cores[0].element_size(), False)
+                flag = torch.zeros(1, dtype=torch.int32, device=X.device)
+                table = (_mode_table(cores, None, ranks, dims, [False] * N) if N > MAX_MODES
+                         else None)
+            with trace_annotation("tn.tt_eval:launch"):
+                _launch("tnt_tt_eval", dcode, icode, N,
+                        _array(ctypes.c_void_p, [c.data_ptr() for c in cores]),
+                        _ints(ranks), _ints(dims), _ptr(table), ctypes.c_void_p(X.data_ptr()),
+                        B, ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(flag.data_ptr()),
+                        plan.W, plan.fwd_cols, plan.staged, plan.fwd_warps)
     tt_eval_kernel.launches += 1
     if not checked:
         _raise_if_flagged(flag, "tt_eval")
@@ -665,15 +683,15 @@ def tt_eval_backward_kernel(cores, X, g, checked=False):
         raise ValueError(f"tt_eval_backward: g must be a contiguous ({B},) {cores[0].dtype} array")
     if B == 0:
         return [torch.zeros_like(c) for c in cores]
-    with torch.cuda.device(X.device):
+    with trace_annotation("tn.tt_eval_backward"), torch.cuda.device(X.device):
         if _grouped_backward(ranks, dims, B, cores[0].element_size()):
             grads, flag = _tt_eval_backward_grouped(dcode, cores, X, g, ranks, not checked)
             tt_eval_backward_kernel.grouped += 1
         else:
             grads, flag = _tt_eval_backward_per_sample(dcode, icode, cores, X, g, ranks, dims)
-    tt_eval_backward_kernel.launches += 1
-    if not checked:
-        _raise_if_flagged(flag, "tt_eval_backward")
+        tt_eval_backward_kernel.launches += 1
+        if not checked:
+            _raise_if_flagged(flag, "tt_eval_backward")
     return grads
 
 
@@ -684,31 +702,33 @@ def _tt_eval_backward_per_sample(dcode, icode, cores, X, g, ranks, dims):
     device-memory scratch where the plan spills them. Returns the gradients
     and the out-of-range flag."""
     B, N = X.shape
-    plan = _plan_for("tt_eval_backward", ranks, dims, B, cores[0].element_size(), True)
     acc = _ACC.get(g.dtype, g.dtype)
 
     def views(flat):
         return [d.view(c.shape) for d, c in zip(torch.split(flat, [c.numel() for c in cores]),
                                                  cores)]
 
-    flat = torch.zeros(sum(c.numel() for c in cores), dtype=acc, device=g.device)
-    grads = views(flat)
-    flag = torch.zeros(1, dtype=torch.int32, device=X.device)
-    spill, slots = None, 0
-    if plan.bwd_spill:
-        per = _lefts_elems(plan.W, plan.bwd_cols, sum(ranks[:-1]))
-        warps = -(-B // (32 // plan.W))  # the warps the samples need
-        slots = max(plan.bwd_warps, min(warps, _SPILL_BYTES // (per * flat.element_size())))
-        spill = torch.empty(slots * per, dtype=acc, device=g.device)
-    table = (_mode_table(cores, grads, ranks, dims, plan.private)
-             if N > MAX_MODES or plan.bwd_spill else None)
-    _launch("tnt_tt_eval_backward", dcode, icode, N,
-            _array(ctypes.c_void_p, [c.data_ptr() for c in cores]),
-            _array(ctypes.c_void_p, [d.data_ptr() for d in grads]),
-            _ints(ranks), _ints(dims), _ptr(table), ctypes.c_void_p(X.data_ptr()),
-            ctypes.c_void_p(g.data_ptr()), B, ctypes.c_void_p(flag.data_ptr()), plan.W,
-            plan.bwd_cols, _ints(plan.private), plan.bwd_warps, _ptr(spill), slots)
-    return (grads if acc == g.dtype else views(flat.to(g.dtype))), flag
+    with trace_annotation("tn.tt_eval_backward:operands"):
+        plan = _plan_for("tt_eval_backward", ranks, dims, B, cores[0].element_size(), True)
+        flat = torch.zeros(sum(c.numel() for c in cores), dtype=acc, device=g.device)
+        grads = views(flat)
+        flag = torch.zeros(1, dtype=torch.int32, device=X.device)
+        spill, slots = None, 0
+        if plan.bwd_spill:
+            per = _lefts_elems(plan.W, plan.bwd_cols, sum(ranks[:-1]))
+            warps = -(-B // (32 // plan.W))  # the warps the samples need
+            slots = max(plan.bwd_warps, min(warps, _SPILL_BYTES // (per * flat.element_size())))
+            spill = torch.empty(slots * per, dtype=acc, device=g.device)
+        table = (_mode_table(cores, grads, ranks, dims, plan.private)
+                 if N > MAX_MODES or plan.bwd_spill else None)
+    with trace_annotation("tn.tt_eval_backward:launch"):
+        _launch("tnt_tt_eval_backward", dcode, icode, N,
+                _array(ctypes.c_void_p, [c.data_ptr() for c in cores]),
+                _array(ctypes.c_void_p, [d.data_ptr() for d in grads]),
+                _ints(ranks), _ints(dims), _ptr(table), ctypes.c_void_p(X.data_ptr()),
+                ctypes.c_void_p(g.data_ptr()), B, ctypes.c_void_p(flag.data_ptr()), plan.W,
+                plan.bwd_cols, _ints(plan.private), plan.bwd_warps, _ptr(spill), slots)
+        return (grads if acc == g.dtype else views(flat.to(g.dtype))), flag
 
 
 tt_eval_kernel.launches = 0
@@ -776,7 +796,10 @@ def _as_coords(X, cores):
         X = X.long()
     if X.ndim != 2 or X.shape[1] != len(cores):
         raise ValueError(f"X must have shape (B, {len(cores)}), got {tuple(X.shape)}")
-    return X.to(device)
+    if X.device == device:
+        return X
+    with trace_annotation("tn.wait:coords_copy"):  # from the host: the copy waits for the card
+        return X.to(device)
 
 
 def _distributed(*xs) -> bool:
@@ -811,10 +834,11 @@ def tt_eval(cores, X, use_kernel=None, use_pallas=None, checked=False):
         from tntorch_tpu_torch.parallel.mesh import dtensor_tt_eval
 
         return dtensor_tt_eval(cores, X, use_kernel, checked)
-    X = _as_coords(X, cores)
-    if use_kernel is False or cores[0].is_complex():
-        return tt_eval_plain(cores, X)
-    return (CheckedTTEval if checked else TTEval).apply(X, *cores)
+    with trace_annotation("tn.tt_eval"):
+        X = _as_coords(X, cores)
+        if use_kernel is False or cores[0].is_complex():
+            return tt_eval_plain(cores, X)
+        return (CheckedTTEval if checked else TTEval).apply(X, *cores)
 
 
 def tt_batch_forward(cores, X):

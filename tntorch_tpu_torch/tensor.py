@@ -937,14 +937,12 @@ class Tensor:
         self._cp_to_tt()
         kernel = algorithm in ("eig", "svd") and all(U is None for U in self.Us)
         if kernel and self.batch:
-            with trace_annotation("tn.round_tucker:batch_kernel"):
-                self.cores, self.Us = ops.round_tucker_eps_batch(
-                    self.cores, self._eyes(), rmax=rmax, dims=dim, algorithm=algorithm)
+            self.cores, self.Us = ops.round_tucker_eps_batch(
+                self.cores, self._eyes(), rmax=rmax, dims=dim, algorithm=algorithm)
             return
         if kernel:
-            with trace_annotation("tn.round_tucker:eps_kernel"):
-                self.cores, self.Us = ops.round_tucker_eps(
-                    self.cores, self._eyes(), eps, rmax=rmax, dims=dim, algorithm=algorithm)
+            self.cores, self.Us = ops.round_tucker_eps(
+                self.cores, self._eyes(), eps, rmax=rmax, dims=dim, algorithm=algorithm)
             return
 
         from tntorch_tpu_torch.round import truncated_svd
@@ -997,6 +995,10 @@ class Tensor:
         - ``verbose``, Tucker factors with 'svd'/'eig', or any other
           algorithm: the eager orthogonalize + `truncated_svd` sweep.
         """
+        with trace_annotation("tn.round_tt"):
+            self._round_tt(eps, rmax, algorithm, verbose)
+
+    def _round_tt(self, eps, rmax, algorithm, verbose):
         from tntorch_tpu_torch.ops import rounding as ops
         from tntorch_tpu_torch.utils import resolve_precision
 
@@ -1006,13 +1008,12 @@ class Tensor:
         self._cp_to_tt()
 
         if self._round_tt_computes_reached(algorithm, verbose):
-            with trace_annotation("tn.round_tt:eps_sweep"):
-                if self.batch:
-                    self.cores, self._round_reached_dev = ops.round_tt_batch(
-                        self.cores, rmax, algorithm, return_reached=True)
-                else:
-                    self.cores, self._round_reached_dev = ops.round_tt_eps(
-                        self.cores, eps, rmax, algorithm=algorithm, return_reached=True)
+            if self.batch:
+                self.cores, self._round_reached_dev = ops.round_tt_batch(
+                    self.cores, rmax, algorithm, return_reached=True)
+            else:
+                self.cores, self._round_reached_dev = ops.round_tt_eps(
+                    self.cores, eps, rmax, algorithm=algorithm, return_reached=True)
             return
 
         if algorithm in ("gram", "randgram"):
@@ -1029,12 +1030,11 @@ class Tensor:
                 if algorithm == "gram" and precision == "highest":
                     # accuracy first: the Gram method squares the condition
                     # number, so float32 'gram' takes the SVD sweep instead
-                    with trace_annotation("tn.round_tt:gram_to_svd_route"):
-                        if self.batch:
-                            self.cores = ops.round_tt_batch(self.cores, list(rt), "svd")
-                        else:
-                            self.cores = ops.round_tt_eps(self.cores, 0.0, list(rt),
-                                                          algorithm="svd")
+                    if self.batch:
+                        self.cores = ops.round_tt_batch(self.cores, list(rt), "svd")
+                    else:
+                        self.cores = ops.round_tt_eps(self.cores, 0.0, list(rt),
+                                                      algorithm="svd")
                     return
                 _warn_f32_gram_once()
             with trace_annotation("tn.round_tt:gram"):
@@ -1218,16 +1218,17 @@ class Tensor:
     def _evaluate(self, X):
         from tntorch_tpu_torch.ops.tt_eval import tt_eval
 
-        if not isinstance(X, torch.Tensor):
-            X = np.asarray(X)
-            if X.dtype.kind not in "iu" and X.size:
-                raise IndexError(f"index arrays must be integer arrays, got {X.dtype}")
-            X = X.astype(np.int64)
-        cores = self.cores
-        if any(c.ndim == self._m for c in cores):
-            cores = self.tt().cores
-        values = tt_eval(cores, X)
-        return Tensor([values.reshape(1, -1, 1)])
+        with trace_annotation("tn.getitem"):
+            if not isinstance(X, torch.Tensor):
+                X = np.asarray(X)
+                if X.dtype.kind not in "iu" and X.size:
+                    raise IndexError(f"index arrays must be integer arrays, got {X.dtype}")
+                X = X.astype(np.int64)
+            cores = self.cores
+            if any(c.ndim == self._m for c in cores):
+                cores = self.tt().cores
+            values = tt_eval(cores, X)
+            return Tensor([values.reshape(1, -1, 1)])
 
     @policy_precision
     def __setitem__(self, key, value):

@@ -28,9 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from tntorch_tpu_torch.tensor import Tensor
-from tntorch_tpu_torch.utils import (
-    asarray, default_device, default_dtype, policy_precision, trace_annotation,
-)
+from tntorch_tpu_torch.utils import asarray, default_device, default_dtype, policy_precision
 
 
 def squeeze(t, dim=None):
@@ -482,20 +480,19 @@ def shift_mode(t, n, shift, eps=1e-3):
     t.orthogonalize(n)
     cores = t.cores
     sign = int(np.sign(shift))
-    with trace_annotation("tn.shift_mode"):
-        for i in range(n, n + shift, sign):
-            c1, c2, left_ortho = (i, i + 1, True) if sign == 1 else (i - 1, i, False)
-            lead = cores[c1].shape[:-3]  # (B,) for a batch
-            R1, I1, R2 = cores[c1].shape[-3:]
-            I2, R3 = cores[c2].shape[-2:]
-            sc = torch.einsum("...iaj,...jbk->...ibak", cores[c1], cores[c2])
-            sc = sc.reshape(lead + (R1 * I2, I1 * R3))
-            if eps == "same":
-                left, right = truncated_svd(sc, eps=0, rmax=R2, left_ortho=left_ortho,
-                                            batch=t.batch)
-            else:
-                left, right = truncated_svd(sc, eps=eps / np.sqrt(np.abs(shift)),
-                                            left_ortho=left_ortho, batch=t.batch)
-            cores[c1] = left.reshape(lead + (R1, I2, left.shape[-1]))
-            cores[c2] = right.reshape(lead + (left.shape[-1], I1, R3))
+    for i in range(n, n + shift, sign):
+        c1, c2, left_ortho = (i, i + 1, True) if sign == 1 else (i - 1, i, False)
+        lead = cores[c1].shape[:-3]  # (B,) for a batch
+        R1, I1, R2 = cores[c1].shape[-3:]
+        I2, R3 = cores[c2].shape[-2:]
+        sc = torch.einsum("...iaj,...jbk->...ibak", cores[c1], cores[c2])
+        sc = sc.reshape(lead + (R1 * I2, I1 * R3))
+        if eps == "same":
+            left, right = truncated_svd(sc, eps=0, rmax=R2, left_ortho=left_ortho,
+                                        batch=t.batch)
+        else:
+            left, right = truncated_svd(sc, eps=eps / np.sqrt(np.abs(shift)),
+                                        left_ortho=left_ortho, batch=t.batch)
+        cores[c1] = left.reshape(lead + (R1, I2, left.shape[-1]))
+        cores[c2] = right.reshape(lead + (left.shape[-1], I1, R3))
     return t

@@ -7,6 +7,7 @@ counterpart: PyTorch runs eagerly and gathers natively.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import logging
 from typing import Any, Optional
@@ -128,6 +129,15 @@ def to_numpy(x: Any) -> np.ndarray:
     return np.asarray(x)
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
 def trace_annotation(name: str):
-    """A labelled span for ``torch.profiler`` traces."""
-    return torch.profiler.record_function(name)
+    """A labelled span for ``torch.profiler`` traces: a ``record_function``
+    while a profiler records on this thread (autograd's worker threads
+    inherit the caller's profiler state), else one shared null context, so
+    that a span costs a function call and a flag's read when no profiler
+    runs. The profiler is the only switch."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
